@@ -7,9 +7,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 
 1. env    — card name, card count, ``nvidia-smi`` name and power limit.
             No card: exit 1 before anything else.
-2. build  — ``nvcc`` builds the ``lease_validate`` kernel from
-            ``src/repro_torch/kernels/csrc``; wall seconds and the ptxas
-            report (registers, shared memory, spills).
+2. build  — one ``nvcc`` per kernel, all started at once, builds
+            ``lease_validate``, ``flash_attention`` and ``ssd_scan`` from
+            ``src/repro_torch/kernels/csrc``; wall seconds, and each
+            kernel's nvcc seconds and ptxas report (registers, shared
+            memory, spills).
 3. kernel — the kernel against its plain PyTorch version, bitwise, at the
             simulator's shapes (1,140,088 items, B in {8, 16}, R = 32,
             W = 16, plus a lock-free W = 1 case) and at a wide shape
@@ -27,6 +29,45 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 5. forced — Bank at SimConfig defaults with every drain through the kernel
             and every lease settle through the device ops, a node failure
             at 120 ms; cuda against cpu, byte-identical.
+6. kernel_flash — the flash kernel against ``ref.sdpa_ref`` on the card:
+            glm4-9b prefill (B = 4, S = 2048, Hq = 32, Hkv = 2, D = 128,
+            causal, bf16), glm4-9b decode (Sq = 1 against a 2080-slot ring,
+            per-row valid lengths, unwritten tail at 2^30) and the
+            reference's test grid (tests/test_kernels.py); f32 within
+            2e-5, bf16 within atol 1e-3 + rtol 1.6e-2 (two bf16 ulps: both
+            sides compute in fp32 and round the output once).  Per case:
+            ``ms`` (CUDA events), ``graph_ms`` (CUDA-graph replay),
+            ``plain_ms``, ``bound_ms``/``bound_by`` (FLOPs of the visible
+            pairs at 989 TFLOP/s bf16 or 67 TFLOP/s fp32, bytes at 3.35 TB/s)
+            and ``library_ms``: ``scaled_dot_product_attention`` with
+            ``enable_gqa=True`` at the same shape, a yardstick the port
+            never calls (null for softcap, which it cannot compute).
+7. kernel_ssd — the SSD kernel against ``ref.ssd_ref``: mamba2-780m's
+            prefill shape (B = 4, S = 2048, H = 48, P = 64, N = 128,
+            chunk = 256, bf16, nonzero h0), the reference's grid and an
+            odd head count (H = 5, one head per block) in f32 and bf16; y
+            within 2e-5 of max|y| (1e-2 in bf16), the state at atol 2e-3 /
+            rtol 1e-4; the same fields, ``library_ms`` null (no PyTorch call computes the
+            scan).
+8. glm4   — glm4-9b at full width and depth (40 layers, d_model 4096,
+            bf16 weights from a seeded ``torch.Generator``): prefill 4 x
+            2048 tokens, move the cache into a 2080-slot ring, 16
+            ``decode_step``s with ``[B]`` positions; once with
+            ``use_kernel="auto"`` (counts reset just before, flash launches
+            must be 40 + 16 x 40) and once with ``"ref"`` on the card, each
+            after an untimed warm-up run at the same shapes.
+            Logits agree within 6% of the largest logit; the share of
+            greedy tokens that agree, wall seconds, tokens per second and
+            peak memory are printed, and a ``torch.profiler`` trace of one
+            more prefill and one more decode step with the kernels gives
+            device busy time and the largest device ops.
+9. mamba2 — the same for mamba2-780m (48 layers, d_model 1536); ssd
+            launches must be 48 (one per layer, at prefill).
+10. held  — both models at full width and 2 layers, 64-token prompt and 4
+            decode steps, on ``cuda`` and on ``cpu`` through the port, the
+            same bf16 weights: logits within 6e-2 (atol and rtol, the CPU
+            tests' bf16 tolerance against the reference).  The CPU port is
+            what the tests hold to JAX, so this ties the card to it.
 
 The last three lines are the ``nvidia-smi`` line, the kernels record, and
 ``{"ok": true, "device": {...}}``.
@@ -46,6 +87,14 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
 SCALAR_OPS_PER_S = 67e12       # H100 SXM non-tensor-core fp32 rate
+BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core rate
+VALID_POS_LIMIT = 2 ** 29      # kv positions at or above it are padding
+MODEL_TOL = 0.06               # auto vs ref logits, share of max |logit|
+# flash kernel against ref.sdpa_ref: f32 at the reference's 2e-5; bf16 at
+# two bf16 ulps (2^-6 of the value) plus 1e-3, since both sides compute in
+# fp32 from the same bf16 inputs and each rounds the output once
+FLASH_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (1e-3, 1.6e-2)}
+HELD_TOL = 6e-2                # cuda vs cpu logits, atol and rtol
 
 # TPC-C Standard Specification rev. 5.11, clause 1.2 / 4.3.3.1
 TPCC_SPEC = dict(n_customers=30000, n_stock=100000, n_catalog=100000)
@@ -241,6 +290,415 @@ def summary(run: dict, launches: int) -> dict:
                 build_s=run["build_s"], run_s=run["run_s"])
 
 
+# -- phases 6-7: the model kernels against their plain versions --------------
+
+def timings(fn, budget_ms: float = 300.0) -> tuple:
+    """(ms per call by CUDA events, device ms per call by CUDA-graph
+    replay, calls), the call count sized to the budget from one timed call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    one = (time.perf_counter() - t0) * 1e3
+    n = int(min(200, max(3, budget_ms / max(one, 1e-3))))
+    return time_ms(fn, n, warmup=2), graph_ms(fn, launches=n, replays=3), n
+
+
+def op_bound(flops: float, n_bytes: float, flops_per_s: float) -> tuple:
+    """Least time for the work: (ms, "operations" | "bytes")."""
+    t_ops = flops / flops_per_s * 1e3
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def flash_case(name: str, b, sq, skv, hq, hkv, dk, dv, *, causal=True,
+               window=None, cap=0.0, dtype="bfloat16", decode=False,
+               seed=0) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    td = getattr(torch, dtype)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(td)
+               for shape in ((b, sq, hq, dk), (b, skv, hkv, dk),
+                             (b, skv, hkv, dv)))
+    kp = torch.arange(skv, dtype=torch.int32, device=dev).expand(b, skv)
+    if decode:   # per-row valid lengths; the ring's unwritten tail at 2^30
+        valid = torch.randint(skv // 2, skv + 1, (b,), generator=gen,
+                              device=dev)
+        qp = (valid - 1).to(torch.int32)[:, None].contiguous()
+        kp = torch.where(kp < valid[:, None], kp, torch.full_like(kp, 2 ** 30))
+    else:
+        qp = torch.arange(skv - sq, skv, dtype=torch.int32,
+                          device=dev).expand(b, sq).contiguous()
+    kp = kp.contiguous()
+    kw = dict(q_positions=qp, kv_positions=kp, causal=causal,
+              sliding_window=window, logit_softcap=cap)
+    before = fa.launches
+    out = ops.attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    check(fa.launches == before + 1, f"{name}: flash kernel did not launch")
+    want = ref.sdpa_ref(q, k, v, **kw)
+    err = float((out.float() - want.float()).abs().max())
+    atol, rtol = FLASH_TOL[dtype]
+    check(bool(torch.isfinite(out).all()), f"{name}: non-finite output")
+    check(torch.allclose(out.float(), want.float(), atol=atol, rtol=rtol),
+          f"{name}: flash kernel disagrees with ref.sdpa_ref "
+          f"(max abs err {err}, atol {atol}, rtol {rtol})")
+    ms, g_ms, n = timings(lambda: ops.attention(q, k, v, **kw))
+    plain_ms, plain_g_ms, _ = timings(lambda: ref.sdpa_ref(q, k, v, **kw))
+    visible = ref.attn_mask(qp, kp, causal, window) \
+        & (kp < VALID_POS_LIMIT)[:, None, :]
+    pairs = int(visible.sum()) * hq
+    n_bytes = (q.numel() + k.numel() + v.numel() + out.numel()) \
+        * q.element_size() + 4 * (qp.numel() + kp.numel())
+    bms, by = op_bound(2.0 * pairs * (dk + dv), n_bytes,
+                       BF16_FLOPS_PER_S if dtype == "bfloat16"
+                       else SCALAR_OPS_PER_S)
+    lib_ms = None
+    if cap == 0.0:               # SDPA has no softcap
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        if causal and window is None and not decode and sq == skv:
+            lib = lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, scale=dk ** -0.5,
+                enable_gqa=True)
+        else:
+            amask = ref.attn_mask(qp, kp, causal, window)[:, None] \
+                & (kp < VALID_POS_LIMIT)[:, None, None, :]
+            lib = lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=amask, scale=dk ** -0.5,
+                enable_gqa=True)
+        lib_ms = time_ms(lib, n, warmup=2)
+    out = dict(case=name, B=b, Sq=sq, Skv=skv, Hq=hq, Hkv=hkv, Dk=dk, Dv=dv,
+               causal=causal, window=window, softcap=cap, dtype=dtype,
+               visible_pairs=pairs, max_abs_err=err,
+               max_abs_want=float(want.float().abs().max()), atol=atol,
+               rtol=rtol, ms=ms,
+               graph_ms=g_ms, plain_ms=plain_ms, plain_graph_ms=plain_g_ms,
+               bound_ms=bms, bound_by=by, library_ms=lib_ms,
+               wall_s=time.perf_counter() - t_start)
+    emit("kernel_flash", **out)
+    return out
+
+
+def kernel_flash_phase() -> list:
+    cases = [
+        flash_case("glm4_prefill", 4, 2048, 2048, 32, 2, 128, 128),
+        flash_case("glm4_decode", 4, 1, 2080, 32, 2, 128, 128, decode=True),
+    ]
+    grid = [   # the reference's test grid (tests/test_kernels.py)
+        (2, 128, 128, 4, 2, 32, 32, True, None, 0.0, "float32"),
+        (1, 100, 100, 4, 4, 16, 16, True, None, 0.0, "float32"),
+        (2, 128, 128, 4, 2, 32, 32, True, 40, 0.0, "float32"),
+        (2, 64, 192, 4, 2, 32, 32, True, None, 0.0, "float32"),
+        (2, 128, 128, 4, 4, 32, 32, False, None, 0.0, "float32"),
+        (2, 128, 128, 8, 2, 64, 64, True, None, 30.0, "bfloat16"),
+        (1, 256, 256, 2, 2, 192, 128, True, None, 0.0, "float32"),
+        (1, 72, 72, 2, 1, 24, 24, True, 16, 0.0, "float32"),
+    ]
+    for i, (b, sq, skv, hq, hkv, dk, dv, causal, window, cap,
+            dtype) in enumerate(grid):
+        cases.append(flash_case(f"grid{i}", b, sq, skv, hq, hkv, dk, dv,
+                                causal=causal, window=window, cap=cap,
+                                dtype=dtype, seed=i + 1))
+    return cases
+
+
+def ssd_case(name: str, b, s, h, p, n, chunk, *, dtype="float32",
+             seed=0) -> dict:
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ssd_scan as ss
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    td = getattr(torch, dtype)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    x = (rnd(b, s, h, p) * 0.5).to(td)
+    dt = torch.nn.functional.softplus(rnd(b, s, h))
+    a = -torch.exp(rnd(h) * 0.3)
+    bm = (rnd(b, s, 1, n) * 0.4).to(td)
+    cm = (rnd(b, s, 1, n) * 0.4).to(td)
+    h0 = rnd(b, h, p, n) * 0.1
+    before = ss.launches
+    y, f = ops.ssd(x, dt, a, bm, cm, chunk=chunk, h0=h0)
+    torch.cuda.synchronize()
+    check(ss.launches == before + 1, f"{name}: SSD kernel did not launch")
+    y_r, f_r = ref.ssd_ref(x, dt, a, bm, cm, chunk=chunk, h0=h0)
+    check(bool(torch.isfinite(y).all() and torch.isfinite(f).all()),
+          f"{name}: non-finite output")
+    err_y = float((y.float() - y_r).abs().max())
+    rel = 1e-2 if dtype == "bfloat16" else 2e-5   # bf16 y: one rounding
+    check(err_y / (float(y_r.abs().max()) + 1e-9) < rel,
+          f"{name}: SSD kernel y disagrees with ref.ssd_ref "
+          f"(max abs err {err_y})")
+    check(torch.allclose(f, f_r, atol=2e-3, rtol=1e-4),
+          f"{name}: SSD kernel final state disagrees with ref.ssd_ref")
+    err = max(err_y, float((f - f_r).abs().max()))
+    ms, g_ms, _ = timings(lambda: ops.ssd(x, dt, a, bm, cm, chunk=chunk,
+                                          h0=h0))
+    plain_ms, plain_g_ms, _ = timings(
+        lambda: ref.ssd_ref(x, dt, a, bm, cm, chunk=chunk, h0=h0))
+    nc, tri = s // chunk, chunk * (chunk + 1) / 2
+    per_head = 2 * tri * p + 4 * chunk * p * n + 3 * tri
+    flops = b * nc * (2 * tri * n + h * per_head)   # C.B^T once per chunk
+    n_bytes = (2 * x.numel() + bm.numel() + cm.numel()) * x.element_size() \
+        + 4 * (dt.numel() + a.numel() + 2 * h0.numel())
+    bms, by = op_bound(flops, n_bytes, BF16_FLOPS_PER_S
+                       if dtype == "bfloat16" else SCALAR_OPS_PER_S)
+    out = dict(case=name, B=b, S=s, H=h, P=p, N=n, chunk=chunk, dtype=dtype,
+               max_abs_err=err, max_abs_err_y=err_y, ms=ms, graph_ms=g_ms,
+               plain_ms=plain_ms, plain_graph_ms=plain_g_ms, bound_ms=bms,
+               bound_by=by, library_ms=None,
+               wall_s=time.perf_counter() - t_start)
+    emit("kernel_ssd", **out)
+    return out
+
+
+def kernel_ssd_phase() -> list:
+    cases = [ssd_case("mamba2_prefill", 4, 2048, 48, 64, 128, 256,
+                      dtype="bfloat16")]
+    grid = [   # the reference's test grid (tests/test_kernels.py)
+        (2, 256, 8, 16, 32, 64), (1, 128, 16, 64, 128, 32),
+        (2, 512, 48, 64, 128, 256), (1, 64, 4, 32, 16, 64),
+    ]
+    for i, (b, s, h, p, n, chunk) in enumerate(grid):
+        cases.append(ssd_case(f"grid{i}", b, s, h, p, n, chunk, seed=i + 1))
+    for dtype in ("float32", "bfloat16"):   # odd H: one head per block
+        cases.append(ssd_case(f"odd_heads_{dtype}", 1, 128, 5, 32, 64, 32,
+                              dtype=dtype, seed=9))
+    return cases
+
+
+def kernel_record(name: str, replaces: str, launches: int,
+                  cases: list) -> dict:
+    head = cases[0]
+    return {"name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"]}
+
+
+# -- phases 8-10: the model stack ----------------------------------------------
+
+def into_ring(ring, prompt_cache):
+    """Copy each prompt cache leaf into the leading slice of the ring's."""
+    for r, c in zip(ring, prompt_cache):
+        for mixer, leaves in r.items():
+            for leaf, buf in leaves.items():
+                src = c[mixer][leaf]
+                buf[tuple(slice(0, d) for d in src.shape)] = src
+    return ring
+
+
+def generate(cfg, ctx, params, prompt, step_tokens, ring_len: int) -> dict:
+    """Prefill, move the cache into rings, one decode_step per row of
+    ``step_tokens`` with ``[B]`` positions; logits and wall seconds."""
+    import torch
+
+    from repro_torch.models import decoder
+
+    dev = prompt.device
+    b, s = prompt.shape
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    logits, caches = decoder.prefill(cfg, ctx, params, {"tokens": prompt})
+    sync()
+    t1 = time.perf_counter()
+    ring = into_ring(decoder.init_cache(cfg, b, ring_len,
+                                        cfg.compute_dtype(), dev), caches)
+    del caches
+    sync()
+    t2 = time.perf_counter()
+    out = [logits]
+    for i, tok in enumerate(step_tokens):
+        pos = torch.full((b,), s + i, dtype=torch.int32, device=dev)
+        logits, ring = decoder.decode_step(cfg, ctx, params, ring, tok, pos)
+        out.append(logits)
+    sync()
+    t3 = time.perf_counter()
+    return dict(logits=out, ring=ring, prefill_s=t1 - t0, decode_s=t3 - t2)
+
+
+def device_profile(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: wall ms (inflated by
+    the profiler's host work), device busy ms (the sum of the device ops'
+    times; null when the trace holds none) and the largest device ops."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA), key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows) if rows else None
+    return dict(wall_ms=wall, device_busy_ms=busy,
+                top=[dict(name=n[:90], ms=ms, calls=c)
+                     for n, ms, c in rows[:5]])
+
+
+def compare_logits(a: list, b: list) -> dict:
+    """Largest difference, its share of the largest reference logit, and
+    the share of greedy (argmax) tokens that agree."""
+    import torch
+
+    diff = max(float((x.float().cpu() - y.float().cpu()).abs().max())
+               for x, y in zip(a, b))
+    top = max(float(y.float().abs().max()) for y in b)
+    agree = torch.cat([(x.float().cpu().argmax(-1)
+                        == y.float().cpu().argmax(-1)).float()
+                       for x, y in zip(a, b)])
+    return dict(max_abs_diff=diff, max_abs_logit=top, rel_diff=diff / top,
+                greedy_agree=float(agree.mean()))
+
+
+def model_phase(phase: str, arch: str, *, batch: int = 4, prompt: int = 2048,
+                steps: int = 16, ring: int = 2080, seed: int = 0) -> dict:
+    """Full width and depth: "auto" (the kernels) then "ref" on the card."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import lease_validate as lv
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.models import common, decoder
+
+    t_start = time.perf_counter()
+    cfg = get_config(arch)
+    dev = torch.device("cuda")
+    params = common.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        seed), dev, cfg.compute_dtype())
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    toks = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=gen,
+                         device=dev)
+    step_toks = torch.randint(0, cfg.vocab_size, (steps, batch),
+                              generator=gen, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t_start
+    kinds = common.layer_plan(cfg).kinds
+    n_attn = sum(k.mixer in ("attn", "attn_local") for k in kinds)
+    n_mamba = sum(k.mixer == "mamba" for k in kinds)
+    runs, path_counts = {}, None
+    for use in ("auto", "ref"):
+        ctx = decoder.RunCtx(dev, use_kernel=use)
+        # untimed, at the same shapes: the allocator's growth, cuBLAS's first
+        # calls and the kernel's module load stay out of the timed run
+        generate(cfg, ctx, params, toks, step_toks[:2], ring)
+        torch.cuda.reset_peak_memory_stats()
+        fa.launches = ss.launches = lv.launches = 0    # just before the path
+        run = generate(cfg, ctx, params, toks, step_toks, ring)
+        counts = dict(flash=fa.launches, ssd=ss.launches, lease=lv.launches)
+        want = (dict(flash=n_attn * (1 + steps), ssd=n_mamba, lease=0)
+                if use == "auto" else dict(flash=0, ssd=0, lease=0))
+        check(counts == want, f"{phase}/{use}: kernel launches {counts}, "
+              f"expected {want}")
+        for lg in run["logits"]:
+            check(bool(torch.isfinite(lg).all()),
+                  f"{phase}/{use}: non-finite logits")
+            check(tuple(lg.shape) == (batch, cfg.vocab_size),
+                  f"{phase}/{use}: logits shape {tuple(lg.shape)}")
+        if use == "auto":   # where the time goes, after the counts are read
+            path_counts = counts
+            nxt = torch.full((batch,), prompt + steps, dtype=torch.int32,
+                             device=dev)
+            emit(phase, profile="prefill", **device_profile(
+                lambda: decoder.prefill(cfg, ctx, params, {"tokens": toks})))
+            emit(phase, profile="decode_step", **device_profile(
+                lambda: decoder.decode_step(cfg, ctx, params, run["ring"],
+                                            step_toks[0], nxt)))
+        del run["ring"]
+        runs[use] = run
+        emit(phase, use_kernel=use, arch=arch, n_layers=cfg.n_layers,
+             d_model=cfg.d_model, params=cfg.param_count(), batch=batch,
+             prompt=prompt, steps=steps, ring=ring, launches=counts,
+             prefill_s=run["prefill_s"], decode_s=run["decode_s"],
+             prefill_tok_s=batch * prompt / run["prefill_s"],
+             decode_tok_s=batch * steps / run["decode_s"],
+             peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+    agree = compare_logits(runs["auto"]["logits"], runs["ref"]["logits"])
+    emit(phase, compare="auto_vs_ref", tol_rel=MODEL_TOL, init_s=init_s,
+         wall_s=time.perf_counter() - t_start, **agree)
+    check(agree["rel_diff"] <= MODEL_TOL,
+          f"{phase}: kernel and plain logits differ by {agree['rel_diff']} "
+          f"of the largest logit (limit {MODEL_TOL})")
+    del params, runs
+    torch.cuda.empty_cache()
+    return path_counts
+
+
+def to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_cpu(v) for v in tree]
+    return tree.cpu()
+
+
+def held_phase(*, batch: int = 2, prompt: int = 64, steps: int = 4,
+               seed: int = 3) -> None:
+    """Full width, 2 layers: the port on cuda against the port on cpu."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.models import common, decoder
+
+    for arch in ("glm4-9b", "mamba2-780m"):
+        t_start = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), n_layers=2)
+        dev = torch.device("cuda")
+        on_card = common.init_params(cfg, torch.Generator(
+            device=dev).manual_seed(seed), dev, cfg.compute_dtype())
+        on_cpu = to_cpu(on_card)
+        gen = torch.Generator().manual_seed(seed)
+        toks = torch.randint(0, cfg.vocab_size, (batch, prompt),
+                             generator=gen)
+        step_toks = torch.randint(0, cfg.vocab_size, (steps, batch),
+                                  generator=gen)
+        fa.launches = ss.launches = 0
+        card = generate(cfg, decoder.RunCtx(dev), on_card, toks.to(dev),
+                        step_toks.to(dev), prompt + 8)
+        launched = fa.launches + ss.launches
+        check(launched > 0, f"held/{arch}: no kernel launched on the card")
+        host = generate(cfg, decoder.RunCtx("cpu"), on_cpu, toks, step_toks,
+                        prompt + 8)
+        agree = compare_logits(card["logits"], host["logits"])
+        for x, y in zip(card["logits"], host["logits"]):
+            check(torch.allclose(x.float().cpu(), y.float(), atol=HELD_TOL,
+                                 rtol=HELD_TOL),
+                  f"held/{arch}: cuda and cpu logits differ "
+                  f"({agree['max_abs_diff']})")
+        emit("held", arch=arch, n_layers=2, d_model=cfg.d_model,
+             batch=batch, prompt=prompt, steps=steps, launches=launched,
+             tol=HELD_TOL, cuda_s=card["prefill_s"] + card["decode_s"],
+             cpu_s=host["prefill_s"] + host["decode_s"],
+             wall_s=time.perf_counter() - t_start, **agree)
+        del on_card, on_cpu
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -264,12 +722,16 @@ def main() -> int:
     emit("env", device=name, count=count, nvidia_smi=smi_line,
          torch=torch.__version__, cuda=torch.version.cuda)
 
-    # 2. build
+    # 2. build: one nvcc per kernel, all at once
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import lease_validate as lv
+    from repro_torch.kernels import nvcc
+    from repro_torch.kernels import ssd_scan as ss
 
     t0 = time.perf_counter()
-    lv.build()
-    emit("build", wall_s=time.perf_counter() - t0, **lv.build_info)
+    nvcc.build_all([lv.LIB, fa.LIB, ss.LIB])
+    emit("build", wall_s=time.perf_counter() - t0, **lv.LIB.info,
+         flash_attention=fa.LIB.info, ssd_scan=ss.LIB.info)
 
     # 3. kernel vs plain version
     rng = np.random.default_rng(0)
@@ -306,6 +768,21 @@ def main() -> int:
     emit("forced", device="cpu", **summary(host, 0))
     compare_runs("forced", card, host)
 
+    # 6-7. the model kernels against their plain versions
+    t0 = time.perf_counter()
+    flash_cases = kernel_flash_phase()
+    emit("kernel_flash_done", wall_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    ssd_cases = kernel_ssd_phase()
+    emit("kernel_ssd_done", wall_s=time.perf_counter() - t0)
+
+    # 8-9. the model stack at full width and depth
+    glm4 = model_phase("glm4", "glm4-9b")
+    mamba2 = model_phase("mamba2", "mamba2-780m")
+
+    # 10. the card against the CPU port
+    held_phase()
+
     shape = main_cases[1]          # B = 16, R = 32, W = 16
     print(smi_line, flush=True)
     print(json.dumps({"kernels": [{
@@ -320,7 +797,12 @@ def main() -> int:
         "bound_ms": shape["bound_ms"],
         "bound_by": shape["bound_by"],
         "library_ms": None,
-    }]}), flush=True)
+    }, kernel_record(
+        "flash_attention", "src/repro/kernels/flash_attention.py:90",
+        glm4["flash"], flash_cases[:2]),
+        kernel_record("ssd_scan", "src/repro/kernels/ssd_scan.py:76",
+                      mamba2["ssd"], ssd_cases[:1]),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}), flush=True)
     return 0

@@ -7,8 +7,8 @@ from the L2-resident version table, instead of the TPU's chunk-local
 masked compare.  The kernel is bound by bytes; at the simulator's shapes
 (8-16 transactions a drain) it is bound by the launch.
 
-The shared library is built with ``nvcc`` at first use, keyed by a hash of
-the source and flags, into ``build/`` at the repository root, and loaded
+The shared library is built by :mod:`.nvcc` at first use, keyed by a hash
+of the source and flags, into ``build/`` at the repository root, and loaded
 with ``ctypes``.  Nothing is built or imported at module import.
 
 Semantics follow :func:`repro_torch.kernels.ref.lease_validate_ref`: an
@@ -19,76 +19,20 @@ The Pallas kernel differs for items past the end (it pads the table with
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import time
-from pathlib import Path
-from typing import Dict, Optional
 
 import torch
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "lease_validate.cu"
-BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from .nvcc import CudaLibrary, check_launch
+
+LIB = CudaLibrary("lease_validate", {
+    "lease_validate_launch": (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+        ctypes.c_int),
+})
 
 # kernel launches since the count was last reset (a plain integer: the
 # wrapper adds one where it launches, nowhere else)
 launches = 0
-# nvcc wall seconds and ptxas report of the build this process loaded
-build_info: Dict[str, object] = {}
-_lib: Optional[ctypes.CDLL] = None
-
-
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the lease_validate kernel needs "
-                           "the CUDA toolkit to build")
-    return path
-
-
-def build() -> Path:
-    """Compile the kernel into ``build/`` unless this exact build exists."""
-    src = SOURCE.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out_dir = BUILD_ROOT / f"lease_validate-{key}"
-    lib = out_dir / "liblease_validate.so"
-    if lib.exists():
-        build_info.setdefault("cached", True)
-        return lib
-    out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                          capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) on {SOURCE}:\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)  # atomic: a concurrent builder never sees half a file
-    build_info.update(
-        cached=False, nvcc_s=seconds,
-        ptxas=[ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
-               if "ptxas info" in ln or "spill" in ln])
-    return lib
-
-
-def _load() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        fn = lib.lease_validate_launch
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 \
-            + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
 
 
 def _check(name: str, t: torch.Tensor, ndim: int, device: torch.device
@@ -140,7 +84,7 @@ def lease_validate(store_versions: torch.Tensor, read_items: torch.Tensor,
     ok = torch.empty((b,), dtype=torch.bool, device=dev)
     if b == 0:
         return ok
-    lib = _load()
+    lib = LIB.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.lease_validate_launch(
@@ -148,7 +92,6 @@ def lease_validate(store_versions: torch.Tensor, read_items: torch.Tensor,
             read_versions.data_ptr(), write_locks.data_ptr(),
             write_items.data_ptr(), ok.data_ptr(), n, b, r,
             write_items.shape[1], stream)
-    if err != 0:
-        raise RuntimeError(f"lease_validate launch failed: CUDA error {err}")
+    check_launch("lease_validate", err)
     launches += 1
     return ok

@@ -1,9 +1,16 @@
-"""Dispatch points of the commit path: CUDA tensors -> kernel, CPU -> twin.
+"""Dispatch points: CUDA tensors -> kernel, CPU tensors -> plain twin.
 
-Counterparts of :func:`repro.kernels.ops.validate_transactions` and
-:func:`repro.kernels.ops.settle_lease_batch`.  There is no backend probing:
-the device of the tensors decides.  A CUDA tensor launches the kernel or
-raises; only a tensor that lies on the CPU takes the plain twin.
+Counterparts of :func:`repro.kernels.ops.validate_transactions`,
+:func:`repro.kernels.ops.settle_lease_batch`, :func:`repro.kernels.ops.attention`
+and :func:`repro.kernels.ops.ssd`.  There is no backend probing: the device
+of the tensors decides.  A CUDA tensor launches the kernel or raises; only
+a tensor that lies on the CPU takes the plain twin.
+
+One difference from the reference's dispatch: on a CUDA tensor
+:func:`attention` launches the flash kernel for every query length,
+decode's Sq = 1 included.  The reference sends Sq = 1 to its plain path
+(``repro/models/attention.py:120``) because its TPU tiling needs at least
+8 query rows; both compute the same function.
 """
 from __future__ import annotations
 
@@ -12,7 +19,9 @@ from typing import Optional, Tuple
 import torch
 
 from . import ref
+from .flash_attention import flash_attention
 from .lease_validate import lease_validate
+from .ssd_scan import ssd_scan
 
 
 def settle_lease_batch(head_req, head_proc, head_active, qlen, fresh_blocked,
@@ -50,3 +59,46 @@ def validate_transactions(
                               write_locks, write_items)
     return ref.lease_validate_ref(store_versions, read_items, read_versions,
                                   write_locks > 0, write_items)
+
+
+def attention(q, k, v, *, q_positions, kv_positions, causal=True,
+              sliding_window=None, logit_softcap=0.0, scale=None,
+              plain=False):
+    """GQA attention ``[B, Sq, Hq, Dk] x [B, Skv, Hkv, Dk|Dv]``.
+
+    CUDA tensors go to the flash kernel at every Sq; CPU tensors, and any
+    tensor when ``plain`` is set, to :func:`ref.sdpa_ref`.  Positions are
+    handed to the kernel as contiguous int32 (the model broadcasts them).
+    """
+    if q.device.type == "cuda" and not plain:
+        return flash_attention(
+            q, k, v, q_positions=q_positions.to(torch.int32).contiguous(),
+            kv_positions=kv_positions.to(torch.int32).contiguous(),
+            causal=causal,
+            sliding_window=sliding_window, logit_softcap=logit_softcap,
+            scale=scale)
+    return ref.sdpa_ref(q, k, v, q_positions=q_positions,
+                        kv_positions=kv_positions, causal=causal,
+                        sliding_window=sliding_window,
+                        logit_softcap=logit_softcap, scale=scale)
+
+
+def ssd(x, dt, a, b_mat, c_mat, *, chunk=256, h0=None, plain=False
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba2 SSD scan; returns ``(y [B, S, H, P], final_state [B, H, P, N])``.
+
+    S is zero-padded up to a multiple of ``chunk`` (as the reference's ref
+    branch does, ``repro/models/ssm.py:216-227``) and ``y`` is cut back to
+    S; padded steps have ``dt = 0``, so they leave the state unchanged.
+    CUDA tensors go to the SSD kernel (``n_groups == 1``; anything else
+    raises); CPU tensors, and any tensor when ``plain`` is set, to
+    :func:`ref.ssd_ref`.
+    """
+    s = x.shape[1]
+    pad = (-s) % chunk
+    x, dt, b_mat, c_mat = (ref.pad_seq(t, pad) for t in (x, dt, b_mat, c_mat))
+    if x.device.type == "cuda" and not plain:
+        y, final = ssd_scan(x, dt, a, b_mat, c_mat, chunk=chunk, h0=h0)
+    else:
+        y, final = ref.ssd_ref(x, dt, a, b_mat, c_mat, chunk=chunk, h0=h0)
+    return y[:, :s], final

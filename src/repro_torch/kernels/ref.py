@@ -1,9 +1,11 @@
-"""Plain PyTorch twins of the kernel-path ops (the bitwise targets).
+"""Plain PyTorch twins of the kernel-path ops.
 
 Twins of :func:`repro.kernels.ref.lease_settle_ref` and
-:func:`repro.kernels.ref.lease_validate_ref`: int32 ids at the boundary,
--1 padding, the same clip semantics.  Torch indexes with int64, so indices
-are widened inside.
+:func:`repro.kernels.ref.lease_validate_ref` (bitwise targets: int32 ids at
+the boundary, -1 padding, the same clip semantics; torch indexes with
+int64, so indices are widened inside), and of the model stack's float
+oracles: :func:`sdpa_ref` (``repro.models.attention.attn_mask`` /
+``_sdpa_ref``) and :func:`ssd_ref` (``repro.models.ssm.ssd_chunked``).
 """
 from __future__ import annotations
 
@@ -63,3 +65,131 @@ def lease_validate_ref(
         locked = write_locks[write_items.clamp(0, n - 1).long()]
         ok &= torch.where(wvalid, ~locked, torch.ones_like(wvalid)).all(dim=1)
     return ok
+
+
+# --- attention (twin of repro.models.attention.attn_mask / _sdpa_ref) ---------
+
+NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+
+
+def attn_mask(q_pos: torch.Tensor, kv_pos: torch.Tensor, causal: bool,
+              sliding_window: Optional[int]) -> torch.Tensor:
+    """Boolean ``[B, Sq, Skv]`` mask (True = attend)."""
+    dq = q_pos[:, :, None]
+    dk = kv_pos[:, None, :]
+    m = torch.ones((q_pos.shape[0], q_pos.shape[1], kv_pos.shape[1]),
+                   dtype=torch.bool, device=q_pos.device)
+    if causal:
+        m &= dk <= dq
+    if sliding_window is not None:
+        m &= dk > dq - sliding_window
+    return m
+
+
+def _sdpa_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              mask: torch.Tensor, scale: float,
+              logit_softcap: float = 0.0) -> torch.Tensor:
+    """Grouped-query attention in fp32 with a full score matrix."""
+    b, sq, hq, d = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    qg = q.reshape(b, sq, hkv, g, d)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * scale
+    if logit_softcap > 0:
+        logits = logit_softcap * torch.tanh(logits / logit_softcap)
+    logits = torch.where(mask[:, None, None, :, :], logits, NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    return out.reshape(b, sq, hq, v.shape[-1]).to(q.dtype)
+
+
+def sdpa_ref(q, k, v, *, q_positions, kv_positions, causal=True,
+             sliding_window=None, logit_softcap=0.0, scale=None):
+    """Plain version of the flash kernel (``repro.kernels.ref.sdpa_ref``)."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    mask = attn_mask(q_positions, kv_positions, causal, sliding_window)
+    return _sdpa_ref(q, k, v, mask, scale, logit_softcap)
+
+
+# --- SSD (twin of repro.models.ssm.segsum / ssd_chunked) ------------------------
+
+def segsum(log_a: torch.Tensor) -> torch.Tensor:
+    """Stable segment-sum: out[..., i, j] = sum log_a[..., j+1..i] (-inf j>i)."""
+    l = log_a.shape[-1]
+    cs = torch.cumsum(log_a, dim=-1)
+    diff = cs[..., :, None] - cs[..., None, :]
+    mask = torch.tril(torch.ones((l, l), dtype=torch.bool,
+                                 device=log_a.device))
+    return torch.where(mask, diff, float("-inf"))
+
+
+def ssd_chunked(x, dt, a, b_mat, c_mat, chunk: int, h0=None,
+                return_final_state: bool = False):
+    """Chunked state-space-duality scan; S must be a multiple of ``chunk``.
+
+    ``x [B, S, H, P]``, ``dt [B, S, H]`` (softplus'd), ``a [H]``,
+    ``b_mat``/``c_mat [B, S, G, N]``, ``h0 [B, H, P, N]``.  Returns ``y``
+    (fp32) and, if asked, the final fp32 state.
+    """
+    bsz, s, h, p = x.shape
+    g, n = b_mat.shape[2], b_mat.shape[3]
+    assert s % chunk == 0, f"seq {s} not a multiple of chunk {chunk}"
+    nc = s // chunk
+    hpg = h // g
+
+    xr = x.reshape(bsz, nc, chunk, h, p).float()
+    dtr = dt.reshape(bsz, nc, chunk, h).float()
+    br = b_mat.reshape(bsz, nc, chunk, g, n).float()
+    cr = c_mat.reshape(bsz, nc, chunk, g, n).float()
+    be = br.repeat_interleave(hpg, dim=3)                  # [B,nc,L,H,N]
+    ce = cr.repeat_interleave(hpg, dim=3)
+
+    da = dtr * a.float()[None, None, None, :]              # log decay per step
+    da_cum = torch.cumsum(da, dim=2)                       # [B,nc,L,H]
+    seg = segsum(da.movedim(-1, -2))                       # [B,nc,H,L,L]
+
+    # 1. intra-chunk (diagonal) term: masked decay-weighted attention
+    cb = torch.einsum("bnlhs,bnmhs->bnhlm", ce, be)        # [B,nc,H,L,L]
+    w = cb * torch.exp(seg) * dtr.movedim(-1, -2)[:, :, :, None, :]
+    y_diag = torch.einsum("bnhlm,bnmhp->bnlhp", w, xr)
+
+    # 2. chunk-final states
+    decay_states = torch.exp(da_cum[:, :, -1:, :] - da_cum)   # [B,nc,L,H]
+    wx = (decay_states * dtr)[..., None] * xr                  # [B,nc,L,H,P]
+    states = torch.einsum("bnlhs,bnlhp->bnhps", be, wx)
+
+    # 3. inter-chunk recurrence over the nc chunk states
+    chunk_decay = torch.exp(da_cum[:, :, -1, :])           # [B,nc,H]
+    carry = (torch.zeros((bsz, h, p, n), dtype=torch.float32,
+                         device=x.device)
+             if h0 is None else h0.float())
+    prevs = []
+    for c in range(nc):
+        prevs.append(carry)                 # state *entering* chunk c
+        carry = carry * chunk_decay[:, c, :, None, None] + states[:, c]
+    prev_states = torch.stack(prevs, dim=1)                # [B,nc,H,P,N]
+
+    # 4. off-diagonal contribution from the carried state
+    state_decay = torch.exp(da_cum)                        # from chunk start
+    y_off = torch.einsum("bnlhs,bnhps->bnlhp", ce, prev_states) \
+        * state_decay[..., None]
+
+    y = (y_diag + y_off).reshape(bsz, s, h, p)
+    if return_final_state:
+        return y, carry
+    return y
+
+
+def ssd_ref(x, dt, a, b_mat, c_mat, *, chunk=256, h0=None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the SSD kernel (``repro.kernels.ref.ssd_ref``)."""
+    return ssd_chunked(x, dt, a, b_mat, c_mat, chunk, h0=h0,
+                       return_final_state=True)
+
+
+def pad_seq(t: torch.Tensor, pad: int) -> torch.Tensor:
+    """Zero-pad the sequence axis (1) of ``t`` by ``pad`` steps at the end."""
+    if not pad:
+        return t
+    return torch.cat([t, t.new_zeros((t.shape[0], pad) + tuple(t.shape[2:]))],
+                     dim=1)

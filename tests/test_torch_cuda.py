@@ -1,5 +1,7 @@
-"""The lease_validate CUDA kernel against its plain twin, on the card.
+"""The port's CUDA kernels against their plain versions, on the card.
 
+``lease_validate`` bitwise; ``flash_attention`` and ``ssd_scan`` at the
+reference's tolerances over its test grids, plus the model path's shapes.
 Marked ``cuda``: skips on a host without a card.  This file imports no JAX
 (the card's machine has none); run it there with
 
@@ -9,8 +11,10 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import lease_validate as lv
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ssd_scan as ss
 
 
 def _validate_inputs(seed, B, R, W, n_items):
@@ -37,7 +41,7 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the lease_validate kernel has no "
+        pytest.skip("needs a CUDA card: the port's CUDA kernels have no "
                     "CPU or interpret mode")
     return torch.device("cuda")
 
@@ -93,3 +97,177 @@ def test_cuda_cluster_run_matches_cpu(cuda_device):
                      for r in c.replicas]))
     assert out[0] == out[1]
     assert out[0][0]["cert_batches"] > 0
+
+
+# (B, Sq, Skv, Hq, Hkv, Dk, Dv, causal, window, softcap, dtype): the
+# reference's test grid (tests/test_kernels.py), then glm4-9b's decode
+# shape (Sq = 1 against a 2080-slot ring) in both types
+FLASH_GRID = [
+    (2, 128, 128, 4, 2, 32, 32, True, None, 0.0, "float32"),
+    (1, 100, 100, 4, 4, 16, 16, True, None, 0.0, "float32"),
+    (2, 128, 128, 4, 2, 32, 32, True, 40, 0.0, "float32"),
+    (2, 64, 192, 4, 2, 32, 32, True, None, 0.0, "float32"),
+    (2, 128, 128, 4, 4, 32, 32, False, None, 0.0, "float32"),
+    (2, 128, 128, 8, 2, 64, 64, True, None, 30.0, "bfloat16"),
+    (1, 256, 256, 2, 2, 192, 128, True, None, 0.0, "float32"),
+    (1, 72, 72, 2, 1, 24, 24, True, 16, 0.0, "float32"),
+    (4, 1, 2080, 32, 2, 128, 128, True, None, 0.0, "bfloat16"),
+    (4, 1, 2080, 32, 2, 128, 128, True, None, 0.0, "float32"),
+]
+
+
+def _flash_inputs(seed, b, sq, skv, hq, hkv, dk, dv, dtype, device):
+    """Grid inputs; a one-query case gets per-row valid lengths with the
+    ring's unwritten tail at position 2^30, as decode builds it."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               .to(device=device, dtype=getattr(torch, dtype))
+               for shape in ((b, sq, hq, dk), (b, skv, hkv, dk),
+                             (b, skv, hkv, dv)))
+    kp = np.broadcast_to(np.arange(skv, dtype=np.int32), (b, skv)).copy()
+    if sq == 1:
+        valid = rng.integers(skv // 2, skv + 1, b)
+        qp = (valid - 1).astype(np.int32)[:, None]
+        kp[kp >= valid[:, None]] = 2 ** 30
+    else:
+        qp = np.broadcast_to(np.arange(skv - sq, skv, dtype=np.int32),
+                             (b, sq)).copy()
+    return q, k, v, torch.from_numpy(qp).to(device), \
+        torch.from_numpy(kp).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,dk,dv,causal,window,cap,dtype",
+                         FLASH_GRID)
+def test_cuda_flash_attention_matches_plain(cuda_device, b, sq, skv, hq, hkv,
+                                            dk, dv, causal, window, cap,
+                                            dtype):
+    q, k, v, qp, kp = _flash_inputs(sq + skv, b, sq, skv, hq, hkv, dk, dv,
+                                    dtype, cuda_device)
+    kw = dict(q_positions=qp, kv_positions=kp, causal=causal,
+              sliding_window=window, logit_softcap=cap)
+    before = fa.launches
+    got = ops.attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    want = ref.sdpa_ref(q, k, v, **kw)
+    assert got.dtype == q.dtype and got.shape == (b, sq, hq, dv)
+    # bf16: both sides compute in fp32 from the same bf16 inputs and round
+    # once, so they differ by at most two bf16 ulps (2^-6 of the value)
+    atol, rtol = (1e-3, 1.6e-2) if dtype == "bfloat16" else (2e-5, 2e-5)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+# (B, S, H, P, N, chunk, dtype, h0): the reference's grid, then
+# mamba2-780m's prefill shape in bf16, a ragged S through ops.ssd's pad and
+# an odd head count (one head per block) in both types
+SSD_GRID = [
+    (2, 256, 8, 16, 32, 64, "float32", True),
+    (1, 128, 16, 64, 128, 32, "float32", True),
+    (2, 512, 48, 64, 128, 256, "float32", True),
+    (1, 64, 4, 32, 16, 64, "float32", True),
+    (4, 2048, 48, 64, 128, 256, "bfloat16", True),
+    (2, 100, 6, 64, 128, 32, "float32", False),
+    (1, 128, 5, 32, 64, 32, "float32", True),
+    (1, 128, 5, 32, 64, 32, "bfloat16", True),
+]
+
+
+def _ssd_inputs(seed, b, s, h, p, n, dtype, device):
+    rng = np.random.default_rng(seed)
+    t = lambda a, d=torch.float32: torch.from_numpy(
+        np.ascontiguousarray(a, np.float32)).to(device=device, dtype=d)
+    xd = getattr(torch, dtype)
+    return (t(rng.standard_normal((b, s, h, p)) * 0.5, xd),
+            t(np.log1p(np.exp(rng.standard_normal((b, s, h))))),
+            t(-np.exp(rng.standard_normal((h,)) * 0.3)),
+            t(rng.standard_normal((b, s, 1, n)) * 0.4, xd),
+            t(rng.standard_normal((b, s, 1, n)) * 0.4, xd),
+            t(rng.standard_normal((b, h, p, n)) * 0.1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,p,n,chunk,dtype,with_h0", SSD_GRID)
+def test_cuda_ssd_scan_matches_plain(cuda_device, b, s, h, p, n, chunk,
+                                     dtype, with_h0):
+    """y within 2e-5 of max|y| (one bf16 rounding, 1e-2, for bf16 x) and
+    the final state at atol 2e-3 / rtol 1e-4, the reference's tolerances."""
+    x, dt, a, bm, cm, h0 = _ssd_inputs(s + h, b, s, h, p, n, dtype,
+                                       cuda_device)
+    h0 = h0 if with_h0 else None
+    before = ss.launches
+    y, f = ops.ssd(x, dt, a, bm, cm, chunk=chunk, h0=h0)
+    torch.cuda.synchronize()
+    assert ss.launches == before + 1
+    pad = (-s) % chunk
+    y_r, f_r = ref.ssd_ref(*(ref.pad_seq(t, pad) for t in (x, dt)), a,
+                           *(ref.pad_seq(t, pad) for t in (bm, cm)),
+                           chunk=chunk, h0=h0)
+    y_r = y_r[:, :s]
+    assert y.dtype == x.dtype and y.shape == (b, s, h, p)
+    rel = 1e-2 if dtype == "bfloat16" else 2e-5
+    scale = float(y_r.abs().max()) + 1e-9
+    assert float((y.float() - y_r).abs().max()) / scale < rel
+    torch.testing.assert_close(f, f_r, atol=2e-3, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_new_wrappers_reject_bad_inputs(cuda_device):
+    q, k, v, qp, kp = _flash_inputs(1, 1, 8, 8, 2, 1, 16, 16, "float32",
+                                    cuda_device)
+    with pytest.raises(TypeError, match="int32"):
+        fa.flash_attention(q, k, v, q_positions=qp.long(), kv_positions=kp)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q, torch.cat([k, k], dim=-1)[..., :16], v,
+                           q_positions=qp, kv_positions=kp)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q, k.half(), v, q_positions=qp, kv_positions=kp)
+    x, dt, a, bm, cm, h0 = _ssd_inputs(2, 1, 64, 2, 16, 8, "float32",
+                                       cuda_device)
+    with pytest.raises(ValueError, match="multiple of chunk"):
+        ss.ssd_scan(x, dt, a, bm, cm, chunk=48, h0=h0)
+    with pytest.raises(TypeError, match="float32"):
+        ss.ssd_scan(x, dt.double(), a, bm, cm, chunk=32, h0=h0)
+    with pytest.raises(ValueError, match="n_groups"):
+        ss.ssd_scan(x, dt, a, bm.expand(1, 64, 2, 8).contiguous(), cm,
+                    chunk=32, h0=h0)
+
+
+@pytest.mark.cuda
+def test_cuda_models_run_through_the_kernels(cuda_device):
+    """glm4-9b and mamba2-780m smoke configs: prefill and decode through
+    the kernels agree with the plain versions on the card."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import common, decoder
+
+    for arch, counter in (("glm4-9b", fa), ("mamba2-780m", ss)):
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+        params = common.init_params(
+            cfg, torch.Generator(device=cuda_device).manual_seed(0),
+            cuda_device)
+        toks = torch.randint(0, cfg.vocab_size, (2, 40), device=cuda_device,
+                             generator=torch.Generator(
+                                 device=cuda_device).manual_seed(1))
+        out = []
+        for use in ("auto", "ref"):
+            ctx = decoder.RunCtx(cuda_device, use_kernel=use)
+            before = counter.launches
+            logits, caches = decoder.prefill(cfg, ctx, params,
+                                             {"tokens": toks})
+            ring = decoder.init_cache(cfg, 2, 44, torch.float32, cuda_device)
+            for r, c in zip(ring, caches):
+                for m in r:
+                    for leaf, t in r[m].items():
+                        src = c[m][leaf]
+                        t[tuple(slice(0, d) for d in src.shape)] = src
+            step, _ = decoder.decode_step(cfg, ctx, params, ring,
+                                          toks[:, -1], 40)
+            launched = counter.launches - before
+            assert launched == (cfg.n_layers * (2 if arch == "glm4-9b" else 1)
+                                if use == "auto" else 0), (arch, launched)
+            out.append((logits, step))
+        for got, want in zip(*out):
+            torch.testing.assert_close(got, want, atol=2e-3, rtol=2e-3)
