@@ -29,17 +29,25 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 5. forced — Bank at SimConfig defaults with every drain through the kernel
             and every lease settle through the device ops, a node failure
             at 120 ms; cuda against cpu, byte-identical.
-6. kernel_flash — the flash kernel against ``ref.sdpa_ref`` on the card:
-            glm4-9b prefill (B = 4, S = 2048, Hq = 32, Hkv = 2, D = 128,
-            causal, bf16), glm4-9b decode (Sq = 1 against a 2080-slot ring,
-            per-row valid lengths, unwritten tail at 2^30) and the
-            reference's test grid (tests/test_kernels.py); f32 within
-            2e-5, bf16 within atol 1e-3 + rtol 1.6e-2 (two bf16 ulps: both
-            sides compute in fp32 and round the output once).  Per case:
-            ``ms`` (CUDA events), ``graph_ms`` (CUDA-graph replay),
+6. kernel_flash — the flash kernel against ``ref.sdpa_ref`` on the card,
+            each case printing the variant that ran (``prefill_tc``,
+            ``decode_split`` or ``simt``, which the launcher picks from the
+            dtype and shapes): glm4-9b prefill (B = 4, S = 2048, Hq = 32,
+            Hkv = 2, D = 128, causal, bf16), glm4-9b decode (Sq = 1
+            against a 2080-slot ring, per-row valid lengths, unwritten tail
+            at 2^30; timed over 8 distinct caches, 68 MB, in rotation so L2
+            is cold as it is for the model's 40 layers, and over one cache,
+            ``*_warm``), the reference's test grid (tests/test_kernels.py)
+            and the variants' edges (a ragged last tile, no causal mask, a
+            window, 64 decode rows, one valid key, f32 decode at D 64); f32
+            within 2e-5, bf16 within atol 1e-3 + rtol 1.6e-2 (two bf16
+            ulps: every variant computes in fp32 and rounds the output
+            once, prefill_tc with P.V on bf16 hi + lo parts of P).  Per
+            case: ``ms`` (CUDA events), ``graph_ms`` (CUDA-graph replay),
             ``plain_ms``, ``bound_ms``/``bound_by`` (FLOPs of the visible
-            pairs at 989 TFLOP/s bf16 or 67 TFLOP/s fp32, bytes at 3.35 TB/s)
-            and ``library_ms``: ``scaled_dot_product_attention`` with
+            pairs at 989 TFLOP/s bf16 or 67 TFLOP/s fp32; bytes of q, the
+            output and the keys some row sees, at 3.35 TB/s) and
+            ``library_ms``: ``scaled_dot_product_attention`` with
             ``enable_gqa=True`` at the same shape, a yardstick the port
             never calls (null for softcap, which it cannot compute).
 7. kernel_ssd — the SSD kernel against ``ref.ssd_ref``: mamba2-780m's
@@ -54,7 +62,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             2048 tokens, move the cache into a 2080-slot ring, 16
             ``decode_step``s with ``[B]`` positions; once with
             ``use_kernel="auto"`` (counts reset just before, flash launches
-            must be 40 + 16 x 40) and once with ``"ref"`` on the card, each
+            must be 40 + 16 x 40: prefill_tc 40, decode_split 640, simt 0) and once with ``"ref"`` on the card, each
             after an untimed warm-up run at the same shapes.
             Logits agree within 6% of the largest logit; the share of
             greedy tokens that agree, wall seconds, tokens per second and
@@ -69,8 +77,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             tests' bf16 tolerance against the reference).  The CPU port is
             what the tests hold to JAX, so this ties the card to it.
 
-The last three lines are the ``nvidia-smi`` line, the kernels record, and
-``{"ok": true, "device": {...}}``.
+The last three lines are the ``nvidia-smi`` line, the kernels record (one
+entry per flash variant), and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -91,8 +99,10 @@ BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core rate
 VALID_POS_LIMIT = 2 ** 29      # kv positions at or above it are padding
 MODEL_TOL = 0.06               # auto vs ref logits, share of max |logit|
 # flash kernel against ref.sdpa_ref: f32 at the reference's 2e-5; bf16 at
-# two bf16 ulps (2^-6 of the value) plus 1e-3, since both sides compute in
-# fp32 from the same bf16 inputs and each rounds the output once
+# two bf16 ulps (2^-6 of the value) plus 1e-3.  Both sides compute in fp32
+# from the same bf16 inputs and round the output once: decode_split and
+# simt keep fp32 throughout, prefill_tc runs P.V on P's bf16 hi + lo parts
+# (~16 bits of P; a single bf16 P misses this limit in early causal rows)
 FLASH_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (1e-3, 1.6e-2)}
 HELD_TOL = 6e-2                # cuda vs cpu logits, atol and rtol
 
@@ -316,7 +326,11 @@ def op_bound(flops: float, n_bytes: float, flops_per_s: float) -> tuple:
 
 def flash_case(name: str, b, sq, skv, hq, hkv, dk, dv, *, causal=True,
                window=None, cap=0.0, dtype="bfloat16", decode=False,
-               seed=0) -> dict:
+               valid0=None, copies=1, seed=0) -> dict:
+    """One shape through ``ops.attention`` on the card, held to
+    ``ref.sdpa_ref``.  ``copies`` > 1 times the calls over that many
+    distinct q/k/v sets in rotation, so L2 (50 MB) is cold as it is for a
+    model's layers; the first set is also timed alone (``*_warm``)."""
     import torch
     import torch.nn.functional as F
 
@@ -327,13 +341,17 @@ def flash_case(name: str, b, sq, skv, hq, hkv, dk, dv, *, causal=True,
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     td = getattr(torch, dtype)
-    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(td)
-               for shape in ((b, sq, hq, dk), (b, skv, hkv, dk),
-                             (b, skv, hkv, dv)))
+    sets = [tuple(torch.randn(shape, generator=gen, device=dev).to(td)
+                  for shape in ((b, sq, hq, dk), (b, skv, hkv, dk),
+                                (b, skv, hkv, dv)))
+            for _ in range(copies)]
+    q, k, v = sets[0]
     kp = torch.arange(skv, dtype=torch.int32, device=dev).expand(b, skv)
     if decode:   # per-row valid lengths; the ring's unwritten tail at 2^30
         valid = torch.randint(skv // 2, skv + 1, (b,), generator=gen,
                               device=dev)
+        if valid0 is not None:
+            valid[0] = valid0
         qp = (valid - 1).to(torch.int32)[:, None].contiguous()
         kp = torch.where(kp < valid[:, None], kp, torch.full_like(kp, 2 ** 30))
     else:
@@ -342,10 +360,13 @@ def flash_case(name: str, b, sq, skv, hq, hkv, dk, dv, *, causal=True,
     kp = kp.contiguous()
     kw = dict(q_positions=qp, kv_positions=kp, causal=causal,
               sliding_window=window, logit_softcap=cap)
-    before = fa.launches
+    variant = fa.variant(td, sq, hq, hkv, dk, dv)
+    before, by_variant = fa.launches, dict(fa.variant_launches)
     out = ops.attention(q, k, v, **kw)
     torch.cuda.synchronize()
-    check(fa.launches == before + 1, f"{name}: flash kernel did not launch")
+    by_variant[variant] += 1
+    check(fa.launches == before + 1 and fa.variant_launches == by_variant,
+          f"{name}: flash kernel variant {variant} did not launch")
     want = ref.sdpa_ref(q, k, v, **kw)
     err = float((out.float() - want.float()).abs().max())
     atol, rtol = FLASH_TOL[dtype]
@@ -353,38 +374,51 @@ def flash_case(name: str, b, sq, skv, hq, hkv, dk, dv, *, causal=True,
     check(torch.allclose(out.float(), want.float(), atol=atol, rtol=rtol),
           f"{name}: flash kernel disagrees with ref.sdpa_ref "
           f"(max abs err {err}, atol {atol}, rtol {rtol})")
-    ms, g_ms, n = timings(lambda: ops.attention(q, k, v, **kw))
-    plain_ms, plain_g_ms, _ = timings(lambda: ref.sdpa_ref(q, k, v, **kw))
+
+    def rotating(fn):
+        turn = iter(range(1 << 62))
+        return lambda: fn(*sets[next(turn) % copies])
+
+    kernel = lambda q, k, v: ops.attention(q, k, v, **kw)
+    plain = lambda q, k, v: ref.sdpa_ref(q, k, v, **kw)
+    ms, g_ms, n = timings(rotating(kernel))
+    plain_ms, plain_g_ms, _ = timings(rotating(plain))
     visible = ref.attn_mask(qp, kp, causal, window) \
         & (kp < VALID_POS_LIMIT)[:, None, :]
     pairs = int(visible.sum()) * hq
-    n_bytes = (q.numel() + k.numel() + v.numel() + out.numel()) \
+    # bytes this data needs: q and out, and each key some row sees, once
+    seen_keys = int(visible.any(dim=1).sum())
+    n_bytes = (q.numel() + out.numel() + seen_keys * hkv * (dk + dv)) \
         * q.element_size() + 4 * (qp.numel() + kp.numel())
     bms, by = op_bound(2.0 * pairs * (dk + dv), n_bytes,
                        BF16_FLOPS_PER_S if dtype == "bfloat16"
                        else SCALAR_OPS_PER_S)
     lib_ms = None
     if cap == 0.0:               # SDPA has no softcap
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         if causal and window is None and not decode and sq == skv:
-            lib = lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, scale=dk ** -0.5,
-                enable_gqa=True)
+            lib = lambda q, k, v: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True, scale=dk ** -0.5, enable_gqa=True)
         else:
             amask = ref.attn_mask(qp, kp, causal, window)[:, None] \
                 & (kp < VALID_POS_LIMIT)[:, None, None, :]
-            lib = lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=amask, scale=dk ** -0.5,
-                enable_gqa=True)
-        lib_ms = time_ms(lib, n, warmup=2)
-    out = dict(case=name, B=b, Sq=sq, Skv=skv, Hq=hq, Hkv=hkv, Dk=dk, Dv=dv,
-               causal=causal, window=window, softcap=cap, dtype=dtype,
+            lib = lambda q, k, v: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=amask, scale=dk ** -0.5, enable_gqa=True)
+        lib_ms = time_ms(rotating(lib), n, warmup=2)
+    warm = {}
+    if copies > 1:
+        warm = dict(ms_warm=time_ms(lambda: kernel(q, k, v), n, warmup=2),
+                    graph_ms_warm=graph_ms(lambda: kernel(q, k, v),
+                                           launches=n, replays=3))
+    out = dict(case=name, variant=variant, B=b, Sq=sq, Skv=skv, Hq=hq,
+               Hkv=hkv, Dk=dk, Dv=dv, causal=causal, window=window,
+               softcap=cap, dtype=dtype, copies=copies,
                visible_pairs=pairs, max_abs_err=err,
                max_abs_want=float(want.float().abs().max()), atol=atol,
-               rtol=rtol, ms=ms,
-               graph_ms=g_ms, plain_ms=plain_ms, plain_graph_ms=plain_g_ms,
-               bound_ms=bms, bound_by=by, library_ms=lib_ms,
-               wall_s=time.perf_counter() - t_start)
+               rtol=rtol, ms=ms, graph_ms=g_ms, **warm, plain_ms=plain_ms,
+               plain_graph_ms=plain_g_ms, bound_ms=bms, bound_by=by,
+               library_ms=lib_ms, wall_s=time.perf_counter() - t_start)
     emit("kernel_flash", **out)
     return out
 
@@ -392,7 +426,9 @@ def flash_case(name: str, b, sq, skv, hq, hkv, dk, dv, *, causal=True,
 def kernel_flash_phase() -> list:
     cases = [
         flash_case("glm4_prefill", 4, 2048, 2048, 32, 2, 128, 128),
-        flash_case("glm4_decode", 4, 1, 2080, 32, 2, 128, 128, decode=True),
+        # 8 caches of 8.5 MB in rotation: L2 cold, as for 40 layers
+        flash_case("glm4_decode", 4, 1, 2080, 32, 2, 128, 128, decode=True,
+                   copies=8),
     ]
     grid = [   # the reference's test grid (tests/test_kernels.py)
         (2, 128, 128, 4, 2, 32, 32, True, None, 0.0, "float32"),
@@ -409,6 +445,19 @@ def kernel_flash_phase() -> list:
         cases.append(flash_case(f"grid{i}", b, sq, skv, hq, hkv, dk, dv,
                                 causal=causal, window=window, cap=cap,
                                 dtype=dtype, seed=i + 1))
+    # the edges of the variants (tests/test_torch_cuda.py FLASH_GRID)
+    cases += [
+        flash_case("tc_ragged", 1, 200, 200, 4, 2, 128, 128, seed=20),
+        flash_case("tc_noncausal", 1, 256, 256, 4, 2, 128, 128,
+                   causal=False, seed=21),
+        flash_case("tc_window", 1, 256, 256, 4, 2, 128, 128, window=64,
+                   seed=22),
+        flash_case("split_64_rows", 2, 4, 2080, 32, 2, 128, 128, seed=23),
+        flash_case("split_one_key", 4, 1, 2080, 32, 2, 128, 128,
+                   decode=True, valid0=1, seed=24),
+        flash_case("split_f32_d64_window", 2, 1, 1000, 8, 1, 64, 64,
+                   window=128, dtype="float32", decode=True, seed=25),
+    ]
     return cases
 
 
@@ -480,16 +529,36 @@ def kernel_ssd_phase() -> list:
     return cases
 
 
-def kernel_record(name: str, replaces: str, launches: int,
+def kernel_record(name: str, source: str, replaces: str, launches: int,
                   cases: list) -> dict:
+    """One entry of the kernels line: the first case's times, the largest
+    error over ``cases``."""
     head = cases[0]
-    return {"name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+    return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": max(c["max_abs_err"] for c in cases),
-            "ms": head["ms"], "plain_ms": head["plain_ms"],
-            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-            "library_ms": head["library_ms"]}
+            "ms": head["ms"], "graph_ms": head["graph_ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"]}
+
+
+def flash_records(cases: list, launches: dict) -> list:
+    """One entry per flash variant, timed at its main-path case (glm4-9b
+    prefill, glm4-9b decode; simt, which the main path does not reach, at
+    the reference grid's first case)."""
+    heads = {"prefill_tc": "glm4_prefill", "decode_split": "glm4_decode",
+             "simt": "grid0"}
+    out = []
+    for variant, head in heads.items():
+        mine = [c for c in cases if c["variant"] == variant]
+        first = [c for c in mine if c["case"] == head]
+        check(len(first) == 1, f"flash case {head} did not run {variant}")
+        out.append(kernel_record(
+            f"flash_attention.{variant}",
+            f"src/repro_torch/kernels/csrc/flash_{variant}.cuh",
+            "src/repro/kernels/flash_attention.py:90", launches[variant],
+            first + [c for c in mine if c["case"] != head]))
+    return out
 
 
 # -- phases 8-10: the model stack ----------------------------------------------
@@ -607,10 +676,15 @@ def model_phase(phase: str, arch: str, *, batch: int = 4, prompt: int = 2048,
         generate(cfg, ctx, params, toks, step_toks[:2], ring)
         torch.cuda.reset_peak_memory_stats()
         fa.launches = ss.launches = lv.launches = 0    # just before the path
+        fa.variant_launches.update(dict.fromkeys(fa.VARIANTS, 0))
         run = generate(cfg, ctx, params, toks, step_toks, ring)
-        counts = dict(flash=fa.launches, ssd=ss.launches, lease=lv.launches)
-        want = (dict(flash=n_attn * (1 + steps), ssd=n_mamba, lease=0)
-                if use == "auto" else dict(flash=0, ssd=0, lease=0))
+        counts = dict(flash=fa.launches, ssd=ss.launches, lease=lv.launches,
+                      **fa.variant_launches)
+        want = (dict(flash=n_attn * (1 + steps), ssd=n_mamba, lease=0,
+                     prefill_tc=n_attn, decode_split=n_attn * steps, simt=0)
+                if use == "auto" else
+                dict(flash=0, ssd=0, lease=0, prefill_tc=0, decode_split=0,
+                     simt=0))
         check(counts == want, f"{phase}/{use}: kernel launches {counts}, "
               f"expected {want}")
         for lg in run["logits"]:
@@ -797,11 +871,11 @@ def main() -> int:
         "bound_ms": shape["bound_ms"],
         "bound_by": shape["bound_by"],
         "library_ms": None,
-    }, kernel_record(
-        "flash_attention", "src/repro/kernels/flash_attention.py:90",
-        glm4["flash"], flash_cases[:2]),
-        kernel_record("ssd_scan", "src/repro/kernels/ssd_scan.py:76",
-                      mamba2["ssd"], ssd_cases[:1]),
+        "graph_ms": shape["graph_ms"],
+    }, *flash_records(flash_cases, glm4),
+        kernel_record("ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
+                      "src/repro/kernels/ssd_scan.py:76", mamba2["ssd"],
+                      ssd_cases[:1]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}), flush=True)

@@ -5,345 +5,163 @@
 // grid whose innermost kv axis runs in order on one core, carrying the
 // running max, normaliser and accumulator in VMEM scratch from one grid
 // step to the next.  Hopper's blocks run in parallel and in no order, so
-// here the kv sweep is a loop inside one block.
+// here the kv sweep is a loop inside a block, or is split across blocks and
+// merged by a second kernel.
 //
-// Design: one block per (batch, q head, tile of BQ query rows); the kv
-// head is h / (Hq / Hkv), taken from the index (no head replication).  The
-// q tile is staged once in shared memory, transposed; each kv tile of 64
-// keys is staged (K transposed, V row-major) in the inputs' own type, so a
-// bf16 tile costs half the shared memory.  Thread (ty, tx) of the
-// (BQ/4) x 16 threads owns query rows 4ty..4ty+3: it computes the 4 x 4
-// scores of keys 4tx..4tx+3 from float4 reads (16 FMAs per two vector
-// loads), reduces each row's max and sum over the 16 lanes that share the
-// row with shuffles, and accumulates output columns 64c + 4tx..+3 for
-// c < ceil(Dv / 64).  Running max, normaliser and accumulator are fp32 in
-// registers; the tile's probabilities pass through shared memory, never
-// through device memory.  A kv tile that no (row, key) pair of the block
-// can see, by position, is skipped.
+// Semantics, as in the Pallas kernel, in every variant: masking by position
+// (kv positions >= 2^29 are padding; causal keeps kp <= qp; a window w keeps
+// kp > qp - w); hidden scores take the finite NEG_INF (-0.7 * FLT_MAX);
+// tanh softcap and an explicit scale; the kv head is h / (Hq / Hkv), taken
+// from the index (no head replication); fp32 max, normaliser and
+// accumulator; a row whose normaliser is 0 writes 0; the output [B, Sq,
+// Hq, Dv] in the inputs' type, rounded once.  Keys past Skv take no part.
 //
-// Masking is by position, as in the Pallas kernel: kv positions >= 2^29
-// are padding; causal keeps kp <= qp; a window w keeps kp > qp - w; hidden
-// scores take the same finite NEG_INF (-0.7 * FLT_MAX).  Keys past Skv in
-// the last tile contribute nothing.  A row whose visible-key count is zero
-// (never produced by the model) averages V over the tiles it visited.
+// The launcher picks one of three variants from the dtype and the shapes
+// (choose_variant below; the Python wrapper's variant() is its twin):
 //
-// Bound: at the model's prefill shapes, operations (4 * Sq * Skv * D / 2
-// FLOPs per head for causal attention).  This first version runs them on
-// the fp32 CUDA cores, not the tensor cores: wgmma and TMA are later work.
-// Decode (Sq = 1) is bound by bytes: reading the kv cache; BQ = 16 there
-// keeps the idle rows few.
+// prefill_tc (flash_prefill_tc.cuh): bf16, Dk = Dv in {64, 128}, more than
+//   64 query rows per kv head (Sq x group).  Bound by operations: 4 Sq Skv D
+//   FLOPs per head, halved by a causal mask, at 989 TFLOP/s on the bf16
+//   tensor cores.  One block per (b, q head, 128-row q tile), q heads
+//   fastest so a GQA group's blocks share K/V in L2, causal tiles longest
+//   first.  Two consumer warpgroups own 64 q rows each; a third warpgroup
+//   hands them its registers (setmaxnreg) and its first warp is the
+//   producer.  The producer loads Q once and K/V tiles of 128 keys into a
+//   2-stage ring by TMA (128-byte swizzle, mbarrier completion).  Before it
+//   issues a tile it reads the tile's positions (those of the next tile are
+//   already in flight), skips a tile no row of the block can see, and flags
+//   per warpgroup whether every key is hidden from it (it skips the tile)
+//   or some key is hidden from some row (it runs the per-element mask: the
+//   causal diagonal, a window edge, a ragged last tile).  Consumers run
+//   S = Q K^T on wgmma (both operands in shared memory), the online softmax
+//   in fp32 on the accumulator fragment, and P V as two register-A wgmmas,
+//   on P_hi = bf16(P) and P_lo = bf16(P - P_hi), into one fp32
+//   accumulator.  The split keeps ~16 bits of P: a single bf16 P rounds the
+//   weights to 2^-9 and misses the two-ulp output limit in the early causal
+//   rows, where a few large weights cancel.  It costs 1.5x the function's
+//   operations, so this design's floor is 1.5x the bound.
 //
-// The kernel allocates nothing and does not synchronise; the launcher
-// returns cudaGetLastError() so a refused launch is reported at once.
+// decode_split (flash_decode_split.cuh): f32 or bf16, Dk = Dv in {64, 128},
+//   at most 64 query rows per kv head.  Bound by bytes: reading the kv
+//   cache once.  The group's q heads (x Sq) are the rows of one tile, so
+//   each K/V byte is read once per (b, kv head), and the kv sweep is split
+//   over n_split blocks (about two waves of 132 SMs, >= 64 keys a split).
+//   Each split reads its keys' positions, then loads the visible ones in
+//   segments of up to four 32-key tiles, each segment by one batch of
+//   16-byte cp.async (tiles no row sees are neither loaded nor computed),
+//   computes scores and P V in fp32 on the CUDA cores (a decode call's
+//   arithmetic is a few microseconds there) and writes fp32 partials
+//   (m, l, acc); a combine kernel weights split s by exp(m_s - m) over the
+//   splits with l_s > 0 and rounds once.
+//
+// simt (flash_simt.cuh): everything else -- f32 prefill, other head dims,
+//   Dk != Dv.  One block per (b, q head, q tile) on the fp32 CUDA cores.
+//   No model path the port runs at full width reaches it.
+//
+// The kernels allocate nothing and do not synchronise: decode_split's
+// partials live in a scratch the caller allocates.  The launcher returns
+// cudaGetLastError() so a refused launch is reported at once.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_common.cuh"
+#include "flash_decode_split.cuh"
+#include "flash_prefill_tc.cuh"
+#include "flash_simt.cuh"
 
 namespace {
 
-// float32(-0.7 * FLT_MAX), the mask value of the Pallas kernel and its ref
-constexpr float kNegInf = -0x1.666664p+127f;
-constexpr int kValidPosLimit = 1 << 29;
-constexpr int kBK = 64;        // keys per kv tile
-constexpr int kPad = 4;        // row padding of the staged tiles (elements)
-constexpr int kMaxSmem = 232448;
+enum Variant { kSimt = 0, kPrefillTc = 1, kDecodeSplit = 2 };
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+int choose_variant(int dtype, int Sq, int Hq, int Hkv, int Dk, int Dv) {
+  const bool tc_dims = Dk == Dv && (Dk == 64 || Dk == 128);
+  const long long rows = (long long)Sq * (Hq / Hkv);
+  if (tc_dims && rows <= flash::decode_split::kMaxRows) return kDecodeSplit;
+  if (tc_dims && dtype == 1) return kPrefillTc;
+  return kSimt;
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// four consecutive elements (16-byte aligned for float, 8 for bf16)
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 hi = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
-
-__device__ __forceinline__ float lane(const float4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-
-template <int BQ, int DV_CHUNKS, typename T>
-constexpr size_t smem_bytes(int dk) {
-  return sizeof(float) * BQ * (kBK + kPad)              // probabilities
-         + sizeof(T) * dk * (BQ + kPad)                 // q, transposed
-         + sizeof(T) * dk * (kBK + kPad)                // k, transposed
-         + sizeof(T) * kBK * 64 * DV_CHUNKS             // v
-         + sizeof(int) * (BQ + kBK);                    // positions
-}
-
-template <typename T, int BQ, int DV_CHUNKS>
-__global__ void __launch_bounds__((BQ / 4) * (kBK / 4))
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, const int32_t* __restrict__ qpos,
-             const int32_t* __restrict__ kpos, T* __restrict__ out, int Sq,
-             int Skv, int Hq, int Hkv, int Dk, int Dv, float scale,
-             float softcap, int causal, int window) {
-  constexpr int kThreads = (BQ / 4) * (kBK / 4);
-  constexpr int kQS = BQ + kPad;       // row stride of the staged q
-  constexpr int kKS = kBK + kPad;      // row stride of staged k and of p
-  constexpr int kVS = 64 * DV_CHUNKS;  // row stride of the staged v
-  extern __shared__ float4 smem4[];
-  float* Ps = reinterpret_cast<float*>(smem4);              // [BQ][kKS]
-  T* Qt = reinterpret_cast<T*>(Ps + BQ * kKS);              // [Dk][kQS]
-  T* Kt = Qt + Dk * kQS;                                    // [Dk][kKS]
-  T* Vs = Kt + Dk * kKS;                                    // [kBK][kVS]
-  int* qp_s = reinterpret_cast<int*>(Vs + kBK * kVS);       // [BQ]
-  int* kp_s = qp_s + BQ;                                    // [kBK]
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);
-  const int64_t q_row = (int64_t)Hq * Dk;
-  const int64_t k_row = (int64_t)Hkv * Dk;
-  const int64_t v_row = (int64_t)Hkv * Dv;
-
-  const T* qb = q + ((int64_t)b * Sq + q0) * q_row + (int64_t)h * Dk;
-  for (int idx = tid; idx < BQ * Dk; idx += kThreads) {
-    const int i = idx / Dk, d = idx - i * Dk;
-    Qt[d * kQS + i] = q0 + i < Sq ? qb[i * q_row + d] : from_float<T>(0.f);
-  }
-  for (int i = tid; i < BQ; i += kThreads)
-    qp_s[i] = q0 + i < Sq ? qpos[(int64_t)b * Sq + q0 + i] : 0;
-
-  float m_i[4], l_i[4], acc[4][4 * DV_CHUNKS];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    m_i[r] = kNegInf;
-    l_i[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < 4 * DV_CHUNKS; ++c) acc[r][c] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < Skv; k0 += kBK) {
-    __syncthreads();  // the previous tile's readers are done
-    for (int j = tid; j < kBK; j += kThreads)
-      kp_s[j] = k0 + j < Skv ? kpos[(int64_t)b * Skv + k0 + j]
-                             : kValidPosLimit;
-    __syncthreads();
-
-    bool vis[4][4];
-    bool any = false;
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = 4 * ty + r;
-      const int qp = qp_s[row];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int kp = kp_s[4 * tx + c];
-        bool ok = q0 + row < Sq && kp < kValidPosLimit;
-        if (causal) ok = ok && kp <= qp;
-        if (window > 0) ok = ok && kp > qp - window;
-        vis[r][c] = ok;
-        any |= ok;
-      }
-    }
-    if (!__syncthreads_or(any)) continue;  // the whole tile is hidden
-
-    const T* kb = k + ((int64_t)b * Skv + k0) * k_row + (int64_t)hk * Dk;
-    const T* vb = v + ((int64_t)b * Skv + k0) * v_row + (int64_t)hk * Dv;
-    for (int idx = tid; idx < kBK * Dk; idx += kThreads) {
-      const int j = idx / Dk, d = idx - j * Dk;
-      Kt[d * kKS + j] = k0 + j < Skv ? kb[j * k_row + d] : from_float<T>(0.f);
-    }
-    for (int idx = tid; idx < kBK * kVS; idx += kThreads) {
-      const int j = idx / kVS, c = idx - j * kVS;
-      Vs[j * kVS + c] = k0 + j < Skv && c < Dv ? vb[j * v_row + c]
-                                               : from_float<T>(0.f);
-    }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[r][c] = 0.f;
-    for (int d = 0; d < Dk; ++d) {
-      const float4 qv = load4(Qt + d * kQS + 4 * ty);
-      const float4 kv = load4(Kt + d * kKS + 4 * tx);
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          s[r][c] = fmaf(lane(qv, r), lane(kv, c), s[r][c]);
-    }
-
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        float x = s[r][c] * scale;
-        if (softcap > 0.f) x = softcap * tanhf(x / softcap);
-        // keys past the end take no part; hidden keys take NEG_INF
-        x = vis[r][c] ? x : (k0 + 4 * tx + c < Skv ? kNegInf : -INFINITY);
-        s[r][c] = x;
-        mx = fmaxf(mx, x);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m_i[r], mx);
-      const float alpha = expf(m_i[r] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        s[r][c] = expf(s[r][c] - m_new);
-        sum += s[r][c];
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l_i[r] = l_i[r] * alpha + sum;
-      m_i[r] = m_new;
-#pragma unroll
-      for (int c = 0; c < 4 * DV_CHUNKS; ++c) acc[r][c] *= alpha;
-      *reinterpret_cast<float4*>(Ps + (4 * ty + r) * kKS + 4 * tx) =
-          make_float4(s[r][0], s[r][1], s[r][2], s[r][3]);
-    }
-    __syncthreads();
-
-    for (int j = 0; j < kBK; j += 4) {
-      float4 pr[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        pr[r] = *reinterpret_cast<const float4*>(Ps + (4 * ty + r) * kKS + j);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-#pragma unroll
-        for (int cc = 0; cc < DV_CHUNKS; ++cc) {
-          const float4 vv = load4(Vs + (j + jj) * kVS + 64 * cc + 4 * tx);
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            const float p = lane(pr[r], jj);
-            acc[r][4 * cc + 0] = fmaf(p, vv.x, acc[r][4 * cc + 0]);
-            acc[r][4 * cc + 1] = fmaf(p, vv.y, acc[r][4 * cc + 1]);
-            acc[r][4 * cc + 2] = fmaf(p, vv.z, acc[r][4 * cc + 2]);
-            acc[r][4 * cc + 3] = fmaf(p, vv.w, acc[r][4 * cc + 3]);
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = q0 + 4 * ty + r;
-    if (row >= Sq) continue;
-    const float safe = l_i[r] > 0.f ? l_i[r] : 1.f;
-    T* orow = out + ((int64_t)b * Sq + row) * Hq * Dv + (int64_t)h * Dv;
-#pragma unroll
-    for (int cc = 0; cc < DV_CHUNKS; ++cc)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = 64 * cc + 4 * tx + e;
-        if (c < Dv) orow[c] = from_float<T>(acc[r][4 * cc + e] / safe);
-      }
-  }
-}
-
-template <typename T, int BQ, int DV_CHUNKS>
-int launch(const void* q, const void* k, const void* v, const void* qpos,
-           const void* kpos, void* out, int B, int Sq, int Skv, int Hq,
-           int Hkv, int Dk, int Dv, float scale, float softcap, int causal,
-           int window, cudaStream_t stream) {
-  auto kernel = flash_kernel<T, BQ, DV_CHUNKS>;
-  const size_t smem = smem_bytes<BQ, DV_CHUNKS, T>(Dk);
-  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
-  static bool configured = false;  // one opt-in per instantiation
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-    if (err != cudaSuccess) return (int)err;
-    configured = true;
-  }
-  const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
-  kernel<<<grid, (BQ / 4) * (kBK / 4), smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int32_t*>(qpos),
-      static_cast<const int32_t*>(kpos), static_cast<T*>(out), Sq, Skv, Hq,
-      Hkv, Dk, Dv, scale, softcap, causal, window);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int BQ>
-int dispatch_dv(const void* q, const void* k, const void* v, const void* qpos,
-                const void* kpos, void* out, int B, int Sq, int Skv, int Hq,
-                int Hkv, int Dk, int Dv, float scale, float softcap,
-                int causal, int window, cudaStream_t stream) {
-  switch ((Dv + 63) / 64) {
-    case 1:
-      return launch<T, BQ, 1>(q, k, v, qpos, kpos, out, B, Sq, Skv, Hq, Hkv,
-                              Dk, Dv, scale, softcap, causal, window, stream);
-    case 2:
-      return launch<T, BQ, 2>(q, k, v, qpos, kpos, out, B, Sq, Skv, Hq, Hkv,
-                              Dk, Dv, scale, softcap, causal, window, stream);
-    case 3:
-      return launch<T, BQ, 3>(q, k, v, qpos, kpos, out, B, Sq, Skv, Hq, Hkv,
-                              Dk, Dv, scale, softcap, causal, window, stream);
-    case 4:
-      return launch<T, BQ, 4>(q, k, v, qpos, kpos, out, B, Sq, Skv, Hq, Hkv,
-                              Dk, Dv, scale, softcap, causal, window, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-}
-
-template <typename T>
-int dispatch_bq(const void* q, const void* k, const void* v, const void* qpos,
-                const void* kpos, void* out, int B, int Sq, int Skv, int Hq,
-                int Hkv, int Dk, int Dv, float scale, float softcap,
-                int causal, int window, cudaStream_t stream) {
-  if (Sq <= 16)
-    return dispatch_dv<T, 16>(q, k, v, qpos, kpos, out, B, Sq, Skv, Hq, Hkv,
-                              Dk, Dv, scale, softcap, causal, window, stream);
-  return dispatch_dv<T, 64>(q, k, v, qpos, kpos, out, B, Sq, Skv, Hq, Hkv, Dk,
-                            Dv, scale, softcap, causal, window, stream);
+int launch_decode(const void* q, const void* k, const void* v,
+                  const void* qpos, const void* kpos, void* out, float* part,
+                  int B, int Sq, int Skv, int Hq, int Hkv, int D, float scale,
+                  float softcap, int causal, int window, cudaStream_t s) {
+  if (D == 64)
+    return flash::decode_split::launch<T, 64>(q, k, v, qpos, kpos, out, part,
+                                              B, Sq, Skv, Hq, Hkv, scale,
+                                              softcap, causal, window, s);
+  return flash::decode_split::launch<T, 128>(q, k, v, qpos, kpos, out, part,
+                                             B, Sq, Skv, Hq, Hkv, scale,
+                                             softcap, causal, window, s);
 }
 
 }  // namespace
 
+// The variant the launcher takes for these arguments (0 simt, 1 prefill_tc,
+// 2 decode_split), and the fp32 scratch it needs (0 but for decode_split).
+extern "C" int flash_attention_variant(int dtype, int B, int Sq, int Skv,
+                                       int Hq, int Hkv, int Dk, int Dv,
+                                       long long* scratch_floats) {
+  const int var = choose_variant(dtype, Sq, Hq, Hkv, Dk, Dv);
+  *scratch_floats = var == kDecodeSplit
+      ? flash::decode_split::scratch_floats(B, Hkv, Skv, Sq * (Hq / Hkv), Dv)
+      : 0;
+  return var;
+}
+
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it).
 // window <= 0: no sliding window.  softcap <= 0: no softcap.
+// scratch: fp32, at least flash_attention_variant's scratch_floats.
+// *chosen receives the variant launched.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, const void* qpos,
                                       const void* kpos, void* out, int dtype,
                                       int B, int Sq, int Skv, int Hq, int Hkv,
                                       int Dk, int Dv, float scale,
                                       float softcap, int causal, int window,
+                                      void* scratch,
+                                      long long scratch_floats, int* chosen,
                                       void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Dk <= 0 ||
-      Dk > 256 || Dv <= 0 || Dv > 256)
+      Dk > 256 || Dv <= 0 || Dv > 256 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int var = choose_variant(dtype, Sq, Hq, Hkv, Dk, Dv);
+  *chosen = var;
+  if (var != kSimt &&
+      !(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out)))
+    return (int)cudaErrorMisalignedAddress;
+  if (var == kPrefillTc) {
+    if (Dk == 64)
+      return flash::prefill_tc::launch<64>(q, k, v, qpos, kpos, out, B, Sq,
+                                           Skv, Hq, Hkv, scale, softcap,
+                                           causal, window, s);
+    return flash::prefill_tc::launch<128>(q, k, v, qpos, kpos, out, B, Sq,
+                                          Skv, Hq, Hkv, scale, softcap, causal,
+                                          window, s);
+  }
+  if (var == kDecodeSplit) {
+    const long long need = flash::decode_split::scratch_floats(
+        B, Hkv, Skv, Sq * (Hq / Hkv), Dv);
+    if (scratch == nullptr || scratch_floats < need)
+      return (int)cudaErrorInvalidValue;
+    float* part = static_cast<float*>(scratch);
+    if (dtype == 0)
+      return launch_decode<float>(q, k, v, qpos, kpos, out, part, B, Sq, Skv,
+                                  Hq, Hkv, Dk, scale, softcap, causal, window,
+                                  s);
+    return launch_decode<__nv_bfloat16>(q, k, v, qpos, kpos, out, part, B, Sq,
+                                        Skv, Hq, Hkv, Dk, scale, softcap,
+                                        causal, window, s);
+  }
   if (dtype == 0)
-    return dispatch_bq<float>(q, k, v, qpos, kpos, out, B, Sq, Skv, Hq, Hkv,
-                              Dk, Dv, scale, softcap, causal, window, s);
-  if (dtype == 1)
-    return dispatch_bq<__nv_bfloat16>(q, k, v, qpos, kpos, out, B, Sq, Skv,
-                                      Hq, Hkv, Dk, Dv, scale, softcap, causal,
-                                      window, s);
-  return (int)cudaErrorInvalidValue;
+    return flash::simt::dispatch_bq<float>(q, k, v, qpos, kpos, out, B, Sq,
+                                           Skv, Hq, Hkv, Dk, Dv, scale,
+                                           softcap, causal, window, s);
+  return flash::simt::dispatch_bq<__nv_bfloat16>(q, k, v, qpos, kpos, out, B,
+                                                 Sq, Skv, Hq, Hkv, Dk, Dv,
+                                                 scale, softcap, causal,
+                                                 window, s);
 }

@@ -1,17 +1,33 @@
-"""Online-softmax GQA attention — the hand-written Hopper kernel and its wrapper.
+"""Online-softmax GQA attention — the hand-written Hopper kernels and their wrapper.
 
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
-(``flash_attention`` / ``_flash_kernel``).  The CUDA source is
-``csrc/flash_attention.cu``: one block per (batch, q head, q tile) with the
-kv sweep as a loop inside the block, fp32 running max, normaliser and
-accumulator, k/v tiles staged in shared memory, and kv tiles that the
-positions hide entirely skipped.  It is bound by operations at prefill and
-by bytes at decode; this first version runs on the fp32 CUDA cores.
+(``flash_attention`` / ``_flash_kernel``).  The CUDA sources are
+``csrc/flash_attention.cu`` (the launcher and the design notes) and its
+headers; the launcher picks one of three variants from the dtype and the
+shapes alone, and :func:`variant` is its twin here:
 
-Semantics follow the Pallas kernel: masking by position (causal, sliding
-window, kv positions >= 2^29 are padding), the finite ``NEG_INF``, tanh
-softcap, explicit scale, Dk and Dv independent (each at most 256), and the
-``l == 0`` guard.  The plain version is
+- ``prefill_tc`` — bf16, Dk = Dv in {64, 128}, more than 64 query rows per
+  kv head (Sq x group).  Bound by operations.  Q and 128-key K/V tiles
+  arrive by TMA into a shared-memory ring fed by a producer warp; two
+  consumer warpgroups run Q.K^T and P.V on ``wgmma`` (bf16 tensor cores,
+  fp32 accumulators), the softmax in fp32 on the accumulator fragment,
+  and skip the kv tiles the positions hide.  P.V runs twice, on P's bf16 high
+  and low parts, which keeps ~16 bits of P at 1.5x the operations: a single
+  bf16 P misses the two-ulp output limit in early causal rows.
+- ``decode_split`` — f32 or bf16, Dk = Dv in {64, 128}, at most 64 query
+  rows per kv head (glm4-9b decode: 1 x 16).  Bound by bytes.  The group's
+  q heads are the rows of one tile, so each K/V byte is read once per kv
+  head, and the kv sweep is split across blocks (:func:`decode_splits`);
+  fp32 partials go to a scratch this wrapper allocates and a second kernel
+  merges them.
+- ``simt`` — everything else (f32 prefill, other head dims, Dk != Dv): one
+  block per (batch, q head, q tile) on the fp32 CUDA cores.
+
+Semantics follow the Pallas kernel in every variant: masking by position
+(causal, sliding window, kv positions >= 2^29 are padding), the finite
+``NEG_INF``, tanh softcap, explicit scale, GQA by index, Dk and Dv each at
+most 256, and the ``l == 0`` guard.  Every variant computes in fp32 and
+rounds the output once.  The plain version is
 :func:`repro_torch.kernels.ref.sdpa_ref`; the two agree on every query row
 that sees at least one key.
 
@@ -29,15 +45,52 @@ from .nvcc import CudaLibrary, check_launch
 LIB = CudaLibrary("flash_attention", {
     "flash_attention_launch": (
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
-        + [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+        + [ctypes.c_float] * 2 + [ctypes.c_int] * 2
+        + [ctypes.c_void_p, ctypes.c_longlong,
+           ctypes.POINTER(ctypes.c_int), ctypes.c_void_p],
+        ctypes.c_int),
+    "flash_attention_variant": (
+        [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_longlong)],
         ctypes.c_int),
 })
 MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the launcher's variant codes, in order
+VARIANTS = ("simt", "prefill_tc", "decode_split")
+DECODE_MAX_ROWS = 64        # Sq x group served by decode_split
+_TARGET_BLOCKS = 264        # decode_split: two waves of 132 SMs
+_MIN_SPLIT_KEYS = 64
 
-# kernel launches since the count was last reset (a plain integer: the
-# wrapper adds one where it launches, nowhere else)
+# kernel launches since the count was last reset (plain integers: the
+# wrapper adds one where it launches, nowhere else), in all and by variant
 launches = 0
+variant_launches = {name: 0 for name in VARIANTS}
+
+
+def variant(dtype: torch.dtype, sq: int, hq: int, hkv: int, dk: int,
+            dv: int) -> str:
+    """The variant the launcher takes for these shapes (its twin)."""
+    tc_dims = dk == dv and dk in (64, 128)
+    if tc_dims and sq * (hq // hkv) <= DECODE_MAX_ROWS:
+        return "decode_split"
+    if tc_dims and dtype == torch.bfloat16:
+        return "prefill_tc"
+    return "simt"
+
+
+def decode_splits(b: int, hkv: int, skv: int) -> int:
+    """decode_split's blocks along the kv sweep, from the shapes alone:
+    about two waves of the card's SMs, at least 64 keys a split."""
+    want = -(-_TARGET_BLOCKS // (b * hkv))
+    return max(1, min(want, skv // _MIN_SPLIT_KEYS))
+
+
+def decode_scratch_floats(b: int, hkv: int, skv: int, rows: int,
+                          dv: int) -> int:
+    """decode_split's fp32 scratch: an (m, l) pair per (b, kv head, split,
+    row), padded to 16 bytes, then those rows' ``dv`` accumulators."""
+    slots = b * hkv * decode_splits(b, hkv, skv) * rows
+    return -(-2 * slots // 4) * 4 + slots * dv
 
 
 def _check(name: str, t: torch.Tensor, ndim: int, device: torch.device,
@@ -63,8 +116,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``q``: ``[B, Sq, Hq, Dk]``, ``k``: ``[B, Skv, Hkv, Dk]``, ``v``:
     ``[B, Skv, Hkv, Dv]``, all float32 or all bfloat16; positions int32
     ``[B, Sq]`` / ``[B, Skv]``.  Every tensor contiguous, Hq a multiple of
-    Hkv, Dk and Dv at most 256.  Raises on anything else, on a failed build
-    and on a refused launch.
+    Hkv, Dk and Dv at most 256; q, k and v 16-byte aligned where the
+    variant is ``prefill_tc`` or ``decode_split``.  Raises on anything else,
+    on a failed build and on a refused launch.
     """
     global launches
     if q.device.type != "cuda":
@@ -98,8 +152,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"sliding_window must be >= 1, got {sliding_window}")
     if min(b, sq, skv, hq) < 1:
         raise ValueError("flash_attention needs B, Sq, Skv and Hq >= 1")
+    name = variant(q.dtype, sq, hq, hkv, dk, dv)
+    if name != "simt" and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"{name} needs q, k and v 16-byte aligned")
     out = torch.empty((b, sq, hq, dv), dtype=q.dtype, device=dev)
+    scratch = None
+    if name == "decode_split":
+        scratch = torch.empty(decode_scratch_floats(b, hkv, skv,
+                                                    sq * (hq // hkv), dv),
+                              dtype=torch.float32, device=dev)
     scale = float(scale) if scale is not None else dk ** -0.5
+    chosen = ctypes.c_int(-1)
     lib = LIB.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -107,7 +170,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), q_positions.data_ptr(),
             kv_positions.data_ptr(), out.data_ptr(), _DTYPES[q.dtype], b, sq,
             skv, hq, hkv, dk, dv, scale, float(logit_softcap), int(causal),
-            int(sliding_window or 0), stream)
+            int(sliding_window or 0),
+            None if scratch is None else scratch.data_ptr(),
+            0 if scratch is None else scratch.numel(), ctypes.byref(chosen),
+            stream)
     check_launch("flash_attention", err)
+    if VARIANTS[chosen.value] != name:
+        raise RuntimeError(f"flash_attention: the launcher took "
+                           f"{VARIANTS[chosen.value]}, variant() says {name}")
     launches += 1
+    variant_launches[name] += 1
     return out

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels: ``nvcc`` at first use, ``ctypes``.
 
-Each kernel is one ``csrc/*.cu`` file with a plain C interface.  A
-:class:`CudaLibrary` compiles it with ``nvcc`` for ``sm_90a`` into
-``build/<name>-<key>/lib<name>.so`` at the repository root, where the key
-hashes the source and the flags, so an unchanged kernel is built once per
-checkout.  ``ptxas -v`` output (registers, shared memory, spills) and the
+Each kernel is one ``csrc/*.cu`` file with a plain C interface, which may
+include ``csrc/*.cuh`` headers.  A :class:`CudaLibrary` compiles it with
+``nvcc`` for ``sm_90a`` into ``build/<name>-<key>/lib<name>.so`` at the
+repository root, where the key hashes the source, every header of
+``csrc/`` and the flags, so an unchanged kernel is built once per checkout
+and a changed header is never served from a stale build.  ``ptxas -v`` output (registers, shared memory, spills) and the
 ``nvcc`` wall seconds are kept in :attr:`CudaLibrary.info`.
 :func:`build_all` starts one ``nvcc`` per source at once and waits for all.
 
@@ -51,8 +52,11 @@ class CudaLibrary:
         self._lib: Optional[ctypes.CDLL] = None
 
     def target(self) -> Path:
-        key = hashlib.sha256(self.source.read_bytes()
-                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        digest = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(CSRC.glob("*.cuh")):
+            digest.update(header.name.encode() + header.read_bytes())
+        digest.update(" ".join(NVCC_FLAGS).encode())
+        key = digest.hexdigest()[:16]
         return BUILD_ROOT / f"{self.name}-{key}" / f"lib{self.name}.so"
 
     def _start(self) -> Optional[Tuple[subprocess.Popen, str, float]]:
@@ -82,7 +86,7 @@ class CudaLibrary:
         self.info.update(
             cached=False, nvcc_s=seconds,
             ptxas=[ln.strip() for ln in (out + err).splitlines()
-                   if "ptxas info" in ln or "spill" in ln])
+                   if "ptxas" in ln or "spill" in ln])
 
     def build(self) -> Path:
         """Compile into ``build/`` unless this exact build exists."""

@@ -99,26 +99,39 @@ def test_cuda_cluster_run_matches_cpu(cuda_device):
     assert out[0][0]["cert_batches"] > 0
 
 
-# (B, Sq, Skv, Hq, Hkv, Dk, Dv, causal, window, softcap, dtype): the
-# reference's test grid (tests/test_kernels.py), then glm4-9b's decode
-# shape (Sq = 1 against a 2080-slot ring) in both types
+# (B, Sq, Skv, Hq, Hkv, Dk, Dv, causal, window, softcap, dtype, valid): the
+# reference's test grid (tests/test_kernels.py), glm4-9b's decode shape
+# (Sq = 1 against a 2080-slot ring) in both types, then the edges of the
+# kernel's variants (flash_attention.variant): prefill_tc with a ragged
+# last tile, without a causal mask and with a window; decode_split at 64
+# rows (Sq 4 x group 16), with one valid key in row 0 (most splits see
+# nothing), and in f32 at D 64 with a window.  ``valid``: row 0's valid
+# length in a one-query case (None: drawn like the others).
 FLASH_GRID = [
-    (2, 128, 128, 4, 2, 32, 32, True, None, 0.0, "float32"),
-    (1, 100, 100, 4, 4, 16, 16, True, None, 0.0, "float32"),
-    (2, 128, 128, 4, 2, 32, 32, True, 40, 0.0, "float32"),
-    (2, 64, 192, 4, 2, 32, 32, True, None, 0.0, "float32"),
-    (2, 128, 128, 4, 4, 32, 32, False, None, 0.0, "float32"),
-    (2, 128, 128, 8, 2, 64, 64, True, None, 30.0, "bfloat16"),
-    (1, 256, 256, 2, 2, 192, 128, True, None, 0.0, "float32"),
-    (1, 72, 72, 2, 1, 24, 24, True, 16, 0.0, "float32"),
-    (4, 1, 2080, 32, 2, 128, 128, True, None, 0.0, "bfloat16"),
-    (4, 1, 2080, 32, 2, 128, 128, True, None, 0.0, "float32"),
+    (2, 128, 128, 4, 2, 32, 32, True, None, 0.0, "float32", None),
+    (1, 100, 100, 4, 4, 16, 16, True, None, 0.0, "float32", None),
+    (2, 128, 128, 4, 2, 32, 32, True, 40, 0.0, "float32", None),
+    (2, 64, 192, 4, 2, 32, 32, True, None, 0.0, "float32", None),
+    (2, 128, 128, 4, 4, 32, 32, False, None, 0.0, "float32", None),
+    (2, 128, 128, 8, 2, 64, 64, True, None, 30.0, "bfloat16", None),
+    (1, 256, 256, 2, 2, 192, 128, True, None, 0.0, "float32", None),
+    (1, 72, 72, 2, 1, 24, 24, True, 16, 0.0, "float32", None),
+    (4, 1, 2080, 32, 2, 128, 128, True, None, 0.0, "bfloat16", None),
+    (4, 1, 2080, 32, 2, 128, 128, True, None, 0.0, "float32", None),
+    (1, 200, 200, 4, 2, 128, 128, True, None, 0.0, "bfloat16", None),
+    (1, 256, 256, 4, 2, 128, 128, False, None, 0.0, "bfloat16", None),
+    (1, 256, 256, 4, 2, 128, 128, True, 64, 0.0, "bfloat16", None),
+    (2, 4, 2080, 32, 2, 128, 128, True, None, 0.0, "bfloat16", None),
+    (4, 1, 2080, 32, 2, 128, 128, True, None, 0.0, "bfloat16", 1),
+    (2, 1, 1000, 8, 1, 64, 64, True, 128, 0.0, "float32", None),
 ]
 
 
-def _flash_inputs(seed, b, sq, skv, hq, hkv, dk, dv, dtype, device):
+def _flash_inputs(seed, b, sq, skv, hq, hkv, dk, dv, dtype, device,
+                  valid0=None):
     """Grid inputs; a one-query case gets per-row valid lengths with the
-    ring's unwritten tail at position 2^30, as decode builds it."""
+    ring's unwritten tail at position 2^30, as decode builds it (row 0's
+    length ``valid0`` when given)."""
     rng = np.random.default_rng(seed)
     q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
                .to(device=device, dtype=getattr(torch, dtype))
@@ -127,6 +140,8 @@ def _flash_inputs(seed, b, sq, skv, hq, hkv, dk, dv, dtype, device):
     kp = np.broadcast_to(np.arange(skv, dtype=np.int32), (b, skv)).copy()
     if sq == 1:
         valid = rng.integers(skv // 2, skv + 1, b)
+        if valid0 is not None:
+            valid[0] = valid0
         qp = (valid - 1).astype(np.int32)[:, None]
         kp[kp >= valid[:, None]] = 2 ** 30
     else:
@@ -137,23 +152,28 @@ def _flash_inputs(seed, b, sq, skv, hq, hkv, dk, dv, dtype, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,sq,skv,hq,hkv,dk,dv,causal,window,cap,dtype",
-                         FLASH_GRID)
+@pytest.mark.parametrize(
+    "b,sq,skv,hq,hkv,dk,dv,causal,window,cap,dtype,valid", FLASH_GRID)
 def test_cuda_flash_attention_matches_plain(cuda_device, b, sq, skv, hq, hkv,
                                             dk, dv, causal, window, cap,
-                                            dtype):
+                                            dtype, valid):
     q, k, v, qp, kp = _flash_inputs(sq + skv, b, sq, skv, hq, hkv, dk, dv,
-                                    dtype, cuda_device)
+                                    dtype, cuda_device, valid)
     kw = dict(q_positions=qp, kv_positions=kp, causal=causal,
               sliding_window=window, logit_softcap=cap)
-    before = fa.launches
+    name = fa.variant(q.dtype, sq, hq, hkv, dk, dv)
+    before, by_variant = fa.launches, dict(fa.variant_launches)
     got = ops.attention(q, k, v, **kw)
     torch.cuda.synchronize()
     assert fa.launches == before + 1
+    by_variant[name] += 1
+    assert fa.variant_launches == by_variant
     want = ref.sdpa_ref(q, k, v, **kw)
     assert got.dtype == q.dtype and got.shape == (b, sq, hq, dv)
-    # bf16: both sides compute in fp32 from the same bf16 inputs and round
-    # once, so they differ by at most two bf16 ulps (2^-6 of the value)
+    # bf16 (two bf16 ulps, 2^-6 of the value, plus 1e-3): every variant
+    # computes in fp32 from the same bf16 inputs and rounds the output
+    # once; prefill_tc's P.V takes P as bf16 hi + lo parts (~16 bits),
+    # decode_split and simt stay in fp32 throughout
     atol, rtol = (1e-3, 1.6e-2) if dtype == "bfloat16" else (2e-5, 2e-5)
     torch.testing.assert_close(got.float(), want.float(), atol=atol,
                                rtol=rtol)
@@ -232,6 +252,50 @@ def test_cuda_new_wrappers_reject_bad_inputs(cuda_device):
     with pytest.raises(ValueError, match="n_groups"):
         ss.ssd_scan(x, dt, a, bm.expand(1, 64, 2, 8).contiguous(), cm,
                     chunk=32, h0=h0)
+
+
+# (dtype, B, Sq, Skv, Hq, Hkv, Dk, Dv): glm4-9b prefill and decode, the
+# rows-per-kv-head edge (64 / 65), a head dim no fast variant takes,
+# Dk != Dv, and f32 on both sides of the edge
+VARIANT_EDGES = [
+    (torch.bfloat16, 4, 2048, 2048, 32, 2, 128, 128),
+    (torch.bfloat16, 4, 1, 2080, 32, 2, 128, 128),
+    (torch.bfloat16, 2, 4, 2080, 32, 2, 128, 128),
+    (torch.bfloat16, 1, 65, 65, 2, 2, 64, 64),
+    (torch.bfloat16, 1, 128, 128, 2, 2, 96, 96),
+    (torch.bfloat16, 1, 1, 512, 16, 1, 192, 128),
+    (torch.float32, 1, 1, 512, 16, 1, 64, 64),
+    (torch.float32, 1, 65, 65, 2, 2, 64, 64),
+]
+
+
+@pytest.mark.cuda
+def test_cuda_flash_launcher_routes_like_variant(cuda_device):
+    """The C launcher's choice and decode_split's scratch size agree with
+    the wrapper's variant() and decode_splits()."""
+    import ctypes
+
+    lib = fa.LIB.load()
+    for dtype, b, sq, skv, hq, hkv, dk, dv in VARIANT_EDGES:
+        floats = ctypes.c_longlong(-1)
+        code = lib.flash_attention_variant(fa._DTYPES[dtype], b, sq, skv, hq,
+                                           hkv, dk, dv, ctypes.byref(floats))
+        name = fa.variant(dtype, sq, hq, hkv, dk, dv)
+        assert fa.VARIANTS[code] == name
+        want = (fa.decode_scratch_floats(b, hkv, skv, sq * (hq // hkv), dv)
+                if name == "decode_split" else 0)
+        assert floats.value == want
+
+
+@pytest.mark.cuda
+def test_cuda_flash_fast_variants_refuse_misaligned_tensors(cuda_device):
+    q, k, v, qp, kp = _flash_inputs(5, 1, 256, 256, 4, 2, 128, 128,
+                                    "bfloat16", cuda_device)
+    shifted = torch.empty(q.numel() + 1, dtype=q.dtype,
+                          device=cuda_device)[1:].view(q.shape)
+    shifted.copy_(q)
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention(shifted, k, v, q_positions=qp, kv_positions=kp)
 
 
 @pytest.mark.cuda

@@ -1,0 +1,95 @@
+"""The flash kernel's routing, pinned on the CPU.
+
+``flash_attention.variant`` is the Python twin of the C launcher's choice
+among ``prefill_tc``, ``decode_split`` and ``simt`` (the launcher reports
+its choice and the wrapper checks the two agree on the card;
+``tests/test_torch_cuda.py`` holds the C side to it).  These tests need no
+card: they pin the choice for glm4-9b's shapes, for every row of the card
+tests' ``FLASH_GRID`` and at the edges of each variant.
+"""
+import pytest
+import torch
+
+from repro_torch.kernels import flash_attention as fa
+from test_torch_cuda import FLASH_GRID
+
+BF16, F32 = torch.bfloat16, torch.float32
+
+# (dtype, Sq, Hq, Hkv, Dk, Dv) -> variant
+EDGES = [
+    ((BF16, 2048, 32, 2, 128, 128), "prefill_tc"),     # glm4-9b prefill
+    ((BF16, 1, 32, 2, 128, 128), "decode_split"),      # glm4-9b decode
+    ((BF16, 4, 32, 2, 128, 128), "decode_split"),      # 64 rows a kv head
+    ((BF16, 65, 1, 1, 128, 128), "prefill_tc"),        # 65 rows
+    ((BF16, 64, 2, 2, 64, 64), "decode_split"),        # 64 rows, D 64
+    ((BF16, 65, 2, 2, 64, 64), "prefill_tc"),          # 65 rows, D 64
+    ((BF16, 5, 32, 2, 128, 128), "prefill_tc"),        # 5 x 16 = 80 rows
+    ((BF16, 128, 2, 2, 96, 96), "simt"),               # D 96
+    ((BF16, 1, 16, 1, 96, 96), "simt"),                # D 96 at decode
+    ((BF16, 256, 2, 2, 192, 128), "simt"),             # Dk != Dv (MLA)
+    ((BF16, 1, 16, 1, 192, 128), "simt"),              # Dk != Dv at decode
+    ((BF16, 256, 4, 2, 128, 64), "simt"),              # Dk != Dv, both fast
+    ((F32, 2048, 32, 2, 128, 128), "simt"),            # f32 prefill
+    ((F32, 1, 32, 2, 128, 128), "decode_split"),       # f32 decode
+    ((F32, 65, 1, 1, 64, 64), "simt"),                 # f32, 65 rows
+    ((F32, 64, 1, 1, 64, 64), "decode_split"),         # f32, 64 rows
+]
+
+# FLASH_GRID row -> variant, in the grid's order
+GRID_VARIANTS = [
+    "simt", "simt", "simt", "simt", "simt",
+    "prefill_tc",                                  # bf16 softcap, D 64
+    "simt", "simt",
+    "decode_split", "decode_split",                # glm4-9b decode
+    "prefill_tc", "prefill_tc", "prefill_tc",      # ragged, non-causal, window
+    "decode_split", "decode_split", "decode_split",
+]
+
+
+@pytest.mark.parametrize("shape,want", EDGES)
+def test_variant_at_the_edges(shape, want):
+    assert fa.variant(*shape) == want
+
+
+@pytest.mark.parametrize("row,want", list(zip(FLASH_GRID, GRID_VARIANTS)))
+def test_variant_of_every_card_grid_row(row, want):
+    b, sq, skv, hq, hkv, dk, dv, causal, window, cap, dtype, valid = row
+    assert len(GRID_VARIANTS) == len(FLASH_GRID)
+    assert fa.variant(getattr(torch, dtype), sq, hq, hkv, dk, dv) == want
+
+
+@pytest.mark.parametrize("b,hkv,skv,want", [
+    (4, 2, 2080, 32),       # glm4-9b decode: min(ceil(264 / 8), 2080 // 64)
+    (2, 2, 2080, 32),       # min(66, 32)
+    (8, 8, 4096, 5),        # min(ceil(264 / 64), 64)
+    (1, 1, 100, 1),         # one split of at least 64 keys
+    (1, 1, 63, 1),          # fewer keys than a split: still one
+    (300, 1, 8192, 1),      # more (b, kv head) pairs than blocks wanted
+])
+def test_decode_splits_from_the_shapes(b, hkv, skv, want):
+    assert fa.decode_splits(b, hkv, skv) == want
+
+
+@pytest.mark.parametrize("b,hkv,skv,rows,dv,want", [
+    # glm4-9b decode: 4 x 2 x 32 splits x 16 rows = 4096 slots
+    (4, 2, 2080, 16, 128, 2 * 4096 + 4096 * 128),
+    # 3 slots: the (m, l) pairs padded from 6 to 8 floats (16 bytes)
+    (1, 1, 64, 3, 64, 8 + 3 * 64),
+])
+def test_decode_scratch_size(b, hkv, skv, rows, dv, want):
+    assert fa.decode_scratch_floats(b, hkv, skv, rows, dv) == want
+
+
+def test_cpu_attention_leaves_the_counts_alone():
+    """On CPU tensors ops.attention takes the plain version: no variant
+    count moves."""
+    from repro_torch.kernels import ops
+
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(1, 4, 4, 64, generator=g)
+    k = torch.randn(1, 4, 2, 64, generator=g)
+    pos = torch.arange(4, dtype=torch.int32)[None]
+    before = (fa.launches, dict(fa.variant_launches))
+    ops.attention(q, k, k, q_positions=pos, kv_positions=pos)
+    assert (fa.launches, fa.variant_launches) == before
+    assert set(fa.variant_launches) == set(fa.VARIANTS)
