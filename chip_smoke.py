@@ -50,13 +50,20 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             ``library_ms``: ``scaled_dot_product_attention`` with
             ``enable_gqa=True`` at the same shape, a yardstick the port
             never calls (null for softcap, which it cannot compute).
-7. kernel_ssd — the SSD kernel against ``ref.ssd_ref``: mamba2-780m's
+7. kernel_ssd — the SSD kernel against ``ref.ssd_ref``, each case
+            printing the variant that ran (``tc`` or ``simt``, which the
+            launcher picks from the dtype and shapes): mamba2-780m's
             prefill shape (B = 4, S = 2048, H = 48, P = 64, N = 128,
             chunk = 256, bf16, nonzero h0), the reference's grid and an
-            odd head count (H = 5, one head per block) in f32 and bf16; y
-            within 2e-5 of max|y| (1e-2 in bf16), the state at atol 2e-3 /
-            rtol 1e-4; the same fields, ``library_ms`` null (no PyTorch call computes the
-            scan).
+            odd head count (H = 5, P = 32, chunk 32) in f32 and bf16
+            (``simt``), and tc's edges in bf16 (H 5, no h0, a ragged S,
+            chunks 64 and 128, N 64, B x H below 132); y within 2e-5 of
+            max|y| (1e-2 in bf16), the state at atol 2e-3 / rtol 1e-4; the
+            same fields, ``library_ms`` null (no PyTorch call computes the
+            scan), and for ``tc`` ``floor_ms``, the least time of this
+            design's own traffic and tensor work.  Then tc's two kernels
+            one at a time at mamba2-780m's shape against ``ref.ssd_states``
+            and ``ref.ssd_outputs`` (``kernel_ssd_phases``).
 8. glm4   — glm4-9b at full width and depth (40 layers, d_model 4096,
             bf16 weights from a seeded ``torch.Generator``): prefill 4 x
             2048 tokens, move the cache into a 2080-slot ring, 16
@@ -70,7 +77,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             more prefill and one more decode step with the kernels gives
             device busy time and the largest device ops.
 9. mamba2 — the same for mamba2-780m (48 layers, d_model 1536); ssd
-            launches must be 48 (one per layer, at prefill).
+            launches must be 48 (one per layer, at prefill), all ``tc``.
 10. held  — both models at full width and 2 layers, 64-token prompt and 4
             decode steps, on ``cuda`` and on ``cpu`` through the port, the
             same bf16 weights: logits within 6e-2 (atol and rtol, the CPU
@@ -78,7 +85,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             what the tests hold to JAX, so this ties the card to it.
 
 The last three lines are the ``nvidia-smi`` line, the kernels record (one
-entry per flash variant), and ``{"ok": true, "device": {...}}``.
+entry per flash variant and per SSD variant), and ``{"ok": true,
+"device": {...}}``.
 """
 from __future__ import annotations
 
@@ -461,14 +469,11 @@ def kernel_flash_phase() -> list:
     return cases
 
 
-def ssd_case(name: str, b, s, h, p, n, chunk, *, dtype="float32",
-             seed=0) -> dict:
+def ssd_inputs(b, s, h, p, n, dtype, seed, with_h0=True) -> tuple:
+    """x, dt (softplus'd), a, B, C and h0 (or None) on the card, seeded;
+    x, B and C in ``dtype``."""
     import torch
 
-    from repro_torch.kernels import ops, ref
-    from repro_torch.kernels import ssd_scan as ss
-
-    t_start = time.perf_counter()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     td = getattr(torch, dtype)
@@ -478,12 +483,34 @@ def ssd_case(name: str, b, s, h, p, n, chunk, *, dtype="float32",
     a = -torch.exp(rnd(h) * 0.3)
     bm = (rnd(b, s, 1, n) * 0.4).to(td)
     cm = (rnd(b, s, 1, n) * 0.4).to(td)
-    h0 = rnd(b, h, p, n) * 0.1
-    before = ss.launches
+    h0 = rnd(b, h, p, n) * 0.1 if with_h0 else None
+    return x, dt, a, bm, cm, h0
+
+
+def ssd_case(name: str, b, s, h, p, n, chunk, *, dtype="float32",
+             with_h0=True, seed=0) -> dict:
+    """One shape through ``ops.ssd`` on the card (S padded to a multiple
+    of the chunk there), held to ``ref.ssd_ref`` on the padded inputs."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ssd_scan as ss
+
+    t_start = time.perf_counter()
+    td = getattr(torch, dtype)
+    x, dt, a, bm, cm, h0 = ssd_inputs(b, s, h, p, n, dtype, seed, with_h0)
+    variant = ss.variant(td, p, n, chunk)
+    before, by_variant = ss.launches, dict(ss.variant_launches)
     y, f = ops.ssd(x, dt, a, bm, cm, chunk=chunk, h0=h0)
     torch.cuda.synchronize()
-    check(ss.launches == before + 1, f"{name}: SSD kernel did not launch")
-    y_r, f_r = ref.ssd_ref(x, dt, a, bm, cm, chunk=chunk, h0=h0)
+    by_variant[variant] += 1
+    check(ss.launches == before + 1 and ss.variant_launches == by_variant,
+          f"{name}: SSD kernel variant {variant} did not launch")
+    pad = (-s) % chunk
+    y_r, f_r = ref.ssd_ref(*(ref.pad_seq(t, pad) for t in (x, dt)), a,
+                           *(ref.pad_seq(t, pad) for t in (bm, cm)),
+                           chunk=chunk, h0=h0)
+    y_r = y_r[:, :s]
     check(bool(torch.isfinite(y).all() and torch.isfinite(f).all()),
           f"{name}: non-finite output")
     err_y = float((y.float() - y_r).abs().max())
@@ -497,21 +524,75 @@ def ssd_case(name: str, b, s, h, p, n, chunk, *, dtype="float32",
     ms, g_ms, _ = timings(lambda: ops.ssd(x, dt, a, bm, cm, chunk=chunk,
                                           h0=h0))
     plain_ms, plain_g_ms, _ = timings(
-        lambda: ref.ssd_ref(x, dt, a, bm, cm, chunk=chunk, h0=h0))
-    nc, tri = s // chunk, chunk * (chunk + 1) / 2
+        lambda: ops.ssd(x, dt, a, bm, cm, chunk=chunk, h0=h0, plain=True))
+    sp = s + pad
+    nc, tri = sp // chunk, chunk * (chunk + 1) / 2
     per_head = 2 * tri * p + 4 * chunk * p * n + 3 * tri
     flops = b * nc * (2 * tri * n + h * per_head)   # C.B^T once per chunk
-    n_bytes = (2 * x.numel() + bm.numel() + cm.numel()) * x.element_size() \
-        + 4 * (dt.numel() + a.numel() + 2 * h0.numel())
+    el = x.element_size()
+    n_bytes = (2 * x.numel() + bm.numel() + cm.numel()) * el \
+        + 4 * (dt.numel() + a.numel() + (2 if with_h0 else 1) * b * h * p * n)
     bms, by = op_bound(flops, n_bytes, BF16_FLOPS_PER_S
                        if dtype == "bfloat16" else SCALAR_OPS_PER_S)
-    out = dict(case=name, B=b, S=s, H=h, P=p, N=n, chunk=chunk, dtype=dtype,
-               max_abs_err=err, max_abs_err_y=err_y, ms=ms, graph_ms=g_ms,
-               plain_ms=plain_ms, plain_graph_ms=plain_g_ms, bound_ms=bms,
-               bound_by=by, library_ms=None,
+    floor = {}
+    if variant == "tc":
+        # this design's own work: ssd_state reads x and B and writes the
+        # entering states and dacum / dt; ssd_chunk_scan reads them with
+        # x, B and C again; the state product runs twice (x hi + lo), and
+        # C.B^T is formed per 64 x 64 tile up to the diagonal
+        strips = chunk // 64
+        tiles = strips * (strips + 1) // 2
+        n_hg = -(-h // 8)
+        tc_flops = b * nc * (h * (2 * 2 * chunk * p * n + 2 * chunk * p * n
+                                  + tiles * 2 * 64 * 64 * p)
+                             + n_hg * tiles * 2 * 64 * 64 * n)
+        states = b * nc * h * p * n * 2 + b * nc * h * 2 * chunk * 4
+        tc_bytes = n_bytes + (x.numel() + bm.numel()) * el + 2 * states
+        fms, fby = op_bound(tc_flops, tc_bytes, BF16_FLOPS_PER_S)
+        floor = dict(floor_ms=fms, floor_by=fby)
+    out = dict(case=name, variant=variant, B=b, S=s, H=h, P=p, N=n,
+               chunk=chunk, dtype=dtype, h0=with_h0, max_abs_err=err,
+               max_abs_err_y=err_y, max_abs_y=float(y_r.abs().max()), ms=ms,
+               graph_ms=g_ms, plain_ms=plain_ms, plain_graph_ms=plain_g_ms,
+               bound_ms=bms, bound_by=by, **floor, library_ms=None,
                wall_s=time.perf_counter() - t_start)
     emit("kernel_ssd", **out)
     return out
+
+
+def ssd_phase_case(b=4, s=2048, h=48, n=128, chunk=256, seed=0) -> None:
+    """tc's two kernels one at a time against their plain phases: the
+    entering states within one bf16 rounding (rtol 2^-8) over the final
+    state's atol 2e-3, the final state at atol 2e-3 / rtol 1e-4, y from
+    the kernel's states within 1e-2 of max|y|."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as ss
+
+    x, dt, a, bm, cm, h0 = ssd_inputs(b, s, h, 64, n, "bfloat16", seed)
+    states, meta, final = ss.tc_states(x, dt, a, bm, chunk=chunk, h0=h0)
+    y = ss.tc_outputs(x, bm, cm, states, meta, chunk=chunk)
+    torch.cuda.synchronize()
+    prev, final_r = ref.ssd_states(x, dt, a, bm, chunk, h0=h0)
+    y_r = ref.ssd_outputs(x, dt, a, bm, cm, chunk, states.float())
+    err_states = float((states.float() - prev).abs().max())
+    err_final = float((final - final_r).abs().max())
+    err_y = float((y.float() - y_r).abs().max()) / float(y_r.abs().max())
+    check(torch.allclose(states.float(), prev, atol=2e-3, rtol=2 ** -8),
+          f"ssd_state: entering states differ from ref.ssd_states "
+          f"({err_states})")
+    check(torch.allclose(final, final_r, atol=2e-3, rtol=1e-4),
+          f"ssd_state: final state differs from ref.ssd_states ({err_final})")
+    check(err_y < 1e-2, f"ssd_chunk_scan: y differs from ref.ssd_outputs "
+          f"({err_y} of max|y|)")
+    emit("kernel_ssd_phases", B=b, S=s, H=h, N=n, chunk=chunk,
+         max_abs_err_states=err_states, max_abs_err_final=err_final,
+         rel_err_y=err_y,
+         state_graph_ms=graph_ms(lambda: ss.tc_states(
+             x, dt, a, bm, chunk=chunk, h0=h0), launches=20, replays=3),
+         chunk_scan_graph_ms=graph_ms(lambda: ss.tc_outputs(
+             x, bm, cm, states, meta, chunk=chunk), launches=20, replays=3))
 
 
 def kernel_ssd_phase() -> list:
@@ -526,6 +607,19 @@ def kernel_ssd_phase() -> list:
     for dtype in ("float32", "bfloat16"):   # odd H: one head per block
         cases.append(ssd_case(f"odd_heads_{dtype}", 1, 128, 5, 32, 64, 32,
                               dtype=dtype, seed=9))
+    # the edges of tc (tests/test_torch_cuda.py SSD_GRID)
+    bf = dict(dtype="bfloat16")
+    cases += [
+        ssd_case("tc_h5", 1, 512, 5, 64, 128, 256, seed=20, **bf),
+        ssd_case("tc_no_h0", 2, 512, 8, 64, 128, 256, with_h0=False,
+                 seed=21, **bf),
+        ssd_case("tc_ragged", 1, 300, 4, 64, 128, 128, seed=22, **bf),
+        ssd_case("tc_chunk64", 2, 256, 6, 64, 128, 64, seed=23, **bf),
+        ssd_case("tc_chunk128", 1, 512, 6, 64, 128, 128, seed=24, **bf),
+        ssd_case("tc_n64", 2, 512, 4, 64, 64, 256, seed=25, **bf),
+        ssd_case("tc_b1", 1, 2048, 48, 64, 128, 256, seed=26, **bf),
+    ]
+    ssd_phase_case()
     return cases
 
 
@@ -557,6 +651,24 @@ def flash_records(cases: list, launches: dict) -> list:
             f"flash_attention.{variant}",
             f"src/repro_torch/kernels/csrc/flash_{variant}.cuh",
             "src/repro/kernels/flash_attention.py:90", launches[variant],
+            first + [c for c in mine if c["case"] != head]))
+    return out
+
+
+def ssd_records(cases: list, launches: dict) -> list:
+    """One entry per SSD variant, timed at its case on the main path
+    (mamba2-780m prefill; simt, which the main path does not reach, at
+    the reference grid's first case, f32)."""
+    heads = {"tc": "mamba2_prefill", "simt": "grid0"}
+    out = []
+    for variant, head in heads.items():
+        mine = [c for c in cases if c["variant"] == variant]
+        first = [c for c in mine if c["case"] == head]
+        check(len(first) == 1, f"ssd case {head} did not run {variant}")
+        out.append(kernel_record(
+            f"ssd_scan.{variant}",
+            f"src/repro_torch/kernels/csrc/ssd_{variant}.cuh",
+            "src/repro/kernels/ssd_scan.py:76", launches[f"ssd_{variant}"],
             first + [c for c in mine if c["case"] != head]))
     return out
 
@@ -606,7 +718,9 @@ def generate(cfg, ctx, params, prompt, step_tokens, ring_len: int) -> dict:
 def device_profile(fn) -> dict:
     """One call of ``fn`` under ``torch.profiler``: wall ms (inflated by
     the profiler's host work), device busy ms (the sum of the device ops'
-    times; null when the trace holds none) and the largest device ops."""
+    times; null when the trace holds none), the largest device ops, and
+    the device ms of this repo's kernels (names in the ``flash``,
+    ``ssd`` and ``lease`` namespaces or files), whatever their rank."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -622,9 +736,11 @@ def device_profile(fn) -> dict:
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA), key=lambda r: -r[1])
     busy = sum(r[1] for r in rows) if rows else None
+    ours = [dict(name=n[:90], ms=ms, calls=c) for n, ms, c in rows
+            if any(k in n for k in ("flash::", "ssd::", "lease"))]
     return dict(wall_ms=wall, device_busy_ms=busy,
                 top=[dict(name=n[:90], ms=ms, calls=c)
-                     for n, ms, c in rows[:5]])
+                     for n, ms, c in rows[:5]], repo_kernels=ours)
 
 
 def compare_logits(a: list, b: list) -> dict:
@@ -677,14 +793,18 @@ def model_phase(phase: str, arch: str, *, batch: int = 4, prompt: int = 2048,
         torch.cuda.reset_peak_memory_stats()
         fa.launches = ss.launches = lv.launches = 0    # just before the path
         fa.variant_launches.update(dict.fromkeys(fa.VARIANTS, 0))
+        ss.variant_launches.update(dict.fromkeys(ss.VARIANTS, 0))
         run = generate(cfg, ctx, params, toks, step_toks, ring)
+        # the SSD variants' keys carry a prefix: flash has a simt too
         counts = dict(flash=fa.launches, ssd=ss.launches, lease=lv.launches,
-                      **fa.variant_launches)
+                      **fa.variant_launches,
+                      **{f"ssd_{k}": v for k, v in ss.variant_launches.items()})
         want = (dict(flash=n_attn * (1 + steps), ssd=n_mamba, lease=0,
-                     prefill_tc=n_attn, decode_split=n_attn * steps, simt=0)
+                     prefill_tc=n_attn, decode_split=n_attn * steps, simt=0,
+                     ssd_tc=n_mamba, ssd_simt=0)
                 if use == "auto" else
                 dict(flash=0, ssd=0, lease=0, prefill_tc=0, decode_split=0,
-                     simt=0))
+                     simt=0, ssd_tc=0, ssd_simt=0))
         check(counts == want, f"{phase}/{use}: kernel launches {counts}, "
               f"expected {want}")
         for lg in run["logits"]:
@@ -872,10 +992,7 @@ def main() -> int:
         "bound_by": shape["bound_by"],
         "library_ms": None,
         "graph_ms": shape["graph_ms"],
-    }, *flash_records(flash_cases, glm4),
-        kernel_record("ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
-                      "src/repro/kernels/ssd_scan.py:76", mamba2["ssd"],
-                      ssd_cases[:1]),
+    }, *flash_records(flash_cases, glm4), *ssd_records(ssd_cases, mamba2),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}), flush=True)

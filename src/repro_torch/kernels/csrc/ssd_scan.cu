@@ -3,373 +3,204 @@
 // Replaces the Pallas TPU kernel repro/kernels/ssd_scan.py (ssd_scan /
 // _ssd_kernel).  That kernel walks a (B, head blocks, chunks) grid whose
 // innermost chunk axis runs in order on one core, carrying the [Hb, P, N]
-// fp32 state in VMEM scratch, and builds the whole [Hb, L, L] decay
-// matrix of a chunk in VMEM.  Here the chunk sweep is a loop inside one
-// block, and the state stays in shared memory from the first chunk to the
-// last; it is written to device memory once, at the end.
+// fp32 state in VMEM scratch, and builds the whole [Hb, L, L] decay matrix
+// of a chunk in VMEM.  Hopper's blocks run in parallel and in no order.
 //
 // For one head, chunk of length L starting at t0, dacum = cumsum(dt * a):
 //   y[i]   = exp(dacum[i]) * C[i] . state                      (carried)
 //          + sum_{j <= i} (C[i] . B[j]) exp(dacum[i] - dacum[j]) dt[j] x[j]
 //   state <- state * exp(dacum[L-1])
 //          + sum_j exp(dacum[L-1] - dacum[j]) dt[j] x[j] (x) B[j]
+// Only the state depends on the chunks before; the rest of a chunk's work
+// depends on its own rows and the state entering it.  This is the chunked
+// state-space-duality algorithm (Dao & Gu, arXiv:2405.21060, section 6).
 //
-// Design: one block of 256 threads per (batch, block of HB heads).  At
-// mamba2-780m's shapes (P = 64, N = 128, L = 256) the [L, L] decay matrix
-// of one head would take 256 KB in fp32, more than the 227 KB a block may
-// use, so the intra-chunk term is tiled: 64-row strips of the chunk, and
-// within a strip 64-column tiles up to the diagonal.  C . B^T is shared by
-// the heads of the block (n_groups == 1): each 64 x 64 tile of it is
-// computed once, in registers, and each head turns it into its masked,
-// decay-weighted tile W (decay computed on the fly from dacum), which
-// passes through shared memory into W . x.  Every product is a 4 x 4
-// register micro-tile fed by float4 reads of transposed tiles.  dacum is a
-// sequential fp32 cumsum per head, the order the reference's cumsum uses.
+// The launcher picks one of two variants from the dtype and the shapes
+// (choose_variant below; the Python wrapper's variant() is its twin):
 //
-// Shared memory at HB = 2, P = 64, N = 128, L = 256: state 68 KB, C strip
-// and B tile 34 KB each, x tiles 34 KB, W 17 KB, dt and dacum 4 KB: 191 KB,
-// one block per SM.
+// tc (ssd_tc.cuh): bf16 x / B / C, P = 64, N in {64, 128}, L a multiple of
+//   64 up to 256.  Two kernels, the products on wgmma (bf16 tensor cores,
+//   fp32 accumulators) fed by TMA (128-byte swizzle, mbarrier rings, a
+//   producer warp beside one consumer warpgroup):
+//   - ssd_state, one block per (b, head, 64 columns of N): the only
+//     serial part.  Its slice of the carried [P, N] state lives in the
+//     wgmma accumulator from h0 to the final state.  Per chunk a warp scan
+//     computes dacum; the block writes the slice entering the chunk (bf16,
+//     rounded once, by TMA store) and the chunk's dacum and dt (fp32) to
+//     scratch, decays the state by exp(dacum[L-1]) and adds (x *
+//     exp(dacum[L-1] - dacum) * dt)^T . B as SS wgmma m64n64k16 over
+//     64-row sub-tiles, both operands MN-major as TMA lands them.  The
+//     weighted x goes in as bf16 hi + lo parts, two passes: one bf16
+//     rounding of it misses the state's atol 2e-3 (its error grows with
+//     the carried state), hi + lo keeps ~16 bits.  Splitting N gives 384
+//     blocks at mamba2-780m, three an SM.
+//   - ssd_chunk_scan, one block per (b, chunk, 64-row strip, 16 heads),
+//     every chunk in parallel, longest strips first: C_strip . B^T per
+//     column tile up to the diagonal once for the heads (n_groups == 1),
+//     kept in registers; per head y = exp(dacum_i) * C_strip . state^T
+//     (SS wgmma, the bf16 entering state K-major) + W . x over those tiles
+//     (register-A wgmma, x MN-major), W = C.B^T * exp(dacum_i - dacum_j) *
+//     dt_j masked to j <= i, formed in fp32 on the accumulator fragment
+//     and rounded once to bf16.  The exp is the SFU's ex2 on log2-scaled
+//     dacum, each column's dacum and dt read once: with the library expf
+//     per element, forming W took two thirds of the kernel.  y is rounded
+//     once and leaves by TMA store (4-byte stores from the fragment took a
+//     fifth of it).
+//   Bound: bytes at mamba2-780m's shapes (x, B, C, y and the states once,
+//   ~35 us at 3.35 TB/s); this design also writes and reads the entering
+//   states (B * nc * H * P * N bf16, 25 MB there), which puts its floor
+//   near twice that.  Roundings: W and the entering state once each to
+//   bf16 (y's limit is 1e-2 of max |y|); the state itself stays fp32.
 //
-// Bound: operations.  Per chunk and head the work is ~3 L^2 P / 2 + 4 L P N
-// multiply-adds plus L^2 N / 2 for C . B^T per block.  This first version
-// runs them on the fp32 CUDA cores; tensor cores (wgmma) are later work.
+// simt (ssd_simt.cuh): everything else -- f32, P != 64, other N, chunk
+//   32 or not a multiple of 64.  PR 12's kernel: one block of 256 threads
+//   per (batch, block of 2 heads; 1 when H is odd) sweeps the chunks in a
+//   loop with the fp32 state in shared memory, the intra-chunk term in
+//   64 x 64 tiles on the fp32 CUDA cores, a sequential fp32 dacum.  It
+//   keeps f32 within 2e-5 of max |y|, which the tensor cores cannot.
 //
-// The kernel allocates nothing and does not synchronise; the launcher
-// returns cudaGetLastError() so a refused launch is reported at once.
+// The kernels allocate nothing and do not synchronise: tc's entering
+// states and dacum / dt live in scratch the caller allocates.  The
+// launcher returns cudaGetLastError() so a refused launch is reported at
+// once; a tc-shaped call never falls back to simt.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "ssd_simt.cuh"
+#include "ssd_tc.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kT = 64;          // rows of a strip, columns of a tile
-constexpr int kTS = kT + 4;     // padded row stride of transposed tiles
-constexpr int kPMax = 64;       // head_dim the kernel takes at most
-constexpr int kSP = kPMax + 4;  // padded row stride over p
-constexpr int kNMax = 128;      // d_state the kernel takes at most
-constexpr int kMaxSmem = 232448;
+enum Variant { kSimt = 0, kTc = 1 };
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+int choose_variant(int dtype, int P, int N, int L) {
+  const bool tc = dtype == 1 && P == ssd::tc::kP && (N == 64 || N == 128) &&
+                  L % ssd::tc::kT == 0 && L <= ssd::tc::kMaxL;
+  return tc ? kTc : kSimt;
 }
 
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+bool valid_shape(int B, int S, int H, int P, int N, int L) {
+  return B > 0 && S > 0 && L > 0 && S % L == 0 && H > 0 && P > 0 && N > 0;
 }
 
-__device__ __forceinline__ float lane(const float4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+// tc's scratch: entering states (bf16 elements) and dacum / dt (floats)
+void tc_scratch(int B, int S, int H, int N, int L, long long* state_elems,
+                long long* meta_floats) {
+  const long long bch = (long long)B * (S / L) * H;
+  *state_elems = bch * ssd::tc::kP * N;
+  *meta_floats = bch * 2 * L;
 }
 
-// shared-memory floats: state, C strip, B tile, x tiles, W, dt, dacum
-__host__ __device__ constexpr int region_b(int n) {
-  return n * kTS > kT * (n + 4) ? n * kTS : kT * (n + 4);
-}
-__host__ __device__ constexpr size_t smem_floats(int hb, int n, int l) {
-  return (size_t)hb * n * kSP + (size_t)n * kTS + region_b(n) +
-         (size_t)hb * kT * kSP + (size_t)kT * kTS + 2 * (size_t)hb * l;
-}
-
-template <typename T, int HB>
-__global__ void __launch_bounds__(kThreads)
-ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-           const float* __restrict__ a, const T* __restrict__ bm,
-           const T* __restrict__ cm, const float* __restrict__ h0,
-           T* __restrict__ y, float* __restrict__ hout, int S, int H, int P,
-           int N, int L) {
-  extern __shared__ float4 smem4[];
-  float* St = reinterpret_cast<float*>(smem4);   // [HB][N][kSP]  state^T
-  float* Ct = St + HB * N * kSP;                 // [N][kTS]      C strip^T
-  float* Bt = Ct + N * kTS;                      // [N][kTS] B^T, or [kT][N+4]
-  float* Xs = Bt + region_b(N);                  // [HB][kT][kSP]
-  float* Wt = Xs + HB * kT * kSP;                // [kT(j)][kTS(i)]
-  float* dts = Wt + kT * kTS;                    // [HB][L]
-  float* dac = dts + HB * L;                     // [HB][L]
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;   // columns 4tx..4tx+3 (j, or p)
-  const int ty = tid / 16;   // rows 4ty..4ty+3 (i), or p rows in the update
-  const int hh0 = blockIdx.x * HB;
-  const int b = blockIdx.y;
-  const int nc = S / L;
-  const int NS = N + 4;      // row stride of B in the state update
-
-  for (int idx = tid; idx < HB * N * kPMax; idx += kThreads) {
-    const int hl = idx / (N * kPMax);
-    const int rem = idx - hl * N * kPMax;
-    const int p = rem / N, n = rem - p * N;
-    St[(hl * N + n) * kSP + p] =
-        p < P ? h0[(((int64_t)b * H + hh0 + hl) * P + p) * N + n] : 0.f;
-  }
-
-  for (int c = 0; c < nc; ++c) {
-    const int64_t t0 = (int64_t)b * S + (int64_t)c * L;  // first row
-    __syncthreads();  // the previous chunk's state update is done
-    for (int idx = tid; idx < HB * L; idx += kThreads) {
-      const int hl = idx / L, l = idx - hl * L;
-      dts[idx] = dt[(t0 + l) * H + hh0 + hl];
-    }
-    __syncthreads();
-    if (tid < HB) {
-      const float ah = a[hh0 + tid];
-      float run = 0.f;
-      for (int l = 0; l < L; ++l) {
-        run += dts[tid * L + l] * ah;
-        dac[tid * L + l] = run;
-      }
-    }
-
-    // --- outputs, one 64-row strip at a time --------------------------------
-    for (int i0 = 0; i0 < L; i0 += kT) {
-      __syncthreads();  // dacum written; the last strip's readers are done
-      for (int idx = tid; idx < kT * N; idx += kThreads) {
-        const int i = idx / N, n = idx - i * N;
-        Ct[n * kTS + i] = i0 + i < L ? to_float(cm[(t0 + i0 + i) * N + n])
-                                     : 0.f;
-      }
-      __syncthreads();
-
-      // carried-state term: exp(dacum[i]) * C[i] . state[p]
-      float yacc[HB][4][4];
-#pragma unroll
-      for (int hl = 0; hl < HB; ++hl) {
-        float s[4][4] = {};
-        const float* sth = St + hl * N * kSP;
-        for (int n = 0; n < N; ++n) {
-          const float4 cv = ld4(Ct + n * kTS + 4 * ty);
-          const float4 sv = ld4(sth + n * kSP + 4 * tx);
-#pragma unroll
-          for (int r = 0; r < 4; ++r)
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              s[r][e] = fmaf(lane(cv, r), lane(sv, e), s[r][e]);
-        }
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int i = i0 + 4 * ty + r;
-          const float g = i < L ? expf(dac[hl * L + i]) : 0.f;
-#pragma unroll
-          for (int e = 0; e < 4; ++e) yacc[hl][r][e] = s[r][e] * g;
-        }
-      }
-
-      // intra-chunk term, column tiles up to the diagonal
-      for (int j0 = 0; j0 <= i0; j0 += kT) {
-        __syncthreads();  // the last tile's readers of Bt / Xs / Wt are done
-        for (int idx = tid; idx < kT * N; idx += kThreads) {
-          const int j = idx / N, n = idx - j * N;
-          Bt[n * kTS + j] = j0 + j < L ? to_float(bm[(t0 + j0 + j) * N + n])
-                                       : 0.f;
-        }
-        for (int idx = tid; idx < HB * kT * kPMax; idx += kThreads) {
-          const int hl = idx / (kT * kPMax);
-          const int rem = idx - hl * kT * kPMax;
-          const int j = rem / kPMax, p = rem - j * kPMax;
-          Xs[(hl * kT + j) * kSP + p] =
-              j0 + j < L && p < P
-                  ? to_float(x[((t0 + j0 + j) * H + hh0 + hl) * P + p])
-                  : 0.f;
-        }
-        __syncthreads();
-
-        float cb[4][4] = {};
-        for (int n = 0; n < N; ++n) {
-          const float4 cv = ld4(Ct + n * kTS + 4 * ty);
-          const float4 bv = ld4(Bt + n * kTS + 4 * tx);
-#pragma unroll
-          for (int r = 0; r < 4; ++r)
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              cb[r][e] = fmaf(lane(cv, r), lane(bv, e), cb[r][e]);
-        }
-
-#pragma unroll
-        for (int hl = 0; hl < HB; ++hl) {
-          const float* dach = dac + hl * L;
-          const float* dth = dts + hl * L;
-          __syncthreads();  // the previous head's readers of Wt are done
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int j = j0 + 4 * tx + e;
-            float w[4];
-#pragma unroll
-            for (int r = 0; r < 4; ++r) {
-              const int i = i0 + 4 * ty + r;
-              w[r] = j <= i && i < L
-                         ? cb[r][e] * expf(dach[i] - dach[j]) * dth[j]
-                         : 0.f;
-            }
-            *reinterpret_cast<float4*>(Wt + (4 * tx + e) * kTS + 4 * ty) =
-                make_float4(w[0], w[1], w[2], w[3]);
-          }
-          __syncthreads();
-          const float* xh = Xs + hl * kT * kSP;
-          for (int j = 0; j < kT; ++j) {
-            const float4 wv = ld4(Wt + j * kTS + 4 * ty);
-            const float4 xv = ld4(xh + j * kSP + 4 * tx);
-#pragma unroll
-            for (int r = 0; r < 4; ++r)
-#pragma unroll
-              for (int e = 0; e < 4; ++e)
-                yacc[hl][r][e] = fmaf(lane(wv, r), lane(xv, e),
-                                      yacc[hl][r][e]);
-          }
-        }
-      }
-
-#pragma unroll
-      for (int hl = 0; hl < HB; ++hl)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int i = i0 + 4 * ty + r;
-          if (i >= L) continue;
-          T* yr = y + ((t0 + i) * H + hh0 + hl) * P;
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int p = 4 * tx + e;
-            if (p < P) yr[p] = from_float<T>(yacc[hl][r][e]);
-          }
-        }
-    }
-
-    // --- state update: state * exp(dacum[L-1]) + (x * tail * dt)^T . B -------
-    float* Bs = Bt;   // [kT][NS], row-major this time
-    float* Xd = Xs;   // [kT][kSP], one head at a time
-#pragma unroll
-    for (int hl = 0; hl < HB; ++hl) {
-      const float* dach = dac + hl * L;
-      const float* dth = dts + hl * L;
-      const float last = dach[L - 1];
-      float upd[4][8] = {};
-      for (int j0 = 0; j0 < L; j0 += kT) {
-        __syncthreads();
-        for (int idx = tid; idx < kT * N; idx += kThreads) {
-          const int j = idx / N, n = idx - j * N;
-          Bs[j * NS + n] = j0 + j < L ? to_float(bm[(t0 + j0 + j) * N + n])
-                                      : 0.f;
-        }
-        for (int idx = tid; idx < kT * kPMax; idx += kThreads) {
-          const int j = idx / kPMax, p = idx - j * kPMax;
-          const int jj = j0 + j;
-          Xd[j * kSP + p] =
-              jj < L && p < P
-                  ? to_float(x[((t0 + jj) * H + hh0 + hl) * P + p]) *
-                        (expf(last - dach[jj]) * dth[jj])
-                  : 0.f;
-        }
-        __syncthreads();
-        for (int j = 0; j < kT; ++j) {
-          const float4 xv = ld4(Xd + j * kSP + 4 * ty);
-#pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            const int n0 = 64 * half + 4 * tx;
-            if (n0 >= N) continue;
-            const float4 bv = ld4(Bs + j * NS + n0);
-#pragma unroll
-            for (int r = 0; r < 4; ++r)
-#pragma unroll
-              for (int e = 0; e < 4; ++e)
-                upd[r][4 * half + e] =
-                    fmaf(lane(xv, r), lane(bv, e), upd[r][4 * half + e]);
-          }
-        }
-      }
-      const float decay = expf(last);
-      float* sth = St + hl * N * kSP;
-#pragma unroll
-      for (int half = 0; half < 2; ++half)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int n = 64 * half + 4 * tx + e;
-          if (n >= N) continue;
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            const int p = 4 * ty + r;
-            sth[n * kSP + p] = sth[n * kSP + p] * decay + upd[r][4 * half + e];
-          }
-        }
-    }
-  }
-
-  __syncthreads();
-  for (int idx = tid; idx < HB * P * N; idx += kThreads) {
-    const int hl = idx / (P * N);
-    const int rem = idx - hl * P * N;
-    const int p = rem / N, n = rem - p * N;
-    hout[(((int64_t)b * H + hh0 + hl) * P + p) * N + n] =
-        St[(hl * N + n) * kSP + p];
-  }
+int tc_state(const void* x, const void* dt, const void* a, const void* bm,
+             const void* h0, void* states, void* meta, void* hout, int B,
+             int S, int H, int N, int L, cudaStream_t s) {
+  if (N == 64)
+    return ssd::tc::launch_state<64>(x, dt, a, bm, h0, states, meta, hout, B,
+                                     S, H, L, s);
+  return ssd::tc::launch_state<128>(x, dt, a, bm, h0, states, meta, hout, B,
+                                    S, H, L, s);
 }
 
-template <typename T, int HB>
-int launch(const void* x, const void* dt, const void* a, const void* bm,
-           const void* cm, const void* h0, void* y, void* hout, int B, int S,
-           int H, int P, int N, int L, cudaStream_t stream) {
-  auto kernel = ssd_kernel<T, HB>;
-  const size_t smem = sizeof(float) * smem_floats(HB, N, L);
-  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
-  static bool configured = false;  // one opt-in per instantiation
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-    if (err != cudaSuccess) return (int)err;
-    configured = true;
-  }
-  const dim3 grid(H / HB, B);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(dt),
-      static_cast<const float*>(a), static_cast<const T*>(bm),
-      static_cast<const T*>(cm), static_cast<const float*>(h0),
-      static_cast<T*>(y), static_cast<float*>(hout), S, H, P, N, L);
-  return (int)cudaGetLastError();
+int tc_chunk(const void* x, const void* bm, const void* cm,
+             const void* states, const void* meta, void* y, int B, int S,
+             int H, int N, int L, cudaStream_t s) {
+  if (N == 64)
+    return ssd::tc::launch_chunk<64>(x, bm, cm, states, meta, y, B, S, H, L,
+                                     s);
+  return ssd::tc::launch_chunk<128>(x, bm, cm, states, meta, y, B, S, H, L,
+                                    s);
 }
 
-template <typename T>
-int dispatch_hb(const void* x, const void* dt, const void* a, const void* bm,
-                const void* cm, const void* h0, void* y, void* hout, int B,
-                int S, int H, int P, int N, int L, int hb,
-                cudaStream_t stream) {
-  if (hb == 1)
-    return launch<T, 1>(x, dt, a, bm, cm, h0, y, hout, B, S, H, P, N, L,
-                        stream);
-  if (hb == 2)
-    return launch<T, 2>(x, dt, a, bm, cm, h0, y, hout, B, S, H, P, N, L,
-                        stream);
-  return (int)cudaErrorInvalidValue;
+bool tc_args_ok(const void* x, const void* bm, const void* cm,
+                const void* states, const void* meta) {
+  return states != nullptr && meta != nullptr && aligned16(x) &&
+         aligned16(bm) && aligned16(cm) && aligned16(states) &&
+         aligned16(meta);
 }
 
 }  // namespace
 
+// The variant the launcher takes for these arguments (0 simt, 1 tc), and
+// tc's scratch: entering states in bf16 elements, dacum / dt in floats (0
+// for simt).
+extern "C" int ssd_scan_variant(int dtype, int B, int S, int H, int P, int N,
+                                int L, long long* state_elems,
+                                long long* meta_floats) {
+  const int var = choose_variant(dtype, P, N, L);
+  *state_elems = *meta_floats = 0;
+  if (var == kTc && valid_shape(B, S, H, P, N, L))
+    tc_scratch(B, S, H, N, L, state_elems, meta_floats);
+  return var;
+}
+
 // dtype: 0 = float32, 1 = bfloat16 (x, B, C and y share it); dt, a, h0 and
-// the final state are float32.  hb (heads per block) is 1 or 2 and
-// divides H; S is a multiple of L; P <= 64; N <= 128 and a multiple of 4.
+// the final state are float32; S is a multiple of L.  simt: hb (heads per
+// block) is 1 or 2 and divides H; P <= 64; N <= 128 and a multiple of 4.
+// tc: states / meta hold at least ssd_scan_variant's scratch; x, B, C and
+// the scratch 16-byte aligned.  *chosen receives the variant launched.
 extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* a,
                                const void* bm, const void* cm, const void* h0,
-                               void* y, void* hout, int dtype, int B, int S,
-                               int H, int P, int N, int L, int hb,
+                               void* y, void* hout, void* states, void* meta,
+                               int dtype, int B, int S, int H, int P, int N,
+                               int L, int hb, long long state_elems,
+                               long long meta_floats, int* chosen,
                                void* stream) {
-  if (B <= 0 || S <= 0 || L <= 0 || S % L != 0 || H <= 0 || hb <= 0 ||
-      H % hb != 0 || P <= 0 || P > kPMax || N <= 0 || N > kNMax || N % 4 != 0)
+  if (!valid_shape(B, S, H, P, N, L) || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int var = choose_variant(dtype, P, N, L);
+  *chosen = var;
+  if (var == kTc) {
+    long long need_states, need_meta;
+    tc_scratch(B, S, H, N, L, &need_states, &need_meta);
+    if (state_elems < need_states || meta_floats < need_meta)
+      return (int)cudaErrorInvalidValue;
+    if (!tc_args_ok(x, bm, cm, states, meta))
+      return (int)cudaErrorMisalignedAddress;
+    const int err =
+        tc_state(x, dt, a, bm, h0, states, meta, hout, B, S, H, N, L, s);
+    if (err) return err;
+    return tc_chunk(x, bm, cm, states, meta, y, B, S, H, N, L, s);
+  }
+  if (hb <= 0 || H % hb != 0 || P > ssd::simt::kPMax ||
+      N > ssd::simt::kNMax || N % 4 != 0)
+    return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return dispatch_hb<float>(x, dt, a, bm, cm, h0, y, hout, B, S, H, P, N, L,
-                              hb, s);
-  if (dtype == 1)
-    return dispatch_hb<__nv_bfloat16>(x, dt, a, bm, cm, h0, y, hout, B, S, H,
-                                      P, N, L, hb, s);
-  return (int)cudaErrorInvalidValue;
+    return ssd::simt::dispatch_hb<float>(x, dt, a, bm, cm, h0, y, hout, B, S,
+                                         H, P, N, L, hb, s);
+  return ssd::simt::dispatch_hb<__nv_bfloat16>(x, dt, a, bm, cm, h0, y, hout,
+                                               B, S, H, P, N, L, hb, s);
+}
+
+// tc's first kernel alone (ssd_state): entering states, dacum / dt and the
+// final state.  Same argument rules as ssd_scan_launch's tc variant.
+extern "C" int ssd_tc_state_launch(const void* x, const void* dt,
+                                   const void* a, const void* bm,
+                                   const void* h0, void* states, void* meta,
+                                   void* hout, int B, int S, int H, int N,
+                                   int L, void* stream) {
+  if (!valid_shape(B, S, H, ssd::tc::kP, N, L) ||
+      choose_variant(1, ssd::tc::kP, N, L) != kTc)
+    return (int)cudaErrorInvalidValue;
+  if (!tc_args_ok(x, bm, bm, states, meta))
+    return (int)cudaErrorMisalignedAddress;
+  return tc_state(x, dt, a, bm, h0, states, meta, hout, B, S, H, N, L,
+                  static_cast<cudaStream_t>(stream));
+}
+
+// tc's second kernel alone (ssd_chunk_scan): y from the entering states
+// and dacum / dt that ssd_state writes.
+extern "C" int ssd_tc_chunk_launch(const void* x, const void* bm,
+                                   const void* cm, const void* states,
+                                   const void* meta, void* y, int B, int S,
+                                   int H, int N, int L, void* stream) {
+  if (!valid_shape(B, S, H, ssd::tc::kP, N, L) ||
+      choose_variant(1, ssd::tc::kP, N, L) != kTc)
+    return (int)cudaErrorInvalidValue;
+  if (!tc_args_ok(x, bm, cm, states, meta))
+    return (int)cudaErrorMisalignedAddress;
+  return tc_chunk(x, bm, cm, states, meta, y, B, S, H, N, L,
+                  static_cast<cudaStream_t>(stream));
 }

@@ -123,58 +123,83 @@ def segsum(log_a: torch.Tensor) -> torch.Tensor:
     return torch.where(mask, diff, float("-inf"))
 
 
+def _chunks(x, dt, a, mat, chunk: int):
+    """Per-chunk fp32 views: x ``[B,nc,L,H,P]``, dt ``[B,nc,L,H]``, the
+    group matrix repeated to every head ``[B,nc,L,H,N]``, and the log decay
+    per step and its cumsum over the chunk ``[B,nc,L,H]``."""
+    bsz, s, h, p = x.shape
+    g, n = mat.shape[2], mat.shape[3]
+    assert s % chunk == 0, f"seq {s} not a multiple of chunk {chunk}"
+    nc = s // chunk
+    xr = x.reshape(bsz, nc, chunk, h, p).float()
+    dtr = dt.reshape(bsz, nc, chunk, h).float()
+    me = mat.reshape(bsz, nc, chunk, g, n).float().repeat_interleave(
+        h // g, dim=3)
+    da = dtr * a.float()[None, None, None, :]              # log decay per step
+    return xr, dtr, me, da, torch.cumsum(da, dim=2)
+
+
+def ssd_states(x, dt, a, b_mat, chunk: int, h0=None):
+    """Phase 1 of the chunked scan: each chunk's own state, passed along.
+
+    Returns the fp32 states *entering* each chunk ``[B, nc, H, P, N]`` and
+    the final fp32 state ``[B, H, P, N]``.  Plain twin of the ``tc``
+    variant's ``ssd_state`` kernel.
+    """
+    bsz, _, h, p = x.shape
+    n = b_mat.shape[3]
+    xr, dtr, be, _, da_cum = _chunks(x, dt, a, b_mat, chunk)
+
+    # chunk-final states from the chunk's own steps
+    decay_states = torch.exp(da_cum[:, :, -1:, :] - da_cum)   # [B,nc,L,H]
+    wx = (decay_states * dtr)[..., None] * xr                  # [B,nc,L,H,P]
+    states = torch.einsum("bnlhs,bnlhp->bnhps", be, wx)
+
+    # inter-chunk recurrence over the nc chunk states
+    chunk_decay = torch.exp(da_cum[:, :, -1, :])           # [B,nc,H]
+    carry = (torch.zeros((bsz, h, p, n), dtype=torch.float32,
+                         device=x.device)
+             if h0 is None else h0.float())
+    prevs = []
+    for c in range(xr.shape[1]):
+        prevs.append(carry)                 # state *entering* chunk c
+        carry = carry * chunk_decay[:, c, :, None, None] + states[:, c]
+    return torch.stack(prevs, dim=1), carry
+
+
+def ssd_outputs(x, dt, a, b_mat, c_mat, chunk: int, prev_states):
+    """Phase 2 of the chunked scan: y (fp32 ``[B, S, H, P]``) from each
+    chunk's own steps and the states entering it (``[B, nc, H, P, N]``).
+    Plain twin of the ``tc`` variant's ``ssd_chunk_scan`` kernel."""
+    bsz, s, h, p = x.shape
+    xr, dtr, be, da, da_cum = _chunks(x, dt, a, b_mat, chunk)
+    ce = c_mat.reshape(be.shape[:3] + (c_mat.shape[2], c_mat.shape[3])) \
+        .float().repeat_interleave(h // c_mat.shape[2], dim=3)
+    seg = segsum(da.movedim(-1, -2))                       # [B,nc,H,L,L]
+
+    # intra-chunk (diagonal) term: masked decay-weighted attention
+    cb = torch.einsum("bnlhs,bnmhs->bnhlm", ce, be)        # [B,nc,H,L,L]
+    w = cb * torch.exp(seg) * dtr.movedim(-1, -2)[:, :, :, None, :]
+    y_diag = torch.einsum("bnhlm,bnmhp->bnlhp", w, xr)
+
+    # off-diagonal contribution from the carried state
+    state_decay = torch.exp(da_cum)                        # from chunk start
+    y_off = torch.einsum("bnlhs,bnhps->bnlhp", ce, prev_states.float()) \
+        * state_decay[..., None]
+    return (y_diag + y_off).reshape(bsz, s, h, p)
+
+
 def ssd_chunked(x, dt, a, b_mat, c_mat, chunk: int, h0=None,
                 return_final_state: bool = False):
     """Chunked state-space-duality scan; S must be a multiple of ``chunk``.
 
     ``x [B, S, H, P]``, ``dt [B, S, H]`` (softplus'd), ``a [H]``,
     ``b_mat``/``c_mat [B, S, G, N]``, ``h0 [B, H, P, N]``.  Returns ``y``
-    (fp32) and, if asked, the final fp32 state.
+    (fp32) and, if asked, the final fp32 state: :func:`ssd_outputs` over
+    :func:`ssd_states`.
     """
-    bsz, s, h, p = x.shape
-    g, n = b_mat.shape[2], b_mat.shape[3]
-    assert s % chunk == 0, f"seq {s} not a multiple of chunk {chunk}"
-    nc = s // chunk
-    hpg = h // g
-
-    xr = x.reshape(bsz, nc, chunk, h, p).float()
-    dtr = dt.reshape(bsz, nc, chunk, h).float()
-    br = b_mat.reshape(bsz, nc, chunk, g, n).float()
-    cr = c_mat.reshape(bsz, nc, chunk, g, n).float()
-    be = br.repeat_interleave(hpg, dim=3)                  # [B,nc,L,H,N]
-    ce = cr.repeat_interleave(hpg, dim=3)
-
-    da = dtr * a.float()[None, None, None, :]              # log decay per step
-    da_cum = torch.cumsum(da, dim=2)                       # [B,nc,L,H]
-    seg = segsum(da.movedim(-1, -2))                       # [B,nc,H,L,L]
-
-    # 1. intra-chunk (diagonal) term: masked decay-weighted attention
-    cb = torch.einsum("bnlhs,bnmhs->bnhlm", ce, be)        # [B,nc,H,L,L]
-    w = cb * torch.exp(seg) * dtr.movedim(-1, -2)[:, :, :, None, :]
-    y_diag = torch.einsum("bnhlm,bnmhp->bnlhp", w, xr)
-
-    # 2. chunk-final states
-    decay_states = torch.exp(da_cum[:, :, -1:, :] - da_cum)   # [B,nc,L,H]
-    wx = (decay_states * dtr)[..., None] * xr                  # [B,nc,L,H,P]
-    states = torch.einsum("bnlhs,bnlhp->bnhps", be, wx)
-
-    # 3. inter-chunk recurrence over the nc chunk states
-    chunk_decay = torch.exp(da_cum[:, :, -1, :])           # [B,nc,H]
-    carry = (torch.zeros((bsz, h, p, n), dtype=torch.float32,
-                         device=x.device)
-             if h0 is None else h0.float())
-    prevs = []
-    for c in range(nc):
-        prevs.append(carry)                 # state *entering* chunk c
-        carry = carry * chunk_decay[:, c, :, None, None] + states[:, c]
-    prev_states = torch.stack(prevs, dim=1)                # [B,nc,H,P,N]
-
-    # 4. off-diagonal contribution from the carried state
-    state_decay = torch.exp(da_cum)                        # from chunk start
-    y_off = torch.einsum("bnlhs,bnhps->bnlhp", ce, prev_states) \
-        * state_decay[..., None]
-
-    y = (y_diag + y_off).reshape(bsz, s, h, p)
+    prev_states, carry = ssd_states(x, dt, a, b_mat, chunk, h0=h0)
+    y = ssd_outputs(x, dt, a, b_mat, c_mat, chunk, prev_states)
     if return_final_state:
         return y, carry
     return y

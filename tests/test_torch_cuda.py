@@ -181,7 +181,9 @@ def test_cuda_flash_attention_matches_plain(cuda_device, b, sq, skv, hq, hkv,
 
 # (B, S, H, P, N, chunk, dtype, h0): the reference's grid, then
 # mamba2-780m's prefill shape in bf16, a ragged S through ops.ssd's pad and
-# an odd head count (one head per block) in both types
+# an odd head count (one head per block) in both types; then the edges of
+# the tc variant (ssd_scan.variant), all bf16: an odd head count, no h0, a
+# ragged S, chunks 64 and 128, N 64, and B x H below the card's 132 SMs
 SSD_GRID = [
     (2, 256, 8, 16, 32, 64, "float32", True),
     (1, 128, 16, 64, 128, 32, "float32", True),
@@ -191,6 +193,13 @@ SSD_GRID = [
     (2, 100, 6, 64, 128, 32, "float32", False),
     (1, 128, 5, 32, 64, 32, "float32", True),
     (1, 128, 5, 32, 64, 32, "bfloat16", True),
+    (1, 512, 5, 64, 128, 256, "bfloat16", True),
+    (2, 512, 8, 64, 128, 256, "bfloat16", False),
+    (1, 300, 4, 64, 128, 128, "bfloat16", True),
+    (2, 256, 6, 64, 128, 64, "bfloat16", True),
+    (1, 512, 6, 64, 128, 128, "bfloat16", True),
+    (2, 512, 4, 64, 64, 256, "bfloat16", True),
+    (1, 2048, 48, 64, 128, 256, "bfloat16", True),
 ]
 
 
@@ -212,14 +221,18 @@ def _ssd_inputs(seed, b, s, h, p, n, dtype, device):
 def test_cuda_ssd_scan_matches_plain(cuda_device, b, s, h, p, n, chunk,
                                      dtype, with_h0):
     """y within 2e-5 of max|y| (one bf16 rounding, 1e-2, for bf16 x) and
-    the final state at atol 2e-3 / rtol 1e-4, the reference's tolerances."""
+    the final state at atol 2e-3 / rtol 1e-4, the reference's tolerances;
+    the variant variant() names is the one that launched."""
     x, dt, a, bm, cm, h0 = _ssd_inputs(s + h, b, s, h, p, n, dtype,
                                        cuda_device)
     h0 = h0 if with_h0 else None
-    before = ss.launches
+    name = ss.variant(x.dtype, p, n, chunk)
+    before, by_variant = ss.launches, dict(ss.variant_launches)
     y, f = ops.ssd(x, dt, a, bm, cm, chunk=chunk, h0=h0)
     torch.cuda.synchronize()
     assert ss.launches == before + 1
+    by_variant[name] += 1
+    assert ss.variant_launches == by_variant
     pad = (-s) % chunk
     y_r, f_r = ref.ssd_ref(*(ref.pad_seq(t, pad) for t in (x, dt)), a,
                            *(ref.pad_seq(t, pad) for t in (bm, cm)),
@@ -230,6 +243,77 @@ def test_cuda_ssd_scan_matches_plain(cuda_device, b, s, h, p, n, chunk,
     scale = float(y_r.abs().max()) + 1e-9
     assert float((y.float() - y_r).abs().max()) / scale < rel
     torch.testing.assert_close(f, f_r, atol=2e-3, rtol=1e-4)
+
+
+# (B, S, H, N, chunk) of tc shapes: mamba2-780m's prefill, and small
+# ones at N 64 and 128 with every chunk length tc takes
+TC_PHASES = [
+    (4, 2048, 48, 128, 256),
+    (1, 512, 5, 128, 256),
+    (2, 256, 3, 64, 64),
+    (1, 384, 9, 128, 128),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,n,chunk", TC_PHASES)
+def test_cuda_ssd_tc_phases_match_plain_phases(cuda_device, b, s, h, n,
+                                               chunk):
+    """tc's kernels one at a time: ssd_state against ref.ssd_states (the
+    entering states within one bf16 rounding of the plain ones, rtol 2^-8,
+    over the final state's atol 2e-3; the final state at atol 2e-3 / rtol
+    1e-4; dt as given and dacum its fp32 cumsum), then ssd_chunk_scan on
+    those states against ref.ssd_outputs (y within 1e-2 of max|y|)."""
+    x, dt, a, bm, cm, h0 = _ssd_inputs(b + s + h, b, s, h, 64, n, "bfloat16",
+                                       cuda_device)
+    before = dict(ss.phase_launches)
+    states, meta, final = ss.tc_states(x, dt, a, bm, chunk=chunk, h0=h0)
+    y = ss.tc_outputs(x, bm, cm, states, meta, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ss.phase_launches == {k: v + 1 for k, v in before.items()}
+    prev, final_r = ref.ssd_states(x, dt, a, bm, chunk, h0=h0)
+    torch.testing.assert_close(states.float(), prev, atol=2e-3, rtol=2 ** -8)
+    torch.testing.assert_close(final, final_r, atol=2e-3, rtol=1e-4)
+    nc = s // chunk
+    dtr = dt.reshape(b, nc, chunk, h).permute(0, 1, 3, 2)
+    assert torch.equal(meta[:, :, :, 1], dtr)
+    dacum = torch.cumsum(dtr * a[None, None, :, None], dim=-1)
+    torch.testing.assert_close(meta[:, :, :, 0], dacum, atol=1e-4, rtol=1e-5)
+    y_r = ref.ssd_outputs(x, dt, a, bm, cm, chunk, states.float())
+    assert float((y.float() - y_r).abs().max()) \
+        / (float(y_r.abs().max()) + 1e-9) < 1e-2
+
+
+# (dtype, B, S, H, P, N, chunk): mamba2-780m prefill, each tc chunk and N,
+# and the shapes just outside tc (f32, chunk 32 and 320, P 32, N 32 and 96)
+SSD_VARIANT_EDGES = [
+    (torch.bfloat16, 4, 2048, 48, 64, 128, 256),
+    (torch.bfloat16, 1, 128, 5, 64, 64, 64),
+    (torch.bfloat16, 1, 384, 5, 64, 128, 128),
+    (torch.float32, 4, 2048, 48, 64, 128, 256),
+    (torch.bfloat16, 1, 128, 5, 64, 128, 32),
+    (torch.bfloat16, 1, 640, 5, 64, 128, 320),
+    (torch.bfloat16, 1, 256, 5, 32, 128, 256),
+    (torch.bfloat16, 1, 256, 5, 64, 32, 256),
+    (torch.bfloat16, 1, 256, 5, 64, 96, 256),
+]
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_launcher_routes_like_variant(cuda_device):
+    """The C launcher's choice and tc's scratch sizes agree with the
+    wrapper's variant() and tc_scratch()."""
+    import ctypes
+
+    lib = ss.LIB.load()
+    for dtype, b, s, h, p, n, chunk in SSD_VARIANT_EDGES:
+        elems, floats = ctypes.c_longlong(-1), ctypes.c_longlong(-1)
+        code = lib.ssd_scan_variant(ss._DTYPES[dtype], b, s, h, p, n, chunk,
+                                    ctypes.byref(elems), ctypes.byref(floats))
+        name = ss.variant(dtype, p, n, chunk)
+        assert ss.VARIANTS[code] == name
+        want = (ss.tc_scratch(b, s, h, n, chunk) if name == "tc" else (0, 0))
+        assert (elems.value, floats.value) == want
 
 
 @pytest.mark.cuda
@@ -296,6 +380,21 @@ def test_cuda_flash_fast_variants_refuse_misaligned_tensors(cuda_device):
     shifted.copy_(q)
     with pytest.raises(ValueError, match="aligned"):
         fa.flash_attention(shifted, k, v, q_positions=qp, kv_positions=kp)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_tc_refuses_misaligned_tensors(cuda_device):
+    """A tc-shaped call raises on a tensor TMA cannot take; it does not
+    fall back to simt."""
+    x, dt, a, bm, cm, h0 = _ssd_inputs(6, 1, 256, 2, 64, 128, "bfloat16",
+                                       cuda_device)
+    shifted = torch.empty(x.numel() + 1, dtype=x.dtype,
+                          device=cuda_device)[1:].view(x.shape)
+    shifted.copy_(x)
+    before = dict(ss.variant_launches)
+    with pytest.raises(ValueError, match="aligned"):
+        ss.ssd_scan(shifted, dt, a, bm, cm, chunk=256, h0=h0)
+    assert ss.variant_launches == before
 
 
 @pytest.mark.cuda
