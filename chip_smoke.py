@@ -21,14 +21,34 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             call (many calls replayed from one CUDA graph); the bound is
             the bytes at 3.35 TB/s; ``launches`` counts the kernel calls
             the case made (check, timing and graph capture).
+   kernel_drain — the ``drain`` variant (one launch: flush the dirty
+            pairs, class-owner write check, certify) against
+            ``ref.lease_drain_ref``, bitwise on ok and on the flushed table,
+            at the main path's shapes (TPC-C's 1,140,088 items and class
+            map, B in {8, 16}, R = 32, W = 16, B x W dirty items); per-call
+            wall (launch + wait), device time by CUDA-graph replay, the
+            plain version and the bound.  Then a
+            whole drain as the cluster calls it (``validate_batch``),
+            per-drain host wall for four routes in
+            turns: ``per_item``, the route before the drain variant
+            (per-item locks on the card, flush, ``gather``, ``.cpu()``),
+            ``drain``, the floor and the CPU twin.
+            After phase 5 (a profiler session may leave hooks behind),
+            ``kernel_drain_ops``: device operations per drain under
+            ``torch.profiler`` for the two card routes.
 4. main   — the Lilac-TM commit path: LILAC-TM-ST on TPC-C at the TPC-C
             specification's cardinalities (8 warehouses, 1,140,088 items,
-            version tables on the card), 300 ms of simulated time.  The
-            kernel must have launched; the same run on the CPU must give
-            byte-identical replica stores and identical metrics.
+            version tables on the card), 300 ms of simulated time.  Every
+            batched drain must have launched ``drain`` once (and ``gather``
+            never); the same run on the CPU must give byte-identical
+            replica stores and identical metrics.  ``validate_s`` is the
+            wall inside ``validate_batch``; ``drain_plans`` counts the
+            drains by the launch plan their (B, n_dirty) takes, beside the
+            largest B and n_dirty of the run.
 5. forced — Bank at SimConfig defaults with every drain through the kernel
             and every lease settle through the device ops, a node failure
-            at 120 ms; cuda against cpu, byte-identical.
+            at 120 ms; cuda against cpu, byte-identical; the same drain
+            checks.
 6. kernel_flash — the flash kernel against ``ref.sdpa_ref`` on the card,
             each case printing the variant that ran (``prefill_tc``,
             ``decode_split`` or ``simt``, which the launcher picks from the
@@ -85,7 +105,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             what the tests hold to JAX, so this ties the card to it.
 
 The last three lines are the ``nvidia-smi`` line, the kernels record (one
-entry per flash variant and per SSD variant), and ``{"ok": true,
+entry per lease_validate, flash and SSD variant), and ``{"ok": true,
 "device": {...}}``.
 """
 from __future__ import annotations
@@ -242,6 +262,272 @@ def kernel_case(name: str, rng, n, b, r, w, iters: int, **kw) -> dict:
     return out
 
 
+# -- phase 3b: the drain variant, and a certification drain's routes --------
+
+def tpcc_item_classes() -> tuple:
+    """TPC-C's item -> class map at the specification's cardinalities, as
+    the cluster builds it: (item_cc int32 [1,140,088], n_classes)."""
+    import repro_torch.core as T
+
+    lay = T.TpccLayout(n_nodes=4, **TPCC_SPEC)
+    ccmap = T.TpccConflictMap(lay)
+    item_cc = np.fromiter((ccmap.of_item(i) for i in range(lay.n_items)),
+                          np.int32, count=lay.n_items)
+    return item_cc, ccmap.n_classes
+
+
+def drain_inputs(rng, n, b, r, w, n_classes, n_dirty) -> dict:
+    """One drain shaped like the main path's: make_inputs' rows, n_dirty
+    written items (repeats allowed) some of which the rows read, each at
+    its new version or the one before the flush, and class owners split
+    between unowned, this node (1) and another."""
+    table, items, vers, _, witems = make_inputs(rng, n, b, r, w)
+    dirty = rng.integers(0, n, n_dirty).astype(np.int32)
+    versions = table.copy()
+    versions[dirty] = rng.integers(1 << 20, 1 << 21, n_dirty)
+    hit = (items >= 0) & (rng.random(items.shape) < 0.1)
+    items[hit] = dirty[rng.integers(0, n_dirty, int(hit.sum()))]
+    slot = np.maximum(items, 0)
+    fresh = rng.random(items.shape) < 0.8
+    vers = np.where(hit, np.where(fresh, versions[slot], table[slot]),
+                    vers).astype(np.int32)
+    owners = rng.choice(np.array([-1, 1, 2], np.int32), n_classes,
+                        p=[0.5, 0.45, 0.05])
+    return dict(table=table, dirty_idx=dirty, dirty_ver=versions[dirty],
+                owners=owners, node=1, read_items=items,
+                read_versions=vers, write_items=witems)
+
+
+def stage(staging, case: dict) -> None:
+    b, r = case["read_items"].shape
+    v = staging.begin(case["dirty_idx"].size, b, r,
+                      case["write_items"].shape[1], case["owners"].size,
+                      case["node"])
+    for name in ("dirty_idx", "dirty_ver", "owners", "read_items",
+                 "read_versions", "write_items"):
+        getattr(v, name)[:] = case[name]
+
+
+def drain_bound_ms(case: dict) -> tuple:
+    """Least time for a drain's work: each input read once (dirty pairs,
+    owners, rows), each distinct table entry and item class gathered once,
+    each distinct dirty item written once, ok written once; one compare a
+    slot at the scalar rate.  Returns (ms, "bytes" | "operations")."""
+    items, witems = case["read_items"], case["write_items"]
+    n_bytes = (8 * case["dirty_idx"].size + 4 * case["owners"].size
+               + 4 * (2 * items.size + witems.size)
+               + 4 * np.unique(items[items >= 0]).size
+               + 4 * np.unique(witems[witems >= 0]).size
+               + 4 * np.unique(case["dirty_idx"]).size + items.shape[0])
+    n_ops = int((items >= 0).sum() + (witems >= 0).sum()
+                + case["dirty_idx"].size)
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / SCALAR_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def wall_us(fn, iters: int, warmup: int = 50) -> float:
+    """Mean host wall per call of ``fn``, which waits for its own work."""
+    for _ in range(warmup):
+        fn()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) / iters * 1e6
+
+
+def drain_case(name: str, rng, n, b, r, w, item_cc, n_classes,
+               n_dirty) -> dict:
+    """The drain kernel against ``ref.lease_drain_ref`` on the card,
+    bitwise on ok and on the flushed table; then the per-call wall (launch
+    + wait), the device time (CUDA-graph replay without the wait), the
+    plain version and the bound."""
+    import torch
+
+    from repro_torch.kernels import lease_validate as lv
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    case = drain_inputs(rng, n, b, r, w, n_classes, n_dirty)
+    cc = torch.from_numpy(item_cc).to(dev)
+    staging = lv.DrainStaging(dev)
+    stage(staging, case)
+    on = {k: torch.from_numpy(case[k]).to(dev) for k in (
+        "dirty_idx", "dirty_ver", "owners", "read_items", "read_versions",
+        "write_items")}
+    want_table = torch.from_numpy(case["table"]).to(dev)
+    want = ref.lease_drain_ref(
+        want_table, on["dirty_idx"], on["dirty_ver"], cc, on["owners"],
+        case["node"], on["read_items"], on["read_versions"],
+        on["write_items"]).cpu().numpy()
+    table = torch.from_numpy(case["table"]).to(dev)
+    got = lv.lease_drain(table, staging, cc).copy()
+    err = int(np.abs(got.astype(np.int32) - want.astype(np.int32)).max())
+    check(np.array_equal(got, want), f"{name}: drain disagrees with "
+          f"ref.lease_drain_ref on ok ({int((got != want).sum())} rows)")
+    check(torch.equal(table, want_table), f"{name}: drain flushed another "
+          f"table than ref.lease_drain_ref")
+    # the same drain again and again: re-flushing equal pairs is idempotent
+    kernel = lambda: lv.lease_drain(table, staging, cc)
+    plain = lambda: ref.lease_drain_ref(
+        want_table, on["dirty_idx"], on["dirty_ver"], cc, on["owners"],
+        case["node"], on["read_items"], on["read_versions"],
+        on["write_items"])
+    bms, by = drain_bound_ms(case)
+    before = lv.launches
+    out = dict(case=name, n_items=n, B=b, R=r, W=w, n_classes=n_classes,
+               n_dirty=n_dirty, passing=int(want.sum()), max_abs_err=err,
+               ms=wall_us(kernel, 2000) / 1e3,
+               graph_ms=graph_ms(lambda: lv.lease_drain(
+                   table, staging, cc, wait=False)),
+               plain_ms=time_ms(plain, 500),
+               plain_graph_ms=graph_ms(plain), bound_ms=bms, bound_by=by,
+               library_ms=None, calls=lv.launches - before)
+    emit("kernel_drain", **out)
+    return out
+
+
+def device_ops_per_call(fn, calls: int = 20) -> dict:
+    """Device operations (kernels, copies, fills) per call of ``fn`` under
+    ``torch.profiler``, by name, and their device time per call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.count, e.self_device_time_total)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return dict(ops_per_call=sum(c for _, c, _ in rows) / calls,
+                device_us_per_call=sum(t for _, _, t in rows) / calls,
+                ops={k[:70]: c / calls for k, c, _ in rows})
+
+
+def drain_routes(rng, item_cc, n_classes, b: int, drains: int, *,
+                 profile: bool = False) -> dict:
+    """Per-drain host wall of a whole certification drain as the cluster
+    calls it, at the main path's shapes (TPC-C's items and class map, B
+    transactions of up to 32 reads and 16 writes, the previous drain's
+    writes pending), for four routes on the same drains in turns:
+
+    - ``per_item``: the route before the drain variant: per-item locks
+      derived on the card from the class owners (``Cluster._write_locks``
+      as it was, int64 item -> class), then ``validate_batch(locks=...)``
+      (``device_versions`` flush, pageable copies, ``gather``, ``.cpu()``);
+    - ``drain``: ``validate_batch(class_locks=...)``, one launch and wait;
+    - ``floor``: an empty kernel through the same ctypes launch and wait;
+    - ``cpu``: ``validate_batch(class_locks=...)`` on a CPU store (the twin).
+
+    With ``profile``, instead: the device operations per drain of the two
+    card routes under ``torch.profiler`` (run after the cluster phases: a
+    profiler session may leave its tracing hooks behind).
+    """
+    import torch
+
+    from repro_torch.core import stm
+    from repro_torch.kernels import lease_validate as lv
+
+    dev = torch.device("cuda")
+    n = item_cc.size
+    stores = {k: stm.VersionedStore(n, device=d)
+              for k, d in (("per_item", "cuda"), ("drain", "cuda"),
+                           ("cpu", "cpu"))}
+    cc64 = torch.from_numpy(item_cc.astype(np.int64)).to(dev)
+    cc32 = torch.from_numpy(item_cc).to(dev)
+    cc_cpu = torch.from_numpy(item_cc)
+    node = 1
+    owners = rng.choice(np.array([-1, 1, 2], np.int32), n_classes,
+                        p=[0.5, 0.45, 0.05])
+
+    def txns_for(store):
+        out = []
+        for k in range(b):
+            t = stm.Transaction(txid=k + 1, origin=0)
+            for item in rng.integers(0, n, int(rng.integers(1, 33))):
+                t.log_read(int(item), int(store.versions[item]))
+            for item in rng.integers(0, n, int(rng.integers(1, 17))):
+                t.write_set[int(item)] = 1.0
+            out.append(t)
+        return out
+
+    def per_item(store, txns):
+        owners_dev = torch.from_numpy(owners).to(dev)
+        owner = owners_dev[cc64]
+        locks = ((owner >= 0) & (owner != node)).to(torch.int32)
+        return stm.validate_batch(store, txns, locks=locks)
+
+    routes = {
+        "per_item": per_item,
+        "drain": lambda store, txns: stm.validate_batch(
+            store, txns, class_locks=stm.ClassLocks(cc32, owners, node)),
+        "cpu": lambda store, txns: stm.validate_batch(
+            store, txns, class_locks=stm.ClassLocks(cc_cpu, owners, node)),
+    }
+    if profile:
+        out = {}
+        for k in ("per_item", "drain"):
+            def one(k=k):
+                txns = txns_for(stores[k])
+                stores[k].apply_batch([t.write_set for t in txns],
+                                      [len(txns)] * len(txns))
+                routes[k](stores[k], txns)
+            out[k] = device_ops_per_call(one)
+        emit("kernel_drain_ops", B=b, **out)
+        return out
+    walls = {k: [] for k in ("per_item", "drain", "floor", "cpu")}
+    version = 1
+    for i in range(drains):
+        # the same transactions and the same pending writes for each route
+        txns = txns_for(stores["drain"])
+        writes = [t.write_set for t in txns]
+        version += 1
+        for store in stores.values():
+            store.apply_batch(writes, [version] * len(writes))
+        verdicts = []
+        for k in ("per_item", "drain", "floor", "cpu"):
+            t0 = time.perf_counter()
+            if k == "floor":
+                lv.empty_drain(dev)
+            else:
+                verdicts.append(routes[k](stores[k], txns))
+            walls[k].append((time.perf_counter() - t0) * 1e6)
+        check(all(np.array_equal(verdicts[0], v) for v in verdicts),
+              f"drain routes disagree at B={b}, drain {i}")
+    for k, store in stores.items():
+        check(np.array_equal(store.device_versions().cpu().numpy(),
+                             store.versions.astype(np.int32)),
+              f"{k} route's device table differs from its host versions")
+    warm = 20
+    out = dict(B=b, drains=drains - warm, **{
+        f"{k}_us": float(np.mean(v[warm:])) for k, v in walls.items()},
+        **{f"{k}_median_us": float(np.median(v[warm:]))
+           for k, v in walls.items()})
+    emit("kernel_drain", routes=True, **out)
+    return out
+
+
+def kernel_drain_phase() -> tuple:
+    """The drain at the main path's shapes: bitwise against its twin and
+    timed (``drain_case``), then the four routes per drain.  Returns the
+    cases and TPC-C's class map (for ``drain_routes(profile=True)``)."""
+    rng = np.random.default_rng(3)
+    t0 = time.perf_counter()
+    item_cc, n_classes = tpcc_item_classes()
+    n = item_cc.size
+    emit("kernel_drain", tpcc_map_s=time.perf_counter() - t0, n_items=n,
+         n_classes=n_classes)
+    cases = [drain_case(f"main_B{b}", rng, n, b, 32, 16, item_cc, n_classes,
+                        b * 16) for b in (8, 16)]
+    for b in (8, 16):
+        drain_routes(rng, item_cc, n_classes, b, 320)
+    return cases, item_cc, n_classes
+
+
 # -- phases 4-5: the simulator on cuda and on cpu ----------------------------
 
 def run_cluster(workload: str, device: str, cfg_kw: dict, fail_at=None):
@@ -250,12 +536,31 @@ def run_cluster(workload: str, device: str, cfg_kw: dict, fail_at=None):
     import repro_torch.core as T
     import repro_torch.core.cluster as cluster_mod
 
-    certified = [0]
+    from repro_torch.kernels import lease_validate as lv
+
+    certified = [0, 0]             # transactions, drains
+    validate_s = [0.0]
+    # drains by launch plan (variant()'s, from the packed (B, n_dirty); the
+    # wrapper raises if the launcher took another), largest B and n_dirty
+    plans = {"one_cta": 0, "cluster": 0, "two_launches": 0}
+    largest = {"B": 0, "n_dirty": 0}
     plain_validate_batch = cluster_mod.validate_batch
 
-    def counting_validate_batch(store, txns, locks=None):
+    def counting_validate_batch(store, txns, locks=None, **kw):
         certified[0] += len(txns)
-        return plain_validate_batch(store, txns, locks=locks)
+        certified[1] += 1
+        t = time.perf_counter()
+        try:
+            ok = plain_validate_batch(store, txns, locks, **kw)
+        finally:
+            validate_s[0] += time.perf_counter() - t
+        n_dirty, b = store.staging.counts
+        _, ctas, kernels = lv.variant(b, n_dirty, per_item_locks=False)
+        plans["one_cta" if ctas == 1 else "cluster" if kernels == 1
+              else "two_launches"] += 1
+        largest.update(B=max(largest["B"], b),
+                       n_dirty=max(largest["n_dirty"], n_dirty))
+        return ok
 
     if workload == "tpcc":
         lay = T.TpccLayout(n_nodes=4, **TPCC_SPEC)
@@ -273,6 +578,8 @@ def run_cluster(workload: str, device: str, cfg_kw: dict, fail_at=None):
         c.events.schedule(fail_at, lambda: c.gcs.fail(3))
     t1 = time.perf_counter()
     cluster_mod.validate_batch = counting_validate_batch
+    lv.launches = 0
+    lv.variant_launches.update(gather=0, drain=0)   # just before the path
     try:
         m = c.run()
         if device == "cuda":
@@ -280,6 +587,7 @@ def run_cluster(workload: str, device: str, cfg_kw: dict, fail_at=None):
     finally:
         cluster_mod.validate_batch = plain_validate_batch
     t2 = time.perf_counter()
+    launches = dict(lv.variant_launches, all=lv.launches)
     for r in c.replicas:
         mirror = r.store.device_versions().cpu().numpy()
         check(np.array_equal(mirror, r.store.versions.astype(np.int32)),
@@ -288,8 +596,10 @@ def run_cluster(workload: str, device: str, cfg_kw: dict, fail_at=None):
     state = [(r.store.values.tobytes(), r.store.versions.tobytes())
              for r in c.replicas]
     return dict(metrics=dataclasses.asdict(m), state=state,
-                kernel_txns=certified[0], build_s=t1 - t0, run_s=t2 - t1,
-                n_items=cfg.n_items)
+                kernel_txns=certified[0], kernel_drains=certified[1],
+                validate_s=validate_s[0], launches=launches,
+                drain_plans=plans, largest=largest,
+                build_s=t1 - t0, run_s=t2 - t1, n_items=cfg.n_items)
 
 
 def compare_runs(phase: str, on_card: dict, on_cpu: dict) -> None:
@@ -299,13 +609,33 @@ def compare_runs(phase: str, on_card: dict, on_cpu: dict) -> None:
           f"{phase}: metrics differ between cuda and cpu")
 
 
-def summary(run: dict, launches: int) -> dict:
+def summary(run: dict) -> dict:
     m = run["metrics"]
     return dict(n_items=run["n_items"], commits=m["commits"],
                 aborts=m["aborts"], forwards=m["forwards"],
                 cert_batches=m["cert_batches"],
-                kernel_launches=launches, kernel_txns=run["kernel_txns"],
-                build_s=run["build_s"], run_s=run["run_s"])
+                kernel_launches=run["launches"]["all"],
+                variant_launches={k: v for k, v in run["launches"].items()
+                                  if k != "all"},
+                kernel_drains=run["kernel_drains"],
+                kernel_txns=run["kernel_txns"], drain_plans=run["drain_plans"],
+                largest_B=run["largest"]["B"],
+                largest_n_dirty=run["largest"]["n_dirty"],
+                build_s=run["build_s"], run_s=run["run_s"],
+                validate_s=run["validate_s"])
+
+
+def check_drains(phase: str, run: dict) -> None:
+    """Every batched drain of the card run launched ``drain``, once."""
+    n = run["launches"]
+    check(n["drain"] > 0, f"{phase} path never launched lease_validate")
+    check(n["drain"] == run["kernel_drains"] == n["all"],
+          f"{phase}: {n['drain']} drain launches for "
+          f"{run['kernel_drains']} batched drains ({n['all']} in all)")
+    check(n["gather"] == 0, f"{phase}: gather launched {n['gather']} times")
+    check(sum(run["drain_plans"].values()) == run["kernel_drains"],
+          f"{phase}: drain plans {run['drain_plans']} do not add up to "
+          f"{run['kernel_drains']} drains")
 
 
 # -- phases 6-7: the model kernels against their plain versions --------------
@@ -936,16 +1266,18 @@ def main() -> int:
                 lock_free=True)
     kernel_case("wide", rng, 1 << 20, 1024, 256, 64, 200)
 
+    # 3b. the drain against its twin, and a drain's routes timed
+    drain_cases, item_cc, n_classes = kernel_drain_phase()
+
     # 4. main path: TPC-C at spec cardinalities, cuda then cpu
     main_cfg = dict(threads_per_node=16, certify_window_ms=0.5,
                     duration_ms=300.0, warmup_ms=45.0, seed=0)
-    lv.launches = 0
     card = run_cluster("tpcc", "cuda", main_cfg)
-    main_launches = lv.launches
-    check(main_launches > 0, "main path never launched lease_validate")
-    emit("main", device="cuda", **summary(card, main_launches))
+    main_launches = card["launches"]
+    emit("main", device="cuda", **summary(card))
+    check_drains("main", card)
     host = run_cluster("tpcc", "cpu", main_cfg)
-    emit("main", device="cpu", **summary(host, 0))
+    emit("main", device="cpu", **summary(host))
     compare_runs("main", card, host)
     check(card["kernel_txns"] == host["kernel_txns"],
           "main: batched certification volume differs between cuda and cpu")
@@ -953,14 +1285,17 @@ def main() -> int:
     # 5. forced path: every drain and settle on the device
     forced_cfg = dict(certify_jax_min=1, lease_jax_min=1,
                       cert_slot_mode="per_txn")
-    lv.launches = 0
     card = run_cluster("bank", "cuda", forced_cfg, fail_at=120.0)
-    forced_launches = lv.launches
-    check(forced_launches > 0, "forced path never launched lease_validate")
-    emit("forced", device="cuda", **summary(card, forced_launches))
+    emit("forced", device="cuda", **summary(card))
+    check_drains("forced", card)
     host = run_cluster("bank", "cpu", forced_cfg, fail_at=120.0)
-    emit("forced", device="cpu", **summary(host, 0))
+    emit("forced", device="cpu", **summary(host))
     compare_runs("forced", card, host)
+
+    # 5b. device operations per drain of the two card routes, profiled
+    for b in (8, 16):
+        drain_routes(np.random.default_rng(4), item_cc, n_classes, b, 0,
+                     profile=True)
 
     # 6-7. the model kernels against their plain versions
     t0 = time.perf_counter()
@@ -977,22 +1312,18 @@ def main() -> int:
     # 10. the card against the CPU port
     held_phase()
 
-    shape = main_cases[1]          # B = 16, R = 32, W = 16
+    lease = "src/repro_torch/kernels/csrc/lease_validate.cu"
+    lease_tpu = "src/repro/kernels/lease_validate.py:70"
     print(smi_line, flush=True)
-    print(json.dumps({"kernels": [{
-        "name": "lease_validate",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/lease_validate.cu",
-        "replaces": "src/repro/kernels/lease_validate.py:70",
-        "launches": main_launches,
-        "max_abs_err": max(c["max_abs_err"] for c in main_cases),
-        "ms": shape["ms"],
-        "plain_ms": shape["plain_ms"],
-        "bound_ms": shape["bound_ms"],
-        "bound_by": shape["bound_by"],
-        "library_ms": None,
-        "graph_ms": shape["graph_ms"],
-    }, *flash_records(flash_cases, glm4), *ssd_records(ssd_cases, mamba2),
+    print(json.dumps({"kernels": [
+        # main_cases[1]: B = 16, R = 32, W = 16; drain_cases[1] the same
+        kernel_record("lease_validate.gather", lease, lease_tpu,
+                      main_launches["gather"],
+                      [dict(main_cases[1], library_ms=None), *main_cases]),
+        kernel_record("lease_validate.drain", lease, lease_tpu,
+                      main_launches["drain"],
+                      [drain_cases[1], *drain_cases]),
+        *flash_records(flash_cases, glm4), *ssd_records(ssd_cases, mamba2),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}), flush=True)

@@ -25,10 +25,12 @@ then starts the next — matching the paper's 2/4-threads-per-node runs.
 Execution (and forwarded re-execution) consumes a CPU slot at the executing
 node; slot occupancy feeds the CPU_i statistic used by constraint (3).
 
-The port runs each replica's version table, write-lock derivation and
-batched certification on ``SimConfig.device`` (the card by default); the
-host-side protocol is the reference's, verdict for verdict.  The planner,
-sanitizer and explorer hooks of the reference belong to later slices.
+The port runs each replica's version table and batched certification on
+``SimConfig.device`` (the card by default): a drain flushes the replica's
+written versions, checks write items against the lease layer's class
+owners and certifies, in one kernel launch.  The host-side protocol is the
+reference's, verdict for verdict.  The planner, sanitizer and explorer
+hooks of the reference belong to later slices.
 """
 from __future__ import annotations
 
@@ -48,7 +50,7 @@ from .forwarder import CommitNotice, ForwardPolicy, ForwardRequest
 from .gcs import GCSLatency, SimGCS
 from .lease import ALCLeaseManager, FGLLeaseManager, LeaseRequest, LOR
 from .stats import CpuMeter, DecayedFrequency
-from .stm import Transaction, VersionedStore, validate_batch
+from .stm import ClassLocks, Transaction, VersionedStore, validate_batch
 
 
 # --------------------------------------------------------------------------
@@ -310,15 +312,22 @@ class Cluster:
         self._reqid = itertools.count(1)
         self._stopped = False
         self._inflight: Dict[int, SimTxn] = {}
-        # item -> conflict class, used to derive per-item write-lock state
-        # from the lease layer for the certification kernel; built once, and
-        # kept on the device so a drain uploads only the class owners
+        # item -> conflict class, from which a drain's write check reads
+        # the lease layer's ownership; built once, and kept on the device
+        # as int32 (4.6 MB at TPC-C's 1.14 M items, L2-resident) so a drain
+        # hands over only the class owners
         if hasattr(self.ccmap, "of_item"):
             self._item_cc = np.fromiter(
                 (self.ccmap.of_item(i) for i in range(cfg.n_items)),
                 np.int32, count=cfg.n_items)
-            self._item_cc_dev = torch.from_numpy(
-                self._item_cc.astype(np.int64)).to(self.device)
+            if self._item_cc.size and not (
+                    0 <= self._item_cc.min()
+                    and self._item_cc.max() < cfg.n_classes):
+                raise ValueError(
+                    f"the conflict map sends items to classes outside "
+                    f"[0, {cfg.n_classes}) (n_classes)")
+            self._item_cc_dev = torch.from_numpy(self._item_cc).to(
+                self.device)
         else:
             self._item_cc = None
             self._item_cc_dev = None
@@ -726,14 +735,25 @@ class Cluster:
             self.events.schedule(
                 self.cfg.certify_window_ms, lambda: self._drain_certify(node))
 
-    def _write_locks(self, node: int) -> Optional[torch.Tensor]:
-        """Per-item write-lock state from the lease layer's ownership view.
+    def _class_locks(self, node: int) -> Optional[ClassLocks]:
+        """The lease layer's ownership view for a drain's write check.
 
         An item is write-locked at ``node`` when its conflict class is
         currently leased to a *different* replica.  Enabled transactions head
         every queue they touch, so a lock conflict here means the batch was
         fed a transaction the lease layer never enabled — the kernel turns
         that protocol violation into an abort instead of a silent pass.
+        The drain applies :meth:`_write_locks`' rule to its write slots
+        only; None without an item -> class map (every write check passes).
+        """
+        if self._item_cc_dev is None:
+            return None
+        return ClassLocks(self._item_cc_dev,
+                          self.replicas[node].lm.owner_np(), node)
+
+    def _write_locks(self, node: int) -> Optional[torch.Tensor]:
+        """Per-item write-lock state from the lease layer's ownership view
+        (the reference's form, ``repro.core.cluster.Cluster._write_locks``).
 
         Derived on the device: only the ``n_classes`` owners are uploaded,
         and the per-item gather runs against the device ``item -> class``
@@ -765,7 +785,7 @@ class Cluster:
             return
         if len(batch) >= self.cfg.certify_jax_min:
             ok = validate_batch(r.store, [t.stm for t in batch],
-                                locks=self._write_locks(node))
+                                class_locks=self._class_locks(node))
         else:
             # near-empty batch: device dispatch overhead would dominate —
             # the numpy loop settles the same verdicts, including the lock

@@ -12,13 +12,17 @@ version table is mirrored as an int32 tensor on the store's device.
 **Batched** validation — the certification hot loop used when a replica
 validates many remote/forwarded transactions at once — runs on that
 device table (:func:`validate_batch`), through the hand-written CUDA kernel
-``repro_torch.kernels.lease_validate`` on the card.
+``repro_torch.kernels.lease_validate`` on the card: a drain packs its
+transactions, the store's written versions and the lease layer's class
+owners into the store's staging area, and one launch flushes and
+certifies.
 """
 from __future__ import annotations
 
 import array
+import itertools
 from dataclasses import dataclass, field
-from typing import Dict, Iterable, List, Sequence, Tuple
+from typing import Dict, Iterable, List, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -85,10 +89,15 @@ class VersionedStore:
 
     ``values`` (float64) and ``versions`` (int64) live on the host.
     ``versions_dev`` is the int32 device mirror of ``versions`` that batched
-    certification reads.  Every mutation site records the items it wrote,
-    and :meth:`device_versions` flushes only those in one scatter, so a
-    drain moves the items written since the last drain, not the table.
-    Write ``versions`` only through these methods (or :meth:`set_versions`).
+    certification reads.  Every mutation site records the items it wrote
+    (``_dirty``, int32), and a drain flushes only those, inside its own
+    launch (:func:`validate_batch`); :meth:`device_versions` is the same
+    flush for readers outside a drain.  Either way a drain moves the items
+    written since the last flush, not the table.  ``staging`` is the
+    store's drain area
+    (:class:`~repro_torch.kernels.lease_validate.DrainStaging`), made at
+    the first drain.  Write ``versions`` only through these methods
+    (or :meth:`set_versions`).
     """
 
     def __init__(self, n_items: int, init_value: float = 0.0,
@@ -100,7 +109,8 @@ class VersionedStore:
         self.versions = np.zeros((n_items,), dtype=np.int64)
         self.versions_dev = torch.zeros((n_items,), dtype=torch.int32,
                                         device=self.device)
-        self._dirty: List[int] = []   # items written since the last flush
+        self._dirty = array.array("i")   # items written since the last flush
+        self.staging = None
         self.clock = 0  # global version clock (per replica copy)
 
     @classmethod
@@ -128,13 +138,14 @@ class VersionedStore:
         self.versions[:] = versions
         self.versions_dev = torch.from_numpy(
             versions.astype(np.int32)).to(self.device)
-        self._dirty.clear()
+        del self._dirty[:]
 
     def device_versions(self) -> torch.Tensor:
         """The int32 device version table, with pending writes flushed."""
         if self._dirty:
-            idx = np.unique(np.asarray(self._dirty, dtype=np.int64))
-            self._dirty.clear()
+            idx = np.unique(np.frombuffer(self._dirty, np.int32)).astype(
+                np.int64)
+            del self._dirty[:]
             # one host->device copy carries indices and versions together
             pair = torch.from_numpy(np.stack(
                 [idx, self.versions[idx].astype(np.int32)])).to(self.device)
@@ -145,7 +156,8 @@ class VersionedStore:
         """Grow capacity to at least ``n`` items (power-of-two steps),
         preserving contents.  The supported way for consumers to extend a
         store — direct writes to values/versions outside this module are
-        lint-gated (state-mutation rule)."""
+        lint-gated (state-mutation rule).  Pending writes stay pending: the
+        next flush writes them into the grown table."""
         if n <= self.n_items:
             return
         cap = max(1, self.n_items)
@@ -236,7 +248,7 @@ class VersionedStore:
         keep = n - 1 - first_in_rev
         self.values[items[keep]] = vals[keep]
         self.versions[items[keep]] = vers[keep]
-        self._dirty.extend(items[keep].tolist())
+        self._dirty.frombytes(items[keep].tobytes())
         self.clock = max(self.clock, int(vers.max()))
 
     def total(self) -> float:
@@ -347,27 +359,107 @@ def pack_write_sets(
         None, w, -1)[0]
 
 
+class ClassLocks(NamedTuple):
+    """The lease layer's ownership view for a drain's write check: a write
+    item is locked when ``owners[item_cc[item]]`` is another replica."""
+    item_cc: torch.Tensor   # [n_items] int32 item -> class, store's device
+    owners: np.ndarray      # [n_classes] int32, -1 unowned
+    node: int               # the certifying replica
+
+
+def pack_drain(store: VersionedStore, txns: Sequence[Transaction],
+               class_locks: ClassLocks | None = None):
+    """Pack one drain into ``store.staging``; returns its views.
+
+    The store's pending writes (their current versions), the class owners,
+    the read rows and the write rows, with the power-of-two widths and -1
+    padding of :func:`pack_read_sets` / :func:`pack_write_sets` and the row
+    count bucketed to a power of two (padded rows certify True).  Each
+    transaction's interleaved read log is copied as it is into its row of
+    (item, version) pairs, and its write items, converted in one call, into
+    theirs: one buffer copy a row and no per-row numpy call.  Without
+    ``class_locks`` no write rows are packed (W = 0).
+    """
+    from ..kernels.lease_validate import DrainStaging
+
+    if store.staging is None:
+        store.staging = DrainStaging(store.device)
+    r = _pad_bucket(max(len(t.read_log) for t in txns) >> 1)
+    if class_locks is None:
+        w, owners, node = 0, None, 0
+    else:
+        w = _pad_bucket(max(len(t.write_set) for t in txns))
+        owners, node = class_locks.owners, class_locks.node
+    dirty = np.frombuffer(store._dirty, np.int32)
+    v = store.staging.begin(
+        dirty.shape[0], _pad_bucket(len(txns)), r, w,
+        0 if owners is None else owners.shape[0], node)
+    v.dirty_idx[:] = dirty
+    v.dirty_ver[:] = store.versions[dirty]
+    v.read_items.fill(-1)
+    v.read_versions.fill(0)
+    rows = memoryview(v.reads.reshape(-1))
+    for i, t in enumerate(txns):
+        rows[2 * r * i:2 * r * i + len(t.read_log)] = t.read_log
+    if owners is not None:
+        v.owners[:] = owners
+        v.write_items.fill(-1)
+        rows = memoryview(v.write_items.reshape(-1))
+        sets = [t.write_set for t in txns]
+        lens = [len(ws) for ws in sets]
+        flat = memoryview(np.fromiter(itertools.chain.from_iterable(sets),
+                                      np.int32, sum(lens)))
+        pos = 0
+        for i, n in enumerate(lens):
+            rows[w * i:w * i + n] = flat[pos:pos + n]
+            pos += n
+    return v
+
+
 def validate_batch(store: VersionedStore, txns: Sequence[Transaction],
-                   locks: torch.Tensor | None = None) -> np.ndarray:
+                   locks: torch.Tensor | None = None, *,
+                   class_locks: ClassLocks | None = None) -> np.ndarray:
     """Batched TL2 certification of ``txns`` against ``store``.
 
-    Packs read *and* write sets (power-of-two padded), flushes the store's
-    pending writes to its device table, and dispatches through
-    :func:`repro_torch.kernels.ops.validate_transactions` on the store's
-    device — the CUDA kernel on the card, the torch twin on the CPU.
+    Two routes, by what the caller hands over:
 
-    ``locks`` is an optional [n_items] 0/1 int32 tensor of write locks
-    (item leased away per the lease layer) on the store's device: a
-    transaction writing a locked item fails certification.
+    - ``locks``, an [n_items] 0/1 int32 tensor of write locks on the
+      store's device (the reference's form): the rows are packed, the
+      store's pending writes flushed (:meth:`VersionedStore.device_versions`)
+      and :func:`repro_torch.kernels.ops.validate_transactions` dispatched:
+      the ``gather`` kernel on the card, the torch twin on the CPU.
+    - otherwise a drain (:func:`pack_drain`, then
+      :func:`repro_torch.kernels.ops.certify_drain`): the ``drain`` kernel
+      flushes and certifies in one launch and one wait on the card, its
+      twin on the CPU.  ``class_locks`` gives the write check; without it
+      every write check passes.
+
+    A transaction writing a locked item fails certification.
     """
     if not txns:
         return np.zeros((0,), dtype=bool)
+    if locks is not None:
+        if class_locks is not None:
+            raise ValueError("pass locks or class_locks, not both")
+        return _validate_gather(store, txns, locks)
+    from ..kernels.ops import certify_drain
+
+    pack_drain(store, txns, class_locks)
+    ok = certify_drain(store.versions_dev, store.staging,
+                       None if class_locks is None else class_locks.item_cc)
+    # the drain that flushed them is enqueued (and done): only now are the
+    # pending writes cleared
+    del store._dirty[:]
+    return ok[:len(txns)].copy()
+
+
+def _validate_gather(store: VersionedStore, txns: Sequence[Transaction],
+                     locks: torch.Tensor) -> np.ndarray:
+    """``validate_batch`` against a per-item lock tensor (``gather``)."""
     from ..kernels.ops import validate_transactions
 
     items, vers = pack_read_sets(txns)
-    # without locks every write check passes — skip the write packing and
-    # let the kernel mask an empty [B, 1] column
-    witems = pack_write_sets(txns) if locks is not None else None
+    witems = pack_write_sets(txns)
     # bucket the row count too, like the reference — padded rows are
     # all-masked (items -1) and certify True, sliced off below
     b = len(txns)
@@ -375,18 +467,15 @@ def validate_batch(store: VersionedStore, txns: Sequence[Transaction],
     if bp != b:
         items = np.pad(items, ((0, bp - b), (0, 0)), constant_values=-1)
         vers = np.pad(vers, ((0, bp - b), (0, 0)))
-        if witems is not None:
-            witems = np.pad(witems, ((0, bp - b), (0, 0)),
-                            constant_values=-1)
+        witems = np.pad(witems, ((0, bp - b), (0, 0)), constant_values=-1)
     # one host->device copy carries every packed row: the kernel reads
     # contiguous views of it
-    parts = [items, vers] if witems is None else [items, vers, witems]
-    flat = torch.from_numpy(
-        np.concatenate([p.ravel() for p in parts])).to(store.device)
+    flat = torch.from_numpy(np.concatenate(
+        [items.ravel(), vers.ravel(), witems.ravel()])).to(store.device)
     n_r = items.size
     d_items = flat[:n_r].view(items.shape)
     d_vers = flat[n_r:2 * n_r].view(vers.shape)
-    d_witems = None if witems is None else flat[2 * n_r:].view(witems.shape)
+    d_witems = flat[2 * n_r:].view(witems.shape)
     out = validate_transactions(
         store.device_versions(), d_items, d_vers,
         write_locks=locks, write_items=d_witems)

@@ -1,6 +1,7 @@
 """Dispatch points: CUDA tensors -> kernel, CPU tensors -> plain twin.
 
-Counterparts of :func:`repro.kernels.ops.validate_transactions`,
+Counterparts of :func:`repro.kernels.ops.validate_transactions`
+(and :func:`certify_drain`, the port's fused form of a certification drain),
 :func:`repro.kernels.ops.settle_lease_batch`, :func:`repro.kernels.ops.attention`
 and :func:`repro.kernels.ops.ssd`.  There is no backend probing: the device
 of the tensors decides.  A CUDA tensor launches the kernel or raises; only
@@ -16,11 +17,12 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from . import ref
 from .flash_attention import flash_attention
-from .lease_validate import lease_validate
+from .lease_validate import DrainStaging, lease_drain, lease_validate
 from .ssd_scan import ssd_scan
 
 
@@ -59,6 +61,28 @@ def validate_transactions(
                               write_locks, write_items)
     return ref.lease_validate_ref(store_versions, read_items, read_versions,
                                   write_locks > 0, write_items)
+
+
+def certify_drain(table: torch.Tensor, staging: DrainStaging,
+                  item_cc: Optional[torch.Tensor] = None) -> np.ndarray:
+    """One certification drain: flush the packed dirty pairs into ``table``
+    and certify the packed transactions; returns ``ok[B]``, a view into
+    ``staging`` that the next drain overwrites.
+
+    A CUDA table goes to the ``drain`` kernel (one launch, one wait); a CPU
+    table to :func:`ref.lease_drain_ref` over tensors that share the
+    staging area's memory, whose verdicts land where the kernel's would.
+    """
+    if table.device.type == "cuda":
+        return lease_drain(table, staging, item_cc)
+    v = staging.views
+    t = torch.from_numpy
+    classes = item_cc is not None
+    v.ok[:] = ref.lease_drain_ref(
+        table, t(v.dirty_idx), t(v.dirty_ver), item_cc,
+        t(v.owners) if classes else None, v.node, t(v.read_items),
+        t(v.read_versions), t(v.write_items) if classes else None).numpy()
+    return v.ok
 
 
 def attention(q, k, v, *, q_positions, kv_positions, causal=True,

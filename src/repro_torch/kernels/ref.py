@@ -3,7 +3,10 @@
 Twins of :func:`repro.kernels.ref.lease_settle_ref` and
 :func:`repro.kernels.ref.lease_validate_ref` (bitwise targets: int32 ids at
 the boundary, -1 padding, the same clip semantics; torch indexes with
-int64, so indices are widened inside), and of the model stack's float
+int64, so indices are widened inside); :func:`lease_drain_ref`, the
+certification drain composed as the reference's cluster composes it
+(flush, per-item locks from the class owners, ``lease_validate_ref``); and
+twins of the model stack's float
 oracles: :func:`sdpa_ref` (``repro.models.attention.attn_mask`` /
 ``_sdpa_ref``) and :func:`ssd_ref` (``repro.models.ssm.ssd_chunked``).
 """
@@ -64,6 +67,42 @@ def lease_validate_ref(
         wvalid = write_items >= 0
         locked = write_locks[write_items.clamp(0, n - 1).long()]
         ok &= torch.where(wvalid, ~locked, torch.ones_like(wvalid)).all(dim=1)
+    return ok
+
+
+def lease_drain_ref(
+    versions_dev: torch.Tensor,            # [n_items] int32, updated in place
+    dirty_idx: torch.Tensor,               # [n_dirty] int32 items
+    dirty_ver: torch.Tensor,               # [n_dirty] int32 their versions
+    item_cc: Optional[torch.Tensor],       # [n_items] int32 item -> class
+    owners: Optional[torch.Tensor],        # [n_classes] int32, -1 unowned
+    node: int,                             # the certifying replica
+    read_items: torch.Tensor,              # [B, R] int32, -1 padded
+    read_versions: torch.Tensor,           # [B, R] int32
+    write_items: Optional[torch.Tensor],   # [B, W] int32, -1 padded
+) -> torch.Tensor:
+    """One certification drain: flush, then certify against the flushed table.
+
+    Scatters the dirty pairs into ``versions_dev`` (callers pass each
+    item's current version, so a repeated item carries one value), then
+    certifies as :func:`lease_validate_ref` with a write item locked when
+    ``owner = owners[item_cc[item]]`` is ``>= 0`` and ``!= node`` (the
+    cluster's per-item lock rule, applied to the write slots only); a
+    class outside ``owners`` fails closed (the slot counts as locked), as
+    in the kernel.  Without ``item_cc`` every write check passes.  Returns
+    ``ok[B]`` bool.
+    """
+    if dirty_idx.numel():
+        versions_dev[dirty_idx.long()] = dirty_ver
+    ok = lease_validate_ref(versions_dev, read_items, read_versions)
+    if item_cc is not None and write_items is not None:
+        n, n_classes = versions_dev.shape[0], owners.shape[0]
+        valid = write_items >= 0
+        cc = item_cc[write_items.clamp(0, n - 1).long()].long()
+        known = (cc >= 0) & (cc < n_classes)
+        owner = owners[cc.clamp(0, max(n_classes - 1, 0))]
+        locked = ~known | ((owner >= 0) & (owner != node))
+        ok &= torch.where(valid, ~locked, torch.ones_like(valid)).all(dim=1)
     return ok
 
 

@@ -1,6 +1,9 @@
 """The port's CUDA kernels against their plain versions, on the card.
 
-``lease_validate`` bitwise; ``flash_attention`` and ``ssd_scan`` at the
+``lease_validate`` bitwise (``gather`` against ``ref.lease_validate_ref``,
+``drain`` against ``ref.lease_drain_ref`` on ``ok`` and on the flushed
+table, over ``DRAIN_GRID``, which ``test_torch_lease_drain.py`` also holds
+to the reference on the CPU); ``flash_attention`` and ``ssd_scan`` at the
 reference's tolerances over its test grids, plus the model path's shapes.
 Marked ``cuda``: skips on a host without a card.  This file imports no JAX
 (the card's machine has none); run it there with
@@ -76,15 +79,242 @@ def test_cuda_wrapper_rejects_bad_inputs(cuda_device):
         lv.lease_validate(store, items, vers, locks, witems[:4])
 
 
+# (B, R, W, n_items, n_classes, n_dirty): TPC-C's main shapes (1,140,088
+# items, 33 classes, ~B x W dirty items), small cases whose dirty items
+# repeat, no dirty item, an empty batch, and no class map (n_classes 0: no
+# write rows).  Every case reads items dirtied in the same drain (some at
+# their old version) and item n_items - 1.
+DRAIN_GRID = [
+    (16, 32, 16, 1_140_088, 33, 256),
+    (8, 32, 16, 1_140_088, 33, 128),
+    (7, 3, 2, 100, 5, 40),
+    (8, 8, 4, 64, 4, 0),
+    (0, 8, 4, 64, 4, 16),
+    (16, 32, 0, 4096, 0, 64),
+]
+# the drain's other plans, on the card only: clusters of 2, 8 and 3 CTAs
+# (by transactions and by dirty pairs), two launches (by both), and rows
+# wider than a warp (each lane past its first read pair and write item)
+DRAIN_PLANS = [
+    ((64, 32, 16, 1 << 20, 33, 512), (2, 1)),
+    ((256, 16, 8, 1 << 16, 64, 1024), (8, 1)),
+    ((8, 8, 4, 1 << 16, 8, 20000), (3, 1)),
+    ((512, 8, 4, 4096, 16, 100), (16, 2)),
+    ((8, 8, 4, 1 << 18, 8, 80000), (10, 2)),
+    ((32, 1024, 64, 1 << 16, 8, 64), (1, 1)),
+]
+
+
+def _ragged(rng, b, width, n_items):
+    """[b, width] items in range, each row -1 padded after a random
+    length."""
+    items = rng.integers(0, n_items, (b, width)).astype(np.int32)
+    lens = rng.integers(0, width + 1, b)
+    items[np.arange(width)[None, :] >= lens[:, None]] = -1
+    return items
+
+
+def drain_inputs(seed, b, r, w, n_items, n_classes, n_dirty, node=1):
+    """One drain's numpy inputs: ``table`` (the device table before the
+    flush), ``versions`` (the host versions: the table with the dirty
+    items rewritten), the dirty pairs (repeats keep one version), the
+    class view (None without classes), and the rows."""
+    rng = np.random.default_rng(seed)
+    table = rng.integers(0, 50, n_items).astype(np.int32)
+    dirty = rng.integers(0, n_items, n_dirty).astype(np.int32)
+    if n_dirty:
+        dirty[0] = n_items - 1
+    versions = table.copy()
+    versions[dirty] = rng.integers(50, 100, n_dirty).astype(np.int32)
+    items = _ragged(rng, b, r, n_items)
+    if n_dirty and b:
+        hit = (items >= 0) & (rng.random((b, r)) < 0.3)
+        items[hit] = dirty[rng.integers(0, n_dirty, int(hit.sum()))]
+    if b and r:
+        items[0, 0] = n_items - 1
+    # half the rows read what the host holds now; the others also hold
+    # some versions from before the flush and some that never existed
+    slot = np.clip(items, 0, n_items - 1)
+    vers = versions[slot]
+    u = rng.random((b, r))
+    stale = (rng.random(b) < 0.5)[:, None]
+    vers = np.where(stale & (u < 0.1), table[slot], vers)
+    vers = np.where(stale & (u > 0.97), rng.integers(0, 100, (b, r)),
+                    vers).astype(np.int32)
+    classes = None
+    if n_classes:
+        owners = rng.choice(np.array([-1, node, node + 1], np.int32),
+                            n_classes, p=[0.45, 0.45, 0.1])
+        classes = (rng.integers(0, n_classes, n_items).astype(np.int32),
+                   owners)
+    witems = _ragged(rng, b, w, n_items)
+    return dict(table=table, versions=versions, dirty_idx=dirty,
+                dirty_ver=versions[dirty], classes=classes, node=node,
+                read_items=items, read_versions=vers, write_items=witems)
+
+
+def stage_drain(staging, case):
+    """Pack ``case`` into ``staging`` as ``stm.pack_drain`` lays it out."""
+    b, r = case["read_items"].shape
+    owners = None if case["classes"] is None else case["classes"][1]
+    w = 0 if owners is None else case["write_items"].shape[1]
+    v = staging.begin(case["dirty_idx"].shape[0], b, r, w,
+                      0 if owners is None else owners.shape[0], case["node"])
+    v.dirty_idx[:] = case["dirty_idx"]
+    v.dirty_ver[:] = case["dirty_ver"]
+    v.read_items[:] = case["read_items"]
+    v.read_versions[:] = case["read_versions"]
+    if owners is not None:
+        v.owners[:] = owners
+        v.write_items[:] = case["write_items"]
+    return v
+
+
+def drain_twin(case, device="cpu"):
+    """``ref.lease_drain_ref`` on ``case``: (ok, flushed table)."""
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    table = t(case["table"])
+    cls = case["classes"]
+    ok = ref.lease_drain_ref(
+        table, t(case["dirty_idx"]), t(case["dirty_ver"]),
+        None if cls is None else t(cls[0]), None if cls is None else t(cls[1]),
+        case["node"], t(case["read_items"]), t(case["read_versions"]),
+        None if cls is None else t(case["write_items"]))
+    return ok, table
+
+
+def _drain_on_card(case, device, **kw):
+    staging = lv.DrainStaging(device)
+    stage_drain(staging, case)
+    table = torch.from_numpy(case["table"]).to(device)
+    cls = case["classes"]
+    item_cc = None if cls is None else torch.from_numpy(cls[0]).to(device)
+    ok = lv.lease_drain(table, staging, item_cc, **kw).copy()
+    return ok, table
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DRAIN_GRID + [c for c, _ in DRAIN_PLANS])
+def test_cuda_drain_matches_twin(cuda_device, case):
+    inputs = drain_inputs(5, *case)
+    before = dict(lv.variant_launches)
+    got, table = _drain_on_card(inputs, cuda_device)
+    want, want_table = drain_twin(inputs)
+    assert got.dtype == np.bool_ and got.shape == (case[0],)
+    np.testing.assert_array_equal(got, want.numpy())
+    np.testing.assert_array_equal(table.cpu().numpy(), want_table.numpy())
+    launched = 1 if case[0] or case[5] else 0
+    assert lv.variant_launches["drain"] == before["drain"] + launched
+    assert lv.variant_launches["gather"] == before["gather"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,plan", DRAIN_PLANS)
+def test_cuda_drain_plans_match_variant(cuda_device, case, plan):
+    """The plans the card cases cover are the ones variant() names (the
+    wrapper raises if the launcher took another)."""
+    b, n_dirty = case[0], case[5]
+    assert lv.variant(b, n_dirty, per_item_locks=False) == ("drain", *plan)
+    _drain_on_card(drain_inputs(6, *case), cuda_device)
+
+
+def class_outside_owners(case):
+    """``case`` with the first write item of every even row sent to a
+    class past the owners and that of every row divisible by 3 to -1."""
+    item_cc, owners = case["classes"]
+    item_cc = item_cc.copy()
+    firsts = case["write_items"][:, 0]
+    for row, item in enumerate(firsts):
+        if item >= 0 and row % 2 == 0:
+            item_cc[item] = owners.size + row
+        if item >= 0 and row % 3 == 0:
+            item_cc[item] = -1
+    return dict(case, classes=(item_cc, owners))
+
+
+@pytest.mark.cuda
+def test_cuda_drain_fails_closed_on_a_class_outside_the_owners(cuda_device):
+    """A write item whose class lies outside the owners is locked, on the
+    card as in the twin (never silently unowned)."""
+    case = class_outside_owners(drain_inputs(9, 16, 8, 4, 4096, 6, 32))
+    got, table = _drain_on_card(case, cuda_device)
+    want, want_table = drain_twin(case)
+    np.testing.assert_array_equal(got, want.numpy())
+    np.testing.assert_array_equal(table.cpu().numpy(), want_table.numpy())
+    rows = np.arange(got.size)
+    sent = (case["write_items"][:, 0] >= 0) & ((rows % 2 == 0)
+                                                 | (rows % 3 == 0))
+    assert sent.any() and not got[sent].any()
+
+
+@pytest.mark.cuda
+def test_cuda_drain_refuses_bad_inputs(cuda_device):
+    case = drain_inputs(7, 8, 8, 4, 64, 4, 16)
+    staging = lv.DrainStaging(cuda_device)
+    stage_drain(staging, case)
+    table = torch.from_numpy(case["table"]).to(cuda_device)
+    item_cc = torch.from_numpy(case["classes"][0]).to(cuda_device)
+    with pytest.raises(ValueError, match="CUDA"):
+        lv.lease_drain(table.cpu(), staging, item_cc.cpu())
+    with pytest.raises(TypeError, match="int32"):
+        lv.lease_drain(table.long(), staging, item_cc)
+    with pytest.raises(ValueError, match="items"):
+        lv.lease_drain(table, staging, item_cc[:32])
+    with pytest.raises(ValueError, match="class count"):
+        lv.lease_drain(table, staging, None)
+    on_host = lv.DrainStaging("cpu")
+    stage_drain(on_host, case)
+    with pytest.raises(ValueError, match="staging"):
+        lv.lease_drain(table, on_host, item_cc)
+    staging.views.dirty_idx[3] = 64
+    with pytest.raises(ValueError, match="outside"):
+        lv.lease_drain(table, staging, item_cc)
+
+
+@pytest.mark.cuda
+def test_cuda_drain_after_grow_to(cuda_device):
+    """A store grown after writes certifies on the card as on the CPU, and
+    its device table ends equal to its host versions."""
+    from repro_torch.core import stm
+
+    out = []
+    for device in (cuda_device, "cpu"):
+        store = stm.VersionedStore(300, device=device)
+        rng = np.random.default_rng(8)
+        store.apply_versioned({int(i): 1.0 for i in rng.integers(0, 300, 20)},
+                              7)
+        store.grow_to(700)
+        store.apply({int(i): 2.0 for i in rng.integers(0, 700, 30)})
+        txns = []
+        for k in range(11):
+            t = stm.Transaction(txid=k + 1, origin=0)
+            for item in rng.integers(0, 700, 6):
+                t.log_read(int(item), int(store.versions[item]))
+            t.log_read(int(rng.integers(0, 700)), 0)
+            t.write_set[int(rng.integers(0, 700))] = 1.0
+            txns.append(t)
+        item_cc = (np.arange(store.n_items) % 9).astype(np.int32)
+        locks = stm.ClassLocks(torch.from_numpy(item_cc).to(device),
+                               np.array([-1, 0, 2] * 3, np.int32), 0)
+        ok = stm.validate_batch(store, txns, class_locks=locks)
+        np.testing.assert_array_equal(store.versions_dev.cpu().numpy(),
+                                      store.versions.astype(np.int32))
+        out.append(ok)
+    np.testing.assert_array_equal(out[0], out[1])
+    assert 0 < out[0].sum() < len(out[0])
+
+
 @pytest.mark.cuda
 def test_cuda_cluster_run_matches_cpu(cuda_device):
-    """A short forced Bank run on the card equals the same run on the CPU."""
+    """A short forced Bank run on the card equals the same run on the CPU,
+    and every batched drain on the card went through ``drain``."""
     import dataclasses
 
     import repro_torch.core as T
 
     out = []
     for device in ("cuda", "cpu"):
+        lv.variant_launches.update(gather=0, drain=0)
         cfg = T.SimConfig(duration_ms=150.0, warmup_ms=30.0, seed=1,
                           certify_jax_min=1, lease_jax_min=1,
                           cert_slot_mode="per_txn", device=device)
@@ -95,8 +325,12 @@ def test_cuda_cluster_run_matches_cpu(cuda_device):
         out.append((dataclasses.asdict(m),
                     [(r.store.values.tobytes(), r.store.versions.tobytes())
                      for r in c.replicas]))
+        if device == "cuda":
+            drains = dict(lv.variant_launches)
     assert out[0] == out[1]
     assert out[0][0]["cert_batches"] > 0
+    assert drains["drain"] == out[0][0]["cert_batches"] > 0
+    assert drains["gather"] == 0
 
 
 # (B, Sq, Skv, Hq, Hkv, Dk, Dv, causal, window, softcap, dtype, valid): the
