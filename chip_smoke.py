@@ -104,13 +104,45 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             tests' bf16 tolerance against the reference).  The CPU port is
             what the tests hold to JAX, so this ties the card to it.
 
+11. serve — the serving path of ``benchmarks/serve_locality.py``
+            through the port's ``repro_torch.launch.serve.run_point`` (its
+            recipe; the card's machine has no JAX) at its defaults:
+            mixtral-8x7b's KV sizes, 8 pods, 256 sessions, 80 steps,
+            every GRID (policy,
+            arbitration) pair x localities {0.0, 0.5, 0.9} x seeds 0-2, on
+            cuda and on cpu, identical (run_point's keys,
+            ``EngineMetrics.as_dict()`` without the wall-clock
+            ``plan_block_s``, the router's metrics).  Once at the
+            certifier's default (batches below 8 settle on the host) and
+            once with ``StepCertifier(jax_min=1)``: every certification
+            batch through ``validate_batch``'s drain route, each a
+            ``drain`` launch (W = 0, no class view), ``gather`` never;
+            drains by launch plan, largest B and n_dirty.  Then the drain
+            kernel at the serving shape against its twin
+            (``kernel_drain`` lines ``serve_B*``).  ``tokens_per_s`` here
+            is SimBackend's priced TPU pod, not the card's speed.
+12. serve_plan — ``benchmarks/planner.py``'s sweep with the planner on
+            (96 sessions, 160 steps, SERVE_PLAN_DEFAULTS, localities {0.0,
+            0.7, 0.9}, seeds 0-2), async and sync plan epochs, cuda
+            identical to cpu in each mode; planned moves at 0.9.  Then
+            ``launch.serve.main`` with the planner on, cuda against cpu.
+13. plan_score — the scorer at 2^17 classes x 16 nodes on the card,
+            bitwise equal to ``score_moves_np``; sync, kick and harvest ms
+            around host work as ``overlap_cell`` times them; the bound.
+14. sim_plan — phase 4's TPC-C run with ``SimConfig.plan``
+            (SIM_PLAN_DEFAULTS) on cuda and cpu: byte-identical, planner
+            epochs and prefetches issued, every drain through ``drain``.
+
 The last three lines are the ``nvidia-smi`` line, the kernels record (one
-entry per lease_validate, flash and SSD variant), and ``{"ok": true,
-"device": {...}}``.
+entry per lease_validate, flash and SSD variant; ``lease_validate.drain``
+counts its launches on every path that reaches it, by path in
+``launches_by_path``), and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import subprocess
 import sys
@@ -530,37 +562,67 @@ def kernel_drain_phase() -> tuple:
 
 # -- phases 4-5: the simulator on cuda and on cpu ----------------------------
 
+class DrainStats:
+    """The batched drains one path makes through ``module.validate_batch``
+    while the ``with`` block runs: transactions and drains, the wall inside
+    the calls, the drains by launch plan (``variant()``'s, from the packed
+    (B, n_dirty); the wrapper raises if the launcher took another) and the
+    largest B and n_dirty."""
+
+    def __init__(self, module) -> None:
+        self.module = module
+        self.txns = self.drains = 0
+        self.validate_s = 0.0
+        self.plans = {"one_cta": 0, "cluster": 0, "two_launches": 0}
+        self.largest = {"B": 0, "n_dirty": 0}
+
+    def __enter__(self):
+        from repro_torch.kernels import lease_validate as lv
+
+        plain = self.plain = self.module.validate_batch
+
+        def counting(store, txns, *args, **kw):
+            self.txns += len(txns)
+            self.drains += 1
+            t = time.perf_counter()
+            try:
+                ok = plain(store, txns, *args, **kw)
+            finally:
+                self.validate_s += time.perf_counter() - t
+            n_dirty, b = store.staging.counts
+            _, ctas, kernels = lv.variant(b, n_dirty, per_item_locks=False)
+            self.plans["one_cta" if ctas == 1 else "cluster" if kernels == 1
+                       else "two_launches"] += 1
+            self.largest.update(B=max(self.largest["B"], b),
+                                n_dirty=max(self.largest["n_dirty"], n_dirty))
+            return ok
+
+        self.module.validate_batch = counting
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.module.validate_batch = self.plain
+
+
+def reset_launches() -> None:
+    """Every kernel count to 0: just before a path is driven."""
+    from repro_torch.kernels import lease_validate as lv
+
+    lv.launches = 0
+    lv.variant_launches.update(gather=0, drain=0)
+
+
+def lease_launches() -> dict:
+    from repro_torch.kernels import lease_validate as lv
+
+    return dict(lv.variant_launches, all=lv.launches)
+
+
 def run_cluster(workload: str, device: str, cfg_kw: dict, fail_at=None):
     import torch
 
     import repro_torch.core as T
     import repro_torch.core.cluster as cluster_mod
-
-    from repro_torch.kernels import lease_validate as lv
-
-    certified = [0, 0]             # transactions, drains
-    validate_s = [0.0]
-    # drains by launch plan (variant()'s, from the packed (B, n_dirty); the
-    # wrapper raises if the launcher took another), largest B and n_dirty
-    plans = {"one_cta": 0, "cluster": 0, "two_launches": 0}
-    largest = {"B": 0, "n_dirty": 0}
-    plain_validate_batch = cluster_mod.validate_batch
-
-    def counting_validate_batch(store, txns, locks=None, **kw):
-        certified[0] += len(txns)
-        certified[1] += 1
-        t = time.perf_counter()
-        try:
-            ok = plain_validate_batch(store, txns, locks, **kw)
-        finally:
-            validate_s[0] += time.perf_counter() - t
-        n_dirty, b = store.staging.counts
-        _, ctas, kernels = lv.variant(b, n_dirty, per_item_locks=False)
-        plans["one_cta" if ctas == 1 else "cluster" if kernels == 1
-              else "two_launches"] += 1
-        largest.update(B=max(largest["B"], b),
-                       n_dirty=max(largest["n_dirty"], n_dirty))
-        return ok
 
     if workload == "tpcc":
         lay = T.TpccLayout(n_nodes=4, **TPCC_SPEC)
@@ -577,17 +639,13 @@ def run_cluster(workload: str, device: str, cfg_kw: dict, fail_at=None):
     if fail_at is not None:
         c.events.schedule(fail_at, lambda: c.gcs.fail(3))
     t1 = time.perf_counter()
-    cluster_mod.validate_batch = counting_validate_batch
-    lv.launches = 0
-    lv.variant_launches.update(gather=0, drain=0)   # just before the path
-    try:
+    reset_launches()                    # just before the path
+    with DrainStats(cluster_mod) as stats:
         m = c.run()
         if device == "cuda":
             torch.cuda.synchronize()
-    finally:
-        cluster_mod.validate_batch = plain_validate_batch
     t2 = time.perf_counter()
-    launches = dict(lv.variant_launches, all=lv.launches)
+    launches = lease_launches()
     for r in c.replicas:
         mirror = r.store.device_versions().cpu().numpy()
         check(np.array_equal(mirror, r.store.versions.astype(np.int32)),
@@ -596,9 +654,9 @@ def run_cluster(workload: str, device: str, cfg_kw: dict, fail_at=None):
     state = [(r.store.values.tobytes(), r.store.versions.tobytes())
              for r in c.replicas]
     return dict(metrics=dataclasses.asdict(m), state=state,
-                kernel_txns=certified[0], kernel_drains=certified[1],
-                validate_s=validate_s[0], launches=launches,
-                drain_plans=plans, largest=largest,
+                kernel_txns=stats.txns, kernel_drains=stats.drains,
+                validate_s=stats.validate_s, launches=launches,
+                drain_plans=stats.plans, largest=stats.largest,
                 build_s=t1 - t0, run_s=t2 - t1, n_items=cfg.n_items)
 
 
@@ -1223,6 +1281,302 @@ def held_phase(*, batch: int = 2, prompt: int = 64, steps: int = 4,
         torch.cuda.empty_cache()
 
 
+# -- phases 11-14: serving, the placement planner --------------------------
+
+# benchmarks/serve_locality.py's (policy, arbitration) grid and localities
+SERVE_GRID = [("local", "steps"), ("short", "steps"), ("short", "priced"),
+              ("short", "hybrid"), ("long", "steps"), ("long", "priced"),
+              ("long", "hybrid")]
+SERVE_LOCALITIES = (0.0, 0.5, 0.9)
+PLAN_LOCALITIES = (0.0, 0.7, 0.9)      # benchmarks/planner.py's
+SEEDS = (0, 1, 2)
+SERVE_CELLS = [(policy, arb, loc, seed) for policy, arb in SERVE_GRID
+               for loc in SERVE_LOCALITIES for seed in SEEDS]
+
+
+def same_result(a: dict, b: dict) -> bool:
+    return all(a[k] == b[k] for k in ("point", "metrics", "router"))
+
+
+def serve_runs(device: str, jax_min: int) -> tuple:
+    """Every serve cell on ``device``, drains counted; (results, stats,
+    lease launches, wall s)."""
+    import torch
+
+    import repro_torch.serve.certifier as certifier_mod
+    from repro_torch.launch.serve import run_point
+
+    t0 = time.perf_counter()
+    reset_launches()                    # just before the path
+    with DrainStats(certifier_mod) as stats:
+        out = [run_point("mixtral-8x7b", policy, loc, seed=seed,
+                         arbitration=arb, device=device, jax_min=jax_min)
+               for policy, arb, loc, seed in SERVE_CELLS]
+        if device == "cuda":
+            torch.cuda.synchronize()
+    return out, stats, lease_launches(), time.perf_counter() - t0
+
+
+def serve_phase() -> dict:
+    """The serving path at serve_locality's defaults (mixtral-8x7b KV
+    sizes, 8 pods, 256 sessions, 80 steps): every GRID pair x locality x
+    seed on cuda and on cpu, identical; then the same with every
+    certification batch packed (``jax_min=1``), where each batch must
+    launch ``drain`` once and ``gather`` never.  Returns the card's drain
+    launches of the ``jax_min=1`` runs."""
+    launched = {}
+    for jax_min in (8, 1):
+        card, stats, launches, card_s = serve_runs("cuda", jax_min)
+        host, _, _, cpu_s = serve_runs("cpu", jax_min)
+        for i, (a, b) in enumerate(zip(card, host)):
+            check(same_result(a, b), f"serve (jax_min {jax_min}): run {i} "
+                  f"differs between cuda and cpu")
+        batches = sum(r["metrics"]["cert_batches"] for r in card)
+        check(launches["drain"] == stats.drains == launches["all"],
+              f"serve: {launches['drain']} drain launches for "
+              f"{stats.drains} packed batches")
+        check(launches["gather"] == 0,
+              f"serve: gather launched {launches['gather']} times")
+        if jax_min == 1:
+            check(stats.drains == batches > 0,
+                  f"serve: {stats.drains} packed batches for {batches} "
+                  f"certification batches")
+        launched[jax_min] = launches["drain"]
+        by_loc = {loc: [r["point"] for r, cell in zip(card, SERVE_CELLS)
+                        if cell[2] == loc] for loc in SERVE_LOCALITIES}
+        emit("serve", jax_min=jax_min, runs=len(card), cert_batches=batches,
+             certified=sum(r["metrics"]["certified"] for r in card),
+             cert_aborts=sum(r["metrics"]["cert_aborts"] for r in card),
+             cert_max_batch=max(r["metrics"]["cert_max_batch"] for r in card),
+             kernel_drains=stats.drains, kernel_txns=stats.txns,
+             variant_launches={k: v for k, v in launches.items()
+                               if k != "all"},
+             drain_plans=stats.plans, largest_B=stats.largest["B"],
+             largest_n_dirty=stats.largest["n_dirty"],
+             validate_s=stats.validate_s, cuda_s=card_s, cpu_s=cpu_s,
+             # simulated: a priced TPU pod, not the card's speed
+             sim_tokens_per_s_mean={str(loc): float(np.mean(
+                 [p["tokens_per_s"] for p in pts]))
+                 for loc, pts in by_loc.items()},
+             wire_GB_mean={str(loc): float(np.mean(
+                 [p["wire_GB"] for p in pts])) for loc, pts in by_loc.items()})
+    return launched
+
+
+def serve_plan_phase() -> None:
+    """benchmarks/planner.py's sweep with the planner on (8 pods, 96
+    sessions, 160 steps, SERVE_PLAN_DEFAULTS, ROUTER_DEFAULTS), with
+    asynchronous plan epochs (the engine's default, scored on a side
+    stream on the card) and synchronous ones: cuda identical to cpu in
+    each mode; plan_moves > 0 at locality 0.9.  The two modes differ from
+    each other by design (an async epoch's moves land one step later), as
+    in the reference; the cells where they do are printed."""
+    from repro_torch.dist.locality import ROUTER_DEFAULTS
+    from repro_torch.launch.serve import run_point
+    from repro_torch.plan import SERVE_PLAN_DEFAULTS
+
+    cells = [(loc, seed) for loc in PLAN_LOCALITIES for seed in SEEDS]
+    runs, wall = {}, {}
+    for mode, plan_async in (("async", True), ("sync", False)):
+        for device in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            runs[f"{device}_{mode}"] = [run_point(
+                "mixtral-8x7b", ROUTER_DEFAULTS.policy, loc, n_sessions=96,
+                steps=160, seed=seed,
+                arbitration=ROUTER_DEFAULTS.arbitration,
+                plan_epoch_ms=SERVE_PLAN_DEFAULTS.epoch_ms, device=device,
+                plan_async=plan_async) for loc, seed in cells]
+            wall[f"{device}_{mode}"] = time.perf_counter() - t0
+        for i, (a, b) in enumerate(zip(runs[f"cuda_{mode}"],
+                                       runs[f"cpu_{mode}"])):
+            check(same_result(a, b), f"serve_plan ({mode}): run {i} differs "
+                  f"between cuda and cpu")
+        hi = [r["point"]["plan_moves"] for r, (loc, _) in
+              zip(runs[f"cuda_{mode}"], cells) if loc == 0.9]
+        check(sum(hi) > 0, f"serve_plan ({mode}): no planned move at "
+              f"locality 0.9")
+    # the serving entry point itself, planner on: cuda against cpu
+    from repro_torch.launch.serve import main as serve_main
+
+    argv = ["--arch", "mixtral-8x7b", "--preset", "full", "--pods", "8",
+            "--sessions", "96", "--requests", "2000", "--plan-epoch-ms", "5"]
+    with contextlib.redirect_stdout(io.StringIO()):   # its report lines
+        launched = [serve_main(argv + ["--device", d])
+                    for d in ("cuda", "cpu")]
+    for m in launched:
+        check(m.pop("plan_block_s") >= 0.0, "launch.serve: plan_block_s < 0")
+    check(launched[0] == launched[1],
+          "launch.serve: the cuda run differs from the cpu run")
+    emit("serve_plan", runs=len(cells),
+         launch_serve={k: launched[0][k] for k in (
+             "tokens", "forwards", "transfers", "plan_epochs", "plan_moves")},
+         plan_epochs=sum(r["metrics"]["plan_epochs"]
+                         for r in runs["cuda_async"]),
+         points={f"{loc}/{seed}": r["point"] for r, (loc, seed) in
+                 zip(runs["cuda_async"], cells)},
+         async_differs_from_sync=[
+             f"{loc}/{seed}" for a, b, (loc, seed) in
+             zip(runs["cuda_async"], runs["cuda_sync"], cells)
+             if not same_result(a, b)],
+         plan_block_s={k: sum(r["plan_block_s"] for r in v)
+                       for k, v in runs.items()},
+         wall_s=wall)
+
+
+def plan_score_phase(reps: int = 20) -> dict:
+    """The scorer at the planner bench's overlap shape (2^17 classes x 16
+    nodes) on the card: bitwise equal to ``score_moves_np`` (the overlap
+    cell's knobs, and a looser dominance share so that many scores are
+    finite); then, as ``benchmarks/planner.py::overlap_cell`` times it,
+    sync ms (dispatch + wait), kick ms and harvest ms around host work
+    standing in for decode steps, the CPU's torch and numpy times, and the
+    bound: the inputs' and the output's bytes at 3.35 TB/s."""
+    from repro_torch.plan.score import (score_moves, score_moves_async,
+                                        score_moves_np)
+
+    n_classes, n_nodes = 1 << 17, 16
+    rng = np.random.default_rng(0)
+    rates = (rng.random((n_classes, n_nodes)) * 0.05).astype(np.float32)
+    owner = rng.integers(0, n_nodes, n_classes).astype(np.int32)
+    fwd_cost = np.full(n_classes, 2e-4, np.float32)
+    move_cost = np.full(n_classes, 1e-3, np.float32)
+    cpu = (rng.random(n_nodes) * 0.5).astype(np.float64)
+    args = (rates, owner, fwd_cost, move_cost, cpu)
+    kw = dict(horizon_ms=500.0, margin=3.0, min_frac=0.7, min_rate=0.016,
+              load_gain=0.02)
+    finite = {}
+    for label, knobs in (("overlap", kw), ("loose", dict(kw, min_frac=0.07,
+                                                         min_rate=0.0))):
+        want = score_moves_np(*args, **knobs)
+        got = score_moves(*args, device="cuda", **knobs)
+        check(np.array_equal(got.view(np.uint32), want.view(np.uint32)),
+              f"plan_score/{label}: {int((got.view(np.uint32) != want.view(np.uint32)).sum())} "
+              f"scores differ from score_moves_np in their bits")
+        finite[label] = int(np.isfinite(want).sum())
+    decode = [np.ones(1 << 20) for _ in range(2)]
+
+    def decode_steps(n: int = 12) -> float:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            decode[0] = decode[0] + decode[1]
+        return time.perf_counter() - t0
+
+    t = dict(sync=0.0, kick=0.0, harvest=0.0, decode=0.0, cpu_torch=0.0,
+             numpy=0.0)
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        score_moves(*args, device="cuda", **kw)
+        t["sync"] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fut = score_moves_async(*args, device="cuda", **kw)
+        t["kick"] += time.perf_counter() - t0
+        t["decode"] += decode_steps()
+        t0 = time.perf_counter()
+        fut.wait()
+        t["harvest"] += time.perf_counter() - t0
+    for _ in range(max(3, reps // 4)):
+        t0 = time.perf_counter()
+        score_moves(*args, device="cpu", **kw)
+        t["cpu_torch"] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        score_moves_np(*args, **kw)
+        t["numpy"] += time.perf_counter() - t0
+    ms = {f"{k}_ms": v * 1e3 / (reps if k in ("sync", "kick", "harvest",
+                                               "decode") else max(3, reps // 4))
+          for k, v in t.items()}
+    n_bytes = 4 * (2 * rates.size + 3 * n_classes + n_nodes)
+    out = dict(n_classes=n_classes, n_nodes=n_nodes, reps=reps,
+               finite=finite, **ms,
+               off_path_frac=1.0 - (ms["kick_ms"] + ms["harvest_ms"])
+               / max(ms["sync_ms"], 1e-9),
+               bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+    emit("plan_score", **out)
+    return out
+
+
+def sim_plan_phase(main_cfg: dict) -> dict:
+    """The main TPC-C run with the planner on (``SIM_PLAN_DEFAULTS``), on
+    cuda and on cpu: byte-identical stores and metrics, planner epochs and
+    prefetches issued, every drain through ``drain``."""
+    from repro_torch.plan import SIM_PLAN_DEFAULTS
+
+    cfg = dict(main_cfg, plan=SIM_PLAN_DEFAULTS)
+    card = run_cluster("tpcc", "cuda", cfg)
+    m = card["metrics"]
+    emit("sim_plan", device="cuda", plan_epochs=m["plan_epochs"],
+         plan_prefetches=m["plan_prefetches"], **summary(card))
+    check_drains("sim_plan", card)
+    check(m["plan_epochs"] > 0 and m["plan_prefetches"] > 0,
+          f"sim_plan: {m['plan_epochs']} epochs, {m['plan_prefetches']} "
+          f"prefetches")
+    host = run_cluster("tpcc", "cpu", cfg)
+    emit("sim_plan", device="cpu", **summary(host))
+    compare_runs("sim_plan", card, host)
+    return card
+
+
+def serve_drain_case(rng, n: int, b: int, n_dirty: int) -> dict:
+    """The drain kernel at the serving certifier's shape: B forwards (the
+    row count bucketed as ``pack_drain`` does) each reading one session
+    (R bucketed to 8), W = 0 and no class view, an n-entry epoch table
+    and n_dirty pending epoch stamps; bitwise against
+    ``ref.lease_drain_ref`` on ok and on the flushed table, timed like
+    ``drain_case``."""
+    import torch
+
+    from repro_torch.kernels import lease_validate as lv
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    bp, r = max(8, 1 << (b - 1).bit_length()), 8
+    table = rng.integers(0, 1000, n).astype(np.int32)
+    dirty = rng.choice(n, n_dirty, replace=False).astype(np.int32)
+    dirty_ver = (table[dirty] + 1).astype(np.int32)
+    items = np.full((bp, r), -1, np.int32)
+    items[:b, 0] = rng.choice(np.concatenate([dirty, rng.integers(0, n, b)]),
+                              b)
+    flushed = table.copy()
+    flushed[dirty] = dirty_ver
+    vers = np.zeros((bp, r), np.int32)
+    vers[:b, 0] = np.where(rng.random(b) < 0.8, flushed[items[:b, 0]],
+                           table[items[:b, 0]])
+    staging = lv.DrainStaging(dev)
+    v = staging.begin(n_dirty, bp, r, 0, 0, 0)
+    v.dirty_idx[:] = dirty
+    v.dirty_ver[:] = dirty_ver
+    v.read_items[:] = items
+    v.read_versions[:] = vers
+    on = {k: torch.from_numpy(a).to(dev) for k, a in (
+        ("dirty_idx", dirty), ("dirty_ver", dirty_ver), ("items", items),
+        ("vers", vers))}
+    want_table = torch.from_numpy(table).to(dev)
+    plain = lambda: ref.lease_drain_ref(
+        want_table, on["dirty_idx"], on["dirty_ver"], None, None, 0,
+        on["items"], on["vers"], None)
+    want = plain().cpu().numpy()
+    dev_table = torch.from_numpy(table).to(dev)
+    before = lv.launches
+    got = lv.lease_drain(dev_table, staging, None).copy()
+    check(np.array_equal(got, want), f"serve drain B{b}: ok disagrees with "
+          f"ref.lease_drain_ref ({int((got != want).sum())} rows)")
+    check(torch.equal(dev_table, want_table),
+          f"serve drain B{b}: flushed another table than the twin")
+    kernel = lambda: lv.lease_drain(dev_table, staging, None)
+    n_bytes = 8 * n_dirty + 8 * bp * r + 4 * b + 4 * n_dirty + bp
+    out = dict(case=f"serve_B{b}", n_items=n, B=bp, R=r, W=0, n_classes=0,
+               n_dirty=n_dirty, passing=int(want[:b].sum()),
+               max_abs_err=int(np.abs(got.astype(np.int32)
+                                      - want.astype(np.int32)).max()),
+               ms=wall_us(kernel, 2000) / 1e3,
+               graph_ms=graph_ms(lambda: lv.lease_drain(
+                   dev_table, staging, None, wait=False)),
+               plain_ms=time_ms(plain, 500), plain_graph_ms=graph_ms(plain),
+               bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+               library_ms=None, calls=lv.launches - before)
+    emit("kernel_drain", **out)
+    return out
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -1312,6 +1666,27 @@ def main() -> int:
     # 10. the card against the CPU port
     held_phase()
 
+    # 11-14. serving on SimBackend and the placement planner
+    t0 = time.perf_counter()
+    serve_launches = serve_phase()
+    emit("serve_done", wall_s=time.perf_counter() - t0)
+    rng = np.random.default_rng(5)
+    serve_cases = [serve_drain_case(rng, 256, b, d)
+                   for b, d in ((4, 16), (6, 160))]
+    t0 = time.perf_counter()
+    serve_plan_phase()
+    emit("serve_plan_done", wall_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    plan_score_phase()
+    emit("plan_score_done", wall_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    sim_plan = sim_plan_phase(main_cfg)
+    emit("sim_plan_done", wall_s=time.perf_counter() - t0)
+    drain_paths = {"main": main_launches["drain"],
+                   "serve_jax_min_1": serve_launches[1],
+                   "serve_jax_min_8": serve_launches[8],
+                   "sim_plan": sim_plan["launches"]["drain"]}
+
     lease = "src/repro_torch/kernels/csrc/lease_validate.cu"
     lease_tpu = "src/repro/kernels/lease_validate.py:70"
     print(smi_line, flush=True)
@@ -1320,9 +1695,10 @@ def main() -> int:
         kernel_record("lease_validate.gather", lease, lease_tpu,
                       main_launches["gather"],
                       [dict(main_cases[1], library_ms=None), *main_cases]),
-        kernel_record("lease_validate.drain", lease, lease_tpu,
-                      main_launches["drain"],
-                      [drain_cases[1], *drain_cases]),
+        dict(kernel_record("lease_validate.drain", lease, lease_tpu,
+                           sum(drain_paths.values()),
+                           [drain_cases[1], *drain_cases, *serve_cases]),
+             launches_by_path=drain_paths),
         *flash_records(flash_cases, glm4), *ssd_records(ssd_cases, mamba2),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

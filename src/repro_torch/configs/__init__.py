@@ -2,8 +2,16 @@
 
 Each module defines ``CONFIG`` (the published configuration, a copy of the
 reference's ``repro.configs`` module) and ``smoke_config()`` (the reduced
-same-family config of the CPU tests).  Only the architectures whose layers
-the port runs are registered; any other name raises ``KeyError``.
+same-family config of the CPU tests).  All ten of the reference's
+architectures are registered: a config is plain data, and the serving
+simulator (``serve.engine.SimBackend``) reads nothing else.  Building the
+layers of a config with a feature the port does not run yet (MLA, MoE,
+shared attention, the vision and audio frontends, the layer pattern, norms
+and activations only gemma3, minitron and hubert use:
+``models.common.unported_features``) raises ``NotImplementedError`` naming
+ROADMAP queue 1 item 8, where the layers are built
+(``models.common.init_params``, ``params_from_numpy``,
+``decoder.block_apply``).
 """
 from __future__ import annotations
 
@@ -13,30 +21,24 @@ from typing import Dict
 from repro_torch.models.common import ModelConfig
 
 _MODULES = {
+    "qwen2-vl-2b": "qwen2_vl_2b",
     "glm4-9b": "glm4_9b",
+    "phi4-mini-3.8b": "phi4_mini_3_8b",
+    "minitron-4b": "minitron_4b",
+    "gemma3-27b": "gemma3_27b",
+    "deepseek-v2-236b": "deepseek_v2_236b",
+    "mixtral-8x7b": "mixtral_8x7b",
+    "hubert-xlarge": "hubert_xlarge",
     "mamba2-780m": "mamba2_780m",
-}
-# the reference's other architectures, and the ROADMAP item that ports them
-_PENDING = {
-    "qwen2-vl-2b": "queue 1 item 8 (vision frontend, M-RoPE)",
-    "phi4-mini-3.8b": "queue 1 item 8 (further dense archs)",
-    "minitron-4b": "queue 1 item 8 (further dense archs)",
-    "gemma3-27b": "queue 1 item 8 (further dense archs)",
-    "deepseek-v2-236b": "queue 1 item 8 (MLA + MoE)",
-    "mixtral-8x7b": "queue 1 item 8 (MoE)",
-    "hubert-xlarge": "queue 1 item 8 (encoder, audio frontend)",
-    "zamba2-1.2b": "queue 1 item 8 (hybrid shared attention)",
+    "zamba2-1.2b": "zamba2_1_2b",
 }
 
 ARCH_IDS = tuple(_MODULES)
 
 
 def _module(arch: str):
-    if arch in _PENDING:
-        raise KeyError(f"arch {arch!r} is not ported yet: ROADMAP "
-                       f"{_PENDING[arch]}")
     if arch not in _MODULES:
-        raise KeyError(f"unknown arch {arch!r}; ported: {sorted(_MODULES)}")
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(_MODULES)}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
 
 

@@ -29,8 +29,9 @@ The port runs each replica's version table and batched certification on
 ``SimConfig.device`` (the card by default): a drain flushes the replica's
 written versions, checks write items against the lease layer's class
 owners and certifies, in one kernel launch.  The host-side protocol is the
-reference's, verdict for verdict.  The planner, sanitizer and explorer
-hooks of the reference belong to later slices.
+reference's, verdict for verdict.  The proactive placement planner
+(``SimConfig.plan``) scores its lease moves on the same device.  The
+sanitizer and explorer hooks of the reference belong to a later slice.
 """
 from __future__ import annotations
 
@@ -168,14 +169,18 @@ class SimConfig:
     cert_slot_mode: str = "amortized"
     cert_fixed_ms: Optional[float] = None     # default: validate_ms
     cert_per_txn_ms: Optional[float] = None   # default: local_commit_ms
-    # The reference's proactive placement planner, lease-protocol sanitizer
-    # and schedule-space explorer.  Not ported yet: setting any of them
-    # raises NotImplementedError rather than being ignored.
-    plan: Optional[object] = None
+    # Proactive placement planner (repro_torch.plan): score affinity-driven
+    # lease moves every plan.epoch_ms of simulated time, on ``device``, and
+    # execute them as background prefetch requests through the lease
+    # managers (None = off).
+    plan: Optional["PlanConfig"] = None  # noqa: F821 (repro_torch.plan)
+    # The reference's lease-protocol sanitizer and schedule-space explorer.
+    # Not ported yet: setting either raises NotImplementedError rather than
+    # being ignored.
     sanitize: bool = False
     explore: Optional[object] = None
     # Structured tracing (repro_torch.obs): record lease rounds, forwards,
-    # aborts and certify batches as sim-time-stamped
+    # aborts, certify batches, and planner epochs as sim-time-stamped
     # spans/instants on per-node tracks, exportable to Perfetto via
     # ``Cluster.trace.export(path)``.  Stamps come from the event queue's
     # virtual clock, so a traced run is byte-identical to an untraced one
@@ -281,13 +286,12 @@ class SimTxn:
 
 class Cluster:
     def __init__(self, cfg: SimConfig, workload: Workload, ccmap=None) -> None:
-        for name, slice_ in (("plan", "the placement-planner slice"),
-                             ("sanitize", "the runtime-analysis slice"),
-                             ("explore", "the runtime-analysis slice")):
+        for name in ("sanitize", "explore"):
             if getattr(cfg, name) not in (None, False):
                 raise NotImplementedError(
                     f"SimConfig.{name} is not ported yet: it comes with "
-                    f"{slice_} of the port")
+                    f"the runtime-analysis slice of the port (ROADMAP "
+                    f"queue 1 item 7)")
         self.device = resolve_device(cfg.device)
         self.cfg = cfg
         self.workload = workload
@@ -331,6 +335,15 @@ class Cluster:
         else:
             self._item_cc = None
             self._item_cc_dev = None
+        # proactive placement planner (repro_torch.plan): a global control
+        # loop with the same piggybacked-staleness view the DTD gets
+        self.planner = None
+        if cfg.plan is not None:
+            from ..plan import PlacementPlanner
+
+            self.planner = PlacementPlanner(
+                cfg.n_nodes, cfg.n_classes, cfg.plan,
+                track_co=cfg.plan.co_gain > 0.0, device=self.device)
         self.t_throughput: List[Tuple[float, int, int]] = []  # (t, node, 1)
         for i in range(cfg.n_nodes):
             self.gcs.on_opt[i] = self._make_handler(i, self._on_opt)
@@ -351,6 +364,8 @@ class Cluster:
             for thread in range(cfg.threads_per_node):
                 self.events.schedule(0.0, (lambda n=node, t=thread: self._start_txn(n, t)))
         self._schedule_stats_sync()
+        if self.planner is not None:
+            self._schedule_plan_epoch()
         self.events.run(cfg.duration_ms)
         self._stopped = True
         self.events.run(cfg.duration_ms + cfg.drain_ms)
@@ -412,6 +427,67 @@ class Cluster:
             self.events.schedule(self.cfg.stats_update_ms, sync)
 
         self.events.schedule(self.cfg.stats_update_ms, sync)
+
+    # -- proactive placement (repro_torch.plan) -------------------------------
+    def _schedule_plan_epoch(self) -> None:
+        def epoch():
+            if self._stopped:
+                return
+            self._run_plan_epoch()
+            self.events.schedule(self.cfg.plan.epoch_ms, epoch)
+
+        self.events.schedule(self.cfg.plan.epoch_ms, epoch)
+
+    def _run_plan_epoch(self) -> None:
+        """Score all [class, node] lease moves in one evaluation on the
+        cluster's device and issue the bounded plan as background prefetch
+        requests.
+
+        A planned move costs one lease round (OAB request + URB free) *off*
+        any transaction's critical path; once the prefetched LOR heads its
+        queue, transactions at the target piggyback on it and the forward /
+        lease round-trip they used to pay disappears.  Safety is untouched:
+        the move is an ordinary lease request through the replicated
+        conflict queues.
+        """
+        from .dtd import C_AB, C_P2P, C_URB
+
+        alive = [i for i in range(self.cfg.n_nodes) if self.gcs.alive(i)]
+        if not alive:
+            return
+        self.metrics.plan_epochs += 1
+        coord = self.replicas[alive[0]]
+        n_cls = self.cfg.n_classes
+        owner = coord.lm.owner_np().astype(np.int32)
+        # a lease prefetch ships no state (write-sets replicate via URB
+        # regardless of ownership) — costs are the paper's step constants
+        step = self.cfg.latency.step_ms
+        fwd_cost = np.full((n_cls,), (C_P2P + C_URB) * step)
+        move_cost = np.full((n_cls,), (C_AB + C_URB) * step)
+        plan = self.planner.plan(
+            self.events.now, owner, np.zeros((n_cls,)), fwd_cost, move_cost,
+            coord.cpu_view)
+        executed = []
+        for mv in plan.moves:
+            if not self.gcs.alive(mv.dst):
+                continue
+            dlm = self.replicas[mv.dst].lm
+            if dlm.has_unblocked(mv.cc, mv.dst):
+                continue                 # dst already holds / awaits it
+            req = LeaseRequest(
+                req_id=next(self._reqid), proc=mv.dst, ccs=(mv.cc,),
+                coarse=(self.cfg.lease_kind == "alc"), prefetch=True)
+            self.metrics.plan_prefetches += 1
+            self.gcs.oa_broadcast(mv.dst, ("lease", req))
+            executed.append(mv)
+        self.planner.committed(executed)
+        tr = self.trace
+        if tr is not None:
+            tr.span("plan-epoch", "plan", self.events.now, 0.0,
+                    moves=len(executed))
+            for mv in executed:
+                tr.instant("plan-prefetch", "plan", ts=self.events.now,
+                           cc=mv.cc, dst=mv.dst)
 
     # -- CPU slots -------------------------------------------------------------
     def _request_slot(self, node: int, fn: Callable[[], None]) -> None:
@@ -586,6 +662,10 @@ class Cluster:
             if tr is not None:
                 tr.instant("forward", f"node{node}/dtd", ts=self.events.now,
                            txid=txn.txid, target=target)
+            if self.planner is not None:
+                # the planner's target signal: work shipped away from origin
+                self.planner.affinity.record_forward(
+                    self.events.now, node, txn.ccs)
             # record the forward target NOW: if it fails while the message is
             # in flight (the GCS drops p2p to dead nodes), the view-change
             # handler must still see exec_node == failed to restart this
@@ -840,6 +920,9 @@ class Cluster:
         if tr is not None:
             tr.instant("abort", f"node{node}/dtd", ts=self.events.now,
                        txid=txn.txid)
+        if self.planner is not None:
+            # contention at the executing node damps its affinity
+            self.planner.affinity.record_abort(self.events.now, node, txn.ccs)
         txn.reexecs += 1
         if txn.reexecs > self.cfg.forward.max_reexec:
             # give up: release leases, notify origin with an abort
@@ -904,6 +987,9 @@ class Cluster:
                 },
             ),
         )
+        if self.planner is not None:
+            self.planner.affinity.record_commit(
+                self.events.now, txn.origin, txn.ccs)
         self._finish_leases(txn, node)
 
     def _finish_leases(self, txn: SimTxn, node: int) -> None:
@@ -1018,6 +1104,12 @@ class Cluster:
     def _on_view_change(self, node: int, view: List[int], failed: int) -> None:
         r = self.replicas[node]
         r.lm.purge_proc(failed)
+        if self.planner is not None:
+            # the planner's state must die with the member too: its affinity
+            # rows would keep attracting moves toward the dead node, and
+            # history entries naming it would mis-gate reversals (idempotent
+            # — every surviving replica's view change applies it)
+            self.planner.purge_node(failed)
         # transactions this node forwarded to (or had pending at) the failed
         # member are restarted locally — fail-stop recovery for the TF path.
         for txid, txn in list(self._inflight.items()):

@@ -112,6 +112,56 @@ class ModelConfig:
         """Analytic parameter count."""
         return int(sum(int(np.prod(s)) for s in _leaves(param_shapes(self))))
 
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: shared + top-k experts only)."""
+        total = self.param_count()
+        if self.moe is None:
+            return total
+        m = self.moe
+        n_moe_layers = self.n_layers - m.first_dense_layers
+        per_expert = 3 * self.d_model * m.d_expert
+        inactive = n_moe_layers * (m.n_experts - m.top_k) * per_expert
+        return total - inactive
+
+
+def unported_features(cfg: ModelConfig) -> List[str]:
+    """The features of ``cfg`` whose layers the port does not build yet, or
+    builds without a test holding them to ``repro.models`` (ROADMAP queue 1
+    item 8).  Such a config is data only: it prices serving in
+    ``serve.engine.SimBackend``."""
+    found = []
+    if cfg.moe is not None:
+        found.append("MoE FFN")
+    if cfg.mla is not None:
+        found.append("MLA attention")
+    if cfg.hybrid_attn_every:
+        found.append("shared attention")
+    if cfg.family in ("audio", "vlm"):
+        found.append(f"{cfg.family} frontend")
+    if not cfg.causal:
+        found.append("bidirectional attention")
+    if cfg.mrope_sections is not None:
+        found.append("M-RoPE")
+    if cfg.sliding_window is not None or cfg.global_every:
+        found.append("local/global layer pattern")
+    if cfg.rope_theta_global is not None:
+        found.append("dual rotary theta")
+    if cfg.gemma_norm or cfg.use_qk_norm:
+        found.append("gemma/QK norms")
+    if cfg.logit_softcap:
+        found.append("logit softcap")
+    if cfg.d_ff and cfg.mlp_act != "swiglu":
+        found.append(f"{cfg.mlp_act} MLP")
+    return found
+
+
+def check_layers_ported(cfg: ModelConfig) -> None:
+    found = unported_features(cfg)
+    if found:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(found)} not ported yet (ROADMAP queue 1 "
+            "item 8)")
+
 
 def _leaves(tree) -> List[Tuple[int, ...]]:
     if isinstance(tree, dict):
@@ -476,11 +526,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device,
     ``device``.  The draws differ from ``jax.random``'s: to compare with
     the reference, load its parameters with :func:`params_from_numpy`.
     """
+    check_layers_ported(cfg)
     shapes = param_shapes(cfg)
-    if "shared_attn" in shapes or "prefix" in shapes or cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE, MLA-prefix and shared-attention stacks are not "
-            "ported yet (ROADMAP queue 1 item 8)")
     params: Dict[str, Any] = {
         "embed": _init_tree(shapes["embed"], cfg, generator, device, dtype,
                             "embed"),
@@ -512,10 +559,7 @@ def params_from_numpy(cfg: ModelConfig, tree: Dict[str, Any], device,
     position ``j`` becomes layer ``prefix + g * period + j``.  Floating
     leaves are cast to ``dtype``.
     """
-    if "shared_attn" in tree:
-        raise NotImplementedError(
-            f"{cfg.name}: shared-attention stacks are not ported yet "
-            "(ROADMAP queue 1 item 8)")
+    check_layers_ported(cfg)
     plan = layer_plan(cfg)
     layers: List[Optional[Dict[str, Any]]] = [None] * cfg.n_layers
     for name, sub in tree.get("prefix", {}).items():

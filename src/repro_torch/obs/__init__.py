@@ -1,7 +1,13 @@
-"""repro_torch.obs — deterministic sim-time tracing (copy of repro.obs.trace).
+"""repro_torch.obs — deterministic sim-time tracing and quantile metrics.
 
-:mod:`repro_torch.obs.trace` is a verbatim copy of the reference module;
-the metrics half of :mod:`repro.obs` belongs to the serving slice.
+Copies of the reference modules:
+
+- :mod:`repro_torch.obs.trace`: span/instant recorder stamped in sim
+  time, Perfetto ``trace_event`` JSON export, module-level ``TRACE``
+  no-op singleton for siteless call points.
+- :mod:`repro_torch.obs.metrics`: counters / gauges / exact-quantile
+  histograms behind a registry, the ``MetricSet`` attribute facade, and
+  the ``MonotonicSampler`` wall-clock seam.
 """
 from .trace import (  # noqa: F401
     NULL,
@@ -9,4 +15,12 @@ from .trace import (  # noqa: F401
     TraceRecorder,
     install,
     uninstall,
+)
+from .metrics import (  # noqa: F401
+    Counter,
+    Gauge,
+    Histogram,
+    MetricSet,
+    MonotonicSampler,
+    Registry,
 )

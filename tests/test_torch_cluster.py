@@ -126,12 +126,22 @@ def test_framework_free_modules_are_copies(rel):
 
 
 def test_unported_options_raise():
+    """The sanitizer and the explorer still raise; SimConfig.plan is ported
+    and runs (held byte for byte to repro.core in test_torch_plan.py)."""
+    from repro_torch.plan import SIM_PLAN_DEFAULTS
+
     cfg = T.SimConfig(device="cpu", sanitize=True)
     wl = T.BankWorkload(n_nodes=cfg.n_nodes, n_items=cfg.n_items)
     with pytest.raises(NotImplementedError, match="sanitize"):
         T.Cluster(cfg, wl)
-    with pytest.raises(NotImplementedError, match="plan"):
-        T.Cluster(T.SimConfig(device="cpu", plan=object()), wl)
+    with pytest.raises(NotImplementedError, match="explore"):
+        T.Cluster(T.SimConfig(device="cpu", explore=object()), wl)
+    cfg = T.SimConfig(device="cpu", plan=SIM_PLAN_DEFAULTS, n_classes=64,
+                      duration_ms=200.0, warmup_ms=20.0)
+    c = T.Cluster(cfg, wl)
+    m = c.run()
+    assert c.planner is not None and c.planner.device.type == "cpu"
+    assert m.plan_epochs > 0 and m.commits > 0
 
 
 @pytest.fixture

@@ -668,3 +668,177 @@ def test_cuda_models_run_through_the_kernels(cuda_device):
             out.append((logits, step))
         for got, want in zip(*out):
             torch.testing.assert_close(got, want, atol=2e-3, rtol=2e-3)
+
+
+# -- serving and the placement planner --------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n_items,n_dirty", [
+    (1, 64, 0), (2, 64, 3), (7, 128, 40), (8, 256, 160), (33, 1024, 64),
+    (64, 4096, 500)])
+def test_cuda_drain_without_class_view_matches_twin(cuda_device, b,
+                                                    n_items, n_dirty):
+    """The serving certifier's drain: one read a transaction (R 1), no
+    writes and no class view (W 0, item_cc null), against the twin."""
+    case = drain_inputs(11, b, 1, 0, n_items, 0, n_dirty)
+    before = dict(lv.variant_launches)
+    got, table = _drain_on_card(case, cuda_device)
+    want, want_table = drain_twin(case)
+    np.testing.assert_array_equal(got, want.numpy())
+    np.testing.assert_array_equal(table.cpu().numpy(), want_table.numpy())
+    assert lv.variant_launches["drain"] == before["drain"] + 1
+    assert lv.variant_launches["gather"] == before["gather"]
+
+
+@pytest.mark.cuda
+def test_cuda_certifier_drains_on_a_growing_store(cuda_device):
+    """StepCertifier(jax_min=1) on the card against the same on the CPU
+    while the epoch store grows (64 -> 4096 sessions) under pending
+    stamps: the same verdicts and the same (n_dirty, B) per drain, one
+    ``drain`` launch a batch, B 1-64."""
+    from repro_torch.serve.certifier import StepCertifier
+    from repro_torch.serve.engine import Request
+
+    certs = {d: StepCertifier(1, jax_min=1, device=d)
+             for d in (cuda_device, "cpu")}
+    rng = np.random.default_rng(12)
+    lv.variant_launches.update(gather=0, drain=0)
+    drains = 0
+    for step, b in enumerate([1, 2, 3, 5, 8, 9, 16, 17, 31, 32, 33, 63,
+                              64]):
+        hi = min(4096, 64 << step)
+        stamps = [(int(s), int(e)) for s, e in zip(
+            rng.integers(0, hi, 3 * b), rng.integers(1, 9, 3 * b))]
+        reqs = [(int(s), int(e)) for s, e in zip(
+            rng.integers(0, hi, b), rng.integers(0, 9, b))]
+        out = {}
+        for d, c in certs.items():
+            for s, e in stamps:
+                c.bump(s, e)
+            for s, e in reqs:
+                c.enqueue(0, Request(sid=s, origin=0), e)
+            passed, aborted, _ = c.drain(0)
+            out[str(d)] = ([r.sid for r in passed], [r.sid for r in aborted],
+                           c.store.staging.counts)
+        drains += 1
+        assert out[str(cuda_device)] == out["cpu"]
+    card = certs[cuda_device]
+    assert card.store.n_items == 4096
+    assert lv.variant_launches == {"gather": 0, "drain": drains}
+    np.testing.assert_array_equal(card.store.versions_dev.cpu().numpy(),
+                                  card.store.versions.astype(np.int32))
+
+
+@pytest.mark.cuda
+def test_cuda_serving_cell_matches_cpu(cuda_device):
+    """Two serve_locality cells at its defaults, every certification batch
+    packed (jax_min=1): cuda equals cpu key for key, and each batch
+    launched ``drain`` once."""
+    from repro_torch.launch.serve import run_point
+
+    for policy, arb, loc in (("short", "priced", 0.5), ("long", "hybrid",
+                                                        0.9)):
+        lv.variant_launches.update(gather=0, drain=0)
+        card = run_point("mixtral-8x7b", policy, loc, arbitration=arb,
+                         device="cuda", jax_min=1)
+        launched = dict(lv.variant_launches)
+        host = run_point("mixtral-8x7b", policy, loc, arbitration=arb,
+                         device="cpu", jax_min=1)
+        for key in ("point", "metrics", "router"):
+            assert card[key] == host[key]
+        assert launched == {"gather": 0,
+                            "drain": card["metrics"]["cert_batches"]}
+        assert launched["drain"] > 0
+
+
+def _score_inputs(seed, c, n):
+    rng = np.random.default_rng(seed)
+    rates = rng.random((c, n)) * rng.choice([0.0, 0.05], (c, 1))
+    return (rates.astype(np.float32), rng.integers(-1, n, c).astype(np.int32),
+            rng.random(c) * 2e-3, rng.random(c) * 3e-3, rng.random(n) * 1.2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,n", [(1, 1), (24, 6), (300, 8), (4096, 16),
+                                 (1 << 17, 16), (64, 129)])
+def test_cuda_scores_bitwise_equal_numpy_twin(cuda_device, c, n):
+    from repro_torch.plan.score import score_moves, score_moves_np
+
+    args = _score_inputs(c + n, c, n)
+    rng = np.random.default_rng(c)
+    for kw in (dict(horizon_ms=500.0, margin=3.0, min_frac=0.7,
+                    min_rate=0.016, load_gain=0.02),
+               dict(horizon_ms=200.0, margin=4.0, min_frac=0.05,
+                    co_gain=0.25, overload_ctrl=False,
+                    co_rates=rng.random((c, c)) * 0.02 if c <= 4096
+                    else None)):
+        got = score_moves(*args, device="cuda", **kw)
+        want = score_moves_np(*args, **kw)
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      want.view(np.uint32))
+
+
+@pytest.mark.cuda
+def test_cuda_async_scores_and_plans_equal_sync(cuda_device):
+    """The side-stream evaluation harvested after host work equals the
+    blocking one; a planner's begin ... finish equals its plan()."""
+    from repro_torch.plan import PlacementPlanner, PlanConfig, score_moves
+    from repro_torch.plan import score_moves_async, price_move_costs
+
+    args = _score_inputs(7, 1 << 15, 16)
+    kw = dict(horizon_ms=500.0, margin=3.0, min_frac=0.1, min_rate=0.0)
+    fut = score_moves_async(*args, device="cuda", **kw)
+    busy = sum(float(np.ones(1 << 18).sum()) for _ in range(8))
+    want = score_moves(*args, device="cuda", **kw)
+    assert busy > 0 and fut.wait().tobytes() == want.tobytes()
+    rng = np.random.default_rng(9)
+    n, c = 8, 300
+    counts = rng.random((n, c)) * 40.0
+    cfg = PlanConfig(top_k=8, margin=0.0, min_frac=0.0, min_events=0.0,
+                     node_budget_bytes=np.inf)
+    planners = [PlacementPlanner(n, c, cfg, device=d)
+                for d in ("cuda", "cuda", "cpu")]
+    for p in planners:
+        p.affinity.node.counts[:] = counts
+    owner = rng.integers(0, n, c).astype(np.int32)
+    state = rng.random(c) * 1e6
+    fwd, mv = price_move_costs(state, np.full(c, 5120.0))
+    cpu = rng.random(n) * 0.5
+    key = lambda pl: [(m.cc, m.src, m.dst, m.state_bytes, m.score)
+                      for m in pl.moves]
+    pending = planners[0].begin(0.0, owner, state, fwd, mv, cpu)
+    planners[0].affinity.record_touch(0.0, 1, tuple(range(c)))
+    got = planners[0].finish(pending)
+    assert got.moves
+    assert key(got) == key(planners[1].plan(0.0, owner, state, fwd, mv, cpu))
+    assert key(got) == key(planners[2].plan(0.0, owner, state, fwd, mv, cpu))
+
+
+@pytest.mark.cuda
+def test_cuda_sim_plan_matches_cpu(cuda_device):
+    """SimConfig.plan on a Bank run with a node failure: the planner and
+    the drains on the card give the CPU run's stores and metrics."""
+    import dataclasses
+
+    import repro_torch.core as T
+    from repro_torch.plan import SIM_PLAN_DEFAULTS
+
+    out = []
+    for device in ("cuda", "cpu"):
+        lv.variant_launches.update(gather=0, drain=0)
+        cfg = T.SimConfig(duration_ms=300.0, warmup_ms=30.0, seed=1,
+                          n_classes=64, certify_jax_min=1,
+                          plan=SIM_PLAN_DEFAULTS, device=device)
+        c = T.make_cluster("LILAC-TM-ST", T.BankWorkload(
+            n_nodes=cfg.n_nodes, n_items=cfg.n_items, locality=0.6), cfg)
+        c.events.schedule(120.0, lambda: c.gcs.fail(3))
+        m = c.run()
+        out.append((dataclasses.asdict(m),
+                    [(r.store.values.tobytes(), r.store.versions.tobytes())
+                     for r in c.replicas]))
+        if device == "cuda":
+            drains = dict(lv.variant_launches)
+            assert c.planner.device.type == "cuda"
+    assert out[0] == out[1]
+    assert out[0][0]["plan_epochs"] > 0 and out[0][0]["plan_prefetches"] > 0
+    assert drains == {"gather": 0, "drain": out[0][0]["cert_batches"]}

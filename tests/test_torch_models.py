@@ -23,7 +23,9 @@ from repro_torch import configs as tconfigs
 from repro_torch.models import common, decoder
 from repro_torch.models.attention import mla_attention
 
-ARCHS = ("glm4-9b", "mamba2-780m")
+# The registered archs whose features all have ported layers
+# (common.unported_features is empty): held to repro.models here.
+ARCHS = ("glm4-9b", "mamba2-780m", "phi4-mini-3.8b")
 JCTX = jdec.RunCtx(mesh=None, use_kernel="ref")
 CTX = decoder.RunCtx(device="cpu")
 # bf16 rounds at other places in the two frameworks (XLA fuses elementwise
@@ -182,9 +184,26 @@ def test_configs_pinned_to_reference(arch):
 
 
 def test_registry_names_roadmap_for_unported_archs():
-    assert tconfigs.ARCH_IDS == ARCHS
-    with pytest.raises(KeyError, match="ROADMAP"):
-        tconfigs.get_config("mixtral-8x7b")
+    """All ten architectures are registered (a config is data: the serving
+    simulator prices with it); building the layers of one whose features
+    the port does not run yet raises, naming the ROADMAP item.  Which
+    archs build follows from their features alone."""
+    from repro.configs import ARCH_IDS as JARCH_IDS
+
+    assert tconfigs.ARCH_IDS == JARCH_IDS and len(JARCH_IDS) == 10
+    gen = torch.Generator().manual_seed(0)
+    for arch in tconfigs.ARCH_IDS:
+        assert tconfigs.get_config(arch).name == arch
+        cfg = tconfigs.get_smoke_config(arch)
+        assert (not common.unported_features(cfg)) == (arch in ARCHS)
+        assert (not common.unported_features(tconfigs.get_config(arch))) \
+            == (arch in ARCHS)
+        if arch in ARCHS:
+            continue
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            common.init_params(cfg, gen, "cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            common.params_from_numpy(cfg, {}, "cpu")
     with pytest.raises(KeyError, match="unknown"):
         tconfigs.get_config("no-such-arch")
 
@@ -197,6 +216,15 @@ def test_unported_layer_kinds_raise():
         common.init_params(cfg, gen, "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         mla_attention()
+    # the refusal reads the config's features, not its name
+    renamed = dataclasses.replace(tconfigs.get_smoke_config("glm4-9b"),
+                                  name="my-dense-model")
+    assert common.init_params(renamed, gen, "cpu")["layers"]
+    for feature in (dict(mlp_act="gelu"), dict(use_qk_norm=True),
+                    dict(sliding_window=8), dict(causal=False)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            common.init_params(dataclasses.replace(renamed, **feature), gen,
+                               "cpu")
     _, tcfg, _, tparams = _setup("glm4-9b", "float32", 0)
     kind = common.LayerKind("attn", "moe")
     x = torch.zeros((1, 2, tcfg.d_model))
