@@ -48,7 +48,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 5. forced — Bank at SimConfig defaults with every drain through the kernel
             and every lease settle through the device ops, a node failure
             at 120 ms; cuda against cpu, byte-identical; the same drain
-            checks.
+            checks; the settle's calls and host wall on each device.
 6. kernel_flash — the flash kernel against ``ref.sdpa_ref`` on the card,
             each case printing the variant that ran (``prefill_tc``,
             ``decode_split`` or ``simt``, which the launcher picks from the
@@ -133,10 +133,45 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             (SIM_PLAN_DEFAULTS) on cuda and cpu: byte-identical, planner
             epochs and prefetches issued, every drain through ``drain``.
 
+Runtime analysis (``repro_torch.analysis``) on the card:
+
+15. main_sanitized — phase 4's run with ``sanitize=True`` on cuda:
+            stores and metrics byte-identical to phase 4's cuda run, every
+            drain through ``drain`` and checked by ``check_write_locks``
+            against the lease layer's owners recomputed on the host (write
+            slots checked), ``verify_full`` on every live replica, the
+            device tables equal to the host versions; then on the cpu,
+            with equal sanitizer counters and check counts.  ``run_s``
+            sanitized beside the unsanitized run's.
+16. forced_sanitized — phase 5's run the same way: every settle on the
+            device ops and each ``enabled_mask`` verdict held to the
+            sequential ``is_enabled`` (``enabled_checks``).  Phases 5 and
+            16 print the settle's calls and host wall on both devices
+            (``settle_ops_s``: ``ops.settle_lease_batch``, synchronised;
+            ``settle_s``: the whole device-path settle with its copies).
+17. serve_sanitized — phase 11's runs at ``jax_min`` 1 with
+            ``sanitize=True`` on cuda, each equal to the unsanitized cuda
+            run key for key; every forward the drain kernel passes checked
+            at its session's owner (``owner_checked``).
+18. explore — the explorer's smoke grid (``run_smoke``, the POR check
+            included) on cuda and on cpu: violation-free, each cell's
+            ExploreStats equal across the devices, runs/s on each.
+19. explore_kernel — ``KERNEL_CELL``: smoke-bank batched/drain with
+            ``jax_min`` 1, exhaustive (window 0.4 ms, 600 schedules), every
+            drain of every schedule through ``drain`` and every settle on
+            the device; ExploreStats equal to the cpu's; drain launches,
+            per-drain wall, runs/s, staging areas made and alive.
+20. mutants — all 12 mutants of ``MUTANT_INVARIANTS`` re-found on cuda
+            with their invariants; and the drain kernel's two write-lock
+            violations (a drain handed stale class owners; a verdict
+            passing a write to a class leased elsewhere) named
+            ``write-locks``.
+
 The last three lines are the ``nvidia-smi`` line, the kernels record (one
 entry per lease_validate, flash and SSD variant; ``lease_validate.drain``
 counts its launches on every path that reaches it, by path in
-``launches_by_path``), and ``{"ok": true, "device": {...}}``.
+``launches_by_path``, the runtime-analysis paths 15, 16, 17 and 19
+among them), and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -604,6 +639,107 @@ class DrainStats:
         self.module.validate_batch = self.plain
 
 
+class SettleStats:
+    """The lease settles one path makes through the device ops while the
+    ``with`` block runs: calls, the host wall of ``ops.settle_lease_batch``
+    (synchronised on the card, so it holds the ops' device work) and of
+    the whole device-path ``ShardedLeaseManager.settle`` (packing, the
+    copies in and the copy out included)."""
+
+    def __init__(self) -> None:
+        self.calls = 0
+        self.ops_s = self.settle_s = 0.0
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.core import lease_batched as lb
+        from repro_torch.kernels import ops
+
+        ops_plain = self.ops_plain = ops.settle_lease_batch
+        settle_plain = self.settle_plain = lb.ShardedLeaseManager.settle
+
+        def ops_timed(*args, **kw):
+            t = time.perf_counter()
+            out = ops_plain(*args, **kw)
+            if out[0].device.type == "cuda":
+                torch.cuda.synchronize(out[0].device)
+            self.ops_s += time.perf_counter() - t
+            self.calls += 1
+            return out
+
+        def settle_timed(mgr, *args, use_kernel=False, **kw):
+            t = time.perf_counter()
+            try:
+                return settle_plain(mgr, *args, use_kernel=use_kernel, **kw)
+            finally:
+                if use_kernel:
+                    self.settle_s += time.perf_counter() - t
+
+        ops.settle_lease_batch = ops_timed
+        lb.ShardedLeaseManager.settle = settle_timed
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from repro_torch.core import lease_batched as lb
+        from repro_torch.kernels import ops
+
+        ops.settle_lease_batch = self.ops_plain
+        lb.ShardedLeaseManager.settle = self.settle_plain
+
+    def as_dict(self) -> dict:
+        return dict(settle_calls=self.calls, settle_ops_s=self.ops_s,
+                    settle_s=self.settle_s)
+
+
+class SanitizerStats:
+    """What the sanitizer checks while the ``with`` block runs: the write
+    slots ``check_write_locks`` checks (and its calls, by the form of the
+    lock input), and the groups whose ``enabled_mask`` verdicts (from the
+    device settle at ``lease_jax_min`` 1) it holds to sequential
+    ``is_enabled``."""
+
+    def __init__(self) -> None:
+        self.calls = self.class_views = self.write_slots = 0
+        self.enabled_checks = 0
+
+    def __enter__(self):
+        import repro_torch.analysis.sanitizer as san
+        from repro_torch.core.stm import ClassLocks
+
+        cwl = self.cwl_plain = san.check_write_locks
+        mask = self.mask_plain = san.LeaseSanitizer.enabled_mask
+
+        def counting_cwl(node, owners, item_cc, locks, txns, verdicts):
+            n = cwl(node, owners, item_cc, locks, txns, verdicts)
+            self.calls += 1
+            self.class_views += isinstance(locks, ClassLocks)
+            self.write_slots += n
+            return n
+
+        def counting_mask(lm, groups):
+            out = mask(lm, groups)
+            if getattr(lm.inner, "settle", None) is not None:
+                self.enabled_checks += len(groups)
+            return out
+
+        san.check_write_locks = counting_cwl
+        san.LeaseSanitizer.enabled_mask = counting_mask
+        return self
+
+    def __exit__(self, *exc) -> None:
+        import repro_torch.analysis.sanitizer as san
+
+        san.check_write_locks = self.cwl_plain
+        san.LeaseSanitizer.enabled_mask = self.mask_plain
+
+    def as_dict(self) -> dict:
+        return dict(check_write_locks_calls=self.calls,
+                    class_view_calls=self.class_views,
+                    write_slots_checked=self.write_slots,
+                    enabled_checks=self.enabled_checks)
+
+
 def reset_launches() -> None:
     """Every kernel count to 0: just before a path is driven."""
     from repro_torch.kernels import lease_validate as lv
@@ -640,7 +776,8 @@ def run_cluster(workload: str, device: str, cfg_kw: dict, fail_at=None):
         c.events.schedule(fail_at, lambda: c.gcs.fail(3))
     t1 = time.perf_counter()
     reset_launches()                    # just before the path
-    with DrainStats(cluster_mod) as stats:
+    with DrainStats(cluster_mod) as stats, SettleStats() as settles, \
+            SanitizerStats() as checks:
         m = c.run()
         if device == "cuda":
             torch.cuda.synchronize()
@@ -653,18 +790,29 @@ def run_cluster(workload: str, device: str, cfg_kw: dict, fail_at=None):
               f"{r.node} differs from its host versions")
     state = [(r.store.values.tobytes(), r.store.versions.tobytes())
              for r in c.replicas]
-    return dict(metrics=dataclasses.asdict(m), state=state,
-                kernel_txns=stats.txns, kernel_drains=stats.drains,
-                validate_s=stats.validate_s, launches=launches,
-                drain_plans=stats.plans, largest=stats.largest,
-                build_s=t1 - t0, run_s=t2 - t1, n_items=cfg.n_items)
+    out = dict(metrics=dataclasses.asdict(m), state=state,
+               kernel_txns=stats.txns, kernel_drains=stats.drains,
+               validate_s=stats.validate_s, launches=launches,
+               drain_plans=stats.plans, largest=stats.largest,
+               build_s=t1 - t0, run_s=t2 - t1, n_items=cfg.n_items,
+               settle=settles.as_dict())
+    if cfg.sanitize:
+        # Cluster.run already reconciled every live replica; once more here
+        # so the line can say how many were verified
+        live = [r for r in c.replicas if c.gcs.alive(r.node)]
+        for r in live:
+            r.lm.verify_full()
+        out.update(sanitizer=[r.lm.counters() for r in c.replicas],
+                   verified_replicas=len(live), **checks.as_dict())
+    return out
 
 
-def compare_runs(phase: str, on_card: dict, on_cpu: dict) -> None:
+def compare_runs(phase: str, on_card: dict, on_cpu: dict,
+                 what: str = "cuda and cpu") -> None:
     check(on_card["state"] == on_cpu["state"],
-          f"{phase}: replica stores differ between cuda and cpu")
+          f"{phase}: replica stores differ between {what}")
     check(on_card["metrics"] == on_cpu["metrics"],
-          f"{phase}: metrics differ between cuda and cpu")
+          f"{phase}: metrics differ between {what}")
 
 
 def summary(run: dict) -> dict:
@@ -680,7 +828,7 @@ def summary(run: dict) -> dict:
                 largest_B=run["largest"]["B"],
                 largest_n_dirty=run["largest"]["n_dirty"],
                 build_s=run["build_s"], run_s=run["run_s"],
-                validate_s=run["validate_s"])
+                validate_s=run["validate_s"], **run["settle"])
 
 
 def check_drains(phase: str, run: dict) -> None:
@@ -1298,7 +1446,7 @@ def same_result(a: dict, b: dict) -> bool:
     return all(a[k] == b[k] for k in ("point", "metrics", "router"))
 
 
-def serve_runs(device: str, jax_min: int) -> tuple:
+def serve_runs(device: str, jax_min: int, sanitize: bool = False) -> tuple:
     """Every serve cell on ``device``, drains counted; (results, stats,
     lease launches, wall s)."""
     import torch
@@ -1310,7 +1458,8 @@ def serve_runs(device: str, jax_min: int) -> tuple:
     reset_launches()                    # just before the path
     with DrainStats(certifier_mod) as stats:
         out = [run_point("mixtral-8x7b", policy, loc, seed=seed,
-                         arbitration=arb, device=device, jax_min=jax_min)
+                         arbitration=arb, device=device, jax_min=jax_min,
+                         sanitize=sanitize)
                for policy, arb, loc, seed in SERVE_CELLS]
         if device == "cuda":
             torch.cuda.synchronize()
@@ -1323,8 +1472,8 @@ def serve_phase() -> dict:
     seed on cuda and on cpu, identical; then the same with every
     certification batch packed (``jax_min=1``), where each batch must
     launch ``drain`` once and ``gather`` never.  Returns the card's drain
-    launches of the ``jax_min=1`` runs."""
-    launched = {}
+    launches by ``jax_min`` and its ``jax_min=1`` results."""
+    launched, results = {}, {}
     for jax_min in (8, 1):
         card, stats, launches, card_s = serve_runs("cuda", jax_min)
         host, _, _, cpu_s = serve_runs("cpu", jax_min)
@@ -1342,6 +1491,7 @@ def serve_phase() -> dict:
                   f"serve: {stats.drains} packed batches for {batches} "
                   f"certification batches")
         launched[jax_min] = launches["drain"]
+        results[jax_min] = card
         by_loc = {loc: [r["point"] for r, cell in zip(card, SERVE_CELLS)
                         if cell[2] == loc] for loc in SERVE_LOCALITIES}
         emit("serve", jax_min=jax_min, runs=len(card), cert_batches=batches,
@@ -1360,7 +1510,7 @@ def serve_phase() -> dict:
                  for loc, pts in by_loc.items()},
              wire_GB_mean={str(loc): float(np.mean(
                  [p["wire_GB"] for p in pts])) for loc, pts in by_loc.items()})
-    return launched
+    return launched, results[1]
 
 
 def serve_plan_phase() -> None:
@@ -1577,6 +1727,259 @@ def serve_drain_case(rng, n: int, b: int, n_dirty: int) -> dict:
     return out
 
 
+# -- phases 15-20: runtime analysis on the card ------------------------------
+
+SANITIZER_KEYS = ("sanitizer", "verified_replicas", "check_write_locks_calls",
+                  "class_view_calls", "write_slots_checked", "enabled_checks")
+
+
+def sanitized_phase(phase: str, workload: str, cfg_kw: dict,
+                    plain_card: dict, fail_at=None) -> dict:
+    """``cfg_kw``'s run on cuda with ``sanitize=True``: byte-identical to
+    the unsanitized cuda run ``plain_card`` (stores and metrics), every
+    drain through ``drain`` and checked by ``check_write_locks`` with the
+    ``ClassLocks`` it used; then the same sanitized run on the cpu, with
+    equal stores, metrics, sanitizer counters and check counts."""
+    kw = dict(cfg_kw, sanitize=True)
+    card = run_cluster(workload, "cuda", kw, fail_at=fail_at)
+    emit(phase, device="cuda", run_s_unsanitized=plain_card["run_s"],
+         device_versions_equal_host=True,
+         n_checks=sum(c["checks"] for c in card["sanitizer"]),
+         **{k: card[k] for k in SANITIZER_KEYS}, **summary(card))
+    check_drains(phase, card)
+    compare_runs(phase, card, plain_card, "sanitized and unsanitized cuda")
+    check(card["check_write_locks_calls"] == card["class_view_calls"]
+          == card["metrics"]["cert_batches"] > 0,
+          f"{phase}: {card['check_write_locks_calls']} write-lock checks "
+          f"({card['class_view_calls']} with the drain's class view) for "
+          f"{card['metrics']['cert_batches']} certification batches")
+    check(card["write_slots_checked"] > 0,
+          f"{phase}: no write slot was checked")
+    host = run_cluster(workload, "cpu", kw, fail_at=fail_at)
+    emit(phase, device="cpu", **{k: host[k] for k in SANITIZER_KEYS},
+         **summary(host))
+    compare_runs(phase, card, host)
+    for k in SANITIZER_KEYS:
+        check(card[k] == host[k], f"{phase}: {k} differs between cuda and "
+              f"cpu: {card[k]} / {host[k]}")
+    return card
+
+
+def serve_sanitized_phase(plain: list) -> int:
+    """Phase 11's runs at ``jax_min`` 1 with ``sanitize=True`` on cuda,
+    each equal to the unsanitized cuda run key for key; every forward the
+    drain kernel passes is checked at its session's owner.  Returns the
+    drain launches."""
+    card, stats, launches, card_s = serve_runs("cuda", 1, sanitize=True)
+    for i, (a, b) in enumerate(zip(card, plain)):
+        check(same_result(a, b), f"serve_sanitized: run {i} differs from "
+              f"the unsanitized cuda run")
+    batches = sum(r["metrics"]["cert_batches"] for r in card)
+    check(launches["drain"] == stats.drains == launches["all"] == batches
+          > 0, f"serve_sanitized: {launches['drain']} drain launches for "
+          f"{stats.drains} packed batches, {batches} certification batches")
+    emit("serve_sanitized", device="cuda", runs=len(card),
+         cert_batches=batches, kernel_drains=stats.drains,
+         variant_launches={k: v for k, v in launches.items() if k != "all"},
+         owner_checked=sum(r["metrics"]["certified"] for r in card),
+         validate_s=stats.validate_s, cuda_s=card_s)
+    return launches["drain"]
+
+
+def explore_phase() -> None:
+    """The explorer's smoke grid (``run_smoke``: SMOKE_CELLS with the POR
+    check) on cuda and on cpu: violation-free, every cell's ExploreStats
+    equal across the devices, the POR reduction at least 2x."""
+    from repro_torch.analysis.explore import run_smoke
+
+    records, walls = {}, {}
+    for device in ("cuda", "cpu"):
+        rec = []
+        t0 = time.perf_counter()
+        rc = run_smoke(check_reduction=True, quiet=True, device=device,
+                       record=rec)
+        walls[device] = time.perf_counter() - t0
+        check(rc == 0, f"explore: run_smoke on {device} exited {rc}")
+        records[device] = rec
+    def runs(st: dict) -> int:
+        return st["schedules"] + st["pruned_sleep"] + st["states_deduped"]
+
+    cells = []
+    for (name, args, a, a_s), (_, _, b, b_s) in zip(records["cuda"],
+                                                    records["cpu"]):
+        sa = dataclasses.asdict(a if name == "naive" else a.stats)
+        sb = dataclasses.asdict(b if name == "naive" else b.stats)
+        check(sa == sb, f"explore: {name} {args}: ExploreStats differ "
+              f"between cuda and cpu: {sa} / {sb}")
+        if name != "naive":
+            check(a.ok and b.ok, f"explore: {name} {args} found a violation")
+        cells.append(dict(name=name, args=args, stats=sa, cuda_s=a_s,
+                          cpu_s=b_s, cuda_runs_per_s=runs(sa) / a_s,
+                          cpu_runs_per_s=runs(sa) / b_s))
+    ratio = runs(cells[-1]["stats"]) / max(1, runs(cells[0]["stats"]))
+    check(ratio >= 2.0, f"explore: POR reduction {ratio:.2f}x below 2x")
+    emit("explore", cells=cells, por_ratio=ratio, cuda_s=walls["cuda"],
+         cpu_s=walls["cpu"])
+
+
+def explore_kernel_phase() -> int:
+    """KERNEL_CELL (smoke-bank batched/drain, 1.5 ms, ``jax_min`` 1):
+    exhaustive exploration in which every drain of every schedule launches
+    ``drain`` and every settle runs on the device; violation-free, its
+    ExploreStats equal to the same exploration on the cpu (the twin
+    ``ref.lease_drain_ref`` deciding); drain launches, runs/s, per-drain
+    wall, and the store staging areas made and still alive at the end
+    (pinned bytes on the card): explored clusters are freed by the cyclic
+    collector, not at once.  Returns the card's drain launches."""
+    import gc
+    import weakref
+
+    import repro_torch.core.cluster as cluster_mod
+    from repro_torch.analysis.explore import KERNEL_CELL, explore_scenario
+    from repro_torch.kernels import lease_validate as lv
+
+    name, args, cfg = KERNEL_CELL
+    out = {}
+    init = lv.DrainStaging.__init__
+    for device in ("cuda", "cpu"):
+        gc.collect()
+        made = weakref.WeakSet()
+        n_made = [0]
+
+        def tracked(staging, *a, **kw):
+            init(staging, *a, **kw)
+            made.add(staging)
+            n_made[0] += 1
+
+        lv.DrainStaging.__init__ = tracked
+        t0 = time.perf_counter()
+        reset_launches()                # just before the path
+        try:
+            with DrainStats(cluster_mod) as drains, SettleStats() as settles, \
+                    SanitizerStats() as checks:
+                res = explore_scenario(name, cfg, dict(args, device=device))
+        finally:
+            lv.DrainStaging.__init__ = init
+        wall = time.perf_counter() - t0
+        launches = lease_launches()
+        check(res.ok, f"explore_kernel on {device}: "
+              f"{None if res.ok else res.violation.violation}")
+        check(not res.stats.truncated,
+              f"explore_kernel on {device}: truncated")
+        live = list(made)
+        stats = dataclasses.asdict(res.stats)
+        out[device] = dict(
+            stats=stats, wall_s=wall, runs_per_s=res.stats.runs / wall,
+            kernel_drains=drains.drains, kernel_txns=drains.txns,
+            validate_s=drains.validate_s,
+            per_drain_us=drains.validate_s / max(1, drains.drains) * 1e6,
+            drain_plans=drains.plans, largest_B=drains.largest["B"],
+            variant_launches={k: v for k, v in launches.items()
+                              if k != "all"},
+            staging_made=n_made[0], staging_live=len(live),
+            pinned_bytes=sum(o.nbytes for o in live
+                             if o.device.type == "cuda"),
+            **settles.as_dict(), **checks.as_dict())
+        emit("explore_kernel", device=device, **out[device])
+    card = out["cuda"]
+    check(card["stats"] == out["cpu"]["stats"],
+          f"explore_kernel: ExploreStats differ between cuda and cpu: "
+          f"{card['stats']} / {out['cpu']['stats']}")
+    n = card["variant_launches"]
+    check(n["drain"] == card["kernel_drains"] > 0 and n["gather"] == 0,
+          f"explore_kernel: {n} launches for {card['kernel_drains']} drains")
+    check(card["settle_calls"] > 0 and card["enabled_checks"] > 0,
+          "explore_kernel: no settle ran through the device ops")
+    for k in ("kernel_drains", "kernel_txns", "settle_calls",
+              "write_slots_checked", "enabled_checks"):
+        check(card[k] == out["cpu"][k], f"explore_kernel: {k} differs "
+              f"between cuda and cpu: {card[k]} / {out['cpu'][k]}")
+    return n["drain"]
+
+
+def drain_kernel_mutants() -> dict:
+    """The drain kernel's own write-lock violations on the card: a
+    ``validate_batch(class_locks=)`` drain handed stale class owners (the
+    class of the written item is leased to proc 1 in the lease layer's
+    view, unowned in the drain's) passes the write, and
+    ``check_write_locks`` names it from the stale view; a drain whose
+    verdict passes that write is named from the pass side, recomputed on
+    the host.  With the live view the kernel itself refuses the write."""
+    import torch
+
+    from repro_torch.analysis.sanitizer import (SanitizerError,
+                                                check_write_locks)
+    from repro_torch.core.stm import (ClassLocks, Transaction,
+                                      VersionedStore, validate_batch)
+    from repro_torch.kernels import lease_validate as lv
+
+    store = VersionedStore(3, device="cuda")
+    item_cc = np.array([0, 1, 1], np.int32)
+    owners = np.array([0, 1], np.int32)          # the lease layer's view
+    txn = Transaction(txid=7, origin=0)
+    txn.log_read(0, 0)
+    txn.write_set[2] = 1.0
+    forged = ClassLocks(torch.from_numpy(item_cc).to(store.device),
+                        np.zeros(2, np.int32), 0)
+
+    def drain(view):
+        before = lv.variant_launches["drain"]
+        ok = validate_batch(store, [txn], class_locks=view)
+        check(lv.variant_launches["drain"] == before + 1,
+              "mutants: the drain did not launch the drain kernel")
+        return ok
+
+    def named(*args):
+        try:
+            check_write_locks(*args)
+        except SanitizerError as e:
+            return e.invariant, e.detail
+        return None, None
+
+    out = {}
+    ok = drain(forged)
+    check(ok.tolist() == [True], f"mutants: the kernel refused the write "
+          f"under the forged view: {ok.tolist()}")
+    for case, locks in (("stale_owners", forged), ("leased_away", None)):
+        inv, detail = named(0, owners, item_cc, locks, [txn], ok)
+        check(inv == "write-locks", f"mutants: drain kernel {case}: "
+              f"sanitizer named {inv!r} ({detail})")
+        out[case] = dict(invariant=inv, detail=detail)
+    live = forged._replace(owners=owners)
+    ok = drain(live)
+    check(ok.tolist() == [False] and named(0, owners, item_cc, live, [txn],
+                                           ok) == (None, None),
+          "mutants: the live view did not refuse the leased-away write")
+    return out
+
+
+def mutants_phase() -> None:
+    """Every mutant of MUTANT_INVARIANTS re-found on the card by
+    ``explore_scenario`` (exhaustive, window 0.6 ms, 400 schedules, as the
+    CPU tests) with its invariant, the minimized trace naming it too; then
+    the two drain-kernel forms."""
+    from repro_torch.analysis.explore import ExploreConfig, explore_scenario
+    from repro_torch.analysis.scenarios import MUTANT_INVARIANTS
+
+    cfg = ExploreConfig(strategy="exhaustive", window_ms=0.6,
+                        max_schedules=400)
+    found = {}
+    t0 = time.perf_counter()
+    for name, want in sorted(MUTANT_INVARIANTS.items()):
+        res = explore_scenario(name, cfg, {"device": "cuda"})
+        check(not res.ok, f"mutants: {name} not found on the card")
+        inv = res.violation.violation[0]
+        check(inv == want == res.minimized.violation[0],
+              f"mutants: {name} named {inv!r} (minimized "
+              f"{res.minimized.violation[0]!r}), want {want!r}")
+        found[name] = dict(invariant=inv,
+                           runs=res.stats.runs,
+                           deviations=len(res.minimized.deviations()))
+    wall = time.perf_counter() - t0
+    emit("mutants", device="cuda", found=found, n_found=len(found),
+         drain_kernel=drain_kernel_mutants(), wall_s=wall)
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -1626,7 +2029,7 @@ def main() -> int:
     # 4. main path: TPC-C at spec cardinalities, cuda then cpu
     main_cfg = dict(threads_per_node=16, certify_window_ms=0.5,
                     duration_ms=300.0, warmup_ms=45.0, seed=0)
-    card = run_cluster("tpcc", "cuda", main_cfg)
+    card = main_card = run_cluster("tpcc", "cuda", main_cfg)
     main_launches = card["launches"]
     emit("main", device="cuda", **summary(card))
     check_drains("main", card)
@@ -1639,7 +2042,8 @@ def main() -> int:
     # 5. forced path: every drain and settle on the device
     forced_cfg = dict(certify_jax_min=1, lease_jax_min=1,
                       cert_slot_mode="per_txn")
-    card = run_cluster("bank", "cuda", forced_cfg, fail_at=120.0)
+    card = forced_card = run_cluster("bank", "cuda", forced_cfg,
+                                     fail_at=120.0)
     emit("forced", device="cuda", **summary(card))
     check_drains("forced", card)
     host = run_cluster("bank", "cpu", forced_cfg, fail_at=120.0)
@@ -1668,7 +2072,7 @@ def main() -> int:
 
     # 11-14. serving on SimBackend and the placement planner
     t0 = time.perf_counter()
-    serve_launches = serve_phase()
+    serve_launches, serve_results = serve_phase()
     emit("serve_done", wall_s=time.perf_counter() - t0)
     rng = np.random.default_rng(5)
     serve_cases = [serve_drain_case(rng, 256, b, d)
@@ -1682,10 +2086,35 @@ def main() -> int:
     t0 = time.perf_counter()
     sim_plan = sim_plan_phase(main_cfg)
     emit("sim_plan_done", wall_s=time.perf_counter() - t0)
+
+    # 15-20. runtime analysis: the sanitizer and the explorer on the card
+    t0 = time.perf_counter()
+    main_san = sanitized_phase("main_sanitized", "tpcc", main_cfg, main_card)
+    emit("main_sanitized_done", wall_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    forced_san = sanitized_phase("forced_sanitized", "bank", forced_cfg,
+                                 forced_card, fail_at=120.0)
+    emit("forced_sanitized_done", wall_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    serve_san = serve_sanitized_phase(serve_results)
+    emit("serve_sanitized_done", wall_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    explore_phase()
+    emit("explore_done", wall_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    explore_kernel = explore_kernel_phase()
+    emit("explore_kernel_done", wall_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    mutants_phase()
+    emit("mutants_done", wall_s=time.perf_counter() - t0)
     drain_paths = {"main": main_launches["drain"],
                    "serve_jax_min_1": serve_launches[1],
                    "serve_jax_min_8": serve_launches[8],
-                   "sim_plan": sim_plan["launches"]["drain"]}
+                   "sim_plan": sim_plan["launches"]["drain"],
+                   "main_sanitized": main_san["launches"]["drain"],
+                   "forced_sanitized": forced_san["launches"]["drain"],
+                   "serve_sanitized": serve_san,
+                   "explore_kernel": explore_kernel}
 
     lease = "src/repro_torch/kernels/csrc/lease_validate.cu"
     lease_tpu = "src/repro/kernels/lease_validate.py:70"

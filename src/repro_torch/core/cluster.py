@@ -31,7 +31,10 @@ written versions, checks write items against the lease layer's class
 owners and certifies, in one kernel launch.  The host-side protocol is the
 reference's, verdict for verdict.  The proactive placement planner
 (``SimConfig.plan``) scores its lease moves on the same device.  The
-sanitizer and explorer hooks of the reference belong to a later slice.
+lease-protocol sanitizer (``SimConfig.sanitize``) holds every drain's
+verdicts on the device to the lease layer's ownership view recomputed on
+the host, and the schedule-space explorer (``SimConfig.explore``) drives
+the same cluster through legal delivery reorderings.
 """
 from __future__ import annotations
 
@@ -174,11 +177,18 @@ class SimConfig:
     # execute them as background prefetch requests through the lease
     # managers (None = off).
     plan: Optional["PlanConfig"] = None  # noqa: F821 (repro_torch.plan)
-    # The reference's lease-protocol sanitizer and schedule-space explorer.
-    # Not ported yet: setting either raises NotImplementedError rather than
-    # being ignored.
+    # Lease-protocol sanitizer (repro_torch.analysis): wrap every replica's
+    # lease manager in the invariant-checking observer and cross-check each
+    # drain's write-lock input and verdicts against the lease layer's
+    # ownership view, recomputed on the host.  Pure post-state reads — a
+    # sanitize-on run is byte-identical to sanitize-off, just slower.
     sanitize: bool = False
-    explore: Optional[object] = None
+    # Schedule-space exploration (repro_torch.analysis.explore): an
+    # ExploreConfig whose ``policy`` attribute, when set, is installed as
+    # the event queue's SchedulePolicy — the explorer re-constructs the
+    # cluster per explored schedule and swaps in its recording policy
+    # through this field.  None (default): the plain (time, seq) heap order.
+    explore: Optional["ExploreConfig"] = None  # noqa: F821 (.analysis)
     # Structured tracing (repro_torch.obs): record lease rounds, forwards,
     # aborts, certify batches, and planner epochs as sim-time-stamped
     # spans/instants on per-node tracks, exportable to Perfetto via
@@ -240,6 +250,10 @@ class Replica:
             self.lm = FGLLeaseManager(node, cfg.n_classes)
         else:
             self.lm = ALCLeaseManager(node, cfg.n_classes)
+        if cfg.sanitize:
+            from ..analysis.sanitizer import LeaseSanitizer
+
+            self.lm = LeaseSanitizer(self.lm)
         self.store = VersionedStore(cfg.n_items, cfg.init_value, device)
         self.freq = DecayedFrequency(cfg.n_nodes, cfg.n_classes)
         self.cpu_view = np.zeros((cfg.n_nodes,), dtype=np.float64)
@@ -286,16 +300,11 @@ class SimTxn:
 
 class Cluster:
     def __init__(self, cfg: SimConfig, workload: Workload, ccmap=None) -> None:
-        for name in ("sanitize", "explore"):
-            if getattr(cfg, name) not in (None, False):
-                raise NotImplementedError(
-                    f"SimConfig.{name} is not ported yet: it comes with "
-                    f"the runtime-analysis slice of the port (ROADMAP "
-                    f"queue 1 item 7)")
         self.device = resolve_device(cfg.device)
         self.cfg = cfg
         self.workload = workload
-        self.events = EventQueue()
+        policy = None if cfg.explore is None else cfg.explore.policy
+        self.events = EventQueue(policy=policy)
         # repro_torch.obs recorder (None when off: every site is one dead
         # branch)
         self.trace = None
@@ -369,6 +378,11 @@ class Cluster:
         self.events.run(cfg.duration_ms)
         self._stopped = True
         self.events.run(cfg.duration_ms + cfg.drain_ms)
+        if cfg.sanitize:
+            # end-of-run reconciliation: queues == ledger, LORs conserved
+            for r in self.replicas:
+                if self.gcs.alive(r.node):
+                    r.lm.verify_full()
         return self.metrics
 
     def load_state(self, values: np.ndarray, versions: np.ndarray,
@@ -863,9 +877,15 @@ class Cluster:
         batch, r.certify_queue = r.certify_queue, []
         if not batch:
             return
-        if len(batch) >= self.cfg.certify_jax_min:
+        drain = len(batch) >= self.cfg.certify_jax_min
+        # the ownership view that decides: the drain's input, and on the
+        # numpy route (whose per-item loop reads the same owners) the
+        # sanitizer's only
+        view = self._class_locks(node) if drain or self.cfg.sanitize \
+            else None
+        if drain:
             ok = validate_batch(r.store, [t.stm for t in batch],
-                                class_locks=self._class_locks(node))
+                                class_locks=view)
         else:
             # near-empty batch: device dispatch overhead would dominate —
             # the numpy loop settles the same verdicts, including the lock
@@ -873,6 +893,16 @@ class Cluster:
             # transactions happened to share the drain instant
             ok = [r.store.validate(t.stm) and not self._locked_write(t, node)
                   for t in batch]
+        if self.cfg.sanitize:
+            # single-writer cross-check: the ownership view the route used
+            # must match the lease layer's live ownership, and no passing
+            # transaction (verdicts as the drain returned them) may write
+            # an item leased elsewhere; recomputed on the host
+            from ..analysis.sanitizer import check_write_locks
+
+            check_write_locks(
+                node, r.lm.owner_np(), self._item_cc, view,
+                [t.stm for t in batch], [bool(o) for o in ok])
         self.metrics.cert_batches += 1
         self.metrics.cert_batch_txns += len(batch)
         # Intra-batch serialization: the one-at-a-time path applies each
@@ -1044,6 +1074,10 @@ class Cluster:
                 # piggybackable, freed by the usual rule the moment a
                 # conflicting request blocks them
                 if lors:
+                    if self.cfg.sanitize:
+                        # prefetch-head rule: these LORs may only drain to
+                        # activeXacts=0 while heading their queues
+                        r.lm.mark_prefetch(lors)
                     r.prefetch_waiters.append(lors)
             else:
                 txn = r.pending_reqs.pop(req.req_id, None)

@@ -33,11 +33,12 @@ def build_engine(cfg: ModelConfig, n_pods: int, n_sessions: int, *,
                  arbitration: str = ROUTER_DEFAULTS.arbitration,
                  seq_shards: int = 1, plan_epoch_ms: float = 0.0,
                  device="cuda", jax_min: int = 8, plan_async: bool = True,
-                 trace=None) -> MultiPodEngine:
+                 trace=None, sanitize: bool = False) -> MultiPodEngine:
     """``SimBackend`` pods behind a ``LocalityRouter`` priced with ``cfg``'s
     KV bytes per token, the step certifier's epoch store (and the planner,
     when ``plan_epoch_ms`` > 0) on ``device``.  ``jax_min`` is the
-    certifier's packed-path threshold; ``plan_async`` the engine's."""
+    certifier's packed-path threshold; ``plan_async`` the engine's;
+    ``sanitize`` the certifier's protocol checks."""
     kv_per_tok = (2.0 * 2 * cfg.n_kv_heads * cfg.head_dim * cfg.n_layers
                   if cfg.n_kv_heads else 4096.0 * cfg.n_layers)
     router = LocalityRouter(n_pods, policy=policy, arbitration=arbitration,
@@ -51,7 +52,7 @@ def build_engine(cfg: ModelConfig, n_pods: int, n_sessions: int, *,
             n_pods, n_sessions, epoch_ms=plan_epoch_ms, device=device)
     return MultiPodEngine(n_pods, SimBackend(cfg), router,
                           StepCertifier(n_pods, jax_min=jax_min,
-                                        device=device),
+                                        sanitize=sanitize, device=device),
                           planner=planner, trace=trace,
                           plan_async=plan_async)
 
@@ -60,15 +61,17 @@ def run_point(arch: str, policy: str, locality: float, *, n_pods: int = 8,
               n_sessions: int = 256, steps: int = 80, seed: int = 0,
               arbitration: str = "steps", plan_epoch_ms: float = 0.0,
               device="cuda", jax_min: int = 8,
-              plan_async: bool = True) -> dict:
+              plan_async: bool = True, sanitize: bool = False) -> dict:
     """One point of the serving-locality sweep (one seed): ``steps`` steps
     of ``2 * n_pods`` four-token requests from a seeded mix of home and
     random origins.  Returns ``point`` (the sweep's columns), ``metrics``
     (``EngineMetrics.as_dict()`` without the wall-clock ``plan_block_s``),
-    ``router`` (``RouterMetrics``) and ``plan_block_s``."""
+    ``router`` (``RouterMetrics``) and ``plan_block_s``.  ``sanitize``
+    runs the certifier's protocol checks (a violation raises)."""
     eng = build_engine(get_config(arch), n_pods, n_sessions, policy=policy,
                        arbitration=arbitration, plan_epoch_ms=plan_epoch_ms,
-                       device=device, jax_min=jax_min, plan_async=plan_async)
+                       device=device, jax_min=jax_min, plan_async=plan_async,
+                       sanitize=sanitize)
     router = eng.router
     rng = np.random.default_rng(seed)
     for _ in range(steps):

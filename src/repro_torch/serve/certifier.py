@@ -63,7 +63,9 @@ class StepCertifier:
     reference's signature and takes ``"auto"`` only: the store's device
     picks the route.  ``jax_min`` keeps the reference's name: batches
     below it settle with the numpy loop (same verdicts, no device call).
-    ``sanitize`` (with ``owner_of``) raises until the sanitizer is ported.
+    ``sanitize`` checks lease-epoch monotonicity at every bump and, with
+    ``owner_of(sid) -> pod``, that every request a drain passes (the drain
+    kernel's verdicts on the card) certified at its session's owner.
     """
 
     def __init__(self, n_pods: int, *, backend: str = "auto",
@@ -74,14 +76,16 @@ class StepCertifier:
         if backend != "auto":
             raise ValueError(f"backend {backend!r}: the port dispatches by "
                              "the store's device (backend='auto' only)")
-        if sanitize:
-            raise NotImplementedError(
-                "StepCertifier(sanitize=True) is not ported yet: it comes "
-                "with the runtime-analysis slice (ROADMAP queue 1 item 7)")
         self.n_pods = n_pods
         self.backend = backend
         self.hbm_bw = hbm_bw
         self.dispatch_s = dispatch_s
+        # protocol sanitizer (repro_torch.analysis): epoch monotonicity per
+        # sid and owner-at-drain cross-checks; ``owner_of(sid) -> pod`` is
+        # wired by the engine from the router's ownership map
+        self.sanitize = sanitize
+        self.owner_of = owner_of
+        self._last_epoch: Dict[int, int] = {}
         # batches below this settle with the numpy loop (same verdicts,
         # no device call); tests force 1 to pin the packed path
         self.jax_min = jax_min
@@ -115,6 +119,17 @@ class StepCertifier:
         to the next store read; ordering within the queue is preserved —
         ``apply_batch`` is last-writer-wins per item)."""
         self._ensure(sid)
+        if self.sanitize:
+            prev = self._last_epoch.get(sid)
+            if prev is not None and epoch < prev:
+                from ..analysis.sanitizer import SanitizerError
+
+                raise SanitizerError(
+                    "epoch-monotonicity",
+                    f"sid {sid}: lease epoch stamped backwards "
+                    f"({prev} -> {epoch}); a recycled sid must start past "
+                    f"its tombstone epoch")
+            self._last_epoch[sid] = epoch
         self._bumps.append((sid, epoch))
 
     def _flush_bumps(self) -> None:
@@ -187,6 +202,20 @@ class StepCertifier:
         m.time_s += t_s
         passed = [req for (req, _), o in zip(entries, ok) if o]
         aborted = [req for (req, _), o in zip(entries, ok) if not o]
+        if self.sanitize and self.owner_of is not None:
+            from ..analysis.sanitizer import SanitizerError
+
+            for req in passed:
+                owner = self.owner_of(req.sid)
+                if owner != pod:
+                    # a request can only certify at the current lease
+                    # owner: passing elsewhere means an ownership move
+                    # skipped its epoch bump
+                    raise SanitizerError(
+                        "owner-at-drain",
+                        f"sid {req.sid} certified at pod {pod} but the "
+                        f"router owner is {owner}; an apply_move/evict "
+                        f"skipped its epoch bump")
         m.certified += len(passed)
         m.aborts += len(aborted)
         return passed, aborted, t_s

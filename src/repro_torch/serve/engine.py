@@ -226,6 +226,10 @@ class MultiPodEngine:
         # a certifier built here keeps its epoch store on ``device``
         self.certifier = certifier or StepCertifier(
             n_pods, sanitize=sanitize, device=device)
+        if self.certifier.sanitize and self.certifier.owner_of is None:
+            # owner-at-drain cross-check reads the router's live ownership
+            self.certifier.owner_of = \
+                lambda sid: self.router.owner.get(sid, -1)
         # optional proactive placement planner (repro_torch.plan): shares the
         # router's clock/stats implementation and takes over rebalancing.
         # plan_async overlaps each epoch's scoring with the following

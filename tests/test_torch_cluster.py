@@ -125,17 +125,32 @@ def test_framework_free_modules_are_copies(rel):
     assert port == ref
 
 
-def test_unported_options_raise():
-    """The sanitizer and the explorer still raise; SimConfig.plan is ported
-    and runs (held byte for byte to repro.core in test_torch_plan.py)."""
+def test_analysis_options_run():
+    """The sanitizer and the explorer's policy seam run (held to
+    repro.analysis in test_torch_sanitizer.py and test_torch_explore.py);
+    SimConfig.plan runs (held byte for byte to repro.core in
+    test_torch_plan.py)."""
+    from repro_torch.analysis.explore import ExploreConfig
+    from repro_torch.analysis.sanitizer import LeaseSanitizer
+    from repro_torch.core.events import SchedulePolicy
     from repro_torch.plan import SIM_PLAN_DEFAULTS
 
-    cfg = T.SimConfig(device="cpu", sanitize=True)
-    wl = T.BankWorkload(n_nodes=cfg.n_nodes, n_items=cfg.n_items)
-    with pytest.raises(NotImplementedError, match="sanitize"):
-        T.Cluster(cfg, wl)
-    with pytest.raises(NotImplementedError, match="explore"):
-        T.Cluster(T.SimConfig(device="cpu", explore=object()), wl)
+    wl = T.BankWorkload(n_nodes=4, n_items=4096)
+    runs = {}
+    for kw in ({}, dict(sanitize=True),
+               dict(explore=ExploreConfig(policy=SchedulePolicy()))):
+        cfg = T.SimConfig(device="cpu", duration_ms=100.0, warmup_ms=10.0,
+                          **kw)
+        c = T.Cluster(cfg, wl)
+        m = c.run()
+        runs[tuple(kw)] = (dataclasses.asdict(m), [
+            (r.store.values.tobytes(), r.store.versions.tobytes())
+            for r in c.replicas])
+        assert isinstance(c.replicas[0].lm, LeaseSanitizer) == \
+            ("sanitize" in kw)
+        assert (c.events.policy is not None) == ("explore" in kw)
+    assert runs[()][0]["commits"] > 0
+    assert runs[("sanitize",)] == runs[()] == runs[("explore",)]
     cfg = T.SimConfig(device="cpu", plan=SIM_PLAN_DEFAULTS, n_classes=64,
                       duration_ms=200.0, warmup_ms=20.0)
     c = T.Cluster(cfg, wl)

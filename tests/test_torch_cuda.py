@@ -4,9 +4,11 @@
 ``drain`` against ``ref.lease_drain_ref`` on ``ok`` and on the flushed
 table, over ``DRAIN_GRID``, which ``test_torch_lease_drain.py`` also holds
 to the reference on the CPU); ``flash_attention`` and ``ssd_scan`` at the
-reference's tolerances over its test grids, plus the model path's shapes.
-Marked ``cuda``: skips on a host without a card.  This file imports no JAX
-(the card's machine has none); run it there with
+reference's tolerances over its test grids, plus the model path's shapes;
+and the runtime analysis on the card (a sanitized cluster run, the drain
+kernel's write-lock mutants, the explorer's kernel cell), each equal to
+the CPU.  Marked ``cuda``: skips on a host without a card.  This file
+imports no JAX (the card's machine has none); run it there with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -842,3 +844,97 @@ def test_cuda_sim_plan_matches_cpu(cuda_device):
     assert out[0] == out[1]
     assert out[0][0]["plan_epochs"] > 0 and out[0][0]["plan_prefetches"] > 0
     assert drains == {"gather": 0, "drain": out[0][0]["cert_batches"]}
+
+
+@pytest.mark.cuda
+def test_cuda_sanitized_cluster_run_matches_cpu(cuda_device):
+    """A sanitized forced Bank run (every drain through ``drain`` and
+    checked by ``check_write_locks``, every settle on the device and held to
+    the sequential ``is_enabled``, a node failure) on the card equals the
+    same sanitized run on the CPU and the unsanitized run on the card:
+    stores, metrics and sanitizer counters."""
+    import dataclasses
+
+    import repro_torch.core as T
+
+    out = {}
+    for device, sanitize in (("cuda", True), ("cpu", True), ("cuda", False)):
+        lv.variant_launches.update(gather=0, drain=0)
+        cfg = T.SimConfig(duration_ms=150.0, warmup_ms=30.0, seed=1,
+                          certify_jax_min=1, lease_jax_min=1,
+                          cert_slot_mode="per_txn", device=device,
+                          sanitize=sanitize)
+        c = T.make_cluster("LILAC-TM-ST", T.BankWorkload(
+            n_nodes=cfg.n_nodes, n_items=cfg.n_items, locality=0.6), cfg)
+        c.events.schedule(120.0, lambda c=c: c.gcs.fail(3))
+        m = c.run()
+        out[device, sanitize] = (
+            dataclasses.asdict(m),
+            [(r.store.values.tobytes(), r.store.versions.tobytes())
+             for r in c.replicas],
+            [r.lm.counters() for r in c.replicas] if sanitize else None)
+        if (device, sanitize) == ("cuda", True):
+            drains = dict(lv.variant_launches)
+    assert out["cuda", True] == out["cpu", True]
+    assert out["cuda", True][:2] == out["cuda", False][:2]
+    assert drains == {"gather": 0, "drain": out["cuda", True][0]["cert_batches"]}
+    assert drains["drain"] > 0
+    assert sum(c["checks"] for c in out["cuda", True][2]) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_drain_kernel_write_lock_mutants(cuda_device):
+    """The drain kernel handed stale class owners passes a write to a class
+    the lease layer has leased to proc 1: the sanitizer names the stale
+    view and, from the pass side recomputed on the host, the verdict; the
+    live view makes the kernel refuse the write."""
+    from repro_torch.analysis.sanitizer import (SanitizerError,
+                                                check_write_locks)
+    from repro_torch.core.stm import (ClassLocks, Transaction,
+                                      VersionedStore, validate_batch)
+
+    store = VersionedStore(3, device=cuda_device)
+    item_cc = np.array([0, 1, 1], np.int32)
+    owners = np.array([0, 1], np.int32)
+    txn = Transaction(txid=7, origin=0)
+    txn.log_read(0, 0)
+    txn.write_set[2] = 1.0
+    forged = ClassLocks(torch.from_numpy(item_cc).to(cuda_device),
+                        np.zeros(2, np.int32), 0)
+    before = lv.variant_launches["drain"]
+    ok = validate_batch(store, [txn], class_locks=forged)
+    assert lv.variant_launches["drain"] == before + 1
+    assert ok.tolist() == [True]
+    with pytest.raises(SanitizerError) as e:
+        check_write_locks(0, owners, item_cc, forged, [txn], ok)
+    assert e.value.invariant == "write-locks" and "class 1" in e.value.detail
+    with pytest.raises(SanitizerError) as e:
+        check_write_locks(0, owners, item_cc, None, [txn], ok)
+    assert e.value.invariant == "write-locks" and "txn 7" in e.value.detail
+    live = forged._replace(owners=owners)
+    ok = validate_batch(store, [txn], class_locks=live)
+    assert ok.tolist() == [False]
+    assert check_write_locks(0, owners, item_cc, live, [txn], ok) == 0
+
+
+@pytest.mark.cuda
+def test_cuda_explore_kernel_cell_matches_cpu(cuda_device):
+    """KERNEL_CELL at 50 schedules: every drain of every explored schedule
+    through ``drain``, violation-free, and the same ExploreStats as the
+    exploration on the CPU."""
+    import dataclasses
+
+    from repro_torch.analysis.explore import KERNEL_CELL, explore_scenario
+
+    name, args, cfg = KERNEL_CELL
+    cfg = dataclasses.replace(cfg, max_schedules=50)
+    stats = {}
+    for device in ("cuda", "cpu"):
+        lv.variant_launches.update(gather=0, drain=0)
+        res = explore_scenario(name, cfg, dict(args, device=device))
+        assert res.ok, res.violation.violation
+        stats[device] = dataclasses.asdict(res.stats)
+        if device == "cuda":
+            drains = dict(lv.variant_launches)
+    assert stats["cuda"] == stats["cpu"]
+    assert drains["drain"] > 0 and drains["gather"] == 0

@@ -175,13 +175,20 @@ def test_unported_serving_paths_raise():
 
     with pytest.raises(NotImplementedError, match="item 8"):
         tmain(["--backend", "real", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 7"):
-        StepCertifier(2, sanitize=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        MultiPodEngine(2, SimBackend(get_smoke_config("glm4-9b")),
-                       LocalityRouter(2), sanitize=True, device="cpu")
     with pytest.raises(ValueError, match="auto"):
         StepCertifier(2, backend="jax", device="cpu")
+    # the sanitized certifier and engine (runtime analysis) run: a sanitized
+    # serving run equals the unsanitized one key for key, with every batch
+    # through the drain route and every passed forward checked at its owner
+    cert = StepCertifier(2, sanitize=True, device="cpu")
+    assert cert.sanitize and cert.owner_of is None
+    eng = MultiPodEngine(2, SimBackend(get_smoke_config("glm4-9b")),
+                         LocalityRouter(2), sanitize=True, device="cpu")
+    assert eng.certifier.sanitize and eng.certifier.owner_of(0) == -1
+    out = [run_point("mixtral-8x7b", "short", 0.5, device="cpu", jax_min=1,
+                     sanitize=sanitize, **SMOKE) for sanitize in (False, True)]
+    assert all(out[0][k] == out[1][k] for k in ("point", "metrics", "router"))
+    assert out[1]["metrics"]["certified"] > 0
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
