@@ -59,7 +59,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             is cold as it is for the model's 40 layers, and over one cache,
             ``*_warm``), the reference's test grid (tests/test_kernels.py)
             and the variants' edges (a ragged last tile, no causal mask, a
-            window, 64 decode rows, one valid key, f32 decode at D 64); f32
+            window, 64 decode rows, one valid key, f32 decode at D 64),
+            and deepseek-v2's MLA prefill (B = 2, S = 2048, Hq = Hkv =
+            128, Dk = 192, Dv = 128, causal, bf16: ``simt``); f32
             within 2e-5, bf16 within atol 1e-3 + rtol 1.6e-2 (two bf16
             ulps: every variant computes in fp32 and rounds the output
             once, prefill_tc with P.V on bf16 hi + lo parts of P).  Per
@@ -98,11 +100,40 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             device busy time and the largest device ops.
 9. mamba2 — the same for mamba2-780m (48 layers, d_model 1536); ssd
             launches must be 48 (one per layer, at prefill), all ``tc``.
-10. held  — both models at full width and 2 layers, 64-token prompt and 4
-            decode steps, on ``cuda`` and on ``cpu`` through the port, the
-            same bf16 weights: logits within 6e-2 (atol and rtol, the CPU
-            tests' bf16 tolerance against the reference).  The CPU port is
-            what the tests hold to JAX, so this ties the card to it.
+8b. mixtral — the same for mixtral-8x7b at full width, 8 of its 32
+            layers (one card holds 23.7 GB of them), batch 1 x 8192 (the
+            4096-key window masks), a 8224-slot ring: flash ``prefill_tc``
+            8, ``decode_split`` 128, ``simt`` 0.
+8c. deepseek — deepseek-v2 at full width, 4 of its 60 layers (the dense
+            first layer and 3 MoE layers, 26.6 GB), 2 x 2048, a 2080-slot
+            ring: ``simt`` 4 (MLA's prefill), nothing else (MLA's decode is
+            absorbed einsums).  In both MoE phases each run records its
+            routing: a token whose experts differ between the kernel and
+            the plain run must be a near-tie (``NEAR_TIE`` or twice the
+            runs' own probability noise), and its rows are left out of the
+            comparison (``routing_flips``, ``rows_flipped``).  Launches are
+            checked per arch against ``expected_launches``.
+10. held  — all four models at full width and 2 layers, 64-token prompt
+            and 4 decode steps, on ``cuda`` and on ``cpu`` through the
+            port, the same bf16 weights: logits within 6e-2 (atol and rtol,
+            the CPU tests' bf16 tolerance against the reference), near-tie
+            routing flips left out as above.  The CPU port is what the
+            tests hold to JAX, so this ties the card to it.
+10b. moe_routed — one full-width MoE layer of each MoE arch at 4096 and
+            16 tokens: ``moe_apply`` (routed) against ``moe_ref`` (dense),
+            within 2e-2 of max |y|; the rows routed to each expert, each
+            path's time (CUDA events) and device operations per call.
+10c. serve_real — ``launch.serve.serve_real`` at the reference launch's
+            ``--backend real`` defaults (2 pods, 16 sessions, 64 requests
+            of 4 tokens, locality 0.8, 256-slot rings, seed 0) on the card
+            for mixtral-8x7b (8 layers) and deepseek-v2 (4 layers): every
+            request decoded, every migrated column ``nbytes_session()``
+            bytes and bitwise equal on the destination, mixtral's
+            ``decode_split`` launches 8 a decode step (deepseek: none); ms
+            per engine step, decoded tokens/s, µs a migration.
+10d. serve_real_held — the same loop at 2 layers on cuda and on cpu:
+            engine metrics equal key for key but ``plan_block_s``, the
+            first step's logits within 6e-2.
 
 11. serve — the serving path of ``benchmarks/serve_locality.py``
             through the port's ``repro_torch.launch.serve.run_point`` (its
@@ -169,9 +200,10 @@ Runtime analysis (``repro_torch.analysis``) on the card:
 
 The last three lines are the ``nvidia-smi`` line, the kernels record (one
 entry per lease_validate, flash and SSD variant; ``lease_validate.drain``
-counts its launches on every path that reaches it, by path in
-``launches_by_path``, the runtime-analysis paths 15, 16, 17 and 19
-among them), and ``{"ok": true, "device": {...}}``.
+and each flash variant count their launches on every path that reaches
+them, by path in ``launches_by_path``: the runtime-analysis paths 15, 16,
+17 and 19 for the drain, the model phases 8-9, 8b-8c and serve_real for
+flash), and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -200,6 +232,14 @@ MODEL_TOL = 0.06               # auto vs ref logits, share of max |logit|
 # (~16 bits of P; a single bf16 P misses this limit in early causal rows)
 FLASH_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (1e-3, 1.6e-2)}
 HELD_TOL = 6e-2                # cuda vs cpu logits, atol and rtol
+MOE_TOL = 2e-2                 # routed vs dense MoE, share of max |y|
+# bf16 keeps 8 significant bits: two router probabilities closer than this
+# (or than twice the largest change the two runs show on the rows that
+# routed alike) can change order between two runs that round differently
+# (kernel and plain attention, the card and the CPU).  Such a token takes
+# another expert; its compared rows are left out, and a flip at a wider
+# gap fails
+NEAR_TIE = 1e-2
 
 # TPC-C Standard Specification rev. 5.11, clause 1.2 / 4.3.3.1
 TPCC_SPEC = dict(n_customers=30000, n_stock=100000, n_catalog=100000)
@@ -973,6 +1013,9 @@ def kernel_flash_phase() -> list:
         # 8 caches of 8.5 MB in rotation: L2 cold, as for 40 layers
         flash_case("glm4_decode", 4, 1, 2080, 32, 2, 128, 128, decode=True,
                    copies=8),
+        # deepseek-v2's MLA prefill: Dk 192 (128 + 64 rope), Dv 128
+        flash_case("mla_prefill", 2, 2048, 2048, 128, 128, 192, 128,
+                   seed=26),
     ]
     grid = [   # the reference's test grid (tests/test_kernels.py)
         (2, 128, 128, 4, 2, 32, 32, True, None, 0.0, "float32"),
@@ -1172,22 +1215,25 @@ def kernel_record(name: str, source: str, replaces: str, launches: int,
             "bound_by": head["bound_by"], "library_ms": head["library_ms"]}
 
 
-def flash_records(cases: list, launches: dict) -> list:
+def flash_records(cases: list, paths: dict) -> list:
     """One entry per flash variant, timed at its main-path case (glm4-9b
-    prefill, glm4-9b decode; simt, which the main path does not reach, at
-    the reference grid's first case)."""
+    prefill, glm4-9b decode, deepseek-v2's MLA prefill for simt);
+    ``launches`` sums the model paths' counts, by path beside it."""
     heads = {"prefill_tc": "glm4_prefill", "decode_split": "glm4_decode",
-             "simt": "grid0"}
+             "simt": "mla_prefill"}
     out = []
     for variant, head in heads.items():
         mine = [c for c in cases if c["variant"] == variant]
         first = [c for c in mine if c["case"] == head]
         check(len(first) == 1, f"flash case {head} did not run {variant}")
-        out.append(kernel_record(
+        by_path = {path: counts[variant] for path, counts in paths.items()}
+        out.append(dict(kernel_record(
             f"flash_attention.{variant}",
             f"src/repro_torch/kernels/csrc/flash_{variant}.cuh",
-            "src/repro/kernels/flash_attention.py:90", launches[variant],
-            first + [c for c in mine if c["case"] != head]))
+            "src/repro/kernels/flash_attention.py:90",
+            sum(by_path.values()),
+            first + [c for c in mine if c["case"] != head]),
+            launches_by_path=by_path))
     return out
 
 
@@ -1279,24 +1325,154 @@ def device_profile(fn) -> dict:
                      for n, ms, c in rows[:5]], repo_kernels=ours)
 
 
-def compare_logits(a: list, b: list) -> dict:
-    """Largest difference, its share of the largest reference logit, and
-    the share of greedy (argmax) tokens that agree."""
+@contextlib.contextmanager
+def recorded_routing():
+    """Every ``moe.router_topk`` call while it is open, in order: the
+    expert ids ``[T, K]`` and the k + 1 largest router probabilities
+    ``[T, K + 1]``, both left on the device."""
     import torch
 
-    diff = max(float((x.float().cpu() - y.float().cpu()).abs().max())
-               for x, y in zip(a, b))
-    top = max(float(y.float().abs().max()) for y in b)
-    agree = torch.cat([(x.float().cpu().argmax(-1)
-                        == y.float().cpu().argmax(-1)).float()
-                       for x, y in zip(a, b)])
+    from repro_torch.models import moe
+
+    calls = []
+    plain = moe.router_topk
+
+    def recording(logits, top_k, norm_topk, router_scale):
+        vals, ids = plain(logits, top_k, norm_topk, router_scale)
+        calls.append((ids, torch.topk(torch.softmax(logits.float(), -1),
+                                      top_k + 1).values))
+        return vals, ids
+
+    moe.router_topk = recording
+    try:
+        yield calls
+    finally:
+        moe.router_topk = plain
+
+
+def routing_flips(a: list, b: list, where: str, n_moe: int) -> tuple:
+    """The token rows of each call whose expert set differs between two
+    recorded runs of the same work, and the largest change of a router
+    probability over the rows that routed alike in the call and in the
+    pass's earlier layers (the runs' own noise).
+
+    The calls come ``n_moe`` a pass (one per MoE layer, in order).  A row
+    that already took other experts in an earlier layer of its pass has
+    another input and may route anywhere.  Any other flip must be a
+    near-tie: its k-th and (k+1)-th probabilities closer, in both runs,
+    than ``NEAR_TIE`` or twice the noise of its call; anything else fails.
+    """
+    import torch
+
+    check(len(a) == len(b), f"{where}: {len(a)} and {len(b)} router calls")
+    out, noise_max, flipped = [], 0.0, set()
+    for i, ((ia, pa), (ib, pb)) in enumerate(zip(a, b)):
+        if i % n_moe == 0:
+            flipped = set()
+        ia, ib = ia.cpu().sort(-1).values, ib.cpu().sort(-1).values
+        pa, pb = pa.float().cpu(), pb.float().cpu()
+        differ = (ia != ib).any(-1)
+        alike = ~differ
+        alike[list(flipped)] = False
+        noise = float((pa - pb)[alike].abs().max()) if alike.any() else 0.0
+        noise_max = max(noise_max, noise)
+        k = ia.shape[1]
+        rows = [r for r in torch.nonzero(differ).flatten().tolist()
+                if r not in flipped]
+        gap = torch.maximum(pa[rows, k - 1] - pa[rows, k],
+                            pb[rows, k - 1] - pb[rows, k])
+        wide = gap[gap >= max(NEAR_TIE, 2 * noise)]
+        check(not len(wide), f"{where}: router call {i} takes other "
+              f"experts at a gap of {wide.tolist()[:4]} (not a near-tie; "
+              f"the call's noise {noise})")
+        rows = set(torch.nonzero(differ).flatten().tolist())
+        flipped |= rows
+        out.append(rows)
+    return out, noise_max
+
+
+def generate_keep(flips: list, n_moe: int, batch: int, prompt: int,
+                  steps: int) -> list:
+    """Per logits entry of :func:`generate`, the rows whose own routing
+    agreed in every MoE layer: the prompt's last position for the prefill
+    entry, the step's token for a decode entry.  The calls come in layer
+    order, ``n_moe`` for the prefill, then ``n_moe`` a step."""
+    check(len(flips) == n_moe * (1 + steps),
+          f"{len(flips)} router calls for {n_moe} MoE layers x "
+          f"{1 + steps} passes")
+    keep = []
+    for entry in range(1 + steps):
+        calls = flips[entry * n_moe:(entry + 1) * n_moe]
+        row = (lambda b: b * prompt + prompt - 1) if entry == 0 \
+            else (lambda b: b)
+        keep.append([not any(row(b) in c for c in calls)
+                     for b in range(batch)])
+    return keep
+
+
+def compare_logits(a: list, b: list, keep=None) -> dict:
+    """Largest difference, its share of the largest reference logit, and
+    the share of greedy (argmax) tokens that agree; with ``keep`` (per
+    entry, a bool per row), over the kept rows only."""
+    import torch
+
+    if keep is None:
+        keep = [[True] * len(y) for y in b]
+    pairs = [(x.float().cpu()[k], y.float().cpu()[k])
+             for x, y, k in zip(a, b, (torch.tensor(k, dtype=torch.bool)
+                                       for k in keep))]
+    pairs = [(x, y) for x, y in pairs if len(y)]
+    diff = max(float((x - y).abs().max()) for x, y in pairs)
+    top = max(float(y.abs().max()) for _, y in pairs)
+    agree = torch.cat([(x.argmax(-1) == y.argmax(-1)).float()
+                       for x, y in pairs])
+    rows = sum(len(k) for k in keep)
+    kept = sum(sum(k) for k in keep)
     return dict(max_abs_diff=diff, max_abs_logit=top, rel_diff=diff / top,
-                greedy_agree=float(agree.mean()))
+                greedy_agree=float(agree.mean()), rows_compared=kept,
+                rows_flipped=rows - kept)
 
 
-def model_phase(phase: str, arch: str, *, batch: int = 4, prompt: int = 2048,
-                steps: int = 16, ring: int = 2080, seed: int = 0) -> dict:
-    """Full width and depth: "auto" (the kernels) then "ref" on the card."""
+def expected_launches(cfg, prompt: int, steps: int) -> dict:
+    """The kernel launches of :func:`generate` with the kernels on: one
+    flash call per attention layer and pass, in the variant the launcher
+    takes for its shapes (MLA's one-token decode is absorbed einsums: no
+    flash), and one SSD call per Mamba layer at prefill."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.models import common
+
+    kinds = common.layer_plan(cfg).kinds
+    n_attn = sum(k.mixer in ("attn", "attn_local") for k in kinds)
+    n_mamba = sum(k.mixer == "mamba" for k in kinds)
+    dt = cfg.compute_dtype()
+    by = dict.fromkeys(fa.VARIANTS, 0)
+    if cfg.mla is not None:
+        m = cfg.mla
+        by[fa.variant(dt, prompt, cfg.n_heads, cfg.n_heads,
+                      m.qk_nope_head_dim + m.qk_rope_head_dim,
+                      m.v_head_dim)] += n_attn
+    else:
+        for sq, passes in ((prompt, 1), (1, steps)):
+            by[fa.variant(dt, sq, cfg.n_heads, cfg.n_kv_heads,
+                          cfg.head_dim, cfg.head_dim)] += n_attn * passes
+    ssd = dict.fromkeys((f"ssd_{v}" for v in ss.VARIANTS), 0)
+    if n_mamba:
+        s = cfg.ssm
+        ssd[f"ssd_{ss.variant(dt, s.head_dim, s.d_state, s.chunk)}"] = \
+            n_mamba
+    return dict(flash=sum(by.values()), ssd=n_mamba, lease=0, **by, **ssd)
+
+
+def model_phase(phase: str, arch: str, *, n_layers=None, batch: int = 4,
+                prompt: int = 2048, steps: int = 16, ring: int = 2080,
+                seed: int = 0) -> dict:
+    """Full width (depth cut to ``n_layers`` where given): "auto" (the
+    kernels) then "ref" on the card.  The launches of the "auto" run are
+    checked against :func:`expected_launches` and returned.  Where the
+    model routes tokens to experts, a token whose routing differs between
+    the two runs (a near-tie, :func:`routing_flips`) is left out of the
+    logit comparison."""
     import torch
 
     from repro_torch.configs import get_config
@@ -1307,6 +1483,9 @@ def model_phase(phase: str, arch: str, *, batch: int = 4, prompt: int = 2048,
 
     t_start = time.perf_counter()
     cfg = get_config(arch)
+    published = cfg.n_layers
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     dev = torch.device("cuda")
     params = common.init_params(cfg, torch.Generator(device=dev).manual_seed(
         seed), dev, cfg.compute_dtype())
@@ -1317,10 +1496,8 @@ def model_phase(phase: str, arch: str, *, batch: int = 4, prompt: int = 2048,
                               generator=gen, device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t_start
-    kinds = common.layer_plan(cfg).kinds
-    n_attn = sum(k.mixer in ("attn", "attn_local") for k in kinds)
-    n_mamba = sum(k.mixer == "mamba" for k in kinds)
-    runs, path_counts = {}, None
+    n_moe = sum(k.ffn == "moe" for k in common.layer_plan(cfg).kinds)
+    runs, routing, path_counts = {}, {}, None
     for use in ("auto", "ref"):
         ctx = decoder.RunCtx(dev, use_kernel=use)
         # untimed, at the same shapes: the allocator's growth, cuBLAS's first
@@ -1330,17 +1507,14 @@ def model_phase(phase: str, arch: str, *, batch: int = 4, prompt: int = 2048,
         fa.launches = ss.launches = lv.launches = 0    # just before the path
         fa.variant_launches.update(dict.fromkeys(fa.VARIANTS, 0))
         ss.variant_launches.update(dict.fromkeys(ss.VARIANTS, 0))
-        run = generate(cfg, ctx, params, toks, step_toks, ring)
+        with recorded_routing() as routing[use]:
+            run = generate(cfg, ctx, params, toks, step_toks, ring)
         # the SSD variants' keys carry a prefix: flash has a simt too
         counts = dict(flash=fa.launches, ssd=ss.launches, lease=lv.launches,
                       **fa.variant_launches,
                       **{f"ssd_{k}": v for k, v in ss.variant_launches.items()})
-        want = (dict(flash=n_attn * (1 + steps), ssd=n_mamba, lease=0,
-                     prefill_tc=n_attn, decode_split=n_attn * steps, simt=0,
-                     ssd_tc=n_mamba, ssd_simt=0)
-                if use == "auto" else
-                dict(flash=0, ssd=0, lease=0, prefill_tc=0, decode_split=0,
-                     simt=0, ssd_tc=0, ssd_simt=0))
+        want = expected_launches(cfg, prompt, steps) if use == "auto" \
+            else dict.fromkeys(counts, 0)
         check(counts == want, f"{phase}/{use}: kernel launches {counts}, "
               f"expected {want}")
         for lg in run["logits"]:
@@ -1360,19 +1534,30 @@ def model_phase(phase: str, arch: str, *, batch: int = 4, prompt: int = 2048,
         del run["ring"]
         runs[use] = run
         emit(phase, use_kernel=use, arch=arch, n_layers=cfg.n_layers,
-             d_model=cfg.d_model, params=cfg.param_count(), batch=batch,
-             prompt=prompt, steps=steps, ring=ring, launches=counts,
+             published_layers=published, d_model=cfg.d_model,
+             params=cfg.param_count(), batch=batch, prompt=prompt,
+             steps=steps, ring=ring, launches=counts,
              prefill_s=run["prefill_s"], decode_s=run["decode_s"],
              prefill_tok_s=batch * prompt / run["prefill_s"],
              decode_tok_s=batch * steps / run["decode_s"],
              peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
-    agree = compare_logits(runs["auto"]["logits"], runs["ref"]["logits"])
+    flips, noise = routing_flips(routing["auto"], routing["ref"], phase,
+                                 n_moe) if n_moe else ([], 0.0)
+    keep = generate_keep(flips, n_moe, batch, prompt, steps) if n_moe \
+        else None
+    agree = compare_logits(runs["auto"]["logits"], runs["ref"]["logits"],
+                           keep)
     emit(phase, compare="auto_vs_ref", tol_rel=MODEL_TOL, init_s=init_s,
+         router_calls=len(flips), router_noise=noise,
+         routing_flips=sum(len(f) for f in flips),
          wall_s=time.perf_counter() - t_start, **agree)
+    check(agree["rows_compared"] * 2 >= agree["rows_compared"]
+          + agree["rows_flipped"], f"{phase}: routing flipped in more "
+          f"than half the compared rows")
     check(agree["rel_diff"] <= MODEL_TOL,
           f"{phase}: kernel and plain logits differ by {agree['rel_diff']} "
           f"of the largest logit (limit {MODEL_TOL})")
-    del params, runs
+    del params, runs, routing
     torch.cuda.empty_cache()
     return path_counts
 
@@ -1385,9 +1570,14 @@ def to_cpu(tree):
     return tree.cpu()
 
 
+HELD_ARCHS = ("glm4-9b", "mamba2-780m", "mixtral-8x7b", "deepseek-v2-236b")
+
+
 def held_phase(*, batch: int = 2, prompt: int = 64, steps: int = 4,
                seed: int = 3) -> None:
-    """Full width, 2 layers: the port on cuda against the port on cpu."""
+    """Full width, 2 layers: the port on cuda against the port on cpu;
+    a token whose expert routing differs between the two (a near-tie) is
+    left out of the comparison."""
     import torch
 
     from repro_torch.configs import get_config
@@ -1395,7 +1585,7 @@ def held_phase(*, batch: int = 2, prompt: int = 64, steps: int = 4,
     from repro_torch.kernels import ssd_scan as ss
     from repro_torch.models import common, decoder
 
-    for arch in ("glm4-9b", "mamba2-780m"):
+    for arch in HELD_ARCHS:
         t_start = time.perf_counter()
         cfg = dataclasses.replace(get_config(arch), n_layers=2)
         dev = torch.device("cuda")
@@ -1408,24 +1598,301 @@ def held_phase(*, batch: int = 2, prompt: int = 64, steps: int = 4,
         step_toks = torch.randint(0, cfg.vocab_size, (steps, batch),
                                   generator=gen)
         fa.launches = ss.launches = 0
-        card = generate(cfg, decoder.RunCtx(dev), on_card, toks.to(dev),
-                        step_toks.to(dev), prompt + 8)
+        with recorded_routing() as on_card_routing:
+            card = generate(cfg, decoder.RunCtx(dev), on_card, toks.to(dev),
+                            step_toks.to(dev), prompt + 8)
         launched = fa.launches + ss.launches
         check(launched > 0, f"held/{arch}: no kernel launched on the card")
-        host = generate(cfg, decoder.RunCtx("cpu"), on_cpu, toks, step_toks,
-                        prompt + 8)
-        agree = compare_logits(card["logits"], host["logits"])
-        for x, y in zip(card["logits"], host["logits"]):
-            check(torch.allclose(x.float().cpu(), y.float(), atol=HELD_TOL,
-                                 rtol=HELD_TOL),
+        with recorded_routing() as on_cpu_routing:
+            host = generate(cfg, decoder.RunCtx("cpu"), on_cpu, toks,
+                            step_toks, prompt + 8)
+        n_moe = sum(k.ffn == "moe" for k in common.layer_plan(cfg).kinds)
+        flips, noise = routing_flips(on_card_routing, on_cpu_routing,
+                                     f"held/{arch}", n_moe) if n_moe \
+            else ([], 0.0)
+        keep = generate_keep(flips, n_moe, batch, prompt, steps) if n_moe \
+            else [[True] * batch for _ in card["logits"]]
+        agree = compare_logits(card["logits"], host["logits"], keep)
+        for x, y, k in zip(card["logits"], host["logits"], keep):
+            k = torch.tensor(k, dtype=torch.bool)
+            check(torch.allclose(x.float().cpu()[k], y.float()[k],
+                                 atol=HELD_TOL, rtol=HELD_TOL),
                   f"held/{arch}: cuda and cpu logits differ "
                   f"({agree['max_abs_diff']})")
         emit("held", arch=arch, n_layers=2, d_model=cfg.d_model,
              batch=batch, prompt=prompt, steps=steps, launches=launched,
-             tol=HELD_TOL, cuda_s=card["prefill_s"] + card["decode_s"],
+             tol=HELD_TOL, routing_flips=sum(len(f) for f in flips),
+             router_noise=noise,
+             cuda_s=card["prefill_s"] + card["decode_s"],
              cpu_s=host["prefill_s"] + host["decode_s"],
              wall_s=time.perf_counter() - t_start, **agree)
-        del on_card, on_cpu
+        del on_card, on_cpu, card, host
+        torch.cuda.empty_cache()
+
+
+# -- phases 10b-10d: routed experts, real-decode serving ----------------------
+
+def moe_layer(arch: str, seed: int):
+    """(cfg, the params of one MoE layer) at full width, bf16, seeded: the
+    first MoE layer of a model cut to it."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import common
+
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, n_layers=cfg.moe.first_dense_layers + 1)
+    dev = torch.device("cuda")
+    params = common.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        seed), dev, cfg.compute_dtype())
+    return cfg, params["layers"][-1]["moe"]
+
+
+def moe_routed_phase(seed: int = 7) -> None:
+    """One full-width MoE layer of each arch: ``moe_apply`` (routed)
+    against ``moe_ref`` (dense) on the card, at 4096 tokens (a prefill)
+    and at 16 (a serving decode step).  The same router runs in both, so
+    the ids are equal; the outputs differ where a product over fewer rows
+    rounds differently (within MOE_TOL of max |y|).  Times per call
+    (CUDA events) and device operations per call (the profiler)."""
+    import torch
+
+    from repro_torch.models import moe
+
+    for arch in ("mixtral-8x7b", "deepseek-v2-236b"):
+        t_start = time.perf_counter()
+        cfg, p = moe_layer(arch, seed)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        for tokens in (4096, 16):
+            x = torch.randn((1, tokens, cfg.d_model), generator=gen,
+                            device="cuda").to(cfg.compute_dtype())
+            with recorded_routing() as calls:
+                routed = moe.moe_apply(p, x, cfg)
+            dense = moe.moe_ref(p, x, cfg)
+            torch.cuda.synchronize()
+            ids = calls[0][0]
+            rows = torch.bincount(ids.flatten().long(),
+                                  minlength=cfg.moe.n_experts).tolist()
+            err = float((routed.float() - dense.float()).abs().max())
+            top = float(dense.float().abs().max())
+            check(bool(torch.isfinite(routed).all()),
+                  f"moe_routed/{arch}: non-finite output")
+            check(err <= MOE_TOL * top, f"moe_routed/{arch}/{tokens}: routed "
+                  f"and dense differ by {err} (max |y| {top})")
+            iters = 5 if tokens > 16 else 20
+            routed_ms = time_ms(lambda: moe.moe_apply(p, x, cfg), iters,
+                                warmup=2)
+            dense_ms = time_ms(lambda: moe.moe_ref(p, x, cfg), iters,
+                               warmup=2)
+            ops_r = device_ops_per_call(lambda: moe.moe_apply(p, x, cfg), 3)
+            ops_d = device_ops_per_call(lambda: moe.moe_ref(p, x, cfg), 3)
+            emit("moe_routed", arch=arch, tokens=tokens,
+                 n_experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
+                 experts_routed=sum(n > 0 for n in rows),
+                 rows_per_expert=rows, max_abs_diff=err, max_abs_y=top,
+                 rel_diff=err / top, tol_rel=MOE_TOL, routed_ms=routed_ms,
+                 dense_ms=dense_ms,
+                 routed_ops_per_call=ops_r["ops_per_call"],
+                 routed_device_us=ops_r["device_us_per_call"],
+                 dense_ops_per_call=ops_d["ops_per_call"],
+                 dense_device_us=ops_d["device_us_per_call"])
+        emit("moe_routed_done", arch=arch, wall_s=time.perf_counter() - t_start)
+        del p
+        torch.cuda.empty_cache()
+
+
+# launch.serve's --backend real defaults (the reference launch's)
+SERVE_REAL = dict(n_pods=2, n_sessions=16, n_requests=64,
+                  tokens_per_request=4, locality=0.8, max_len=256, seed=0)
+
+
+@contextlib.contextmanager
+def checked_backend(first_logits: list):
+    """RealBackend with its migrations and steps watched: every transfer
+    of a column the source held must return ``nbytes_session()`` and land
+    bitwise on the destination (timed, synchronised); each step's decoded
+    rows are counted; the first decode's logits go to ``first_logits``."""
+    import torch
+
+    from repro_torch.models import decoder
+    from repro_torch.serve.engine import RealBackend
+
+    stats = dict(moves=0, empty_moves=0, move_us=[], steps=0, decoded=0)
+    plain_transfer, plain_step = RealBackend.transfer, RealBackend.step
+    plain_decode = decoder.decode_step
+
+    def sync(dev):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def transfer(self, src, dst, sid):
+        if not self.stores[src].has(sid):
+            stats["empty_moves"] += 1
+            return plain_transfer(self, src, dst, sid)
+        column = self.stores[src].export_session(sid)["tree"]
+        sync(self.stores[src].device)
+        t0 = time.perf_counter()
+        shipped = plain_transfer(self, src, dst, sid)
+        sync(self.stores[dst].device)
+        stats["move_us"].append((time.perf_counter() - t0) * 1e6)
+        check(shipped == self.stores[dst].nbytes_session(),
+              f"serve_real: a transfer shipped {shipped} bytes, the column "
+              f"is {self.stores[dst].nbytes_session()}")
+        landed = self.stores[dst].export_session(sid)["tree"]
+        check(all(torch.equal(a[m][k], b[m][k])
+                  for a, b in zip(column, landed) for m in a for k in a[m]),
+              "serve_real: a migrated column differs from the exported one")
+        stats["moves"] += 1
+        return shipped
+
+    def step(self, pod, sids):
+        if sids:
+            stats["steps"] += 1
+            stats["decoded"] += len(sids)
+        return plain_step(self, pod, sids)
+
+    def decode(*args, **kw):
+        out = plain_decode(*args, **kw)
+        if not first_logits:
+            first_logits.append(out[0].float().cpu())
+        return out
+
+    RealBackend.transfer, RealBackend.step = transfer, step
+    decoder.decode_step = decode
+    try:
+        yield stats
+    finally:
+        RealBackend.transfer, RealBackend.step = plain_transfer, plain_step
+        decoder.decode_step = plain_decode
+
+
+def serve_real_run(cfg, params, device) -> dict:
+    """One ``launch.serve.serve_real`` run at SERVE_REAL, watched; the
+    engine's metrics, the backend's counts, the first step's logits and
+    its routing, and the wall."""
+    import torch
+
+    from repro_torch.launch.serve import serve_real
+    from repro_torch.models import common
+
+    first = []
+    with recorded_routing() as routing, checked_backend(first) as stats:
+        t0 = time.perf_counter()
+        eng = serve_real(cfg, params, device=device, **SERVE_REAL)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+    check(not any(eng.queues) and not eng.certifier.has_pending(),
+          "serve_real: requests left undecoded after the drain")
+    m = eng.metrics.as_dict()
+    check(m["tokens"] == stats["decoded"] > 0,
+          f"serve_real: the metrics count {m['tokens']} tokens, the backend "
+          f"decoded {stats['decoded']}")
+    n_moe = sum(k.ffn == "moe" for k in common.layer_plan(cfg).kinds)
+    return dict(metrics=m, stats=stats, first_logits=first[0],
+                first_routing=routing[:n_moe], wall_s=wall,
+                steps=eng.metrics.steps,
+                column_bytes=eng.backend.stores[0].nbytes_session())
+
+
+def serve_real_phase(layers: dict, seed: int = 11) -> dict:
+    """The reference launch's ``--backend real`` loop at its defaults
+    (SERVE_REAL) with RealBackend on the card, mixtral-8x7b and
+    deepseek-v2 at full width, depth cut to ``layers``.  Returns the flash
+    launches of each run by variant."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import common
+
+    dev = torch.device("cuda")
+    out = {}
+    for arch, n_layers in layers.items():
+        t_start = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+        params = common.init_params(cfg, torch.Generator(
+            device=dev).manual_seed(seed), dev, cfg.compute_dtype())
+        fa.launches = 0                              # just before the path
+        fa.variant_launches.update(dict.fromkeys(fa.VARIANTS, 0))
+        run = serve_real_run(cfg, params, dev)
+        counts = dict(fa.variant_launches)
+        st, m = run["stats"], run["metrics"]
+        n_attn = sum(k.mixer in ("attn", "attn_local")
+                     for k in common.layer_plan(cfg).kinds)
+        want = dict.fromkeys(fa.VARIANTS, 0)
+        if cfg.mla is None:        # MLA decodes in absorbed einsums
+            want["decode_split"] = n_attn * st["steps"]
+        check(counts == want, f"serve_real/{arch}: flash launches {counts}, "
+              f"expected {want} ({st['steps']} decode steps)")
+        check(st["moves"] > 0, f"serve_real/{arch}: no KV column migrated")
+        check(m["transfers"] == st["moves"] + st["empty_moves"],
+              f"serve_real/{arch}: {m['transfers']} transfers counted, "
+              f"{st['moves']} + {st['empty_moves']} made")
+        emit("serve_real", arch=arch, n_layers=n_layers, d_model=cfg.d_model,
+             **SERVE_REAL, n_slots=max(8, SERVE_REAL["n_sessions"]),
+             flash_launches=counts, decode_steps=st["steps"],
+             engine_steps=run["steps"], tokens=m["tokens"],
+             transfers=m["transfers"], kv_moves=st["moves"],
+             column_bytes=run["column_bytes"], wire_GB=m["wire_GB"],
+             kv_move_us_mean=float(np.mean(st["move_us"])),
+             kv_move_us_max=float(np.max(st["move_us"])),
+             wall_s=run["wall_s"],
+             ms_per_engine_step=1e3 * run["wall_s"] / run["steps"],
+             decoded_tok_s=m["tokens"] / run["wall_s"],
+             forwards=m["forwards"], local=m["local"])
+        out[arch] = counts
+        emit("serve_real_done", arch=arch, wall_s=time.perf_counter() - t_start)
+        del params, run
+        torch.cuda.empty_cache()
+    return out
+
+
+def serve_real_held_phase(seed: int = 12) -> None:
+    """The same loop for both MoE archs at full width and 2 layers, on the
+    card and on the CPU through the port, the same bf16 weights: engine
+    metrics equal key for key (but the wall-clock ``plan_block_s``: the
+    engine's routing does not read token values), the first decode step's
+    logits within HELD_TOL (rows whose expert routing differs, near-ties,
+    left out)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import common
+
+    for arch in ("mixtral-8x7b", "deepseek-v2-236b"):
+        t_start = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), n_layers=2)
+        dev = torch.device("cuda")
+        on_card = common.init_params(cfg, torch.Generator(
+            device=dev).manual_seed(seed), dev, cfg.compute_dtype())
+        on_cpu = to_cpu(on_card)
+        card = serve_real_run(cfg, on_card, dev)
+        host = serve_real_run(cfg, on_cpu, torch.device("cpu"))
+        a, b = dict(card["metrics"]), dict(host["metrics"])
+        check(a.pop("plan_block_s") >= 0 and b.pop("plan_block_s") >= 0,
+              "serve_real_held: plan_block_s < 0")
+        check(a == b, f"serve_real_held/{arch}: the cuda run's metrics "
+              f"differ from the cpu run's")
+        flips, noise = routing_flips(
+            card["first_routing"], host["first_routing"],
+            f"serve_real_held/{arch}", len(card["first_routing"]))
+        keep = [not any(r in f for f in flips)
+                for r in range(len(card["first_logits"]))]
+        agree = compare_logits([card["first_logits"]],
+                               [host["first_logits"]], [keep])
+        k = torch.tensor(keep, dtype=torch.bool)
+        check(torch.allclose(card["first_logits"][k],
+                             host["first_logits"][k], atol=HELD_TOL,
+                             rtol=HELD_TOL),
+              f"serve_real_held/{arch}: the first step's logits differ "
+              f"({agree['max_abs_diff']})")
+        emit("serve_real_held", arch=arch, n_layers=2, tol=HELD_TOL,
+             tokens=a["tokens"], transfers=a["transfers"],
+             metrics_equal=True, router_noise=noise, cuda_s=card["wall_s"],
+             cpu_s=host["wall_s"],
+             wall_s=time.perf_counter() - t_start, **agree)
+        del on_card, on_cpu, card, host
         torch.cuda.empty_cache()
 
 
@@ -1548,8 +2015,9 @@ def serve_plan_phase() -> None:
     # the serving entry point itself, planner on: cuda against cpu
     from repro_torch.launch.serve import main as serve_main
 
-    argv = ["--arch", "mixtral-8x7b", "--preset", "full", "--pods", "8",
-            "--sessions", "96", "--requests", "2000", "--plan-epoch-ms", "5"]
+    argv = ["--backend", "sim", "--arch", "mixtral-8x7b", "--preset", "full",
+            "--pods", "8", "--sessions", "96", "--requests", "2000",
+            "--plan-epoch-ms", "5"]
     with contextlib.redirect_stdout(io.StringIO()):   # its report lines
         launched = [serve_main(argv + ["--device", d])
                     for d in ("cuda", "cpu")]
@@ -2067,8 +2535,41 @@ def main() -> int:
     glm4 = model_phase("glm4", "glm4-9b")
     mamba2 = model_phase("mamba2", "mamba2-780m")
 
+    # 8b-8c. the MoE models at full width, depth cut to fit one card; at
+    # 8192 tokens mixtral's 4096-key window masks
+    t0 = time.perf_counter()
+    mixtral = model_phase("mixtral", "mixtral-8x7b", n_layers=8, batch=1,
+                          prompt=8192, ring=8224)
+    emit("mixtral_done", wall_s=time.perf_counter() - t0)
+    check(dict(prefill_tc=mixtral["prefill_tc"],
+               decode_split=mixtral["decode_split"], simt=mixtral["simt"])
+          == dict(prefill_tc=8, decode_split=128, simt=0),
+          f"mixtral: flash launches {mixtral}")
+    t0 = time.perf_counter()
+    deepseek = model_phase("deepseek", "deepseek-v2-236b", n_layers=4,
+                           batch=2, prompt=2048, ring=2080)
+    emit("deepseek_done", wall_s=time.perf_counter() - t0)
+    check(dict(simt=deepseek["simt"], prefill_tc=deepseek["prefill_tc"],
+               decode_split=deepseek["decode_split"], flash=deepseek["flash"])
+          == dict(simt=4, prefill_tc=0, decode_split=0, flash=4),
+          f"deepseek: flash launches {deepseek}")
+
     # 10. the card against the CPU port
+    t0 = time.perf_counter()
     held_phase()
+    emit("held_done", wall_s=time.perf_counter() - t0)
+
+    # 10b-10d. routed experts; real-decode serving on the card, and held
+    # to the same serving on the CPU
+    t0 = time.perf_counter()
+    moe_routed_phase()
+    emit("moe_routed_phase_done", wall_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    serve_real = serve_real_phase({"mixtral-8x7b": 8, "deepseek-v2-236b": 4})
+    emit("serve_real_phase_done", wall_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    serve_real_held_phase()
+    emit("serve_real_held_done", wall_s=time.perf_counter() - t0)
 
     # 11-14. serving on SimBackend and the placement planner
     t0 = time.perf_counter()
@@ -2128,7 +2629,12 @@ def main() -> int:
                            sum(drain_paths.values()),
                            [drain_cases[1], *drain_cases, *serve_cases]),
              launches_by_path=drain_paths),
-        *flash_records(flash_cases, glm4), *ssd_records(ssd_cases, mamba2),
+        *flash_records(flash_cases, {
+            "glm4": glm4, "mamba2": mamba2, "mixtral": mixtral,
+            "deepseek": deepseek,
+            "serve_real_mixtral": serve_real["mixtral-8x7b"],
+            "serve_real_deepseek": serve_real["deepseek-v2-236b"]}),
+        *ssd_records(ssd_cases, mamba2),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}), flush=True)

@@ -2,10 +2,11 @@
 
 Counterparts of :func:`repro.kernels.ops.validate_transactions`
 (and :func:`certify_drain`, the port's fused form of a certification drain),
-:func:`repro.kernels.ops.settle_lease_batch`, :func:`repro.kernels.ops.attention`
-and :func:`repro.kernels.ops.ssd`.  There is no backend probing: the device
-of the tensors decides.  A CUDA tensor launches the kernel or raises; only
-a tensor that lies on the CPU takes the plain twin.
+:func:`repro.kernels.ops.settle_lease_batch`,
+:func:`repro.kernels.ops.attention`, :func:`repro.kernels.ops.ssd` and
+:func:`repro.kernels.ops.moe_combine`.  There is no backend probing: the
+device of the tensors decides.  A CUDA tensor launches the kernel or
+raises; only a tensor that lies on the CPU takes the plain twin.
 
 One difference from the reference's dispatch: on a CUDA tensor
 :func:`attention` launches the flash kernel for every query length,
@@ -37,6 +38,19 @@ def settle_lease_batch(head_req, head_proc, head_active, qlen, fresh_blocked,
     """
     return ref.lease_settle_ref(head_req, head_proc, head_active, qlen,
                                 fresh_blocked, wait_req, wait_cc, proc)
+
+
+def moe_combine(back, tok_slot, gate_slot, *, tp: int, capacity: int,
+                t_out: int) -> torch.Tensor:
+    """Partial-activation psum + gated scatter closing the MoE a2a combine
+    leg: sums the ``tp`` f-slice partials per expert-group slot, then
+    scatters the gated rows to their tokens.  The reference has no Pallas
+    kernel for it (its jnp oracle is the dispatch on every backend), so on
+    every device it runs as the torch ops of :func:`ref.moe_combine_ref`.
+    The token all-to-all that calls it is ROADMAP queue 1 item 9.
+    """
+    return ref.moe_combine_ref(back, tok_slot, gate_slot, tp=tp,
+                               capacity=capacity, t_out=t_out)
 
 
 def validate_transactions(
@@ -93,8 +107,21 @@ def attention(q, k, v, *, q_positions, kv_positions, causal=True,
     CUDA tensors go to the flash kernel at every Sq; CPU tensors, and any
     tensor when ``plain`` is set, to :func:`ref.sdpa_ref`.  Positions are
     handed to the kernel as contiguous int32 (the model broadcasts them).
+    Where q, k and v differ in dtype (a float32 model over a bf16 KV
+    ring), the kernel takes all three in the widest and the output is
+    cast back to q's, as the plain version computes in fp32 and returns
+    q's dtype.
     """
     if q.device.type == "cuda" and not plain:
+        if not q.dtype == k.dtype == v.dtype:
+            wide = torch.promote_types(torch.promote_types(q.dtype, k.dtype),
+                                       v.dtype)
+            return attention(q.to(wide), k.to(wide), v.to(wide),
+                             q_positions=q_positions,
+                             kv_positions=kv_positions, causal=causal,
+                             sliding_window=sliding_window,
+                             logit_softcap=logit_softcap,
+                             scale=scale).to(q.dtype)
         return flash_attention(
             q, k, v, q_positions=q_positions.to(torch.int32).contiguous(),
             kv_positions=kv_positions.to(torch.int32).contiguous(),

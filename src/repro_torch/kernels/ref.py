@@ -8,7 +8,8 @@ certification drain composed as the reference's cluster composes it
 (flush, per-item locks from the class owners, ``lease_validate_ref``); and
 twins of the model stack's float
 oracles: :func:`sdpa_ref` (``repro.models.attention.attn_mask`` /
-``_sdpa_ref``) and :func:`ssd_ref` (``repro.models.ssm.ssd_chunked``).
+``_sdpa_ref``) and :func:`ssd_ref` (``repro.models.ssm.ssd_chunked``); and
+:func:`moe_combine_ref` (``repro.kernels.ref.moe_combine_ref``).
 """
 from __future__ import annotations
 
@@ -104,6 +105,34 @@ def lease_drain_ref(
         locked = ~known | ((owner >= 0) & (owner != node))
         ok &= torch.where(valid, ~locked, torch.ones_like(valid)).all(dim=1)
     return ok
+
+
+# --- MoE combine oracle --------------------------------------------------------
+
+def moe_combine_ref(
+    back: torch.Tensor,        # [ep * tp * capacity, d] returned partials
+    tok_slot: torch.Tensor,    # [ep * capacity] int32, t_out when empty
+    gate_slot: torch.Tensor,   # [ep * capacity] f32, 0 when empty
+    *,
+    tp: int,
+    capacity: int,
+    t_out: int,
+) -> torch.Tensor:
+    """Combine leg of the tp-aware MoE a2a: the partial-activation psum.
+
+    Each expert-group slot came back as ``tp`` f-slice partials (one per
+    chunk rank, contiguous blocks of ``capacity`` rows per rank); gate each
+    partial, sum over the tp blocks, and scatter the rows to their owning
+    token rows.  An empty slot (token ``t_out``) is dropped, as the
+    reference's ``mode="drop"`` drops it; callers make no negative token.
+    """
+    d = back.shape[-1]
+    gate = gate_slot.reshape(-1, 1, capacity, 1).to(back.dtype)
+    gated = (back.reshape(-1, tp, capacity, d) * gate).sum(dim=1)
+    rows = tok_slot.long()
+    keep = (rows >= 0) & (rows < t_out)
+    out = torch.zeros((t_out, d), dtype=back.dtype, device=back.device)
+    return out.index_add_(0, rows[keep], gated.reshape(-1, d)[keep])
 
 
 # --- attention (twin of repro.models.attention.attn_mask / _sdpa_ref) ---------

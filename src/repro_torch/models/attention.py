@@ -1,22 +1,24 @@
-"""Attention mixers: GQA (causal / bidirectional / sliding-window).
+"""Attention mixers: GQA (causal / bidirectional / sliding-window), MLA.
 
 The port of :mod:`repro.models.attention`.  KV caches are explicit dicts
 threaded by the caller.  The inner product goes through
 :func:`repro_torch.kernels.ops.attention` (the flash kernel on a CUDA
 tensor, at every query length) unless the caller asks for the plain
-version with ``use_kernel="ref"``.
+version with ``use_kernel="ref"``.  MLA's one-token decode is the
+reference's absorbed form in fp32 einsums, outside any kernel, as in the
+reference.
 
 Left out: the mesh and sequence-parallel branches (``_shard_kv``,
-``seq_parallel``; ROADMAP queue 1 item 9) and MLA (item 8).
+``seq_parallel``; ROADMAP queue 1 item 9).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import NEG_INF, attn_mask  # noqa: F401
+from repro_torch.kernels.ref import NEG_INF, attn_mask
 
 from .common import ModelConfig, apply_rope, rms_norm
 
@@ -47,6 +49,19 @@ def _cache_update(buf: torch.Tensor, new: torch.Tensor,
         + torch.arange(s, device=buf.device)[None, :]
     buf[torch.arange(b, device=buf.device)[:, None], rows] = new
     return buf
+
+
+def _ring_positions(cache_index: Index, s: int, s_max: int, b: int,
+                    device) -> torch.Tensor:
+    """kv positions ``[B, s_max]`` of a ring written up to ``cache_index +
+    s``; the slots beyond it are invalid and masked as ``INVALID_POS``."""
+    kv_pos = torch.arange(s_max, dtype=torch.int32,
+                          device=device)[None, :].expand(b, s_max)
+    upto = torch.as_tensor(cache_index, device=device) + s
+    if upto.dim() == 1:
+        upto = upto[:, None]
+    return torch.where(kv_pos < upto, kv_pos,
+                       torch.full_like(kv_pos, INVALID_POS))
 
 
 def sdpa(q, k, v, *, q_positions: torch.Tensor, kv_positions: torch.Tensor,
@@ -126,15 +141,7 @@ def gqa_attention(
         v_all = _cache_update(cache["v"], v, cache_index)
         if return_cache:
             new_cache = {"k": k_all, "v": v_all}
-        s_max = k_all.shape[1]
-        kv_pos = torch.arange(s_max, dtype=torch.int32,
-                              device=x.device)[None, :].expand(b, s_max)
-        # entries beyond the current write point are invalid -> mask via pos
-        upto = torch.as_tensor(cache_index, device=x.device) + s
-        if upto.dim() == 1:
-            upto = upto[:, None]
-        kv_pos = torch.where(kv_pos < upto, kv_pos,
-                             torch.full_like(kv_pos, INVALID_POS))
+        kv_pos = _ring_positions(cache_index, s, k_all.shape[1], b, x.device)
         out = sdpa(q, k_all, v_all, q_positions=q_pos, kv_positions=kv_pos,
                    causal=cfg.causal, sliding_window=window,
                    logit_softcap=0.0, use_kernel=use_kernel)
@@ -147,18 +154,114 @@ def gqa_attention(
     return out.reshape(b, s, -1) @ p["wo"], new_cache
 
 
-def mla_attention(*args: Any, **kwargs: Any):
-    """DeepSeek-V2 latent attention: not ported yet."""
-    raise NotImplementedError("MLA attention is not ported yet "
-                              "(ROADMAP queue 1 item 8: MLA + MoE)")
+# ---------------------------------------------------------------------------
+# MLA — DeepSeek-V2 multi-head latent attention
+# ---------------------------------------------------------------------------
+#
+# The KV cache stores only the compressed latent c_kv [B, S, kv_lora] and the
+# decoupled rope key k_pe [B, S, rope_dim].
 
+def mla_attention(
+    p: Dict[str, torch.Tensor],
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    positions: torch.Tensor,
+    *,
+    cache: Optional[Dict[str, torch.Tensor]] = None,
+    cache_index: Optional[Index] = None,
+    return_cache: bool = False,
+    use_kernel: str = "auto",
+    is_global: bool = True,
+) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """One MLA block (no residual / norm).  ``cache`` (decode): dict(c_kv=
+    [B, S_max, kv_lora], k_pe=[B, S_max, rope]), written in place.
+
+    A multi-token pass expands the latent into per-head K and V and goes
+    through :func:`sdpa` with ``scale = qk_dim ** -0.5`` (deepseek-v2: Dk
+    192, Dv 128, the flash kernel's ``simt`` variant on the card).  One
+    token against a cache scores in latent space (``w_k`` absorbed into
+    the query) in fp32 einsums and never expands the cache.
+    """
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    dn, r = m.qk_nope_head_dim, m.kv_lora_rank
+    qk_dim = dn + m.qk_rope_head_dim
+
+    # --- queries (low-rank) -------------------------------------------------
+    cq = rms_norm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps)
+    q = (cq @ p["wq_b"]).reshape(b, s, h, qk_dim)
+    q_nope, q_pe = q[..., :dn], q[..., dn:]
+    q_pe = apply_rope(q_pe, positions, cfg.rope_theta)
+
+    # --- compressed KV latent (k_pe rotated on a singleton head axis) --------
+    ckv_full = x @ p["wkv_a"]                              # [B,S,kv_lora+rope]
+    c_kv = rms_norm(ckv_full[..., :r], p["kv_norm"], cfg.norm_eps)
+    k_pe = apply_rope(ckv_full[..., None, r:], positions,
+                      cfg.rope_theta)[..., 0, :]           # [B,S,rope_dim]
+
+    q_pos = positions[0] if positions.dim() == 3 else positions
+    new_cache = None
+    if cache is not None and cache_index is not None:
+        c_use = _cache_update(cache["c_kv"], c_kv, cache_index)
+        pe_use = _cache_update(cache["k_pe"], k_pe, cache_index)
+        if return_cache:
+            new_cache = {"c_kv": c_use, "k_pe": pe_use}
+        kv_pos = _ring_positions(cache_index, s, c_use.shape[1], b, x.device)
+    else:
+        if return_cache:
+            new_cache = {"c_kv": c_kv, "k_pe": k_pe}
+        kv_pos = q_pos
+        c_use, pe_use = c_kv, k_pe
+
+    # --- expand latent to per-head K/V (absorbed form for decode) -----------
+    wkv_b = p["wkv_b"].reshape(r, h, dn + m.v_head_dim)
+    w_k, w_v = wkv_b[..., :dn], wkv_b[..., dn:]            # [r, h, dk|dv]
+    scale = qk_dim ** -0.5
+    if s == 1 and cache is not None:
+        c32 = c_use.float()
+        q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope.float(), w_k.float())
+        logits = torch.einsum("bqhr,bkr->bhqk", q_lat, c32)
+        logits = logits + torch.einsum("bqhd,bkd->bhqk", q_pe.float(),
+                                       pe_use.float())
+        logits = logits * scale
+        mask = attn_mask(q_pos, kv_pos, cfg.causal, None)
+        logits = torch.where(mask[:, None, :, :], logits, NEG_INF)
+        pr = torch.softmax(logits, dim=-1)
+        ctx_lat = torch.einsum("bhqk,bkr->bqhr", pr, c32)
+        out = torch.einsum("bqhr,rhd->bqhd", ctx_lat,
+                           w_v.float()).to(x.dtype)
+    else:
+        skv = c_use.shape[1]
+        k_nope = torch.einsum("bkr,rhd->bkhd", c_use, w_k.to(c_use.dtype))
+        v_full = torch.einsum("bkr,rhd->bkhd", c_use,
+                              w_v.to(c_use.dtype)).contiguous()
+        k_full = torch.cat(
+            [k_nope, pe_use[:, :, None, :].expand(b, skv, h,
+                                                  m.qk_rope_head_dim)],
+            dim=-1)
+        q_full = torch.cat([q_nope, q_pe], dim=-1)
+        out = sdpa(q_full, k_full, v_full, q_positions=q_pos,
+                   kv_positions=kv_pos, causal=cfg.causal,
+                   sliding_window=None, scale=scale, use_kernel=use_kernel)
+    return out.reshape(b, s, -1) @ p["wo"], new_cache
+
+
+# ---------------------------------------------------------------------------
+# Cache allocation
+# ---------------------------------------------------------------------------
 
 def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int,
                     dtype: torch.dtype, device) -> Dict[str, torch.Tensor]:
     """Zeroed cache entry for one attention layer."""
     if cfg.mla is not None:
-        raise NotImplementedError("MLA caches are not ported yet "
-                                  "(ROADMAP queue 1 item 8: MLA + MoE)")
+        m = cfg.mla
+        return {
+            "c_kv": torch.zeros((batch, max_len, m.kv_lora_rank),
+                                dtype=dtype, device=device),
+            "k_pe": torch.zeros((batch, max_len, m.qk_rope_head_dim),
+                                dtype=dtype, device=device),
+        }
     shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}

@@ -128,12 +128,10 @@ def unported_features(cfg: ModelConfig) -> List[str]:
     """The features of ``cfg`` whose layers the port does not build yet, or
     builds without a test holding them to ``repro.models`` (ROADMAP queue 1
     item 8).  Such a config is data only: it prices serving in
-    ``serve.engine.SimBackend``."""
+    ``serve.engine.SimBackend``.  MoE FFNs, MLA and a sliding window on
+    every layer (mixtral's form) are ported; gemma3's local/global pattern
+    (``global_every``) is not."""
     found = []
-    if cfg.moe is not None:
-        found.append("MoE FFN")
-    if cfg.mla is not None:
-        found.append("MLA attention")
     if cfg.hybrid_attn_every:
         found.append("shared attention")
     if cfg.family in ("audio", "vlm"):
@@ -142,7 +140,7 @@ def unported_features(cfg: ModelConfig) -> List[str]:
         found.append("bidirectional attention")
     if cfg.mrope_sections is not None:
         found.append("M-RoPE")
-    if cfg.sliding_window is not None or cfg.global_every:
+    if cfg.global_every:
         found.append("local/global layer pattern")
     if cfg.rope_theta_global is not None:
         found.append("dual rotary theta")

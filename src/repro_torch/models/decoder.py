@@ -3,8 +3,9 @@
 The port of :mod:`repro.models.decoder` for inference.  Where the reference
 scans stacked layer groups with ``lax.scan``, the port runs a Python loop
 over per-layer parameter dicts (:mod:`.common` explains the layout), and a
-cache is a list with one dict per layer: ``{"attn": {"k", "v"}}`` or
-``{"mamba": {"conv", "ssm"}}``.  Group ``g`` of position ``j`` in the
+cache is a list with one dict per layer: ``{"attn": {"k", "v"}}`` (MLA:
+``{"attn": {"c_kv", "k_pe"}}``) or ``{"mamba": {"conv", "ssm"}}``; every
+leaf has the batch at dim 0.  Group ``g`` of position ``j`` in the
 reference's ``init_cache`` tree is layer ``prefix + g * period + j`` here.
 PyTorch runs eagerly; there is no jit.
 
@@ -13,9 +14,9 @@ attention goes to the flash kernel, decode's Sq = 1 included, where the
 reference sends Sq = 1 to its plain path (its TPU tiling needs 8 query
 rows).  Both compute the same function.
 
-Not ported yet (ROADMAP queue 1 item 8): MoE FFNs, MLA and zamba2's
-shared attention raise ``NotImplementedError``; training (``loss_fn``,
-remat) and the mesh are later slices.
+Not ported yet: zamba2's shared attention raises ``NotImplementedError``
+(ROADMAP queue 1 item 8); training (``loss_fn``, remat; item 10) and the
+mesh (item 9) are later slices.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ from repro_torch import resolve_device
 
 from .attention import Index, gqa_attention, init_attn_cache, mla_attention
 from .common import LayerKind, ModelConfig, layer_plan, mlp_apply, rms_norm
+from .moe import moe_apply
 from .ssm import init_ssm_cache, mamba2_block
 
 Params = Dict[str, Any]
@@ -90,10 +92,9 @@ def block_apply(
     new_cache: Dict[str, Any] = {}
 
     if kind.mixer in ("attn", "attn_local"):
-        if cfg.mla is not None:
-            mla_attention()
         h = rms_norm(x, p["ln_attn"], eps, gemma=gm)
-        a, c = gqa_attention(
+        fn = mla_attention if cfg.mla is not None else gqa_attention
+        a, c = fn(
             p["attn"], h, cfg, positions, is_global=(kind.mixer == "attn"),
             cache=None if cache is None else cache.get("attn"),
             cache_index=cache_index, return_cache=return_cache,
@@ -125,8 +126,8 @@ def block_apply(
             f = rms_norm(f, p["ln_post_mlp"], eps, gemma=gm)
         x = x + f
     elif kind.ffn == "moe":
-        raise NotImplementedError("MoE FFNs are not ported yet (ROADMAP "
-                                  "queue 1 item 8: MLA + MoE)")
+        h = rms_norm(x, p["ln_mlp"], eps, gemma=gm)
+        x = x + moe_apply(p["moe"], h, cfg)
     return x, new_cache
 
 

@@ -1,6 +1,6 @@
 """Serving on the port: the Lilac locality router, the batched step
-certifier and the multi-pod engine with its roofline-priced ``SimBackend``.
-
-The real decode backend and its KV-session store are not ported yet
-(ROADMAP queue 1 item 8).
+certifier and the multi-pod engine with its two backends, the
+roofline-priced ``SimBackend`` and ``RealBackend``, which decodes every
+pod's sessions with the model and keeps their KV columns in one
+``kvcache.KVStore`` per pod.
 """

@@ -3,8 +3,8 @@
 Two backends behind one engine:
 
 * :class:`RealBackend` — actually decodes with the model (per-session
-  positions, KV slots).  Not ported yet: it needs ``serve/kvcache.py`` and
-  the MoE stack (ROADMAP queue 1 item 8), and raises.
+  positions, KV slots), one :class:`~repro_torch.serve.kvcache.KVStore`
+  per pod on the run context's device (the card by default).
 * :class:`SimBackend` — prices each pod-step with the roofline model;
   used by the pod-scale benchmarks where 256-chip pods are simulated.
   Its constants (``HBM_BW`` = 819e9 B/s a chip, 256 chips a pod, the DCN
@@ -37,11 +37,14 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..dist.locality import DCN_RTT_S, HBM_BW, price_session_dispatch
+from ..models import decoder
 from ..obs.metrics import MetricSet, MonotonicSampler
 from ..obs.trace import TraceRecorder
 from .certifier import StepCertifier
+from .kvcache import KVStore
 from .router import LocalityRouter, RouteDecision
 
 # router-clock advance per decode step when the backend reports no decode
@@ -90,15 +93,70 @@ class SimBackend:
 
 
 class RealBackend:
-    """Actual decode on the card, one KV store per pod: not ported yet.
+    """Actual decode on ``ctx.device`` (one KVStore per pod).
 
-    It needs ``serve/kvcache.py`` and the MoE stack; until then it raises
-    (ROADMAP queue 1 item 8)."""
+    Each ``step`` is one ``decoder.decode_step`` over all ``n_slots`` of the
+    pod's store with ``[B]`` positions and one argmax copied back.  As in
+    the reference, a slot the pod does not decode this step still steps (at
+    position 0, token 0), and ``alloc`` does not clear a recycled slot:
+    ``ensure`` only sets the new session's ``length`` on it.
+    """
 
-    def __init__(self, *args, **kwargs) -> None:
-        raise NotImplementedError(
-            "RealBackend is not ported yet: it needs serve/kvcache.py and "
-            "the MoE stack (ROADMAP queue 1 item 8); use SimBackend")
+    def __init__(self, cfg, ctx, params, n_pods: int, n_slots: int,
+                 max_len: int) -> None:
+        self.cfg, self.ctx, self.params = cfg, ctx, params
+        self.stores = [KVStore(cfg, n_slots, max_len, device=ctx.device)
+                       for _ in range(n_pods)]
+        # seq shards per pod: the engine re-prices actual-byte state moves
+        # with this (1: the port has no seq-sharded layout yet)
+        self.seq_shards = self.stores[0].seq_shards
+
+    def ensure(self, pod: int, sid: int, length: int) -> None:
+        st = self.stores[pod]
+        if not st.has(sid):
+            s = st.alloc(sid)
+            s.length = length
+
+    def transfer(self, src: int, dst: int, sid: int) -> float:
+        """Move a session's KV column between pods; returns bytes shipped."""
+        st = self.stores[src]
+        if not st.has(sid):
+            self.ensure(dst, sid, 0)
+            return 0.0
+        blob = st.export_session(sid)
+        st.free(sid)
+        self.stores[dst].import_session(blob)
+        return self.stores[dst].nbytes_session()
+
+    def drop(self, pod: int, sid: int) -> int:
+        st = self.stores[pod]
+        n = st.sessions[sid].length if st.has(sid) else 0
+        st.free(sid)
+        return n
+
+    def step(self, pod: int, sids: List[int]) -> Dict[int, int]:
+        """One batched decode for the pod's sessions; returns new tokens."""
+        st = self.stores[pod]
+        if not sids:
+            return {}
+        tokens = np.zeros((st.n_slots,), np.int32)
+        pos = np.zeros((st.n_slots,), np.int32)
+        for sid in sids:
+            s = st.sessions[sid]
+            tokens[s.slot] = s.last_token
+            pos[s.slot] = s.length
+        dev = st.device
+        logits, st.caches = decoder.decode_step(
+            self.cfg, self.ctx, self.params, st.caches,
+            torch.from_numpy(tokens).to(dev), torch.from_numpy(pos).to(dev))
+        nxt = logits.argmax(dim=-1).to(torch.int32).cpu().numpy()
+        out = {}
+        for sid in sids:
+            s = st.sessions[sid]
+            s.last_token = int(nxt[s.slot])
+            s.length += 1
+            out[sid] = s.last_token
+        return out
 
 
 # ---------------------------------------------------------------------------

@@ -360,6 +360,8 @@ FLASH_GRID = [
     (2, 4, 2080, 32, 2, 128, 128, True, None, 0.0, "bfloat16", None),
     (4, 1, 2080, 32, 2, 128, 128, True, None, 0.0, "bfloat16", 1),
     (2, 1, 1000, 8, 1, 64, 64, True, 128, 0.0, "float32", None),
+    # deepseek-v2's MLA prefill dims in bf16 (simt): Dk 192, Dv 128
+    (2, 384, 384, 16, 16, 192, 128, True, None, 0.0, "bfloat16", None),
 ]
 
 
@@ -670,6 +672,120 @@ def test_cuda_models_run_through_the_kernels(cuda_device):
             out.append((logits, step))
         for got, want in zip(*out):
             torch.testing.assert_close(got, want, atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "deepseek-v2-236b"])
+def test_cuda_moe_routed_matches_dense_at_full_width(cuda_device, arch):
+    """One MoE layer at its published width, bf16: the routed path
+    (``moe_apply``) against the dense oracle (``moe_ref``) on the card, the
+    same router in both; within 2e-2 of max |y| (the rounding of products
+    over fewer rows)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import common, moe
+
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, n_layers=cfg.moe.first_dense_layers + 1)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    p = common.init_params(cfg, gen, cuda_device,
+                           torch.bfloat16)["layers"][-1]["moe"]
+    for tokens in (512, 16):
+        x = torch.randn((1, tokens, cfg.d_model), generator=gen,
+                        device=cuda_device).to(torch.bfloat16)
+        routed, dense = moe.moe_apply(p, x, cfg), moe.moe_ref(p, x, cfg)
+        assert routed.dtype == torch.bfloat16 and routed.shape == x.shape
+        top = float(dense.float().abs().max())
+        assert float((routed.float() - dense.float()).abs().max()) \
+            <= 2e-2 * top
+
+
+@pytest.mark.cuda
+def test_cuda_kv_migration_is_bitwise(cuda_device):
+    """A session's KV column exported from one store on the card lands on
+    another bitwise, at another slot, in every layer's leaves (GQA and
+    MLA caches)."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.serve.kvcache import KVStore
+
+    for arch in ("mixtral-8x7b", "deepseek-v2-236b"):
+        cfg = get_smoke_config(arch)
+        src = KVStore(cfg, 4, 32, device=cuda_device)
+        dst = KVStore(cfg, 4, 32, device=cuda_device)
+        gen = torch.Generator(device=cuda_device).manual_seed(1)
+        for layer in src.caches:
+            for leaves in layer.values():
+                for t in leaves.values():
+                    t.copy_(torch.randn(t.shape, generator=gen,
+                                        device=cuda_device))
+        s = src.alloc(9)
+        s.length, s.last_token = 17, 5
+        dst.alloc(1)
+        blob = src.export_session(9)
+        s2 = dst.import_session(blob)
+        assert s2.slot != s.slot and (s2.length, s2.last_token) == (17, 5)
+        for a, b in zip(src.caches, dst.caches):
+            for m in a:
+                for k in a[m]:
+                    assert torch.equal(a[m][k][s.slot], b[m][k][s2.slot])
+        assert dst.nbytes_session() == src.nbytes_session()
+
+
+@pytest.mark.cuda
+def test_cuda_real_backend_serving_matches_cpu(cuda_device):
+    """RealBackend serving (launch.serve.serve_real at the launch's
+    defaults), 2 layers of each MoE arch's smoke config in float32, on the
+    card and on the CPU from the same weights: engine metrics key for key
+    (but the wall-clock plan_block_s; the engine's routing reads no token
+    value) and the first step's logits within 2e-3."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import serve_real
+    from repro_torch.models import common, decoder
+    from repro_torch.serve.engine import RealBackend
+
+    for arch in ("mixtral-8x7b", "deepseek-v2-236b"):
+        cfg = dataclasses.replace(get_smoke_config(arch), n_layers=2,
+                                  dtype="float32")
+        params = common.init_params(
+            cfg, torch.Generator(device=cuda_device).manual_seed(2),
+            cuda_device)
+        runs = {}
+        for dev in (cuda_device, torch.device("cpu")):
+            first = []
+            plain_decode = decoder.decode_step
+
+            def decode(*a, **k):
+                out = plain_decode(*a, **k)
+                if not first:
+                    first.append(out[0].float().cpu())
+                return out
+
+            decoder.decode_step = decode
+            try:
+                eng = serve_real(cfg, _to(params, dev), device=dev)
+            finally:
+                decoder.decode_step = plain_decode
+            assert isinstance(eng.backend, RealBackend)
+            m = eng.metrics.as_dict()
+            assert m.pop("plan_block_s") >= 0.0
+            runs[dev.type] = (m, first[0])
+        card, host = runs["cuda"], runs["cpu"]
+        assert card[0] == host[0] and card[0]["tokens"] > 0
+        assert card[0]["transfers"] > 0
+        torch.testing.assert_close(card[1], host[1], atol=2e-3, rtol=2e-3)
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
 
 
 # -- serving and the placement planner --------------------------------------

@@ -43,6 +43,7 @@ GRID_VARIANTS = [
     "decode_split", "decode_split",                # glm4-9b decode
     "prefill_tc", "prefill_tc", "prefill_tc",      # ragged, non-causal, window
     "decode_split", "decode_split", "decode_split",
+    "simt",                                        # MLA dims in bf16
 ]
 
 

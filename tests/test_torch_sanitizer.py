@@ -443,6 +443,21 @@ def test_no_reference_or_jax_import_at_any_depth(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
+PORT = REPO / "src/repro_torch"
+
+
+@pytest.mark.parametrize("path", sorted(
+    p for p in PORT.rglob("*.py") if p.parent.name != "analysis"),
+    ids=lambda p: str(p.relative_to(PORT)))
+def test_port_module_imports_no_reference_at_any_depth(path):
+    """The rest of the port the same way, the model stack (``models/moe``,
+    MLA in ``models/attention``), ``serve/kvcache``, ``RealBackend`` and
+    ``obs/cli`` among it."""
+    bad = [m for m in _imports(ast.parse(path.read_text()))
+           if m.split(".")[0] in ("repro", "jax", "jaxlib")]
+    assert not bad, f"{path.relative_to(PORT)} imports {bad}"
+
+
 def test_explorer_smoke_grid_loads_nothing_of_the_reference():
     """The explorer's CPU smoke grid, run in a fresh interpreter, leaves no
     repro, jax or jaxlib module behind."""

@@ -22,6 +22,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 import repro.serve.engine as JE
 from repro.configs import get_config as jget_config
@@ -146,7 +147,7 @@ def test_serve_main_equals_reference(argv, capsys):
     from repro_torch.launch.serve import main as tmain
 
     want = jmain(argv + ["--backend", "sim"])
-    got = tmain(argv + ["--device", "cpu"])
+    got = tmain(argv + ["--backend", "sim", "--device", "cpu"])
     assert _drop_block(got) == _drop_block(want)
     assert got["tokens"] > 0
     out = capsys.readouterr().out
@@ -160,7 +161,8 @@ def test_serve_trace_equals_reference(tmp_path):
     argv = ["--arch", "mixtral-8x7b", "--preset", "full", "--pods", "4",
             "--requests", "256", "--plan-epoch-ms", "2"]
     jmain(argv + ["--backend", "sim", "--trace", str(tmp_path / "j.json")])
-    tmain(argv + ["--device", "cpu", "--trace", str(tmp_path / "t.json")])
+    tmain(argv + ["--backend", "sim", "--device", "cpu", "--trace",
+                  str(tmp_path / "t.json")])
     want = json.loads((tmp_path / "j.json").read_text())
     got = json.loads((tmp_path / "t.json").read_text())
     assert got == want
@@ -169,12 +171,23 @@ def test_serve_trace_equals_reference(tmp_path):
 
 
 def test_unported_serving_paths_raise():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        RealBackend(None, None, None, 2, 4, 32)
+    """What the port refuses (a certifier backend other than the store's
+    device, a seq-sharded real run: ROADMAP queue 1 item 9) and what it
+    runs: real decode on RealBackend and ``--backend real`` (the default),
+    and sanitized serving."""
     from repro_torch.launch.serve import main as tmain
+    from repro_torch.launch.serve import serve_real
+    from repro_torch.models import common
 
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tmain(["--backend", "real", "--device", "cpu"])
+    cfg = get_smoke_config("glm4-9b")
+    params = common.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    eng = serve_real(cfg, params, n_requests=16, device="cpu")
+    assert isinstance(eng.backend, RealBackend)
+    assert eng.metrics.tokens > 0 and not any(eng.queues)
+    assert tmain(["--backend", "real", "--device", "cpu", "--requests",
+                  "16"])["tokens"] == eng.metrics.tokens
+    with pytest.raises(NotImplementedError, match="item 9"):
+        tmain(["--backend", "real", "--device", "cpu", "--seq-axis", "2"])
     with pytest.raises(ValueError, match="auto"):
         StepCertifier(2, backend="jax", device="cpu")
     # the sanitized certifier and engine (runtime analysis) run: a sanitized
@@ -671,3 +684,143 @@ def test_router_and_affinity_are_pinned_copies():
                      flags=re.M)
         ref = re.sub(r"(`|\(|# )repro\.", r"\1repro_torch.", ref)
         assert (REPO / "src/repro_torch" / rel).read_text() == ref
+
+
+# -- real decode: RealBackend, launch.serve --backend real, the trace CLI ---
+
+REAL_ARCHS = ("glm4-9b", "mixtral-8x7b", "deepseek-v2-236b", "mamba2-780m")
+REAL_TOL = 2e-3          # float32 logits, tests/test_torch_models.py's TOL
+REAL_LOOP = dict(n_sessions=6, tokens_per_request=3, locality=0.5, seed=3)
+
+
+@pytest.mark.parametrize("arch", REAL_ARCHS)
+def test_real_backend_engine_equals_reference(monkeypatch, arch):
+    """RealBackend serving on the CPU against the reference's, the same
+    float32 smoke model (the reference's params through
+    ``params_from_numpy``): engine metrics key for key, and the same token
+    stream, because every decoded row's logits agree within REAL_TOL and
+    its top-2 margin is wider than the tolerance and than twice the
+    largest difference."""
+    import jax
+
+    from repro.models import decoder as jdec
+    from repro.models.common import init_params as jinit
+    from repro_torch.launch.serve import serve_real, serve_requests
+    from repro_torch.models import common
+
+    jcfg = dataclasses.replace(jget_smoke(arch), dtype="float32")
+    tcfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    params = jinit(jcfg, jax.random.PRNGKey(3))
+    tparams = common.params_from_numpy(
+        tcfg, jax.tree.map(np.asarray, params), "cpu")
+    streams = {"ref": [], "port": []}
+    jlogits, tlogits, rows = [], [], []
+
+    jb = JE.RealBackend(jcfg, jdec.RunCtx(mesh=None, use_kernel="ref"),
+                        params, n_pods=2, n_slots=8, max_len=64)
+    jstep = jb._step
+
+    def jrecord(*a):
+        out = jstep(*a)
+        jlogits.append(np.asarray(out[0]))
+        return out
+
+    jb._step = jrecord
+    jplain = jb.step
+    jb.step = lambda pod, sids: streams["ref"].append(
+        (pod, jplain(pod, sids))) or streams["ref"][-1][1]
+    jeng = JE.MultiPodEngine(2, jb, LocalityRouter(
+        2, kv_bytes_per_token=256.0, seq_shards=jb.seq_shards))
+    # the launch's request loop (test_serve_main_real_equals_reference
+    # holds it to the reference's) drives the reference's engine too
+    serve_requests(jeng, 48, **REAL_LOOP)
+
+    tplain = RealBackend.step
+
+    def trecord(self, pod, sids):
+        rows.append([self.stores[pod].sessions[sid].slot for sid in sids])
+        out = tplain(self, pod, sids)
+        streams["port"].append((pod, out))
+        return out
+
+    monkeypatch.setattr(RealBackend, "step", trecord)
+    import repro_torch.serve.engine as TE
+
+    tdecode = TE.decoder.decode_step
+
+    def tdecode_rec(*a, **k):
+        out = tdecode(*a, **k)
+        tlogits.append(out[0].numpy())
+        return out
+
+    monkeypatch.setattr(TE.decoder, "decode_step", tdecode_rec)
+    teng = serve_real(tcfg, tparams, n_requests=48, max_len=64,
+                      device="cpu", **REAL_LOOP)
+    got, want = teng.metrics.as_dict(), jeng.metrics.as_dict()
+    assert _drop_block(got) == _drop_block(want)
+    assert got["tokens"] > 0 and got["transfers"] > 0
+    assert [pod for pod, _ in streams["port"]] == \
+        [pod for pod, _ in streams["ref"]]
+    assert len(rows) == len(tlogits) == len(jlogits)
+    margin, diff = np.inf, 0.0
+    for slots, lt, lj in zip(rows, tlogits, jlogits):
+        np.testing.assert_allclose(lt[slots], lj[slots], rtol=REAL_TOL,
+                                   atol=REAL_TOL)
+        diff = max(diff, float(np.abs(lt[slots] - lj[slots]).max()))
+        top2 = np.sort(lj[slots], axis=-1)[:, -2:]
+        margin = min(margin, float((top2[:, 1] - top2[:, 0]).min()))
+    assert margin > max(REAL_TOL, 2 * diff), \
+        f"top-2 margin {margin} too narrow (largest difference {diff})"
+    assert streams["port"] == streams["ref"]
+
+
+@pytest.mark.parametrize("argv", [
+    [],
+    ["--arch", "mixtral-8x7b", "--pods", "3", "--locality", "0.3"],
+    ["--arch", "deepseek-v2-236b", "--requests", "48", "--sessions", "8",
+     "--policy", "long", "--plan-epoch-ms", "2"],
+    ["--arch", "mamba2-780m", "--requests", "32", "--max-len", "64"],
+])
+def test_serve_main_real_equals_reference(argv, capsys):
+    """``--backend real`` (the default of both launches): the engine's
+    metrics do not read token values, so the port's seeded torch weights
+    and the reference's jax ones give equal metrics key for key."""
+    from repro.launch.serve import main as jmain
+    from repro_torch.launch.serve import main as tmain
+
+    want = jmain(argv)
+    got = tmain(argv + ["--device", "cpu"])
+    assert _drop_block(got) == _drop_block(want)
+    assert got["tokens"] > 0
+    out = capsys.readouterr().out
+    assert "backend=real" in out and "a priced TPU pod" not in out
+
+
+def test_trace_cli_equals_reference(tmp_path, capsys):
+    """``repro-torch-trace`` export (serve smoke + MoE forward), summarize
+    and diff against ``repro-trace`` (tests/test_obs.py::test_repro_trace_cli)."""
+    from repro.obs import cli as jcli
+    from repro.obs import trace as jtrace
+    from repro_torch.obs import cli
+    from repro_torch.obs import trace as obs_trace
+
+    for extra in (["--no-moe"], []):
+        argv = ["--steps", "4", "--sessions", "4"] + extra
+        assert jcli.main(["export", "--out", str(tmp_path / "j.json")]
+                         + argv) == 0
+        assert cli.main(["export", "--out", str(tmp_path / "t.json"),
+                         "--device", "cpu"] + argv) == 0
+        got = obs_trace.load(str(tmp_path / "t.json"))
+        assert got == jtrace.load(str(tmp_path / "j.json"))
+        assert any(e["ph"] == "X" for e in got)
+        assert any(e["name"] == "moe-dispatch" for e in got) == (not extra)
+    capsys.readouterr()
+    for args in (["summarize", str(tmp_path / "t.json")],
+                 ["diff", str(tmp_path / "t.json"), str(tmp_path / "j.json")]):
+        assert cli.main(args) == jcli.main(args) == 0
+        text = capsys.readouterr().out
+        half = len(text) // 2
+        assert text[:half] == text[half:]
+    assert "no per-name differences" in text
+    assert cli.main([]) == 2
+    assert cli.main(["--help"]) == 0
