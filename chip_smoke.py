@@ -11,7 +11,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             ``lease_validate``, ``flash_attention`` and ``ssd_scan`` from
             ``src/repro_torch/kernels/csrc``; wall seconds, and each
             kernel's nvcc seconds and ptxas report (registers, shared
-            memory, spills).
+            memory, spills); then ``build_prefill_tc``: the registers and
+            spills of each ``prefill_tc`` instantiation, (Dk, Dv) in
+            (64, 64), (128, 128), (192, 128).
 3. kernel — the kernel against its plain PyTorch version, bitwise, at the
             simulator's shapes (1,140,088 items, B in {8, 16}, R = 32,
             W = 16, plus a lock-free W = 1 case) and at a wide shape
@@ -60,15 +62,20 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             ``*_warm``), the reference's test grid (tests/test_kernels.py)
             and the variants' edges (a ragged last tile, no causal mask, a
             window, 64 decode rows, one valid key, f32 decode at D 64),
-            and deepseek-v2's MLA prefill (B = 2, S = 2048, Hq = Hkv =
-            128, Dk = 192, Dv = 128, causal, bf16: ``simt``); f32
+            deepseek-v2's MLA prefill (B = 2, S = 2048, Hq = Hkv =
+            128, Dk = 192, Dv = 128, causal, bf16: ``prefill_tc``) and
+            prefill_tc's edges at those dims (a ragged Sq, kv padding, a
+            window, softcap, GQA 2, no causal mask), and ``simt`` at MLA's
+            shape in f32 (``simt_mla_f32``, simt's record); f32
             within 2e-5, bf16 within atol 1e-3 + rtol 1.6e-2 (two bf16
             ulps: every variant computes in fp32 and rounds the output
             once, prefill_tc with P.V on bf16 hi + lo parts of P).  Per
             case: ``ms`` (CUDA events), ``graph_ms`` (CUDA-graph replay),
             ``plain_ms``, ``bound_ms``/``bound_by`` (FLOPs of the visible
             pairs at 989 TFLOP/s bf16 or 67 TFLOP/s fp32; bytes of q, the
-            output and the keys some row sees, at 3.35 TB/s) and
+            output and the keys some row sees, at 3.35 TB/s), for
+            ``prefill_tc`` ``floor_ms`` (its P.V on P's two bf16 parts:
+            the FLOPs of (Dk + 2 Dv) per visible pair) and
             ``library_ms``: ``scaled_dot_product_attention`` with
             ``enable_gqa=True`` at the same shape, a yardstick the port
             never calls (null for softcap, which it cannot compute).
@@ -106,13 +113,13 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             8, ``decode_split`` 128, ``simt`` 0.
 8c. deepseek — deepseek-v2 at full width, 4 of its 60 layers (the dense
             first layer and 3 MoE layers, 26.6 GB), 2 x 2048, a 2080-slot
-            ring: ``simt`` 4 (MLA's prefill), nothing else (MLA's decode is
-            absorbed einsums).  In both MoE phases each run records its
-            routing: a token whose experts differ between the kernel and
-            the plain run must be a near-tie (``NEAR_TIE`` or twice the
-            runs' own probability noise), and its rows are left out of the
-            comparison (``routing_flips``, ``rows_flipped``).  Launches are
-            checked per arch against ``expected_launches``.
+            ring: ``prefill_tc`` 4 (MLA's prefill), nothing else (MLA's
+            decode is absorbed einsums).  In both MoE phases each run
+            records its routing: a token whose experts differ between the
+            kernel and the plain run must be a near-tie (``NEAR_TIE`` or
+            twice the runs' own probability noise), and its rows are left
+            out of the comparison (``routing_flips``, ``rows_flipped``).
+            Launches are checked per arch against ``expected_launches``.
 10. held  — all four models at full width and 2 layers, 64-token prompt
             and 4 decode steps, on ``cuda`` and on ``cpu`` through the
             port, the same bf16 weights: logits within 6e-2 (atol and rtol,
@@ -211,6 +218,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import re
 import subprocess
 import sys
 import time
@@ -243,6 +251,33 @@ NEAR_TIE = 1e-2
 
 # TPC-C Standard Specification rev. 5.11, clause 1.2 / 4.3.3.1
 TPCC_SPEC = dict(n_customers=30000, n_stock=100000, n_catalog=100000)
+
+
+def ptxas_kernels(info: dict, marker: str) -> list:
+    """Registers and spill bytes of each entry function whose mangled
+    name holds ``marker``, from a library's ``ptxas -v`` lines; ``dims``
+    are the integer template arguments."""
+    out, cur = [], None
+    for ln in info.get("ptxas", []):
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            args = re.search(rf"{marker}I((?:Li\d+E)+)E", m.group(1))
+            cur = None if args is None else dict(
+                dims=[int(x) for x in re.findall(r"Li(\d+)E", args[1])])
+            if cur is not None:
+                out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            cur.update(spill_stores=int(m.group(1)),
+                       spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
 
 
 def emit(phase: str, **kw) -> None:
@@ -912,9 +947,11 @@ def flash_case(name: str, b, sq, skv, hq, hkv, dk, dv, *, causal=True,
                window=None, cap=0.0, dtype="bfloat16", decode=False,
                valid0=None, copies=1, seed=0) -> dict:
     """One shape through ``ops.attention`` on the card, held to
-    ``ref.sdpa_ref``.  ``copies`` > 1 times the calls over that many
-    distinct q/k/v sets in rotation, so L2 (50 MB) is cold as it is for a
-    model's layers; the first set is also timed alone (``*_warm``)."""
+    ``ref.sdpa_ref``.  ``valid0``: in a decode case row 0's valid length,
+    in a prefill case the first padding key.  ``copies`` > 1 times the
+    calls over that many distinct q/k/v sets in rotation, so L2 (50 MB) is
+    cold as it is for a model's layers; the first set is also timed alone
+    (``*_warm``)."""
     import torch
     import torch.nn.functional as F
 
@@ -941,6 +978,8 @@ def flash_case(name: str, b, sq, skv, hq, hkv, dk, dv, *, causal=True,
     else:
         qp = torch.arange(skv - sq, skv, dtype=torch.int32,
                           device=dev).expand(b, sq).contiguous()
+        if valid0 is not None:   # the keys from valid0 on are padding
+            kp = torch.where(kp < valid0, kp, torch.full_like(kp, 2 ** 30))
     kp = kp.contiguous()
     kw = dict(q_positions=qp, kv_positions=kp, causal=causal,
               sliding_window=window, logit_softcap=cap)
@@ -977,6 +1016,11 @@ def flash_case(name: str, b, sq, skv, hq, hkv, dk, dv, *, causal=True,
     bms, by = op_bound(2.0 * pairs * (dk + dv), n_bytes,
                        BF16_FLOPS_PER_S if dtype == "bfloat16"
                        else SCALAR_OPS_PER_S)
+    floor = {}
+    if variant == "prefill_tc":   # P.V runs on P_hi and on P_lo
+        fms, fby = op_bound(2.0 * pairs * (dk + 2 * dv), n_bytes,
+                            BF16_FLOPS_PER_S)
+        floor = dict(floor_ms=fms, floor_by=fby)
     lib_ms = None
     if cap == 0.0:               # SDPA has no softcap
         if causal and window is None and not decode and sq == skv:
@@ -1001,7 +1045,7 @@ def flash_case(name: str, b, sq, skv, hq, hkv, dk, dv, *, causal=True,
                visible_pairs=pairs, max_abs_err=err,
                max_abs_want=float(want.float().abs().max()), atol=atol,
                rtol=rtol, ms=ms, graph_ms=g_ms, **warm, plain_ms=plain_ms,
-               plain_graph_ms=plain_g_ms, bound_ms=bms, bound_by=by,
+               plain_graph_ms=plain_g_ms, bound_ms=bms, bound_by=by, **floor,
                library_ms=lib_ms, wall_s=time.perf_counter() - t_start)
     emit("kernel_flash", **out)
     return out
@@ -1016,6 +1060,9 @@ def kernel_flash_phase() -> list:
         # deepseek-v2's MLA prefill: Dk 192 (128 + 64 rope), Dv 128
         flash_case("mla_prefill", 2, 2048, 2048, 128, 128, 192, 128,
                    seed=26),
+        # simt's record: the same shape in f32, which simt still serves
+        flash_case("simt_mla_f32", 2, 2048, 2048, 128, 128, 192, 128,
+                   dtype="float32", seed=27),
     ]
     grid = [   # the reference's test grid (tests/test_kernels.py)
         (2, 128, 128, 4, 2, 32, 32, True, None, 0.0, "float32"),
@@ -1044,6 +1091,17 @@ def kernel_flash_phase() -> list:
                    decode=True, valid0=1, seed=24),
         flash_case("split_f32_d64_window", 2, 1, 1000, 8, 1, 64, 64,
                    window=128, dtype="float32", decode=True, seed=25),
+        # prefill_tc at MLA's dims
+        flash_case("mla_ragged", 2, 200, 200, 4, 4, 192, 128, seed=28),
+        flash_case("mla_pad", 2, 256, 384, 8, 8, 192, 128, valid0=300,
+                   seed=29),
+        flash_case("mla_window", 1, 384, 384, 4, 4, 192, 128, window=100,
+                   seed=30),
+        flash_case("mla_softcap", 1, 256, 256, 4, 4, 192, 128, cap=30.0,
+                   seed=31),
+        flash_case("mla_gqa2", 1, 256, 256, 8, 4, 192, 128, seed=32),
+        flash_case("mla_noncausal", 1, 256, 256, 4, 4, 192, 128,
+                   causal=False, seed=33),
     ]
     return cases
 
@@ -1217,10 +1275,11 @@ def kernel_record(name: str, source: str, replaces: str, launches: int,
 
 def flash_records(cases: list, paths: dict) -> list:
     """One entry per flash variant, timed at its main-path case (glm4-9b
-    prefill, glm4-9b decode, deepseek-v2's MLA prefill for simt);
-    ``launches`` sums the model paths' counts, by path beside it."""
+    prefill, glm4-9b decode; simt, which no model path reaches, at MLA's
+    shape in f32), named in ``case``; ``launches`` sums the model paths'
+    counts, by path beside it."""
     heads = {"prefill_tc": "glm4_prefill", "decode_split": "glm4_decode",
-             "simt": "mla_prefill"}
+             "simt": "simt_mla_f32"}
     out = []
     for variant, head in heads.items():
         mine = [c for c in cases if c["variant"] == variant]
@@ -1233,7 +1292,7 @@ def flash_records(cases: list, paths: dict) -> list:
             "src/repro/kernels/flash_attention.py:90",
             sum(by_path.values()),
             first + [c for c in mine if c["case"] != head]),
-            launches_by_path=by_path))
+            case=head, launches_by_path=by_path))
     return out
 
 
@@ -2481,6 +2540,12 @@ def main() -> int:
     nvcc.build_all([lv.LIB, fa.LIB, ss.LIB])
     emit("build", wall_s=time.perf_counter() - t0, **lv.LIB.info,
          flash_attention=fa.LIB.info, ssd_scan=ss.LIB.info)
+    tc_builds = ptxas_kernels(fa.LIB.info, "prefill_tc_kernel")
+    emit("build_prefill_tc", instantiations=tc_builds)
+    check(fa.LIB.info.get("cached") or sorted(
+        tuple(k["dims"]) for k in tc_builds) == sorted(fa.PREFILL_TC_DIMS),
+          f"ptxas reported prefill_tc {tc_builds}, expected "
+          f"{fa.PREFILL_TC_DIMS}")
 
     # 3. kernel vs plain version
     rng = np.random.default_rng(0)
@@ -2551,7 +2616,7 @@ def main() -> int:
     emit("deepseek_done", wall_s=time.perf_counter() - t0)
     check(dict(simt=deepseek["simt"], prefill_tc=deepseek["prefill_tc"],
                decode_split=deepseek["decode_split"], flash=deepseek["flash"])
-          == dict(simt=4, prefill_tc=0, decode_split=0, flash=4),
+          == dict(simt=0, prefill_tc=4, decode_split=0, flash=4),
           f"deepseek: flash launches {deepseek}")
 
     # 10. the card against the CPU port

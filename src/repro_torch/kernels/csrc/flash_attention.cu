@@ -19,30 +19,38 @@
 // The launcher picks one of three variants from the dtype and the shapes
 // (choose_variant below; the Python wrapper's variant() is its twin):
 //
-// prefill_tc (flash_prefill_tc.cuh): bf16, Dk = Dv in {64, 128}, more than
-//   64 query rows per kv head (Sq x group).  Bound by operations: 4 Sq Skv D
-//   FLOPs per head, halved by a causal mask, at 989 TFLOP/s on the bf16
-//   tensor cores.  One block per (b, q head, 128-row q tile), q heads
-//   fastest so a GQA group's blocks share K/V in L2, causal tiles longest
-//   first.  Two consumer warpgroups own 64 q rows each; a third warpgroup
-//   hands them its registers (setmaxnreg) and its first warp is the
+// prefill_tc (flash_prefill_tc.cuh): bf16, (Dk, Dv) in {(64, 64), (128, 128),
+//   (192, 128)} (the last is deepseek-v2's MLA: 128 + 64 rope dims against a
+//   128-wide V), more than 64 query rows per kv head (Sq x group).  Bound by
+//   operations: 2 Sq Skv (Dk + Dv) FLOPs per head, halved by a causal mask, at
+//   989 TFLOP/s on the bf16 tensor cores.  One block per (b, q head, 128-row q
+//   tile), q heads fastest so a GQA group's blocks share K/V in L2, causal
+//   tiles longest first.  Two consumer warpgroups own 64 q rows each; a third
+//   warpgroup hands them its registers (setmaxnreg) and its first warp is the
 //   producer.  The producer loads Q once and K/V tiles of 128 keys into a
-//   2-stage ring by TMA (128-byte swizzle, mbarrier completion).  Before it
-//   issues a tile it reads the tile's positions (those of the next tile are
-//   already in flight), skips a tile no row of the block can see, and flags
-//   per warpgroup whether every key is hidden from it (it skips the tile)
-//   or some key is hidden from some row (it runs the per-element mask: the
-//   causal diagonal, a window edge, a ragged last tile).  Consumers run
-//   S = Q K^T on wgmma (both operands in shared memory), the online softmax
-//   in fp32 on the accumulator fragment, and P V as two register-A wgmmas,
-//   on P_hi = bf16(P) and P_lo = bf16(P - P_hi), into one fp32
-//   accumulator.  The split keeps ~16 bits of P: a single bf16 P rounds the
-//   weights to 2^-9 and misses the two-ulp output limit in the early causal
-//   rows, where a few large weights cancel.  It costs 1.5x the function's
-//   operations, so this design's floor is 1.5x the bound.
+//   2-stage ring by TMA (128-byte swizzle, mbarrier completion).  The kernel
+//   is a template on (Dk, Dv): Q and K tiles are Dk wide, stored as Dk / 64
+//   swizzled panels of 64 columns, V tiles and the accumulator Dv wide.  At
+//   (192, 128) Q, the K ring and the V ring take 48 + 96 + 64 KB of the
+//   block's 227 KB: the ring keeps both stages and 128-key tiles, and the
+//   registers are those of D = 128 (S is 64 x 128 and O 64 x Dv fp32 a
+//   warpgroup), so only S's k-steps grow, from 8 to 12.  Before it issues a
+//   tile it reads the tile's positions (those of the next tile are already in
+//   flight), skips a tile no row of the block can see, and flags per warpgroup
+//   whether every key is hidden from it (it skips the tile) or some key is
+//   hidden from some row (it runs the per-element mask: the causal diagonal, a
+//   window edge, a ragged last tile).  Consumers run S = Q K^T on wgmma (both
+//   operands in shared memory), the online softmax in fp32 on the accumulator
+//   fragment, and P V as two register-A wgmmas, on P_hi = bf16(P) and P_lo =
+//   bf16(P - P_hi), into one fp32 accumulator.  The split keeps ~16 bits of P:
+//   a single bf16 P rounds the weights to 2^-9 and misses the two-ulp output
+//   limit in the early causal rows, where a few large weights cancel.  It
+//   costs (Dk + 2 Dv) / (Dk + Dv) times the function's operations, so this
+//   design's floor is 1.5x the bound at Dk = Dv and 1.4x at (192, 128).
 //
 // decode_split (flash_decode_split.cuh): f32 or bf16, Dk = Dv in {64, 128},
-//   at most 64 query rows per kv head.  Bound by bytes: reading the kv
+//   at most 64 query rows per kv head (MLA's decode never reaches flash:
+//   it runs as absorbed einsums).  Bound by bytes: reading the kv
 //   cache once.  The group's q heads (x Sq) are the rows of one tile, so
 //   each K/V byte is read once per (b, kv head), and the kv sweep is split
 //   over n_split blocks (about two waves of 132 SMs, >= 64 keys a split).
@@ -54,9 +62,10 @@
 //   (m, l, acc); a combine kernel weights split s by exp(m_s - m) over the
 //   splits with l_s > 0 and rounds once.
 //
-// simt (flash_simt.cuh): everything else -- f32 prefill, other head dims,
-//   Dk != Dv.  One block per (b, q head, q tile) on the fp32 CUDA cores.
-//   No model path the port runs at full width reaches it.
+// simt (flash_simt.cuh): everything else -- f32 prefill, other head dims
+//   and (Dk, Dv) pairs, and (192, 128) at 64 rows or fewer.  One block per
+//   (b, q head, q tile) on the fp32 CUDA cores.  No model path the port
+//   runs at full width reaches it.
 //
 // The kernels allocate nothing and do not synchronise: decode_split's
 // partials live in a scratch the caller allocates.  The launcher returns
@@ -72,10 +81,12 @@ namespace {
 enum Variant { kSimt = 0, kPrefillTc = 1, kDecodeSplit = 2 };
 
 int choose_variant(int dtype, int Sq, int Hq, int Hkv, int Dk, int Dv) {
-  const bool tc_dims = Dk == Dv && (Dk == 64 || Dk == 128);
+  const bool square = Dk == Dv && (Dk == 64 || Dk == 128);
+  const bool prefill_dims = square || (Dk == 192 && Dv == 128);
   const long long rows = (long long)Sq * (Hq / Hkv);
-  if (tc_dims && rows <= flash::decode_split::kMaxRows) return kDecodeSplit;
-  if (tc_dims && dtype == 1) return kPrefillTc;
+  const bool few_rows = rows <= flash::decode_split::kMaxRows;
+  if (square && few_rows) return kDecodeSplit;
+  if (prefill_dims && !few_rows && dtype == 1) return kPrefillTc;
   return kSimt;
 }
 
@@ -135,12 +146,16 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     return (int)cudaErrorMisalignedAddress;
   if (var == kPrefillTc) {
     if (Dk == 64)
-      return flash::prefill_tc::launch<64>(q, k, v, qpos, kpos, out, B, Sq,
-                                           Skv, Hq, Hkv, scale, softcap,
-                                           causal, window, s);
-    return flash::prefill_tc::launch<128>(q, k, v, qpos, kpos, out, B, Sq,
-                                          Skv, Hq, Hkv, scale, softcap, causal,
-                                          window, s);
+      return flash::prefill_tc::launch<64, 64>(q, k, v, qpos, kpos, out, B,
+                                               Sq, Skv, Hq, Hkv, scale,
+                                               softcap, causal, window, s);
+    if (Dk == 128)
+      return flash::prefill_tc::launch<128, 128>(q, k, v, qpos, kpos, out, B,
+                                                 Sq, Skv, Hq, Hkv, scale,
+                                                 softcap, causal, window, s);
+    return flash::prefill_tc::launch<192, 128>(q, k, v, qpos, kpos, out, B,
+                                               Sq, Skv, Hq, Hkv, scale,
+                                               softcap, causal, window, s);
   }
   if (var == kDecodeSplit) {
     const long long need = flash::decode_split::scratch_floats(

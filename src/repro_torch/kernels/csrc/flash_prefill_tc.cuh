@@ -1,8 +1,8 @@
-// The tensor-core prefill variant (prefill_tc): bf16, Dk = Dv in {64, 128},
-// more than 64 query rows per kv head.  See flash_attention.cu for the
-// design notes; this file holds the kernel and its launch.  The PTX
-// wrappers (mbarrier, TMA, descriptors, wgmma) and the tensor-map builder
-// are in hopper_ptx.cuh.
+// The tensor-core prefill variant (prefill_tc): bf16, (Dk, Dv) in {(64, 64),
+// (128, 128), (192, 128)}, more than 64 query rows per kv head.  See
+// flash_attention.cu for the design notes; this file holds the kernel and
+// its launch.  The PTX wrappers (mbarrier, TMA, descriptors, wgmma) and the
+// tensor-map builder are in hopper_ptx.cuh.
 #pragma once
 
 #include "flash_common.cuh"
@@ -26,19 +26,23 @@ constexpr float kLog2e = 1.4426950408889634f;
 // Shared-memory plan, byte offsets from a 1024-aligned base (the 128-byte
 // swizzle repeats every 8 rows = 1024 bytes; TMA and wgmma both assume it).
 // A [rows][D] bf16 tile is stored as D / 64 column boxes of [rows][64],
-// each swizzled, one after the other.
-template <int D>
+// each swizzled, one after the other.  Q and K tiles are DK wide, V tiles
+// DV.  At (192, 128): Q 48 KB, K 2 x 48 KB, V 2 x 32 KB, 208 KB of tiles.
+template <int DK, int DV>
 struct Plan {
-  static constexpr int kQBytes = kBM * D * 2;
-  static constexpr int kTileBytes = kBN * D * 2;            // one K or V tile
+  static_assert(DK % 64 == 0 && DV % 64 == 0, "64-column swizzled boxes");
+  static constexpr int kQBytes = kBM * DK * 2;
+  static constexpr int kKTileBytes = kBN * DK * 2;          // one K tile
+  static constexpr int kVTileBytes = kBN * DV * 2;          // one V tile
   static constexpr int kQ = 0;
   static constexpr int kK = kQ + kQBytes;                    // [kStages] tiles
-  static constexpr int kV = kK + kStages * kTileBytes;       // [kStages] tiles
-  static constexpr int kKpos = kV + kStages * kTileBytes;    // int [kStages][kBN]
+  static constexpr int kV = kK + kStages * kKTileBytes;      // [kStages] tiles
+  static constexpr int kKpos = kV + kStages * kVTileBytes;   // int [kStages][kBN]
   static constexpr int kMeta = kKpos + kStages * kBN * 4;    // int [kStages][2]
   static constexpr int kBar = kMeta + kStages * 8;           // u64 barriers
   static constexpr int kBytes = kBar + (2 * kStages + 1) * 8;
   static constexpr int kAlloc = kBytes + 1024;               // alignment slack
+  static_assert(kAlloc <= 232448, "227 KB of shared memory a block");
 };
 
 // Tile flags the producer hands the consumers, per warpgroup g: some key
@@ -52,7 +56,7 @@ constexpr int kSkipBit = 4;    // << g
 // longest under a causal mask) to the first.  Block: warps 0-7 are two
 // consumer warpgroups of 64 rows each; of the third warpgroup, which hands
 // its registers to them, warp 8 is the producer and warps 9-11 exit.
-template <int D>
+template <int DK, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
 prefill_tc_kernel(const __grid_constant__ CUtensorMap tq,
                   const __grid_constant__ CUtensorMap tk,
@@ -62,7 +66,7 @@ prefill_tc_kernel(const __grid_constant__ CUtensorMap tq,
                   __nv_bfloat16* __restrict__ out, int B, int Sq, int Skv,
                   int Hq, int Hkv, float scale, float softcap, int causal,
                   int window) {
-  using P = Plan<D>;
+  using P = Plan<DK, DV>;
   constexpr int kKeysPerLane = kBN / 32;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -133,7 +137,7 @@ prefill_tc_kernel(const __grid_constant__ CUtensorMap tq,
     if (lane == 0) {
       mbar_arrive_expect_tx(q_bar, P::kQBytes);
 #pragma unroll
-      for (int c = 0; c < D / 64; ++c)
+      for (int c = 0; c < DK / 64; ++c)
         tma_load_4d(base + P::kQ + c * kBM * kSwizzleRow, &tq, q_bar, 64 * c,
                     h, q0, b);
     }
@@ -181,15 +185,18 @@ prefill_tc_kernel(const __grid_constant__ CUtensorMap tq,
         meta[2 * stage] = k0;
         meta[2 * stage + 1] = flags;
         const uint32_t fb = full_bar + 8 * stage;
-        mbar_arrive_expect_tx(fb, 2 * P::kTileBytes);
+        mbar_arrive_expect_tx(fb, P::kKTileBytes + P::kVTileBytes);
+        // K and V boxes interleaved while both have one left
 #pragma unroll
-        for (int c = 0; c < D / 64; ++c) {
-          tma_load_4d(base + P::kK + stage * P::kTileBytes +
-                          c * kBN * kSwizzleRow,
-                      &tk, fb, 64 * c, hk, k0, b);
-          tma_load_4d(base + P::kV + stage * P::kTileBytes +
-                          c * kBN * kSwizzleRow,
-                      &tv, fb, 64 * c, hk, k0, b);
+        for (int c = 0; c < (DK > DV ? DK : DV) / 64; ++c) {
+          if (c < DK / 64)
+            tma_load_4d(base + P::kK + stage * P::kKTileBytes +
+                            c * kBN * kSwizzleRow,
+                        &tk, fb, 64 * c, hk, k0, b);
+          if (c < DV / 64)
+            tma_load_4d(base + P::kV + stage * P::kVTileBytes +
+                            c * kBN * kSwizzleRow,
+                        &tv, fb, 64 * c, hk, k0, b);
         }
       } else {
         mbar_arrive(full_bar + 8 * stage);
@@ -219,9 +226,9 @@ prefill_tc_kernel(const __grid_constant__ CUtensorMap tq,
       lo[hr] = window > 0 ? (int)max(qp - window + 1, (long long)INT_MIN)
                           : INT_MIN;
     }
-    float o[D / 2];
+    float o[DV / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
     float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
     const uint32_t q_addr = base + P::kQ + wg * 64 * kSwizzleRow;
 
@@ -234,12 +241,13 @@ prefill_tc_kernel(const __grid_constant__ CUtensorMap tq,
       if (k0 < 0) break;
       const int flags = meta[2 * stage + 1];
       if (!((flags >> wg) & kSkipBit)) {
-        const uint32_t k_addr = base + P::kK + stage * P::kTileBytes;
-        const uint32_t v_addr = base + P::kV + stage * P::kTileBytes;
+        const uint32_t k_addr = base + P::kK + stage * P::kKTileBytes;
+        const uint32_t v_addr = base + P::kV + stage * P::kVTileBytes;
         float s[kBN / 2];
         wgmma_fence();
+        // DK / 16 k-steps over DK / 64 swizzled panels of Q and K
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
+        for (int kk = 0; kk < DK / 16; ++kk) {
           const uint32_t off = (kk % 4) * 32;   // 16 bf16 along K
           wgmma_ss_m64n128k16(
               s,
@@ -301,7 +309,7 @@ prefill_tc_kernel(const __grid_constant__ CUtensorMap tq,
           l[hr] += s[i];
         }
 #pragma unroll
-        for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i % 4) / 2];
+        for (int i = 0; i < DV / 2; ++i) o[i] *= alpha[(i % 4) / 2];
 
         // P as bf16 hi + lo in the A-fragment layout: k-step t (keys
         // 16t..16t+15) takes accumulator elements 8t..8t+7, two a register
@@ -316,17 +324,17 @@ prefill_tc_kernel(const __grid_constant__ CUtensorMap tq,
         wgmma_fence();
 #pragma unroll
         for (int t = 0; t < kBN / 16; ++t)
-          wgmma_rs<D>(o, ph + 4 * t,
-                      smem_desc(v_addr + t * 16 * kSwizzleRow,
-                                kBN * kSwizzleRow, 1024));
+          wgmma_rs<DV>(o, ph + 4 * t,
+                       smem_desc(v_addr + t * 16 * kSwizzleRow,
+                                 kBN * kSwizzleRow, 1024));
 #pragma unroll
         for (int t = 0; t < kBN / 16; ++t)
-          wgmma_rs<D>(o, pl + 4 * t,
-                      smem_desc(v_addr + t * 16 * kSwizzleRow,
-                                kBN * kSwizzleRow, 1024));
+          wgmma_rs<DV>(o, pl + 4 * t,
+                       smem_desc(v_addr + t * 16 * kSwizzleRow,
+                                 kBN * kSwizzleRow, 1024));
         wgmma_commit();
         wgmma_wait<0>();
-        fence_regs<D / 2>(o);
+        fence_regs<DV / 2>(o);
         fence_regs<kBN / 4>(ph);
         fence_regs<kBN / 4>(pl);
       }
@@ -349,10 +357,10 @@ prefill_tc_kernel(const __grid_constant__ CUtensorMap tq,
       const int row = q0 + r0 + 8 * hr;
       if (row >= Sq) continue;
       const float safe = l[hr] > 0.f ? l[hr] : 1.f;
-      __nv_bfloat16* orow = out + ((int64_t)b * Sq + row) * Hq * D +
-                            (int64_t)h * D;
+      __nv_bfloat16* orow = out + ((int64_t)b * Sq + row) * Hq * DV +
+                            (int64_t)h * DV;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j)
+      for (int j = 0; j < DV / 8; ++j)
         *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + c0) =
             __floats2bfloat162_rn(o[4 * j + 2 * hr] / safe,
                                   o[4 * j + 2 * hr + 1] / safe);
@@ -362,27 +370,28 @@ prefill_tc_kernel(const __grid_constant__ CUtensorMap tq,
 
 // -- host side ------------------------------------------------------------------
 
-template <int D>
+template <int DK, int DV>
 int launch(const void* q, const void* k, const void* v, const void* qpos,
            const void* kpos, void* out, int B, int Sq, int Skv, int Hq,
            int Hkv, float scale, float softcap, int causal, int window,
            cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
-  int err = make_map(&tq, q, B, Sq, Hq, D, kBM);
-  if (!err) err = make_map(&tk, k, B, Skv, Hkv, D, kBN);
-  if (!err) err = make_map(&tv, v, B, Skv, Hkv, D, kBN);
+  int err = make_map(&tq, q, B, Sq, Hq, DK, kBM);
+  if (!err) err = make_map(&tk, k, B, Skv, Hkv, DK, kBN);
+  if (!err) err = make_map(&tv, v, B, Skv, Hkv, DV, kBN);
   if (err) return err;
-  auto kernel = prefill_tc_kernel<D>;
+  auto kernel = prefill_tc_kernel<DK, DV>;
+  using P = Plan<DK, DV>;
   static bool configured = false;  // one opt-in per instantiation
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Plan<D>::kAlloc);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, P::kAlloc);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
   const long long blocks = (long long)((Sq + kBM - 1) / kBM) * Hq * B;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  kernel<<<(unsigned)blocks, kThreads, Plan<D>::kAlloc, stream>>>(
+  kernel<<<(unsigned)blocks, kThreads, P::kAlloc, stream>>>(
       tq, tk, tv, static_cast<const int32_t*>(qpos),
       static_cast<const int32_t*>(kpos), static_cast<__nv_bfloat16*>(out), B,
       Sq, Skv, Hq, Hkv, scale, softcap, causal, window);

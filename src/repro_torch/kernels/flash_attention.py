@@ -6,22 +6,25 @@ Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
 headers; the launcher picks one of three variants from the dtype and the
 shapes alone, and :func:`variant` is its twin here:
 
-- ``prefill_tc`` — bf16, Dk = Dv in {64, 128}, more than 64 query rows per
+- ``prefill_tc`` — bf16, (Dk, Dv) in :data:`PREFILL_TC_DIMS`: (64, 64),
+  (128, 128) and deepseek-v2's MLA (192, 128); more than 64 query rows per
   kv head (Sq x group).  Bound by operations.  Q and 128-key K/V tiles
   arrive by TMA into a shared-memory ring fed by a producer warp; two
   consumer warpgroups run Q.K^T and P.V on ``wgmma`` (bf16 tensor cores,
   fp32 accumulators), the softmax in fp32 on the accumulator fragment,
   and skip the kv tiles the positions hide.  P.V runs twice, on P's bf16 high
-  and low parts, which keeps ~16 bits of P at 1.5x the operations: a single
-  bf16 P misses the two-ulp output limit in early causal rows.
+  and low parts, which keeps ~16 bits of P at (Dk + 2 Dv) / (Dk + Dv) times
+  the operations (1.5x at Dk = Dv, 1.4x at MLA's): a single bf16 P misses
+  the two-ulp output limit in early causal rows.
 - ``decode_split`` — f32 or bf16, Dk = Dv in {64, 128}, at most 64 query
   rows per kv head (glm4-9b decode: 1 x 16).  Bound by bytes.  The group's
   q heads are the rows of one tile, so each K/V byte is read once per kv
   head, and the kv sweep is split across blocks (:func:`decode_splits`);
   fp32 partials go to a scratch this wrapper allocates and a second kernel
   merges them.
-- ``simt`` — everything else (f32 prefill, other head dims, Dk != Dv): one
-  block per (batch, q head, q tile) on the fp32 CUDA cores.
+- ``simt`` — everything else (f32 prefill, other head dims, other Dk !=
+  Dv pairs, (192, 128) at 64 rows or fewer): one block per (batch, q head,
+  q tile) on the fp32 CUDA cores.
 
 Semantics follow the Pallas kernel in every variant: masking by position
 (causal, sliding window, kv positions >= 2^29 are padding), the finite
@@ -58,6 +61,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the launcher's variant codes, in order
 VARIANTS = ("simt", "prefill_tc", "decode_split")
 DECODE_MAX_ROWS = 64        # Sq x group served by decode_split
+DECODE_SPLIT_DIMS = ((64, 64), (128, 128))
+PREFILL_TC_DIMS = DECODE_SPLIT_DIMS + ((192, 128),)
 _TARGET_BLOCKS = 264        # decode_split: two waves of 132 SMs
 _MIN_SPLIT_KEYS = 64
 
@@ -70,10 +75,12 @@ variant_launches = {name: 0 for name in VARIANTS}
 def variant(dtype: torch.dtype, sq: int, hq: int, hkv: int, dk: int,
             dv: int) -> str:
     """The variant the launcher takes for these shapes (its twin)."""
-    tc_dims = dk == dv and dk in (64, 128)
-    if tc_dims and sq * (hq // hkv) <= DECODE_MAX_ROWS:
+    if (dk, dv) not in PREFILL_TC_DIMS:
+        return "simt"
+    few_rows = sq * (hq // hkv) <= DECODE_MAX_ROWS
+    if few_rows and (dk, dv) in DECODE_SPLIT_DIMS:
         return "decode_split"
-    if tc_dims and dtype == torch.bfloat16:
+    if not few_rows and dtype == torch.bfloat16:
         return "prefill_tc"
     return "simt"
 

@@ -27,6 +27,7 @@ FLASH_GRID = [
     (2, 128, 128, 4, 4, 32, 32, False, None, 0.0, "float32"),   # encoder
     (2, 128, 128, 8, 2, 64, 64, True, None, 30.0, "bfloat16"),
     (1, 256, 256, 2, 2, 192, 128, True, None, 0.0, "float32"),  # MLA dims
+    (1, 256, 256, 2, 2, 192, 128, True, None, 0.0, "bfloat16"),  # prefill_tc
     (1, 72, 72, 2, 1, 24, 24, True, 16, 0.0, "float32"),        # odd sizes
 ]
 

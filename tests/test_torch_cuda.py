@@ -341,8 +341,12 @@ def test_cuda_cluster_run_matches_cpu(cuda_device):
 # kernel's variants (flash_attention.variant): prefill_tc with a ragged
 # last tile, without a causal mask and with a window; decode_split at 64
 # rows (Sq 4 x group 16), with one valid key in row 0 (most splits see
-# nothing), and in f32 at D 64 with a window.  ``valid``: row 0's valid
-# length in a one-query case (None: drawn like the others).
+# nothing), and in f32 at D 64 with a window; then deepseek-v2's MLA dims
+# (Dk 192, Dv 128) in bf16 on prefill_tc: causal at S 2048, where early
+# rows see few keys, a ragged Sq, kv padding, a window, softcap 30, a GQA
+# group of 2, no causal mask; and a decode-size call, still on simt.
+# ``valid``: row 0's valid length in a one-query case (None: drawn like the
+# others); in a prefill case, the keys from ``valid`` on are padding.
 FLASH_GRID = [
     (2, 128, 128, 4, 2, 32, 32, True, None, 0.0, "float32", None),
     (1, 100, 100, 4, 4, 16, 16, True, None, 0.0, "float32", None),
@@ -360,8 +364,16 @@ FLASH_GRID = [
     (2, 4, 2080, 32, 2, 128, 128, True, None, 0.0, "bfloat16", None),
     (4, 1, 2080, 32, 2, 128, 128, True, None, 0.0, "bfloat16", 1),
     (2, 1, 1000, 8, 1, 64, 64, True, 128, 0.0, "float32", None),
-    # deepseek-v2's MLA prefill dims in bf16 (simt): Dk 192, Dv 128
+    # deepseek-v2's MLA prefill dims in bf16 (prefill_tc): Dk 192, Dv 128
     (2, 384, 384, 16, 16, 192, 128, True, None, 0.0, "bfloat16", None),
+    (1, 2048, 2048, 16, 16, 192, 128, True, None, 0.0, "bfloat16", None),
+    (2, 200, 200, 4, 4, 192, 128, True, None, 0.0, "bfloat16", None),
+    (2, 256, 384, 8, 8, 192, 128, True, None, 0.0, "bfloat16", 300),
+    (1, 384, 384, 4, 4, 192, 128, True, 100, 0.0, "bfloat16", None),
+    (1, 256, 256, 4, 4, 192, 128, True, None, 30.0, "bfloat16", None),
+    (1, 256, 256, 8, 4, 192, 128, True, None, 0.0, "bfloat16", None),
+    (1, 256, 256, 4, 4, 192, 128, False, None, 0.0, "bfloat16", None),
+    (2, 1, 1000, 16, 16, 192, 128, True, None, 0.0, "bfloat16", None),
 ]
 
 
@@ -369,7 +381,8 @@ def _flash_inputs(seed, b, sq, skv, hq, hkv, dk, dv, dtype, device,
                   valid0=None):
     """Grid inputs; a one-query case gets per-row valid lengths with the
     ring's unwritten tail at position 2^30, as decode builds it (row 0's
-    length ``valid0`` when given)."""
+    length ``valid0`` when given); in a prefill case the keys from
+    ``valid0`` on sit at 2^30, padding."""
     rng = np.random.default_rng(seed)
     q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
                .to(device=device, dtype=getattr(torch, dtype))
@@ -385,6 +398,8 @@ def _flash_inputs(seed, b, sq, skv, hq, hkv, dk, dv, dtype, device,
     else:
         qp = np.broadcast_to(np.arange(skv - sq, skv, dtype=np.int32),
                              (b, sq)).copy()
+        if valid0 is not None:
+            kp[:, valid0:] = 2 ** 30
     return q, k, v, torch.from_numpy(qp).to(device), \
         torch.from_numpy(kp).to(device)
 
@@ -578,7 +593,8 @@ def test_cuda_new_wrappers_reject_bad_inputs(cuda_device):
 
 # (dtype, B, Sq, Skv, Hq, Hkv, Dk, Dv): glm4-9b prefill and decode, the
 # rows-per-kv-head edge (64 / 65), a head dim no fast variant takes,
-# Dk != Dv, and f32 on both sides of the edge
+# Dk != Dv (MLA's prefill, its 64-row edge, f32, (128, 64)), and f32 on
+# both sides of the edge
 VARIANT_EDGES = [
     (torch.bfloat16, 4, 2048, 2048, 32, 2, 128, 128),
     (torch.bfloat16, 4, 1, 2080, 32, 2, 128, 128),
@@ -586,6 +602,11 @@ VARIANT_EDGES = [
     (torch.bfloat16, 1, 65, 65, 2, 2, 64, 64),
     (torch.bfloat16, 1, 128, 128, 2, 2, 96, 96),
     (torch.bfloat16, 1, 1, 512, 16, 1, 192, 128),
+    (torch.bfloat16, 2, 2048, 2048, 128, 128, 192, 128),
+    (torch.bfloat16, 1, 4, 512, 16, 1, 192, 128),
+    (torch.bfloat16, 1, 65, 65, 1, 1, 192, 128),
+    (torch.float32, 1, 256, 256, 2, 2, 192, 128),
+    (torch.bfloat16, 1, 256, 256, 4, 2, 128, 64),
     (torch.float32, 1, 1, 512, 16, 1, 64, 64),
     (torch.float32, 1, 65, 65, 2, 2, 64, 64),
 ]

@@ -26,8 +26,12 @@ EDGES = [
     ((BF16, 5, 32, 2, 128, 128), "prefill_tc"),        # 5 x 16 = 80 rows
     ((BF16, 128, 2, 2, 96, 96), "simt"),               # D 96
     ((BF16, 1, 16, 1, 96, 96), "simt"),                # D 96 at decode
-    ((BF16, 256, 2, 2, 192, 128), "simt"),             # Dk != Dv (MLA)
-    ((BF16, 1, 16, 1, 192, 128), "simt"),              # Dk != Dv at decode
+    ((BF16, 256, 2, 2, 192, 128), "prefill_tc"),       # MLA's Dk 192, Dv 128
+    ((BF16, 1, 16, 1, 192, 128), "simt"),              # MLA dims at decode
+    ((BF16, 4, 16, 1, 192, 128), "simt"),              # MLA dims, 64 rows
+    ((BF16, 65, 1, 1, 192, 128), "prefill_tc"),        # MLA dims, 65 rows
+    ((F32, 256, 2, 2, 192, 128), "simt"),              # MLA dims in f32
+    ((BF16, 256, 2, 2, 128, 192), "simt"),             # MLA's dims swapped
     ((BF16, 256, 4, 2, 128, 64), "simt"),              # Dk != Dv, both fast
     ((F32, 2048, 32, 2, 128, 128), "simt"),            # f32 prefill
     ((F32, 1, 32, 2, 128, 128), "decode_split"),       # f32 decode
@@ -43,7 +47,11 @@ GRID_VARIANTS = [
     "decode_split", "decode_split",                # glm4-9b decode
     "prefill_tc", "prefill_tc", "prefill_tc",      # ragged, non-causal, window
     "decode_split", "decode_split", "decode_split",
-    "simt",                                        # MLA dims in bf16
+    "prefill_tc",                                  # MLA dims in bf16
+    "prefill_tc", "prefill_tc", "prefill_tc",      # S 2048, ragged, padding
+    "prefill_tc", "prefill_tc", "prefill_tc",      # window, softcap, GQA 2
+    "prefill_tc",                                  # no causal mask
+    "simt",                                        # MLA dims at decode
 ]
 
 
@@ -57,6 +65,32 @@ def test_variant_of_every_card_grid_row(row, want):
     b, sq, skv, hq, hkv, dk, dv, causal, window, cap, dtype, valid = row
     assert len(GRID_VARIANTS) == len(FLASH_GRID)
     assert fa.variant(getattr(torch, dtype), sq, hq, hkv, dk, dv) == want
+
+
+# every arch's bf16 prefill at 2048 tokens: a tensor-core variant but for
+# hubert's head dim 80; mamba2 has no attention layer (no heads, no dims)
+ARCH_PREFILL = {
+    "qwen2-vl-2b": "prefill_tc", "glm4-9b": "prefill_tc",
+    "phi4-mini-3.8b": "prefill_tc", "minitron-4b": "prefill_tc",
+    "gemma3-27b": "prefill_tc", "deepseek-v2-236b": "prefill_tc",
+    "mixtral-8x7b": "prefill_tc", "hubert-xlarge": "simt",
+    "mamba2-780m": "simt", "zamba2-1.2b": "prefill_tc",
+}
+
+
+@pytest.mark.parametrize("arch", sorted(ARCH_PREFILL))
+def test_variant_of_every_arch_prefill(arch):
+    from repro_torch.configs import ARCH_IDS, get_config
+
+    assert sorted(ARCH_IDS) == sorted(ARCH_PREFILL)
+    cfg = get_config(arch)
+    if cfg.mla is not None:
+        dk = cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim
+        dv = cfg.mla.v_head_dim
+    else:
+        dk = dv = cfg.head_dim
+    got = fa.variant(BF16, 2048, cfg.n_heads, cfg.n_kv_heads, dk, dv)
+    assert got == ARCH_PREFILL[arch]
 
 
 @pytest.mark.parametrize("b,hkv,skv,want", [
