@@ -13,7 +13,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             kernel's nvcc seconds and ptxas report (registers, shared
             memory, spills); then ``build_prefill_tc``: the registers and
             spills of each ``prefill_tc`` instantiation, (Dk, Dv) in
-            (64, 64), (128, 128), (192, 128).
+            (64, 64), (80, 80), (128, 128), (192, 128).
 3. kernel — the kernel against its plain PyTorch version, bitwise, at the
             simulator's shapes (1,140,088 items, B in {8, 16}, R = 32,
             W = 16, plus a lock-free W = 1 case) and at a wide shape
@@ -66,7 +66,14 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             128, Dk = 192, Dv = 128, causal, bf16: ``prefill_tc``) and
             prefill_tc's edges at those dims (a ragged Sq, kv padding, a
             window, softcap, GQA 2, no causal mask), and ``simt`` at MLA's
-            shape in f32 (``simt_mla_f32``, simt's record); f32
+            shape in f32 (``simt_mla_f32``, simt's record); hubert-xlarge's
+            encoder shape (B = 4, S = 2048, Hq = Hkv = 16, Dk = Dv = 80,
+            bidirectional, bf16: ``prefill_tc<80,80>``, its 64-column
+            panels padded to 128 with zeros) and its edges at D 80 (causal,
+            ragged S, GQA 4, a window, kv padding, softcap), and the same
+            encoder shape in f32 (``simt``); gemma3-27b's own shapes (1 x
+            4096, Hq 32, Hkv 16, D 128: a local layer's 1024-key window,
+            a global layer, a local decode step in a 4128-slot ring); f32
             within 2e-5, bf16 within atol 1e-3 + rtol 1.6e-2 (two bf16
             ulps: every variant computes in fp32 and rounds the output
             once, prefill_tc with P.V on bf16 hi + lo parts of P).  Per
@@ -75,15 +82,18 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             pairs at 989 TFLOP/s bf16 or 67 TFLOP/s fp32; bytes of q, the
             output and the keys some row sees, at 3.35 TB/s), for
             ``prefill_tc`` ``floor_ms`` (its P.V on P's two bf16 parts:
-            the FLOPs of (Dk + 2 Dv) per visible pair) and
+            the FLOPs of (Dk + 2 Dv) per visible pair, Dk in k-steps of 16
+            and Dv in 64-column panels: 80 + 2 x 128 at D 80) and
             ``library_ms``: ``scaled_dot_product_attention`` with
-            ``enable_gqa=True`` at the same shape, a yardstick the port
-            never calls (null for softcap, which it cannot compute).
+            ``enable_gqa=True`` at the same shape (without a mask where
+            causality alone hides keys), a yardstick the port never calls
+            (null for softcap, which it cannot compute).
 7. kernel_ssd — the SSD kernel against ``ref.ssd_ref``, each case
             printing the variant that ran (``tc`` or ``simt``, which the
             launcher picks from the dtype and shapes): mamba2-780m's
             prefill shape (B = 4, S = 2048, H = 48, P = 64, N = 128,
-            chunk = 256, bf16, nonzero h0), the reference's grid and an
+            chunk = 256, bf16, nonzero h0), zamba2-1.2b's (H = 64, N =
+            64, the same otherwise), the reference's grid and an
             odd head count (H = 5, P = 32, chunk 32) in f32 and bf16
             (``simt``), and tc's edges in bf16 (H 5, no h0, a ragged S,
             chunks 64 and 128, N 64, B x H below 132); y within 2e-5 of
@@ -120,8 +130,32 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             twice the runs' own probability noise), and its rows are left
             out of the comparison (``routing_flips``, ``rows_flipped``).
             Launches are checked per arch against ``expected_launches``.
-10. held  — all four models at full width and 2 layers, 64-token prompt
-            and 4 decode steps, on ``cuda`` and on ``cpu`` through the
+8d-8h. zamba2, minitron, gemma3, qwen2vl, hubert — the rest of the model
+            stack at full width and depth, the same way: zamba2-1.2b (38
+            layers: 32 Mamba2 and 6 sites of its one shared attention
+            block, each with its own KV ring) 4 x 2048, ring 2080: ssd
+            ``tc`` 32, ``prefill_tc`` 6 at (64, 64), ``decode_split`` 96;
+            minitron-4b 4 x 2048: ``prefill_tc`` 32, ``decode_split`` 512;
+            gemma3-27b, all 62 layers (54 GB of bf16 weights), 1 x 4096 so
+            the 1024-key window masks, ring 4128: ``prefill_tc`` 62,
+            ``decode_split`` 992; its seeded weights make the logits
+            chaotic in bf16 (a plain run with one prompt embedding one
+            bf16 step larger moves them as far as the kernels do, printed
+            as ``plain_bumped_*``), so gemma3 is held layer by layer: each
+            layer's prefill and decode output, and its attention term
+            before the post-norm and the residual add, through the kernels
+            within 6% of the plain one's largest value, from the same
+            input (``compare: layerwise``); qwen2-vl-2b 4 x 2048 from ``embeds``, a
+            32 x 32 patch image at t = 0 and then 1024 text positions
+            (``[3, B, S]`` M-RoPE positions), 16 tokens decoded:
+            ``prefill_tc`` 28, ``decode_split`` 448; hubert-xlarge, the
+            encoder's forward over 4 x 2048 frame embeddings:
+            ``prefill_tc`` 48 at (80, 80), frames/s.  ``simt`` 0 on each.
+10. held  — all nine models at full width, 2 layers (6 for zamba2 and
+            gemma3, which reach a shared site and a global layer there),
+            64-token prompt and 4 decode steps (hubert: its forward;
+            gemma3 also layer by layer), on ``cuda`` and on ``cpu``
+            through the
             port, the same bf16 weights: logits within 6e-2 (atol and rtol,
             the CPU tests' bf16 tolerance against the reference), near-tie
             routing flips left out as above.  The CPU port is what the
@@ -133,12 +167,16 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 10c. serve_real — ``launch.serve.serve_real`` at the reference launch's
             ``--backend real`` defaults (2 pods, 16 sessions, 64 requests
             of 4 tokens, locality 0.8, 256-slot rings, seed 0) on the card
-            for mixtral-8x7b (8 layers) and deepseek-v2 (4 layers): every
+            for mixtral-8x7b (8 layers), deepseek-v2 (4 layers) and
+            zamba2-1.2b (all 38: a migrated session carries 32 Mamba
+            states and 6 shared sites' K/V): every
             request decoded, every migrated column ``nbytes_session()``
-            bytes and bitwise equal on the destination, mixtral's
-            ``decode_split`` launches 8 a decode step (deepseek: none); ms
+            bytes and bitwise equal on the destination, ``decode_split``
+            launches one a decode step per attention layer or shared site
+            (deepseek: none); ms
             per engine step, decoded tokens/s, µs a migration.
-10d. serve_real_held — the same loop at 2 layers on cuda and on cpu:
+10d. serve_real_held — the same loop at 2 layers (zamba2: 6) on cuda and
+            on cpu:
             engine metrics equal key for key but ``plan_block_s``, the
             first step's logits within 6e-2.
 
@@ -209,8 +247,9 @@ The last three lines are the ``nvidia-smi`` line, the kernels record (one
 entry per lease_validate, flash and SSD variant; ``lease_validate.drain``
 and each flash variant count their launches on every path that reaches
 them, by path in ``launches_by_path``: the runtime-analysis paths 15, 16,
-17 and 19 for the drain, the model phases 8-9, 8b-8c and serve_real for
-flash), and ``{"ok": true, "device": {...}}``.
+17 and 19 for the drain, the model phases 8-9, 8b-8h and serve_real for
+flash, mamba2 and zamba2 for the SSD), and ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
@@ -1017,16 +1056,19 @@ def flash_case(name: str, b, sq, skv, hq, hkv, dk, dv, *, causal=True,
                        BF16_FLOPS_PER_S if dtype == "bfloat16"
                        else SCALAR_OPS_PER_S)
     floor = {}
-    if variant == "prefill_tc":   # P.V runs on P_hi and on P_lo
-        fms, fby = op_bound(2.0 * pairs * (dk + 2 * dv), n_bytes,
-                            BF16_FLOPS_PER_S)
+    if variant == "prefill_tc":
+        # S's k-steps cover Dk in 16s; P.V runs on P_hi and on P_lo, at Dv
+        # rounded up to the 64-column panels (80 -> 128)
+        fms, fby = op_bound(
+            2.0 * pairs * (-(-dk // 16) * 16 + 2 * -(-dv // 64) * 64),
+            n_bytes, BF16_FLOPS_PER_S)
         floor = dict(floor_ms=fms, floor_by=fby)
     lib_ms = None
     if cap == 0.0:               # SDPA has no softcap
-        if causal and window is None and not decode and sq == skv:
+        if window is None and valid0 is None and not decode and sq == skv:
             lib = lambda q, k, v: F.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                is_causal=True, scale=dk ** -0.5, enable_gqa=True)
+                is_causal=causal, scale=dk ** -0.5, enable_gqa=True)
         else:
             amask = ref.attn_mask(qp, kp, causal, window)[:, None] \
                 & (kp < VALID_POS_LIMIT)[:, None, None, :]
@@ -1102,6 +1144,30 @@ def kernel_flash_phase() -> list:
         flash_case("mla_gqa2", 1, 256, 256, 8, 4, 192, 128, seed=32),
         flash_case("mla_noncausal", 1, 256, 256, 4, 4, 192, 128,
                    causal=False, seed=33),
+        # prefill_tc at hubert's head dim 80: its encoder's shape, then
+        # edges; the same shape in f32 stays on simt
+        flash_case("hubert_prefill", 4, 2048, 2048, 16, 16, 80, 80,
+                   causal=False, seed=40),
+        flash_case("hubert_f32", 4, 2048, 2048, 16, 16, 80, 80,
+                   causal=False, dtype="float32", seed=41),
+        flash_case("d80_causal", 1, 512, 512, 4, 4, 80, 80, seed=42),
+        flash_case("d80_ragged", 2, 200, 200, 4, 4, 80, 80, causal=False,
+                   seed=43),
+        flash_case("d80_gqa4", 1, 256, 256, 8, 2, 80, 80, seed=44),
+        flash_case("d80_window", 1, 384, 384, 4, 4, 80, 80, window=100,
+                   seed=45),
+        flash_case("d80_pad", 2, 256, 384, 8, 8, 80, 80, valid0=300,
+                   seed=46),
+        flash_case("d80_softcap", 1, 256, 256, 4, 4, 80, 80, causal=False,
+                   cap=30.0, seed=47),
+        # gemma3-27b's own shapes: its local layers' 1024-key window and
+        # its global layers at the 4096-token prefill, a local decode step
+        flash_case("gemma3_local", 1, 4096, 4096, 32, 16, 128, 128,
+                   window=1024, seed=48),
+        flash_case("gemma3_global", 1, 4096, 4096, 32, 16, 128, 128,
+                   seed=49),
+        flash_case("gemma3_decode_local", 1, 1, 4128, 32, 16, 128, 128,
+                   window=1024, decode=True, seed=50),
     ]
     return cases
 
@@ -1234,7 +1300,10 @@ def ssd_phase_case(b=4, s=2048, h=48, n=128, chunk=256, seed=0) -> None:
 
 def kernel_ssd_phase() -> list:
     cases = [ssd_case("mamba2_prefill", 4, 2048, 48, 64, 128, 256,
-                      dtype="bfloat16")]
+                      dtype="bfloat16"),
+             # zamba2-1.2b's Mamba layers: d_inner 4096 in 64 heads, N 64
+             ssd_case("zamba2_prefill", 4, 2048, 64, 64, 64, 256,
+                      dtype="bfloat16", seed=27)]
     grid = [   # the reference's test grid (tests/test_kernels.py)
         (2, 256, 8, 16, 32, 64), (1, 128, 16, 64, 128, 32),
         (2, 512, 48, 64, 128, 256), (1, 64, 4, 32, 16, 64),
@@ -1296,25 +1365,31 @@ def flash_records(cases: list, paths: dict) -> list:
     return out
 
 
-def ssd_records(cases: list, launches: dict) -> list:
+def ssd_records(cases: list, paths: dict) -> list:
     """One entry per SSD variant, timed at its case on the main path
     (mamba2-780m prefill; simt, which the main path does not reach, at
-    the reference grid's first case, f32)."""
+    the reference grid's first case, f32); ``launches`` sums the model
+    paths' counts, by path beside it."""
     heads = {"tc": "mamba2_prefill", "simt": "grid0"}
     out = []
     for variant, head in heads.items():
         mine = [c for c in cases if c["variant"] == variant]
         first = [c for c in mine if c["case"] == head]
         check(len(first) == 1, f"ssd case {head} did not run {variant}")
-        out.append(kernel_record(
+        by_path = {path: counts[f"ssd_{variant}"]
+                   for path, counts in paths.items()}
+        out.append(dict(kernel_record(
             f"ssd_scan.{variant}",
             f"src/repro_torch/kernels/csrc/ssd_{variant}.cuh",
-            "src/repro/kernels/ssd_scan.py:76", launches[f"ssd_{variant}"],
-            first + [c for c in mine if c["case"] != head]))
+            "src/repro/kernels/ssd_scan.py:76", sum(by_path.values()),
+            first + [c for c in mine if c["case"] != head]),
+            case=head, launches_by_path=by_path))
     return out
 
 
 # -- phases 8-10: the model stack ----------------------------------------------
+
+ATTN_MIXERS = ("attn", "attn_local", "shared_attn")   # a flash call a pass
 
 def into_ring(ring, prompt_cache):
     """Copy each prompt cache leaf into the leading slice of the ring's."""
@@ -1326,19 +1401,65 @@ def into_ring(ring, prompt_cache):
     return ring
 
 
-def generate(cfg, ctx, params, prompt, step_tokens, ring_len: int) -> dict:
-    """Prefill, move the cache into rings, one decode_step per row of
-    ``step_tokens`` with ``[B]`` positions; logits and wall seconds."""
+def vision_positions(b: int, s: int, device):
+    """M-RoPE positions ``[3, B, S]`` of an image and then text: a square
+    grid of ``isqrt(S / 2)``^2 patches at t = 0 (h = row, w = column), then
+    text at its index in all three sections, so decode steps continue it."""
+    import math
+
+    import torch
+
+    grid = math.isqrt(s // 2)
+    t = torch.arange(s, device=device)
+    img = t < grid * grid
+    pos = torch.stack([torch.where(img, 0, t), torch.where(img, t // grid, t),
+                       torch.where(img, t % grid, t)])
+    return pos[:, None].expand(3, b, s).to(torch.int32).contiguous()
+
+
+def model_inputs(cfg, batch: int, prompt: int, steps: int, gen, device):
+    """A seeded prompt as the arch takes it (token ids; the stub frontend's
+    ``embeds`` for vlm and audio; M-RoPE positions of an image and text)
+    and ``steps`` rows of decode tokens (none for an encoder)."""
+    import torch
+
+    if cfg.family in ("vlm", "audio"):
+        inputs = {"embeds": torch.randn((batch, prompt, cfg.d_model),
+                                        generator=gen, device=device
+                                        ).to(cfg.compute_dtype())}
+    else:
+        inputs = {"tokens": torch.randint(0, cfg.vocab_size, (batch, prompt),
+                                          generator=gen, device=device)}
+    if cfg.mrope_sections is not None:
+        inputs["positions"] = vision_positions(batch, prompt, device)
+    step_toks = torch.randint(0, cfg.vocab_size,
+                              (steps if cfg.causal else 0, batch),
+                              generator=gen, device=device)
+    return inputs, step_toks
+
+
+def generate(cfg, ctx, params, inputs: dict, step_tokens,
+             ring_len: int) -> dict:
+    """Prefill ``inputs``, move the cache into rings, one decode_step per
+    row of ``step_tokens`` with ``[B]`` positions; logits and wall seconds.
+    An encoder (``cfg.causal`` false) runs ``forward`` once instead: its
+    logits ``[B, S, V]`` and ``prefill_s``."""
     import torch
 
     from repro_torch.models import decoder
 
-    dev = prompt.device
-    b, s = prompt.shape
+    first = inputs["tokens"] if "tokens" in inputs else inputs["embeds"]
+    dev = first.device
+    b, s = first.shape[:2]
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     sync()
     t0 = time.perf_counter()
-    logits, caches = decoder.prefill(cfg, ctx, params, {"tokens": prompt})
+    if not cfg.causal:
+        logits = decoder.forward(cfg, ctx, params, inputs)
+        sync()
+        return dict(logits=[logits], ring=None,
+                    prefill_s=time.perf_counter() - t0, decode_s=0.0)
+    logits, caches = decoder.prefill(cfg, ctx, params, inputs)
     sync()
     t1 = time.perf_counter()
     ring = into_ring(decoder.init_cache(cfg, b, ring_len,
@@ -1492,17 +1613,113 @@ def compare_logits(a: list, b: list, keep=None) -> dict:
                 rows_flipped=rows - kept)
 
 
+@contextlib.contextmanager
+def recorded_attention():
+    """The attention term of every ``decoder.block_apply`` while it is open,
+    in order: the mixer's output before its post-norm and the residual
+    add, where a wrong mask or rotary theta would show whole."""
+    from repro_torch.models import decoder
+
+    terms = []
+    plain = decoder.gqa_attention, decoder.mla_attention
+
+    def recording(fn):
+        def run(*args, **kw):
+            a, c = fn(*args, **kw)
+            terms.append(a)
+            return a, c
+        return run
+
+    decoder.gqa_attention, decoder.mla_attention = map(recording, plain)
+    try:
+        yield terms
+    finally:
+        decoder.gqa_attention, decoder.mla_attention = plain
+
+
+def layerwise(cfg, sides, inputs: dict, step_tok, ring_len: int) -> dict:
+    """Every layer on two sides from the same input: side 0 against side 1,
+    each fed side 1's hidden state, over the prefill of ``inputs`` and then
+    one decode step of ``step_tok`` against a copy of that layer's side-1
+    prefill cache in a ring of ``ring_len`` (an encoder: the prefill
+    alone).  ``sides``: two (ctx, params) pairs.  Per pass, each layer's
+    largest output difference as a share of side 1's largest output, and
+    under ``<pass>_attn`` the same of each attention layer's attention term
+    (:func:`recorded_attention`): the residual stream can outgrow it."""
+    import torch
+
+    from repro_torch.models import common, decoder
+
+    (ctx_a, pa), (ctx_b, pb) = sides
+    dev_a, dev_b = ctx_a.device, ctx_b.device
+    kinds = common.layer_plan(cfg).kinds
+    pairs = list(zip(kinds, pa["layers"], pb["layers"]))
+    shared = (pa.get("shared_attn"), pb.get("shared_attn"))
+    share = lambda a, b: float((a.float().to(b.device) - b.float()).abs()
+                               .max() / b.float().abs().max())
+    inputs = to_device(inputs, dev_b)
+    x = decoder.embed_in(cfg, pb, inputs)
+    pos = decoder._positions(inputs, x)
+    out, caches = {"prefill": []}, []
+
+    def attn_share(name: str, terms: list) -> None:
+        if terms:        # side 1's term, then side 0's
+            out.setdefault(f"{name}_attn", []).append(share(terms[1],
+                                                            terms[0]))
+            terms.clear()
+
+    with torch.no_grad(), recorded_attention() as terms:
+        for kind, la, lb in pairs:
+            y, c = decoder.block_apply(cfg, ctx_b, kind, lb, x, pos,
+                                       shared_p=shared[1],
+                                       return_cache=cfg.causal)
+            y_a, _ = decoder.block_apply(cfg, ctx_a, kind, la, x.to(dev_a),
+                                         pos.to(dev_a), shared_p=shared[0])
+            out["prefill"].append(share(y_a, y))
+            attn_share("prefill", terms)
+            caches.append(c)
+            x = y
+        if not cfg.causal:
+            return out
+        b, s = x.shape[:2]
+        ring = into_ring(decoder.init_cache(cfg, b, ring_len,
+                                            cfg.compute_dtype(), dev_b),
+                         caches)
+        del caches
+        x = decoder.embed_in(cfg, pb, {"tokens": step_tok.to(dev_b)[:, None]})
+        at = torch.full((b,), s, dtype=torch.int32, device=dev_b)
+        pos = at[:, None]
+        if cfg.mrope_sections is not None:
+            pos = pos[None].expand(3, b, 1)
+        out["decode"] = []
+        for (kind, la, lb), r in zip(pairs, ring):
+            r_a = to_device(r, dev_a, copy=True)
+            y, _ = decoder.block_apply(cfg, ctx_b, kind, lb, x, pos,
+                                       shared_p=shared[1], cache=r,
+                                       cache_index=at)
+            y_a, _ = decoder.block_apply(cfg, ctx_a, kind, la, x.to(dev_a),
+                                         pos.to(dev_a), shared_p=shared[0],
+                                         cache=r_a,
+                                         cache_index=at.to(dev_a))
+            out["decode"].append(share(y_a, y))
+            attn_share("decode", terms)
+            x = y
+    return out
+
+
 def expected_launches(cfg, prompt: int, steps: int) -> dict:
     """The kernel launches of :func:`generate` with the kernels on: one
-    flash call per attention layer and pass, in the variant the launcher
-    takes for its shapes (MLA's one-token decode is absorbed einsums: no
-    flash), and one SSD call per Mamba layer at prefill."""
+    flash call per attention layer (zamba2's shared sites each count) and
+    pass, in the variant the launcher takes for its shapes (MLA's one-token
+    decode is absorbed einsums: no flash; an encoder runs one pass, its
+    forward), and one SSD call per Mamba layer at prefill."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ss
     from repro_torch.models import common
 
     kinds = common.layer_plan(cfg).kinds
-    n_attn = sum(k.mixer in ("attn", "attn_local") for k in kinds)
+    n_attn = sum(k.mixer in ATTN_MIXERS for k in kinds)
+    steps = steps if cfg.causal else 0
     n_mamba = sum(k.mixer == "mamba" for k in kinds)
     dt = cfg.compute_dtype()
     by = dict.fromkeys(fa.VARIANTS, 0)
@@ -1525,13 +1742,20 @@ def expected_launches(cfg, prompt: int, steps: int) -> dict:
 
 def model_phase(phase: str, arch: str, *, n_layers=None, batch: int = 4,
                 prompt: int = 2048, steps: int = 16, ring: int = 2080,
-                seed: int = 0) -> dict:
+                seed: int = 0, by_layer: bool = False) -> dict:
     """Full width (depth cut to ``n_layers`` where given): "auto" (the
     kernels) then "ref" on the card.  The launches of the "auto" run are
     checked against :func:`expected_launches` and returned.  Where the
     model routes tokens to experts, a token whose routing differs between
     the two runs (a near-tie, :func:`routing_flips`) is left out of the
-    logit comparison."""
+    logit comparison.
+
+    ``by_layer``: for a model whose seeded weights make the logits
+    chaotic in bf16 (gemma3's 62 layers: a plain run whose one prompt
+    embedding is one bf16 step larger differs as much), the logits of the
+    two runs are reported beside that sensitivity and the check is
+    :func:`layerwise` instead: every layer's output and attention term
+    within MODEL_TOL."""
     import torch
 
     from repro_torch.configs import get_config
@@ -1548,11 +1772,10 @@ def model_phase(phase: str, arch: str, *, n_layers=None, batch: int = 4,
     dev = torch.device("cuda")
     params = common.init_params(cfg, torch.Generator(device=dev).manual_seed(
         seed), dev, cfg.compute_dtype())
-    gen = torch.Generator(device=dev).manual_seed(seed + 1)
-    toks = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=gen,
-                         device=dev)
-    step_toks = torch.randint(0, cfg.vocab_size, (steps, batch),
-                              generator=gen, device=dev)
+    inputs, step_toks = model_inputs(
+        cfg, batch, prompt, steps, torch.Generator(device=dev).manual_seed(
+            seed + 1), dev)
+    steps = len(step_toks)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t_start
     n_moe = sum(k.ffn == "moe" for k in common.layer_plan(cfg).kinds)
@@ -1561,13 +1784,13 @@ def model_phase(phase: str, arch: str, *, n_layers=None, batch: int = 4,
         ctx = decoder.RunCtx(dev, use_kernel=use)
         # untimed, at the same shapes: the allocator's growth, cuBLAS's first
         # calls and the kernel's module load stay out of the timed run
-        generate(cfg, ctx, params, toks, step_toks[:2], ring)
+        generate(cfg, ctx, params, inputs, step_toks[:2], ring)
         torch.cuda.reset_peak_memory_stats()
         fa.launches = ss.launches = lv.launches = 0    # just before the path
         fa.variant_launches.update(dict.fromkeys(fa.VARIANTS, 0))
         ss.variant_launches.update(dict.fromkeys(ss.VARIANTS, 0))
         with recorded_routing() as routing[use]:
-            run = generate(cfg, ctx, params, toks, step_toks, ring)
+            run = generate(cfg, ctx, params, inputs, step_toks, ring)
         # the SSD variants' keys carry a prefix: flash has a simt too
         counts = dict(flash=fa.launches, ssd=ss.launches, lease=lv.launches,
                       **fa.variant_launches,
@@ -1576,29 +1799,38 @@ def model_phase(phase: str, arch: str, *, n_layers=None, batch: int = 4,
             else dict.fromkeys(counts, 0)
         check(counts == want, f"{phase}/{use}: kernel launches {counts}, "
               f"expected {want}")
+        # an encoder's forward: every frame's logits
+        shape = (batch, cfg.vocab_size) if cfg.causal \
+            else (batch, prompt, cfg.vocab_size)
         for lg in run["logits"]:
             check(bool(torch.isfinite(lg).all()),
                   f"{phase}/{use}: non-finite logits")
-            check(tuple(lg.shape) == (batch, cfg.vocab_size),
+            check(tuple(lg.shape) == shape,
                   f"{phase}/{use}: logits shape {tuple(lg.shape)}")
         if use == "auto":   # where the time goes, after the counts are read
             path_counts = counts
-            nxt = torch.full((batch,), prompt + steps, dtype=torch.int32,
-                             device=dev)
-            emit(phase, profile="prefill", **device_profile(
-                lambda: decoder.prefill(cfg, ctx, params, {"tokens": toks})))
-            emit(phase, profile="decode_step", **device_profile(
-                lambda: decoder.decode_step(cfg, ctx, params, run["ring"],
-                                            step_toks[0], nxt)))
+            if cfg.causal:
+                nxt = torch.full((batch,), prompt + steps, dtype=torch.int32,
+                                 device=dev)
+                emit(phase, profile="prefill", **device_profile(
+                    lambda: decoder.prefill(cfg, ctx, params, inputs)))
+                emit(phase, profile="decode_step", **device_profile(
+                    lambda: decoder.decode_step(cfg, ctx, params,
+                                                run["ring"], step_toks[0],
+                                                nxt)))
+            else:
+                emit(phase, profile="forward", **device_profile(
+                    lambda: decoder.forward(cfg, ctx, params, inputs)))
         del run["ring"]
         runs[use] = run
+        rates = dict(decode_tok_s=batch * steps / run["decode_s"]) \
+            if steps else dict(frames_s=batch * prompt / run["prefill_s"])
         emit(phase, use_kernel=use, arch=arch, n_layers=cfg.n_layers,
              published_layers=published, d_model=cfg.d_model,
              params=cfg.param_count(), batch=batch, prompt=prompt,
-             steps=steps, ring=ring, launches=counts,
+             inputs=sorted(inputs), steps=steps, ring=ring, launches=counts,
              prefill_s=run["prefill_s"], decode_s=run["decode_s"],
-             prefill_tok_s=batch * prompt / run["prefill_s"],
-             decode_tok_s=batch * steps / run["decode_s"],
+             prefill_tok_s=batch * prompt / run["prefill_s"], **rates,
              peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
     flips, noise = routing_flips(routing["auto"], routing["ref"], phase,
                                  n_moe) if n_moe else ([], 0.0)
@@ -1606,14 +1838,40 @@ def model_phase(phase: str, arch: str, *, n_layers=None, batch: int = 4,
         else None
     agree = compare_logits(runs["auto"]["logits"], runs["ref"]["logits"],
                            keep)
+    sensitivity = {}
+    if by_layer:
+        ref_ctx = decoder.RunCtx(dev, use_kernel="ref")
+        bumped = dict(inputs)
+        if "tokens" in inputs:      # one token's embedding row, one step up
+            bumped_params = dict(params, embed=params["embed"].clone())
+            bumped_params["embed"][inputs["tokens"][0, 0]] *= 1 + 2 ** -7
+        else:
+            bumped_params = params
+            bumped["embeds"] = inputs["embeds"].clone()
+            bumped["embeds"][0, 0] *= 1 + 2 ** -7
+        bumped_run = generate(cfg, ref_ctx, bumped_params, bumped, step_toks,
+                              ring)
+        sensitivity = {f"plain_bumped_{k}": v for k, v in compare_logits(
+            bumped_run["logits"], runs["ref"]["logits"]).items()}
+        del bumped_params, bumped_run
+        shares = layerwise(cfg, [(decoder.RunCtx(dev), params),
+                                 (ref_ctx, params)], inputs, step_toks[0],
+                           ring)
+        emit(phase, compare="layerwise", tol_rel=MODEL_TOL, **shares)
+        for name, per_layer in shares.items():
+            check(max(per_layer) <= MODEL_TOL,
+                  f"{phase}: a layer's {name} output through the kernels "
+                  f"differs from the plain one by {max(per_layer)} of its "
+                  f"largest value (limit {MODEL_TOL})")
     emit(phase, compare="auto_vs_ref", tol_rel=MODEL_TOL, init_s=init_s,
          router_calls=len(flips), router_noise=noise,
          routing_flips=sum(len(f) for f in flips),
+         logits_checked=not by_layer, **sensitivity,
          wall_s=time.perf_counter() - t_start, **agree)
     check(agree["rows_compared"] * 2 >= agree["rows_compared"]
           + agree["rows_flipped"], f"{phase}: routing flipped in more "
           f"than half the compared rows")
-    check(agree["rel_diff"] <= MODEL_TOL,
+    check(by_layer or agree["rel_diff"] <= MODEL_TOL,
           f"{phase}: kernel and plain logits differ by {agree['rel_diff']} "
           f"of the largest logit (limit {MODEL_TOL})")
     del params, runs, routing
@@ -1621,22 +1879,34 @@ def model_phase(phase: str, arch: str, *, n_layers=None, batch: int = 4,
     return path_counts
 
 
-def to_cpu(tree):
+def to_device(tree, device, copy: bool = False):
     if isinstance(tree, dict):
-        return {k: to_cpu(v) for k, v in tree.items()}
+        return {k: to_device(v, device, copy) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [to_cpu(v) for v in tree]
-    return tree.cpu()
+        return [to_device(v, device, copy) for v in tree]
+    return tree.to(device, copy=copy)
 
 
-HELD_ARCHS = ("glm4-9b", "mamba2-780m", "mixtral-8x7b", "deepseek-v2-236b")
+def to_cpu(tree):
+    return to_device(tree, "cpu")
+
+
+# arch -> layers: 2, or 6 where the first shared site (zamba2's layer 5) or
+# global layer (gemma3's layer 5) lies deeper
+HELD_ARCHS = {"glm4-9b": 2, "mamba2-780m": 2, "mixtral-8x7b": 2,
+              "deepseek-v2-236b": 2, "zamba2-1.2b": 6, "minitron-4b": 2,
+              "gemma3-27b": 6, "qwen2-vl-2b": 2, "hubert-xlarge": 2}
+# also held layer by layer (:func:`layerwise`): seeded gemma3 amplifies one
+# bf16 rounding through its layers (at 62 layers into logits of another
+# order: model_phase's ``by_layer``)
+HELD_BY_LAYER = ("gemma3-27b",)
 
 
 def held_phase(*, batch: int = 2, prompt: int = 64, steps: int = 4,
                seed: int = 3) -> None:
-    """Full width, 2 layers: the port on cuda against the port on cpu;
-    a token whose expert routing differs between the two (a near-tie) is
-    left out of the comparison."""
+    """Full width, depth cut to HELD_ARCHS: the port on cuda against the
+    port on cpu; a token whose expert routing differs between the two (a
+    near-tie) is left out of the comparison."""
     import torch
 
     from repro_torch.configs import get_config
@@ -1644,26 +1914,25 @@ def held_phase(*, batch: int = 2, prompt: int = 64, steps: int = 4,
     from repro_torch.kernels import ssd_scan as ss
     from repro_torch.models import common, decoder
 
-    for arch in HELD_ARCHS:
+    for arch, n_layers in HELD_ARCHS.items():
         t_start = time.perf_counter()
-        cfg = dataclasses.replace(get_config(arch), n_layers=2)
+        cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
         dev = torch.device("cuda")
         on_card = common.init_params(cfg, torch.Generator(
             device=dev).manual_seed(seed), dev, cfg.compute_dtype())
         on_cpu = to_cpu(on_card)
-        gen = torch.Generator().manual_seed(seed)
-        toks = torch.randint(0, cfg.vocab_size, (batch, prompt),
-                             generator=gen)
-        step_toks = torch.randint(0, cfg.vocab_size, (steps, batch),
-                                  generator=gen)
+        inputs, step_toks = model_inputs(
+            cfg, batch, prompt, steps, torch.Generator().manual_seed(seed),
+            "cpu")
         fa.launches = ss.launches = 0
         with recorded_routing() as on_card_routing:
-            card = generate(cfg, decoder.RunCtx(dev), on_card, toks.to(dev),
-                            step_toks.to(dev), prompt + 8)
+            card = generate(cfg, decoder.RunCtx(dev), on_card,
+                            to_device(inputs, dev), step_toks.to(dev),
+                            prompt + 8)
         launched = fa.launches + ss.launches
         check(launched > 0, f"held/{arch}: no kernel launched on the card")
         with recorded_routing() as on_cpu_routing:
-            host = generate(cfg, decoder.RunCtx("cpu"), on_cpu, toks,
+            host = generate(cfg, decoder.RunCtx("cpu"), on_cpu, inputs,
                             step_toks, prompt + 8)
         n_moe = sum(k.ffn == "moe" for k in common.layer_plan(cfg).kinds)
         flips, noise = routing_flips(on_card_routing, on_cpu_routing,
@@ -1678,8 +1947,19 @@ def held_phase(*, batch: int = 2, prompt: int = 64, steps: int = 4,
                                  atol=HELD_TOL, rtol=HELD_TOL),
                   f"held/{arch}: cuda and cpu logits differ "
                   f"({agree['max_abs_diff']})")
-        emit("held", arch=arch, n_layers=2, d_model=cfg.d_model,
-             batch=batch, prompt=prompt, steps=steps, launches=launched,
+        shares = {}
+        if arch in HELD_BY_LAYER:
+            shares = layerwise(cfg, [(decoder.RunCtx(dev), on_card),
+                                     (decoder.RunCtx("cpu"), on_cpu)],
+                               inputs, step_toks[0], prompt + 8)
+            for name, per_layer in shares.items():
+                check(max(per_layer) <= HELD_TOL,
+                      f"held/{arch}: a layer's {name} output on cuda "
+                      f"differs from cpu by {max(per_layer)} of its largest "
+                      f"value (limit {HELD_TOL})")
+        emit("held", arch=arch, n_layers=n_layers, d_model=cfg.d_model,
+             batch=batch, prompt=prompt, steps=len(step_toks),
+             launches=launched, by_layer=shares,
              tol=HELD_TOL, routing_flips=sum(len(f) for f in flips),
              router_noise=noise,
              cuda_s=card["prefill_s"] + card["decode_s"],
@@ -1856,8 +2136,8 @@ def serve_real_run(cfg, params, device) -> dict:
 
 def serve_real_phase(layers: dict, seed: int = 11) -> dict:
     """The reference launch's ``--backend real`` loop at its defaults
-    (SERVE_REAL) with RealBackend on the card, mixtral-8x7b and
-    deepseek-v2 at full width, depth cut to ``layers``.  Returns the flash
+    (SERVE_REAL) with RealBackend on the card, each arch of ``layers`` at
+    full width, depth cut to its count there.  Returns the flash
     launches of each run by variant."""
     import torch
 
@@ -1877,7 +2157,7 @@ def serve_real_phase(layers: dict, seed: int = 11) -> dict:
         run = serve_real_run(cfg, params, dev)
         counts = dict(fa.variant_launches)
         st, m = run["stats"], run["metrics"]
-        n_attn = sum(k.mixer in ("attn", "attn_local")
+        n_attn = sum(k.mixer in ATTN_MIXERS
                      for k in common.layer_plan(cfg).kinds)
         want = dict.fromkeys(fa.VARIANTS, 0)
         if cfg.mla is None:        # MLA decodes in absorbed einsums
@@ -1907,21 +2187,21 @@ def serve_real_phase(layers: dict, seed: int = 11) -> dict:
     return out
 
 
-def serve_real_held_phase(seed: int = 12) -> None:
-    """The same loop for both MoE archs at full width and 2 layers, on the
-    card and on the CPU through the port, the same bf16 weights: engine
-    metrics equal key for key (but the wall-clock ``plan_block_s``: the
-    engine's routing does not read token values), the first decode step's
-    logits within HELD_TOL (rows whose expert routing differs, near-ties,
-    left out)."""
+def serve_real_held_phase(layers: dict, seed: int = 12) -> None:
+    """The same loop for each arch of ``layers`` at full width and that
+    depth, on the card and on the CPU through the port, the same bf16
+    weights: engine metrics equal key for key (but the wall-clock
+    ``plan_block_s``: the engine's routing does not read token values),
+    the first decode step's logits within HELD_TOL (rows whose expert
+    routing differs, near-ties, left out)."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.models import common
 
-    for arch in ("mixtral-8x7b", "deepseek-v2-236b"):
+    for arch, n_layers in layers.items():
         t_start = time.perf_counter()
-        cfg = dataclasses.replace(get_config(arch), n_layers=2)
+        cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
         dev = torch.device("cuda")
         on_card = common.init_params(cfg, torch.Generator(
             device=dev).manual_seed(seed), dev, cfg.compute_dtype())
@@ -1946,7 +2226,7 @@ def serve_real_held_phase(seed: int = 12) -> None:
                              rtol=HELD_TOL),
               f"serve_real_held/{arch}: the first step's logits differ "
               f"({agree['max_abs_diff']})")
-        emit("serve_real_held", arch=arch, n_layers=2, tol=HELD_TOL,
+        emit("serve_real_held", arch=arch, n_layers=n_layers, tol=HELD_TOL,
              tokens=a["tokens"], transfers=a["transfers"],
              metrics_equal=True, router_noise=noise, cuda_s=card["wall_s"],
              cpu_s=host["wall_s"],
@@ -2619,6 +2899,31 @@ def main() -> int:
           == dict(simt=0, prefill_tc=4, decode_split=0, flash=4),
           f"deepseek: flash launches {deepseek}")
 
+    # 8d-8h. the rest of the model stack at full width and depth: zamba2
+    # (Mamba2 + six shared attention sites: both model kernels on one
+    # path), minitron, gemma3 (all 62 layers, 54 GB of weights; at 4096
+    # tokens its 1024-key window masks), qwen2-vl (an image and text from
+    # embeddings, M-RoPE positions), hubert (the encoder's forward)
+    rest = {}
+    for phase, arch, kw, want in (
+            ("zamba2", "zamba2-1.2b", {},
+             dict(ssd_tc=32, ssd_simt=0, prefill_tc=6, decode_split=96,
+                  simt=0)),
+            ("minitron", "minitron-4b", {},
+             dict(prefill_tc=32, decode_split=512, simt=0)),
+            ("gemma3", "gemma3-27b", dict(batch=1, prompt=4096, ring=4128,
+                                          by_layer=True),
+             dict(prefill_tc=62, decode_split=992, simt=0)),
+            ("qwen2vl", "qwen2-vl-2b", {},
+             dict(prefill_tc=28, decode_split=448, simt=0)),
+            ("hubert", "hubert-xlarge", {},
+             dict(prefill_tc=48, decode_split=0, simt=0))):
+        t0 = time.perf_counter()
+        rest[phase] = model_phase(phase, arch, **kw)
+        emit(f"{phase}_done", wall_s=time.perf_counter() - t0)
+        got = {k: rest[phase][k] for k in want}
+        check(got == want, f"{phase}: kernel launches {got}, expected {want}")
+
     # 10. the card against the CPU port
     t0 = time.perf_counter()
     held_phase()
@@ -2630,10 +2935,12 @@ def main() -> int:
     moe_routed_phase()
     emit("moe_routed_phase_done", wall_s=time.perf_counter() - t0)
     t0 = time.perf_counter()
-    serve_real = serve_real_phase({"mixtral-8x7b": 8, "deepseek-v2-236b": 4})
+    serve_real = serve_real_phase({"mixtral-8x7b": 8, "deepseek-v2-236b": 4,
+                                   "zamba2-1.2b": 38})
     emit("serve_real_phase_done", wall_s=time.perf_counter() - t0)
     t0 = time.perf_counter()
-    serve_real_held_phase()
+    serve_real_held_phase({"mixtral-8x7b": 2, "deepseek-v2-236b": 2,
+                           "zamba2-1.2b": 6})
     emit("serve_real_held_done", wall_s=time.perf_counter() - t0)
 
     # 11-14. serving on SimBackend and the placement planner
@@ -2696,10 +3003,12 @@ def main() -> int:
              launches_by_path=drain_paths),
         *flash_records(flash_cases, {
             "glm4": glm4, "mamba2": mamba2, "mixtral": mixtral,
-            "deepseek": deepseek,
+            "deepseek": deepseek, **rest,
             "serve_real_mixtral": serve_real["mixtral-8x7b"],
-            "serve_real_deepseek": serve_real["deepseek-v2-236b"]}),
-        *ssd_records(ssd_cases, mamba2),
+            "serve_real_deepseek": serve_real["deepseek-v2-236b"],
+            "serve_real_zamba2": serve_real["zamba2-1.2b"]}),
+        *ssd_records(ssd_cases, {"mamba2": mamba2,
+                                 "zamba2": rest["zamba2"]}),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}), flush=True)

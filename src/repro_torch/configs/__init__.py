@@ -3,15 +3,10 @@
 Each module defines ``CONFIG`` (the published configuration, a copy of the
 reference's ``repro.configs`` module) and ``smoke_config()`` (the reduced
 same-family config of the CPU tests).  All ten of the reference's
-architectures are registered: a config is plain data, and the serving
-simulator (``serve.engine.SimBackend``) reads nothing else.  Building the
-layers of a config with a feature the port does not run yet (shared
-attention, the vision and audio frontends, the local/global layer
-pattern, norms and activations only gemma3, minitron and hubert use:
-``models.common.unported_features``) raises ``NotImplementedError`` naming
-ROADMAP queue 1 item 8, where the layers are built
-(``models.common.init_params``, ``params_from_numpy``,
-``decoder.block_apply``).
+architectures are registered, and the model stack builds and runs each
+of them (``models.common.init_params``, ``params_from_numpy``,
+``models.decoder``); the serving simulator (``serve.engine.SimBackend``)
+reads the config alone.
 """
 from __future__ import annotations
 

@@ -19,9 +19,10 @@
 // The launcher picks one of three variants from the dtype and the shapes
 // (choose_variant below; the Python wrapper's variant() is its twin):
 //
-// prefill_tc (flash_prefill_tc.cuh): bf16, (Dk, Dv) in {(64, 64), (128, 128),
-//   (192, 128)} (the last is deepseek-v2's MLA: 128 + 64 rope dims against a
-//   128-wide V), more than 64 query rows per kv head (Sq x group).  Bound by
+// prefill_tc (flash_prefill_tc.cuh): bf16, (Dk, Dv) in {(64, 64), (80, 80),
+//   (128, 128), (192, 128)} ((80, 80) is hubert's head dim; (192, 128)
+//   deepseek-v2's MLA: 128 + 64 rope dims against a 128-wide V), more than 64
+//   query rows per kv head (Sq x group).  Bound by
 //   operations: 2 Sq Skv (Dk + Dv) FLOPs per head, halved by a causal mask, at
 //   989 TFLOP/s on the bf16 tensor cores.  One block per (b, q head, 128-row q
 //   tile), q heads fastest so a GQA group's blocks share K/V in L2, causal
@@ -34,12 +35,18 @@
 //   (192, 128) Q, the K ring and the V ring take 48 + 96 + 64 KB of the
 //   block's 227 KB: the ring keeps both stages and 128-key tiles, and the
 //   registers are those of D = 128 (S is 64 x 128 and O 64 x Dv fp32 a
-//   warpgroup), so only S's k-steps grow, from 8 to 12.  Before it issues a
-//   tile it reads the tile's positions (those of the next tile are already in
-//   flight), skips a tile no row of the block can see, and flags per warpgroup
-//   whether every key is hidden from it (it skips the tile) or some key is
-//   hidden from some row (it runs the per-element mask: the causal diagonal, a
-//   window edge, a ragged last tile).  Consumers run S = Q K^T on wgmma (both
+//   warpgroup), so only S's k-steps grow, from 8 to 12.  A head dim that is
+//   not a multiple of 64 is stored and computed at its panel width, rounded
+//   up to 64: (80, 80) runs (128, 128)'s plan, TMA fills the columns past 80
+//   with zeros (the tensor map's inner extent is the logical 80), S takes
+//   ceil(80 / 16) = 5 k-steps, P V runs at N = 128 and the epilogue stores
+//   the 80 real columns; its floor is (128 + 2 x 128) / 160 = 2.4x the
+//   bound's operations.  Before it issues a tile it reads the tile's
+//   positions (those of the next tile are already in flight), skips a tile
+//   no row of the block can see, and flags per warpgroup whether every key
+//   is hidden from it (it skips the tile) or some key is hidden from some
+//   row (it runs the per-element mask: the causal diagonal, a window edge, a
+//   ragged last tile).  Consumers run S = Q K^T on wgmma (both
 //   operands in shared memory), the online softmax in fp32 on the accumulator
 //   fragment, and P V as two register-A wgmmas, on P_hi = bf16(P) and P_lo =
 //   bf16(P - P_hi), into one fp32 accumulator.  The split keeps ~16 bits of P:
@@ -63,9 +70,9 @@
 //   splits with l_s > 0 and rounds once.
 //
 // simt (flash_simt.cuh): everything else -- f32 prefill, other head dims
-//   and (Dk, Dv) pairs, and (192, 128) at 64 rows or fewer.  One block per
-//   (b, q head, q tile) on the fp32 CUDA cores.  No model path the port
-//   runs at full width reaches it.
+//   and (Dk, Dv) pairs, and (80, 80) and (192, 128) at 64 rows or fewer.
+//   One block per (b, q head, q tile) on the fp32 CUDA cores.  No model
+//   path the port runs at full width reaches it.
 //
 // The kernels allocate nothing and do not synchronise: decode_split's
 // partials live in a scratch the caller allocates.  The launcher returns
@@ -82,7 +89,8 @@ enum Variant { kSimt = 0, kPrefillTc = 1, kDecodeSplit = 2 };
 
 int choose_variant(int dtype, int Sq, int Hq, int Hkv, int Dk, int Dv) {
   const bool square = Dk == Dv && (Dk == 64 || Dk == 128);
-  const bool prefill_dims = square || (Dk == 192 && Dv == 128);
+  const bool prefill_dims =
+      square || (Dk == 80 && Dv == 80) || (Dk == 192 && Dv == 128);
   const long long rows = (long long)Sq * (Hq / Hkv);
   const bool few_rows = rows <= flash::decode_split::kMaxRows;
   if (square && few_rows) return kDecodeSplit;
@@ -147,6 +155,10 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   if (var == kPrefillTc) {
     if (Dk == 64)
       return flash::prefill_tc::launch<64, 64>(q, k, v, qpos, kpos, out, B,
+                                               Sq, Skv, Hq, Hkv, scale,
+                                               softcap, causal, window, s);
+    if (Dk == 80)
+      return flash::prefill_tc::launch<80, 80>(q, k, v, qpos, kpos, out, B,
                                                Sq, Skv, Hq, Hkv, scale,
                                                softcap, causal, window, s);
     if (Dk == 128)

@@ -1,5 +1,5 @@
 // The tensor-core prefill variant (prefill_tc): bf16, (Dk, Dv) in {(64, 64),
-// (128, 128), (192, 128)}, more than 64 query rows per kv head.  See
+// (80, 80), (128, 128), (192, 128)}, more than 64 query rows per kv head.  See
 // flash_attention.cu for the design notes; this file holds the kernel and
 // its launch.  The PTX wrappers (mbarrier, TMA, descriptors, wgmma) and the
 // tensor-map builder are in hopper_ptx.cuh.
@@ -23,17 +23,25 @@ constexpr int kConsumerRegs = 224;    // producer warpgroup to the consumers
 constexpr int kSwizzleRow = 128;      // bytes of one swizzled smem row (64 bf16)
 constexpr float kLog2e = 1.4426950408889634f;
 
+// A head dim D is stored and computed at its panel width, D rounded up to
+// 64 columns: TMA reads the columns past D, outside the tensor, as zeros.
+constexpr int panel_width(int d) { return (d + 63) / 64 * 64; }
+
 // Shared-memory plan, byte offsets from a 1024-aligned base (the 128-byte
 // swizzle repeats every 8 rows = 1024 bytes; TMA and wgmma both assume it).
-// A [rows][D] bf16 tile is stored as D / 64 column boxes of [rows][64],
-// each swizzled, one after the other.  Q and K tiles are DK wide, V tiles
-// DV.  At (192, 128): Q 48 KB, K 2 x 48 KB, V 2 x 32 KB, 208 KB of tiles.
+// A [rows][D] bf16 tile is stored as panel_width(D) / 64 column boxes of
+// [rows][64], each swizzled, one after the other.  Q and K tiles are DK's
+// panel width wide, V tiles DV's.  At (192, 128): Q 48 KB, K 2 x 48 KB, V
+// 2 x 32 KB, 208 KB of tiles; (80, 80) takes (128, 128)'s plan.
 template <int DK, int DV>
 struct Plan {
-  static_assert(DK % 64 == 0 && DV % 64 == 0, "64-column swizzled boxes");
-  static constexpr int kQBytes = kBM * DK * 2;
-  static constexpr int kKTileBytes = kBN * DK * 2;          // one K tile
-  static constexpr int kVTileBytes = kBN * DV * 2;          // one V tile
+  // TMA: a row of D bf16 is a multiple of 16 bytes
+  static_assert(DK % 8 == 0 && DV % 8 == 0, "rows of whole 16-byte units");
+  static constexpr int kPDK = panel_width(DK);
+  static constexpr int kPDV = panel_width(DV);
+  static constexpr int kQBytes = kBM * kPDK * 2;
+  static constexpr int kKTileBytes = kBN * kPDK * 2;        // one K tile
+  static constexpr int kVTileBytes = kBN * kPDV * 2;        // one V tile
   static constexpr int kQ = 0;
   static constexpr int kK = kQ + kQBytes;                    // [kStages] tiles
   static constexpr int kV = kK + kStages * kKTileBytes;      // [kStages] tiles
@@ -135,9 +143,10 @@ prefill_tc_kernel(const __grid_constant__ CUtensorMap tq,
                              : INT_MIN;
     }
     if (lane == 0) {
+      // a box's bytes count whole, the zeros past D included
       mbar_arrive_expect_tx(q_bar, P::kQBytes);
 #pragma unroll
-      for (int c = 0; c < DK / 64; ++c)
+      for (int c = 0; c < P::kPDK / 64; ++c)
         tma_load_4d(base + P::kQ + c * kBM * kSwizzleRow, &tq, q_bar, 64 * c,
                     h, q0, b);
     }
@@ -188,12 +197,13 @@ prefill_tc_kernel(const __grid_constant__ CUtensorMap tq,
         mbar_arrive_expect_tx(fb, P::kKTileBytes + P::kVTileBytes);
         // K and V boxes interleaved while both have one left
 #pragma unroll
-        for (int c = 0; c < (DK > DV ? DK : DV) / 64; ++c) {
-          if (c < DK / 64)
+        for (int c = 0; c < (P::kPDK > P::kPDV ? P::kPDK : P::kPDV) / 64;
+             ++c) {
+          if (c < P::kPDK / 64)
             tma_load_4d(base + P::kK + stage * P::kKTileBytes +
                             c * kBN * kSwizzleRow,
                         &tk, fb, 64 * c, hk, k0, b);
-          if (c < DV / 64)
+          if (c < P::kPDV / 64)
             tma_load_4d(base + P::kV + stage * P::kVTileBytes +
                             c * kBN * kSwizzleRow,
                         &tv, fb, 64 * c, hk, k0, b);
@@ -226,9 +236,9 @@ prefill_tc_kernel(const __grid_constant__ CUtensorMap tq,
       lo[hr] = window > 0 ? (int)max(qp - window + 1, (long long)INT_MIN)
                           : INT_MIN;
     }
-    float o[DV / 2];
+    float o[P::kPDV / 2];
 #pragma unroll
-    for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < P::kPDV / 2; ++i) o[i] = 0.f;
     float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
     const uint32_t q_addr = base + P::kQ + wg * 64 * kSwizzleRow;
 
@@ -245,9 +255,10 @@ prefill_tc_kernel(const __grid_constant__ CUtensorMap tq,
         const uint32_t v_addr = base + P::kV + stage * P::kVTileBytes;
         float s[kBN / 2];
         wgmma_fence();
-        // DK / 16 k-steps over DK / 64 swizzled panels of Q and K
+        // ceil(DK / 16) k-steps over the swizzled panels of Q and K (the
+        // zero columns past DK are not read)
 #pragma unroll
-        for (int kk = 0; kk < DK / 16; ++kk) {
+        for (int kk = 0; kk < (DK + 15) / 16; ++kk) {
           const uint32_t off = (kk % 4) * 32;   // 16 bf16 along K
           wgmma_ss_m64n128k16(
               s,
@@ -309,7 +320,7 @@ prefill_tc_kernel(const __grid_constant__ CUtensorMap tq,
           l[hr] += s[i];
         }
 #pragma unroll
-        for (int i = 0; i < DV / 2; ++i) o[i] *= alpha[(i % 4) / 2];
+        for (int i = 0; i < P::kPDV / 2; ++i) o[i] *= alpha[(i % 4) / 2];
 
         // P as bf16 hi + lo in the A-fragment layout: k-step t (keys
         // 16t..16t+15) takes accumulator elements 8t..8t+7, two a register
@@ -324,17 +335,17 @@ prefill_tc_kernel(const __grid_constant__ CUtensorMap tq,
         wgmma_fence();
 #pragma unroll
         for (int t = 0; t < kBN / 16; ++t)
-          wgmma_rs<DV>(o, ph + 4 * t,
+          wgmma_rs<P::kPDV>(o, ph + 4 * t,
                        smem_desc(v_addr + t * 16 * kSwizzleRow,
                                  kBN * kSwizzleRow, 1024));
 #pragma unroll
         for (int t = 0; t < kBN / 16; ++t)
-          wgmma_rs<DV>(o, pl + 4 * t,
+          wgmma_rs<P::kPDV>(o, pl + 4 * t,
                        smem_desc(v_addr + t * 16 * kSwizzleRow,
                                  kBN * kSwizzleRow, 1024));
         wgmma_commit();
         wgmma_wait<0>();
-        fence_regs<DV / 2>(o);
+        fence_regs<P::kPDV / 2>(o);
         fence_regs<kBN / 4>(ph);
         fence_regs<kBN / 4>(pl);
       }
@@ -346,7 +357,7 @@ prefill_tc_kernel(const __grid_constant__ CUtensorMap tq,
     }
 
     // epilogue: the row sums over the four lanes of a row, acc / l in fp32,
-    // rounded once to bf16
+    // rounded once to bf16; the DV columns of the tensor, not the panels
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
       l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 1);

@@ -276,7 +276,8 @@ inline int make_map_4d(CUtensorMap* map, const void* ptr,
 }
 
 // [B, S, H, D] bf16 as a 4-D tensor map (D innermost), boxes of
-// [rows][64] elements with the 128-byte swizzle; rows past S read as zeros
+// [rows][64] elements with the 128-byte swizzle; rows past S, and columns
+// past D in a box that D does not fill, read as zeros
 inline int make_map(CUtensorMap* map, const void* ptr, int B, int S, int H,
                     int D, int rows) {
   const long long dims[4] = {D, H, S, B};

@@ -7,6 +7,7 @@ headers; the launcher picks one of three variants from the dtype and the
 shapes alone, and :func:`variant` is its twin here:
 
 - ``prefill_tc`` — bf16, (Dk, Dv) in :data:`PREFILL_TC_DIMS`: (64, 64),
+  hubert's (80, 80) (computed at 128 columns, the padding read as zeros),
   (128, 128) and deepseek-v2's MLA (192, 128); more than 64 query rows per
   kv head (Sq x group).  Bound by operations.  Q and 128-key K/V tiles
   arrive by TMA into a shared-memory ring fed by a producer warp; two
@@ -23,8 +24,8 @@ shapes alone, and :func:`variant` is its twin here:
   fp32 partials go to a scratch this wrapper allocates and a second kernel
   merges them.
 - ``simt`` — everything else (f32 prefill, other head dims, other Dk !=
-  Dv pairs, (192, 128) at 64 rows or fewer): one block per (batch, q head,
-  q tile) on the fp32 CUDA cores.
+  Dv pairs, (80, 80) and (192, 128) at 64 rows or fewer): one block per
+  (batch, q head, q tile) on the fp32 CUDA cores.
 
 Semantics follow the Pallas kernel in every variant: masking by position
 (causal, sliding window, kv positions >= 2^29 are padding), the finite
@@ -62,7 +63,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 VARIANTS = ("simt", "prefill_tc", "decode_split")
 DECODE_MAX_ROWS = 64        # Sq x group served by decode_split
 DECODE_SPLIT_DIMS = ((64, 64), (128, 128))
-PREFILL_TC_DIMS = DECODE_SPLIT_DIMS + ((192, 128),)
+PREFILL_TC_DIMS = DECODE_SPLIT_DIMS + ((80, 80), (192, 128))
 _TARGET_BLOCKS = 264        # decode_split: two waves of 132 SMs
 _MIN_SPLIT_KEYS = 64
 

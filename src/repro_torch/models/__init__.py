@@ -1,8 +1,10 @@
 """The model stack on PyTorch: configs, layers, decoder (port of :mod:`repro.models`).
 
-Ported so far, for inference (``forward``, ``prefill``, ``decode_step``,
-``init_cache``): dense GQA attention (with a sliding window on every
-layer), MLA and Mamba2 (SSD) mixers, with dense, MoE or no FFN.  Shared
-attention and the features of ``common.unported_features`` raise
-``NotImplementedError`` (ROADMAP queue 1 item 8).
+Every registered architecture runs for inference (``forward``,
+``prefill``, ``decode_step``, ``init_cache``): GQA attention (causal or
+bidirectional, a sliding window on every layer or gemma3's local/global
+pattern, partial rotary, M-RoPE, QK and gemma norms), MLA, Mamba2 (SSD)
+and zamba2's shared attention block, with SwiGLU/GeGLU/ReLU²/GELU, MoE or
+no FFN.  Training and the mesh are later slices (ROADMAP queue 1 items 9
+and 10).
 """

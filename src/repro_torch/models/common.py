@@ -4,9 +4,11 @@ The port of :mod:`repro.models.common`.  The configuration dataclasses are
 field-for-field copies of the reference's.  Parameters are plain nested
 dicts of tensors, but where the reference stacks the scanned body of the
 layer plan over a leading group axis, the port keeps one dict per layer:
-``{"embed", "layers": [layer 0, ..., layer n-1], "final_norm",
-"lm_head"}``.  :func:`params_from_numpy` maps the reference's tree onto that
-layout, which is how the tests make both packages compute the same thing.
+``{"embed", "layers": [layer 0, ..., layer n-1], "shared_attn",
+"final_norm", "lm_head"}`` (``shared_attn``: zamba2's one attention block,
+read by every ``shared_attn`` layer; ``lm_head`` absent when tied).
+:func:`params_from_numpy` maps the reference's tree onto that layout, which
+is how the tests make both packages compute the same thing.
 """
 from __future__ import annotations
 
@@ -122,43 +124,6 @@ class ModelConfig:
         per_expert = 3 * self.d_model * m.d_expert
         inactive = n_moe_layers * (m.n_experts - m.top_k) * per_expert
         return total - inactive
-
-
-def unported_features(cfg: ModelConfig) -> List[str]:
-    """The features of ``cfg`` whose layers the port does not build yet, or
-    builds without a test holding them to ``repro.models`` (ROADMAP queue 1
-    item 8).  Such a config is data only: it prices serving in
-    ``serve.engine.SimBackend``.  MoE FFNs, MLA and a sliding window on
-    every layer (mixtral's form) are ported; gemma3's local/global pattern
-    (``global_every``) is not."""
-    found = []
-    if cfg.hybrid_attn_every:
-        found.append("shared attention")
-    if cfg.family in ("audio", "vlm"):
-        found.append(f"{cfg.family} frontend")
-    if not cfg.causal:
-        found.append("bidirectional attention")
-    if cfg.mrope_sections is not None:
-        found.append("M-RoPE")
-    if cfg.global_every:
-        found.append("local/global layer pattern")
-    if cfg.rope_theta_global is not None:
-        found.append("dual rotary theta")
-    if cfg.gemma_norm or cfg.use_qk_norm:
-        found.append("gemma/QK norms")
-    if cfg.logit_softcap:
-        found.append("logit softcap")
-    if cfg.d_ff and cfg.mlp_act != "swiglu":
-        found.append(f"{cfg.mlp_act} MLP")
-    return found
-
-
-def check_layers_ported(cfg: ModelConfig) -> None:
-    found = unported_features(cfg)
-    if found:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(found)} not ported yet (ROADMAP queue 1 "
-            "item 8)")
 
 
 def _leaves(tree) -> List[Tuple[int, ...]]:
@@ -524,7 +489,6 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device,
     ``device``.  The draws differ from ``jax.random``'s: to compare with
     the reference, load its parameters with :func:`params_from_numpy`.
     """
-    check_layers_ported(cfg)
     shapes = param_shapes(cfg)
     params: Dict[str, Any] = {
         "embed": _init_tree(shapes["embed"], cfg, generator, device, dtype,
@@ -534,9 +498,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device,
         "final_norm": _init_tree(shapes["final_norm"], cfg, generator,
                                  device, dtype, "final_norm"),
     }
-    if "lm_head" in shapes:
-        params["lm_head"] = _init_tree(shapes["lm_head"], cfg, generator,
-                                       device, dtype, "lm_head")
+    for name in ("shared_attn", "lm_head"):
+        if name in shapes:
+            params[name] = _init_tree(shapes[name], cfg, generator, device,
+                                      dtype, name)
     return params
 
 
@@ -557,7 +522,6 @@ def params_from_numpy(cfg: ModelConfig, tree: Dict[str, Any], device,
     position ``j`` becomes layer ``prefix + g * period + j``.  Floating
     leaves are cast to ``dtype``.
     """
-    check_layers_ported(cfg)
     plan = layer_plan(cfg)
     layers: List[Optional[Dict[str, Any]]] = [None] * cfg.n_layers
     for name, sub in tree.get("prefix", {}).items():
@@ -573,6 +537,7 @@ def params_from_numpy(cfg: ModelConfig, tree: Dict[str, Any], device,
         "layers": [_to_torch(layer, device, dtype) for layer in layers],
         "final_norm": _to_torch(tree["final_norm"], device, dtype),
     }
-    if "lm_head" in tree:
-        params["lm_head"] = _to_torch(tree["lm_head"], device, dtype)
+    for name in ("shared_attn", "lm_head"):
+        if name in tree:
+            params[name] = _to_torch(tree[name], device, dtype)
     return params

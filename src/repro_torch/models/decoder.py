@@ -14,9 +14,15 @@ attention goes to the flash kernel, decode's Sq = 1 included, where the
 reference sends Sq = 1 to its plain path (its TPU tiling needs 8 query
 rows).  Both compute the same function.
 
-Not ported yet: zamba2's shared attention raises ``NotImplementedError``
-(ROADMAP queue 1 item 8); training (``loss_fn``, remat; item 10) and the
-mesh (item 9) are later slices.
+Every registered architecture runs: dense GQA (gemma3's local/global
+pattern with its dual rotary theta, QK and post-block norms; minitron's
+partial rotary; qwen2-vl's M-RoPE over ``[3, B, S]`` positions and
+``embeds`` from its stub frontend), MLA, MoE, Mamba2 and zamba2's hybrid
+stack, whose ``shared_attn`` layers all read the one
+``params["shared_attn"]`` block and each keep their own KV cache and
+their own MLP; an encoder (hubert, ``causal=False``) runs ``forward``
+over ``embeds``.  Not ported yet: training (``loss_fn``, remat; ROADMAP
+queue 1 item 10) and the mesh (item 9).
 """
 from __future__ import annotations
 
@@ -82,10 +88,14 @@ def block_apply(
     x: torch.Tensor,
     positions: torch.Tensor,
     *,
+    shared_p: Optional[Params] = None,
     cache: Optional[Dict[str, Any]] = None,
     cache_index: Optional[Index] = None,
     return_cache: bool = False,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One layer.  ``shared_p`` is ``params["shared_attn"]``, the block a
+    ``shared_attn`` layer runs (the reference's ``shared_attn_p``); the
+    layer's own ``p`` holds its MLP and ``ln_mlp``."""
     eps, gm = cfg.norm_eps, cfg.gemma_norm
     # parameters may be stored in another type; compute in cfg.dtype
     p = _cast(p, cfg.compute_dtype())
@@ -114,8 +124,16 @@ def block_apply(
         if return_cache:
             new_cache["mamba"] = c
     elif kind.mixer == "shared_attn":
-        raise NotImplementedError("zamba2's shared attention is not ported "
-                                  "yet (ROADMAP queue 1 item 8)")
+        shared_p = _cast(shared_p, cfg.compute_dtype())
+        h = rms_norm(x, shared_p["ln_attn"], eps, gemma=gm)
+        a, c = gqa_attention(
+            shared_p["attn"], h, cfg, positions, is_global=True,
+            cache=None if cache is None else cache.get("attn"),
+            cache_index=cache_index, return_cache=return_cache,
+            use_kernel=ctx.use_kernel)
+        x = x + a
+        if return_cache:
+            new_cache["attn"] = c
     else:
         raise ValueError(kind.mixer)
 
@@ -148,10 +166,11 @@ def stack_apply(
 ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """Every layer in order; the per-layer caches in, the new ones out."""
     kinds = layer_plan(cfg).kinds
+    shared_p = params.get("shared_attn")
     new_caches: Cache = []
     for i, (kind, p) in enumerate(zip(kinds, params["layers"])):
         x, nc = block_apply(
-            cfg, ctx, kind, p, x, positions,
+            cfg, ctx, kind, p, x, positions, shared_p=shared_p,
             cache=None if caches is None else caches[i],
             cache_index=cache_index, return_cache=return_cache)
         new_caches.append(nc)

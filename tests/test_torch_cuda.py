@@ -344,7 +344,12 @@ def test_cuda_cluster_run_matches_cpu(cuda_device):
 # nothing), and in f32 at D 64 with a window; then deepseek-v2's MLA dims
 # (Dk 192, Dv 128) in bf16 on prefill_tc: causal at S 2048, where early
 # rows see few keys, a ragged Sq, kv padding, a window, softcap 30, a GQA
-# group of 2, no causal mask; and a decode-size call, still on simt.
+# group of 2, no causal mask; and a decode-size call, still on simt; then
+# hubert's head dim (Dk = Dv = 80) in bf16 on prefill_tc, its 128-column
+# panels partly outside the tensor: hubert-xlarge's forward shape
+# (bidirectional, B 4, S 2048, H 16), causal, a ragged S of 200
+# (bidirectional, and causal with GQA 4), GQA (Hq 8, Hkv 2), a window, kv
+# padding, softcap; and at 80 in f32 and at a decode size, both on simt.
 # ``valid``: row 0's valid length in a one-query case (None: drawn like the
 # others); in a prefill case, the keys from ``valid`` on are padding.
 FLASH_GRID = [
@@ -374,6 +379,17 @@ FLASH_GRID = [
     (1, 256, 256, 8, 4, 192, 128, True, None, 0.0, "bfloat16", None),
     (1, 256, 256, 4, 4, 192, 128, False, None, 0.0, "bfloat16", None),
     (2, 1, 1000, 16, 16, 192, 128, True, None, 0.0, "bfloat16", None),
+    # hubert's head dim: prefill_tc<80,80>
+    (4, 2048, 2048, 16, 16, 80, 80, False, None, 0.0, "bfloat16", None),
+    (1, 512, 512, 4, 4, 80, 80, True, None, 0.0, "bfloat16", None),
+    (2, 200, 200, 4, 4, 80, 80, False, None, 0.0, "bfloat16", None),
+    (2, 200, 200, 8, 2, 80, 80, True, None, 0.0, "bfloat16", None),
+    (1, 256, 256, 8, 2, 80, 80, False, None, 0.0, "bfloat16", None),
+    (1, 384, 384, 4, 4, 80, 80, True, 100, 0.0, "bfloat16", None),
+    (2, 256, 384, 8, 8, 80, 80, True, None, 0.0, "bfloat16", 300),
+    (1, 256, 256, 4, 4, 80, 80, False, None, 30.0, "bfloat16", None),
+    (1, 256, 256, 4, 4, 80, 80, False, None, 0.0, "float32", None),
+    (2, 1, 1000, 16, 16, 80, 80, True, None, 0.0, "bfloat16", None),
 ]
 
 
@@ -594,7 +610,9 @@ def test_cuda_new_wrappers_reject_bad_inputs(cuda_device):
 # (dtype, B, Sq, Skv, Hq, Hkv, Dk, Dv): glm4-9b prefill and decode, the
 # rows-per-kv-head edge (64 / 65), a head dim no fast variant takes,
 # Dk != Dv (MLA's prefill, its 64-row edge, f32, (128, 64)), and f32 on
-# both sides of the edge
+# both sides of the edge; hubert's head dim 80 (its prefill, the 64 / 65
+# edge, f32); the prefill and decode shapes of zamba2's shared sites,
+# minitron, gemma3 and qwen2-vl as chip_smoke.py runs them
 VARIANT_EDGES = [
     (torch.bfloat16, 4, 2048, 2048, 32, 2, 128, 128),
     (torch.bfloat16, 4, 1, 2080, 32, 2, 128, 128),
@@ -609,6 +627,18 @@ VARIANT_EDGES = [
     (torch.bfloat16, 1, 256, 256, 4, 2, 128, 64),
     (torch.float32, 1, 1, 512, 16, 1, 64, 64),
     (torch.float32, 1, 65, 65, 2, 2, 64, 64),
+    (torch.bfloat16, 4, 2048, 2048, 16, 16, 80, 80),
+    (torch.bfloat16, 1, 64, 64, 1, 1, 80, 80),
+    (torch.bfloat16, 1, 65, 65, 1, 1, 80, 80),
+    (torch.float32, 1, 256, 256, 2, 2, 80, 80),
+    (torch.bfloat16, 4, 2048, 2048, 32, 32, 64, 64),
+    (torch.bfloat16, 4, 1, 2080, 32, 32, 64, 64),
+    (torch.bfloat16, 4, 2048, 2048, 24, 8, 128, 128),
+    (torch.bfloat16, 4, 1, 2080, 24, 8, 128, 128),
+    (torch.bfloat16, 1, 4096, 4096, 32, 16, 128, 128),
+    (torch.bfloat16, 1, 1, 4128, 32, 16, 128, 128),
+    (torch.bfloat16, 4, 2048, 2048, 12, 2, 128, 128),
+    (torch.bfloat16, 4, 1, 2080, 12, 2, 128, 128),
 ]
 
 
@@ -696,6 +726,66 @@ def test_cuda_models_run_through_the_kernels(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "minitron-4b", "gemma3-27b",
+                                  "qwen2-vl-2b", "hubert-xlarge"])
+def test_cuda_new_archs_run_through_the_kernels(cuda_device, arch):
+    """The smoke configs of the five archs of the last model slice, in
+    float32 on the card: through the kernels and through the plain
+    versions, within 2e-3.  zamba2, minitron, gemma3 (40 tokens: past its
+    32-key window) and qwen2-vl (embeddings and M-RoPE positions whose
+    three sections differ) prefill and take a decode step; hubert runs
+    its encoder forward over frame embeddings."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import common, decoder
+
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    params = common.init_params(
+        cfg, torch.Generator(device=cuda_device).manual_seed(0), cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    b, s = 2, 40
+    if cfg.family in ("vlm", "audio"):
+        batch = {"embeds": torch.randn((b, s, cfg.d_model), generator=gen,
+                                       device=cuda_device)}
+    else:
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                         generator=gen, device=cuda_device)}
+    if cfg.mrope_sections is not None:     # a 4 x 4 image, then text
+        t = torch.arange(s, device=cuda_device)
+        img = t < 16
+        pos = torch.stack([torch.where(img, 0, t - 12),
+                           torch.where(img, t // 4, t - 12),
+                           torch.where(img, t % 4, t - 12)])
+        batch["positions"] = pos[:, None].expand(3, b, s).to(torch.int32)
+    out = []
+    for use in ("auto", "ref"):
+        ctx = decoder.RunCtx(cuda_device, use_kernel=use)
+        before = fa.launches + ss.launches
+        if not cfg.causal:
+            got = [decoder.forward(cfg, ctx, params, batch)]
+        else:
+            logits, caches = decoder.prefill(cfg, ctx, params, batch)
+            ring = decoder.init_cache(cfg, b, s + 4, torch.float32,
+                                      cuda_device)
+            for r, c in zip(ring, caches):
+                for m in r:
+                    for leaf, t in r[m].items():
+                        src = c[m][leaf]
+                        t[tuple(slice(0, d) for d in src.shape)] = src
+            step, _ = decoder.decode_step(cfg, ctx, params, ring,
+                                          torch.ones((b,), dtype=torch.int32,
+                                                     device=cuda_device), s)
+            got = [logits, step]
+        launched = fa.launches + ss.launches - before
+        assert (launched > 0) == (use == "auto"), (arch, use, launched)
+        out.append(got)
+    for got, want in zip(*out):
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["mixtral-8x7b", "deepseek-v2-236b"])
 def test_cuda_moe_routed_matches_dense_at_full_width(cuda_device, arch):
     """One MoE layer at its published width, bf16: the routed path
@@ -726,13 +816,13 @@ def test_cuda_moe_routed_matches_dense_at_full_width(cuda_device, arch):
 def test_cuda_kv_migration_is_bitwise(cuda_device):
     """A session's KV column exported from one store on the card lands on
     another bitwise, at another slot, in every layer's leaves (GQA and
-    MLA caches)."""
+    MLA caches; zamba2's Mamba states and shared-site K/V)."""
     import dataclasses
 
     from repro_torch.configs import get_smoke_config
     from repro_torch.serve.kvcache import KVStore
 
-    for arch in ("mixtral-8x7b", "deepseek-v2-236b"):
+    for arch in ("mixtral-8x7b", "deepseek-v2-236b", "zamba2-1.2b"):
         cfg = get_smoke_config(arch)
         src = KVStore(cfg, 4, 32, device=cuda_device)
         dst = KVStore(cfg, 4, 32, device=cuda_device)

@@ -7,6 +7,9 @@ its choice and the wrapper checks the two agree on the card;
 card: they pin the choice for glm4-9b's shapes, for every row of the card
 tests' ``FLASH_GRID`` and at the edges of each variant.
 """
+import importlib.util
+from pathlib import Path
+
 import pytest
 import torch
 
@@ -37,6 +40,13 @@ EDGES = [
     ((F32, 1, 32, 2, 128, 128), "decode_split"),       # f32 decode
     ((F32, 65, 1, 1, 64, 64), "simt"),                 # f32, 65 rows
     ((F32, 64, 1, 1, 64, 64), "decode_split"),         # f32, 64 rows
+    ((BF16, 2048, 16, 16, 80, 80), "prefill_tc"),      # hubert-xlarge
+    ((BF16, 64, 1, 1, 80, 80), "simt"),                # D 80, 64 rows
+    ((BF16, 65, 1, 1, 80, 80), "prefill_tc"),          # D 80, 65 rows
+    ((BF16, 1, 16, 16, 80, 80), "simt"),               # D 80 at decode
+    ((F32, 2048, 16, 16, 80, 80), "simt"),             # D 80 in f32
+    ((BF16, 256, 2, 2, 80, 64), "simt"),               # (80, 64)
+    ((BF16, 256, 2, 2, 96, 96), "simt"),               # D 96: not padded
 ]
 
 # FLASH_GRID row -> variant, in the grid's order
@@ -52,6 +62,11 @@ GRID_VARIANTS = [
     "prefill_tc", "prefill_tc", "prefill_tc",      # window, softcap, GQA 2
     "prefill_tc",                                  # no causal mask
     "simt",                                        # MLA dims at decode
+    "prefill_tc",                                  # hubert's forward shape
+    "prefill_tc", "prefill_tc", "prefill_tc",      # causal, ragged, GQA 4
+    "prefill_tc", "prefill_tc", "prefill_tc",      # GQA 4, window, padding
+    "prefill_tc",                                  # softcap
+    "simt", "simt",                                # D 80 in f32, at decode
 ]
 
 
@@ -67,13 +82,13 @@ def test_variant_of_every_card_grid_row(row, want):
     assert fa.variant(getattr(torch, dtype), sq, hq, hkv, dk, dv) == want
 
 
-# every arch's bf16 prefill at 2048 tokens: a tensor-core variant but for
-# hubert's head dim 80; mamba2 has no attention layer (no heads, no dims)
+# every arch's bf16 prefill at 2048 tokens: a tensor-core variant (hubert's
+# head dim 80 too); mamba2 has no attention layer (no heads, no dims)
 ARCH_PREFILL = {
     "qwen2-vl-2b": "prefill_tc", "glm4-9b": "prefill_tc",
     "phi4-mini-3.8b": "prefill_tc", "minitron-4b": "prefill_tc",
     "gemma3-27b": "prefill_tc", "deepseek-v2-236b": "prefill_tc",
-    "mixtral-8x7b": "prefill_tc", "hubert-xlarge": "simt",
+    "mixtral-8x7b": "prefill_tc", "hubert-xlarge": "prefill_tc",
     "mamba2-780m": "simt", "zamba2-1.2b": "prefill_tc",
 }
 
@@ -128,3 +143,38 @@ def test_cpu_attention_leaves_the_counts_alone():
     ops.attention(q, k, k, q_positions=pos, kv_positions=pos)
     assert (fa.launches, fa.variant_launches) == before
     assert set(fa.variant_launches) == set(fa.VARIANTS)
+
+
+def test_sass_compare_splits_functions_and_judges_each():
+    """``tools/sass_compare.py`` (how a template edit is shown to leave the
+    other instantiations' SASS as it was): cuobjdump's text split by entry
+    function, each judged same, differs or one tree's."""
+    path = Path(__file__).resolve().parents[1] / "tools" / "sass_compare.py"
+    spec = importlib.util.spec_from_file_location("sass_compare", path)
+    sass = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sass)
+
+    dump = """
+	code for sm_90a
+		Function : _Z6kernelILi64EEvv
+	.headerflags	@"EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;   /* 0x00000a00ff017b82 */
+        /*0010*/                   EXIT ;                   /* 0x000000000000794d */
+		Function : _Z6kernelILi80EEvv
+        /*0000*/                   EXIT ;                   /* 0x000000000000794d */
+		Function : _Z5otherv
+        /*0000*/                   NOP ;                    /* 0x0000000000007918 */
+"""
+    mine = sass.functions(dump)
+    assert sorted(mine) == ["_Z5otherv", "_Z6kernelILi64EEvv",
+                            "_Z6kernelILi80EEvv"]
+    assert len(mine["_Z6kernelILi64EEvv"]) == 3
+    other = {"_Z6kernelILi64EEvv": mine["_Z6kernelILi64EEvv"],
+             "_Z6kernelILi128EEvv": ["/*0000*/ EXIT ;"]}
+    got = {r["function"]: (r["verdict"], r["instructions"])
+           for r in sass.compare(mine, other, "kernel")}
+    assert got == {"_Z6kernelILi64EEvv": ("same", 2),
+                   "_Z6kernelILi80EEvv": ("only_this_tree", 1),
+                   "_Z6kernelILi128EEvv": ("only_other_tree", 1)}
+    changed = dict(other, _Z6kernelILi64EEvv=["/*0000*/ EXIT ;"])
+    assert sass.compare(mine, changed, "ILi64")[0]["verdict"] == "differs"

@@ -123,6 +123,40 @@ def test_kvstore_roundtrip_when_n_groups_equals_n_slots():
                                rtol=1e-4, atol=1e-4)
 
 
+def test_hybrid_session_moves_bitwise():
+    """zamba2's session column: each Mamba layer's conv and SSM state and
+    each shared site's own K/V leave the source and land at another slot
+    of the destination bitwise, and the session decodes there as it would
+    have at home."""
+    cfg = dataclasses.replace(get_smoke_config("zamba2-1.2b"),
+                              dtype="float32")
+    params = _params(3, cfg)
+    src = KVStore(cfg, 3, 32, torch.float32, device="cpu")
+    dst = KVStore(cfg, 3, 32, torch.float32, device="cpu")
+    for sid in (1, 42):
+        src.alloc(sid)
+    s = src.sessions[42]
+    tok, logits_src = _fill(params, src, cfg=cfg)
+    s.length, s.last_token = 3, int(tok[s.slot])
+    blob = src.export_session(42)
+    mixers = [set(layer) for layer in blob["tree"]]
+    assert {"attn"} in mixers and {"mamba"} in mixers
+    for sid in (7, 8):
+        dst.alloc(sid)
+    s2 = dst.import_session(blob)
+    assert s2.slot != s.slot
+    for a, b in zip(src.caches, dst.caches):
+        for m in a:
+            for k in a[m]:
+                assert torch.equal(a[m][k][s.slot], b[m][k][s2.slot])
+    got = _decode_imported(params, dst, s2.slot, s.last_token, 3, cfg=cfg)
+    np.testing.assert_allclose(got.numpy(), logits_src[s.slot].numpy(),
+                               rtol=1e-4, atol=1e-4)
+    assert dst.nbytes_session() == src.nbytes_session() == sum(
+        t.numel() * t.element_size() for layer in blob["tree"]
+        for m in layer.values() for t in m.values())
+
+
 @pytest.mark.parametrize("arch", DECODABLE)
 def test_nbytes_session_equals_reference(arch):
     """The engine prices a KV migration with these bytes: equal to the

@@ -35,10 +35,12 @@ from repro_torch import configs as tconfigs
 from repro_torch.models import common, decoder
 from repro_torch.models import moe as tmoe
 
-# The registered archs whose features all have ported layers
-# (common.unported_features is empty): held to repro.models here.
+# Every registered arch, held to repro.models here; the decode tests take
+# the causal ones (hubert-xlarge is an encoder: a forward test of its own)
 ARCHS = ("glm4-9b", "mamba2-780m", "phi4-mini-3.8b", "deepseek-v2-236b",
-         "mixtral-8x7b")
+         "mixtral-8x7b", "zamba2-1.2b", "minitron-4b", "gemma3-27b",
+         "qwen2-vl-2b", "hubert-xlarge")
+CAUSAL = tuple(a for a in ARCHS if jget_config(a).causal)
 JCTX = jdec.RunCtx(mesh=None, use_kernel="ref")
 CTX = decoder.RunCtx(device="cpu")
 # bf16 rounds at other places in the two frameworks (XLA fuses elementwise
@@ -49,6 +51,19 @@ TOL = {"float32": 2e-3, "bfloat16": 6e-2}
 # bf16 keeps 8 significant bits: two router probabilities closer than this
 # can change order between the frameworks
 NEAR_TIE = 1e-2
+# archs whose smoke configs the reference does not reproduce itself within
+# TOL in bf16: its forward computed layer by layer (jdec.block_apply in a
+# Python loop, the port's order of work) and through its scanned stack
+# (XLA fuses the scan body and rounds elsewhere) differ by more than 6e-2
+# (gemma3: 0.17 in the logits and 0.52 in the KV caches, the hidden state
+# growing through eight layers of (1 + w) post-norms; zamba2: 0.11; the
+# other archs 0.02-0.04).  The port differs from either run by about as
+# much (gemma3: 0.16 in the logits from the layer-by-layer run; one bf16
+# step of a hidden state near 14 is 0.0625).  Their bf16 runs are held to
+# the reference computed layer by layer at rtol TOL, and at an atol of
+# each compared quantity's own spread (the logits; each cache leaf) where
+# that exceeds TOL, measured in the test.
+SELF_SPREAD_BF16 = ("gemma3-27b", "zamba2-1.2b")
 NEVER = 1 << 30
 
 
@@ -122,6 +137,46 @@ def routing_agrees(rec, b, positions, dtype):
     return first
 
 
+def _reference_by_layer(jcfg, params, tparams, batch):
+    """The reference's prefill computed layer by layer (``jdec.block_apply``
+    in a Python loop, the port's order of work): its logits ``[B, S, V]``
+    and one cache dict per layer."""
+    x = jdec.embed_in(jcfg, params, _jax(batch))
+    pos = batch.get("positions")
+    s = x.shape[1]
+    pos = jnp.broadcast_to(jnp.arange(s, dtype=jnp.int32)[None],
+                           (x.shape[0], s)) if pos is None else \
+        jnp.asarray(pos)
+    shared = tparams.get("shared_attn")
+    caches = []
+    for kind, layer in zip(jdec.layer_plan(jcfg).kinds, tparams["layers"]):
+        x, c = jdec.block_apply(jcfg, JCTX, kind, _numpy_tree(layer),
+                                None if shared is None
+                                else _numpy_tree(shared), x, pos,
+                                return_cache=True)
+        caches.append(c)
+    return jdec.lm_logits(jcfg, JCTX, params, x), caches
+
+
+def _reference_spread(jcfg, params, tparams, batch):
+    """The reference against itself: the largest difference between its
+    prefill computed layer by layer and through its scanned stack, per
+    compared quantity: ``"logits"`` (``jdec.forward``'s) and each cache
+    leaf ``(mixer, name)`` over the layers (``jdec.prefill``'s)."""
+    diff = lambda a, b: float(jnp.abs(a.astype(jnp.float32)
+                                      - b.astype(jnp.float32)).max())
+    logits, eager_caches = _reference_by_layer(jcfg, params, tparams, batch)
+    out = {"logits": diff(logits,
+                          jdec.forward(jcfg, JCTX, params, _jax(batch)))}
+    _, caches = jdec.prefill(jcfg, JCTX, params, _jax(batch))
+    for got, want in zip(eager_caches, _ref_layer_caches(jcfg, caches)):
+        for m in got:
+            for k in got[m]:
+                out[m, k] = max(out.get((m, k), 0.0),
+                                diff(got[m][k], want[m][k]))
+    return out
+
+
 def _setup(arch, dtype, seed):
     jcfg = dataclasses.replace(jget_smoke(arch), dtype=dtype)
     tcfg = dataclasses.replace(tconfigs.get_smoke_config(arch), dtype=dtype)
@@ -136,21 +191,60 @@ def _tokens(seed, vocab, b, s):
         np.int32)
 
 
-def _close(got: torch.Tensor, want, tol):
+def _batch(cfg, seed, b, s):
+    """numpy inputs as tests/test_models.py makes them: token ids, or the
+    stub frontend's ``embeds`` for the vlm and audio families; M-RoPE
+    positions ``[3, B, S]`` with the three sections equal (text)."""
+    if cfg.family in ("vlm", "audio"):
+        batch = {"embeds": np.random.default_rng(seed).standard_normal(
+            (b, s, cfg.d_model)).astype(np.float32)}
+    else:
+        batch = {"tokens": _tokens(seed, cfg.vocab_size, b, s)}
+    if cfg.mrope_sections is not None:
+        batch["positions"] = np.broadcast_to(
+            np.arange(s, dtype=np.int32), (3, b, s)).copy()
+    return batch
+
+
+def _cut(batch, n):
+    """The first ``n`` positions of every input (positions on their last
+    axis)."""
+    return {k: v[..., :n] if k == "positions" else v[:, :n]
+            for k, v in batch.items()}
+
+
+def _step_input(batch, i):
+    """decode_step's input for position ``i``: token ids ``[B]`` or the
+    position's embeddings ``[B, 1, d]``."""
+    if "tokens" in batch:
+        return batch["tokens"][:, i]
+    return batch["embeds"][:, i:i + 1]
+
+
+def _jax(batch):
+    return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+def _torch(batch):
+    return {k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in batch.items()}
+
+
+def _close(got: torch.Tensor, want, tol, atol=None):
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32), rtol=tol,
-                               atol=tol)
+                               atol=tol if atol is None else atol)
 
 
-def _close_before(got: torch.Tensor, want, tol, upto, pos=None):
+def _close_before(got: torch.Tensor, want, tol, upto, pos=None, atol=None):
     """Sequence ``i`` (dim 0) compared at the positions before ``upto[i]``:
     along dim 1 when ``pos`` is None, else whole when ``pos < upto[i]``."""
     want = np.asarray(want, np.float32)
     for i, u in enumerate(upto):
         if pos is None:
-            _close(got[i, :u], want[i, :u], tol)
+            _close(got[i, :u], want[i, :u], tol, atol)
         elif pos < u:
-            _close(got[i], want[i], tol)
+            _close(got[i], want[i], tol, atol)
 
 
 def _ref_layer_caches(jcfg, caches):
@@ -179,7 +273,7 @@ def _into_ring(ring, prompt):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", CAUSAL)
 def test_decode_matches_reference(arch, dtype):
     """forward, prefill (logits and caches) and one decode_step after the
     prompt cache moves into a longer ring, against repro's
@@ -187,28 +281,44 @@ def test_decode_matches_reference(arch, dtype):
     jcfg, tcfg, params, tparams = _setup(arch, dtype, 1)
     tol = TOL[dtype]
     b, s = 2, 33
-    toks = _tokens(1, jcfg.vocab_size, b, s)
+    batch = _batch(tcfg, 1, b, s)
+    atol = {}              # compared quantity -> atol, where not tol
+    if dtype == "bfloat16" and arch in SELF_SPREAD_BF16:
+        spread = _reference_spread(jcfg, params, tparams, batch)
+        print(f"{arch} bf16: the reference by layer against its scanned "
+              f"stack: {spread}")
+        atol = {k: max(tol, v) for k, v in spread.items()}
+
+        def forward_j(bt):
+            return _reference_by_layer(jcfg, params, tparams, bt)[0]
+
+        def prefill_j(bt):
+            logits, caches = _reference_by_layer(jcfg, params, tparams, bt)
+            return logits[:, -1], caches
+    else:
+        def forward_j(bt):
+            return jdec.forward(jcfg, JCTX, params, _jax(bt))
+
+        def prefill_j(bt):
+            logits, caches = jdec.prefill(jcfg, JCTX, params, _jax(bt))
+            return logits, _ref_layer_caches(jcfg, caches)
     with recorded_routing() as rec:
-        full_j = jdec.forward(jcfg, JCTX, params,
-                              {"tokens": jnp.asarray(toks)})
-        full_t = decoder.forward(tcfg, CTX, tparams,
-                                 {"tokens": torch.from_numpy(toks)})
+        full_j = forward_j(batch)
+        full_t = decoder.forward(tcfg, CTX, tparams, _torch(batch))
         upto = routing_agrees(rec, b, range(s), dtype)
         assert full_t.shape == (b, s, tcfg.vocab_size)
         assert full_t.dtype == tcfg.compute_dtype()
-        _close_before(full_t, full_j, tol, upto)
+        _close_before(full_t, full_j, tol, upto, atol=atol.get("logits"))
 
-        prompt = toks[:, :s - 1]
-        logits0_j, caches_j = jdec.prefill(jcfg, JCTX, params,
-                                           {"tokens": jnp.asarray(prompt)})
-        logits0, caches = decoder.prefill(tcfg, CTX, tparams,
-                                          {"tokens": torch.from_numpy(prompt)})
+        prompt = _cut(batch, s - 1)
+        logits0_j, ref_caches = prefill_j(prompt)
+        logits0, caches = decoder.prefill(tcfg, CTX, tparams, _torch(prompt))
         upto = [min(u, v) for u, v in
                 zip(upto, routing_agrees(rec, b, range(s - 1), dtype))]
-        _close_before(logits0, logits0_j, tol, upto, pos=s - 2)
+        _close_before(logits0, logits0_j, tol, upto, pos=s - 2,
+                      atol=atol.get("logits"))
         _close_before(logits0, np.asarray(full_j)[:, s - 2], tol, upto,
-                      pos=s - 2)
-        ref_caches = _ref_layer_caches(jcfg, caches_j)
+                      pos=s - 2, atol=atol.get("logits"))
         assert len(caches) == tcfg.n_layers
         for got, want in zip(caches, ref_caches):
             assert got.keys() == want.keys()
@@ -219,23 +329,23 @@ def test_decode_matches_reference(arch, dtype):
                         want[mixer][leaf].shape
                     _close_before(got[mixer][leaf], want[mixer][leaf], tol,
                                   upto, pos=None if mixer == "attn"
-                                  else s - 2)
+                                  else s - 2, atol=atol.get((mixer, leaf)))
 
         ring = decoder.init_cache(tcfg, b, s + 4, tcfg.compute_dtype(), "cpu")
         ring = _into_ring(ring, caches)
-        logits1, new = decoder.decode_step(tcfg, CTX, tparams, ring,
-                                           torch.from_numpy(toks[:, s - 1]),
-                                           s - 1)
+        logits1, new = decoder.decode_step(
+            tcfg, CTX, tparams, ring,
+            torch.from_numpy(_step_input(batch, s - 1)), s - 1)
         # the reference's forward is the oracle here: record its routing
         # of position s - 1 again beside the port's decode
-        jdec.forward(jcfg, JCTX, params, {"tokens": jnp.asarray(toks)})
+        forward_j(batch)
         rec["ref"][:] = [(lg.reshape(b, s, -1)[:, s - 1],
                           ids.reshape(b, s, -1)[:, s - 1])
                          for lg, ids in rec["ref"]]
         upto = [min(u, v) for u, v in
                 zip(upto, routing_agrees(rec, b, [s - 1], dtype))]
         _close_before(logits1, np.asarray(full_j)[:, s - 1], tol, upto,
-                      pos=s - 1)
+                      pos=s - 1, atol=atol.get("logits"))
         assert len(new) == tcfg.n_layers
     assert max(upto) == NEVER, "every sequence's routing flipped"
 
@@ -309,15 +419,14 @@ def test_mla_layer_matches_reference():
         _close(new[leaf], jnew[leaf], TOL["float32"])
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", CAUSAL)
 def test_decode_vector_positions_match_scalar(arch):
     """Continuous batching: per-row pos == scalar pos when rows align
     (mirrors tests/test_models.py::test_decode_vector_positions_match_scalar)."""
     _, tcfg, _, tparams = _setup(arch, "float32", 2)
     b, s = 3, 16
-    toks = _tokens(2, tcfg.vocab_size, b, s)
     _, caches = decoder.prefill(tcfg, CTX, tparams,
-                                {"tokens": torch.from_numpy(toks)})
+                                _torch(_batch(tcfg, 2, b, s)))
     tok = torch.tensor([1, 2, 3], dtype=torch.int32)
     outs = []
     for pos in (torch.tensor(s, dtype=torch.int32),
@@ -369,72 +478,270 @@ def test_configs_pinned_to_reference(arch):
 
 
 def test_registry_names_roadmap_for_unported_archs():
-    """All ten architectures are registered (a config is data: the serving
-    simulator prices with it); building the layers of one whose features
-    the port does not run yet raises, naming the ROADMAP item.  Which
-    archs build follows from their features alone."""
+    """All ten architectures are registered and every one builds: through
+    ``init_params`` in the port's layout, and through ``params_from_numpy``
+    from the reference's parameters, leaf for leaf (zamba2's
+    ``shared_attn`` block held once, not per site).  The name dates from
+    when the registry named ROADMAP items for archs the port refused; no
+    arch is refused now."""
     from repro.configs import ARCH_IDS as JARCH_IDS
 
     assert tconfigs.ARCH_IDS == JARCH_IDS and len(JARCH_IDS) == 10
+    assert sorted(ARCHS) == sorted(JARCH_IDS)
     gen = torch.Generator().manual_seed(0)
     for arch in tconfigs.ARCH_IDS:
         assert tconfigs.get_config(arch).name == arch
         cfg = tconfigs.get_smoke_config(arch)
-        assert (not common.unported_features(cfg)) == (arch in ARCHS)
-        assert (not common.unported_features(tconfigs.get_config(arch))) \
-            == (arch in ARCHS)
-        if arch in ARCHS:
-            continue
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            common.init_params(cfg, gen, "cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            common.params_from_numpy(cfg, {}, "cpu")
+        built = common.init_params(cfg, gen, "cpu")
+        assert len(built["layers"]) == cfg.n_layers
+        _, _, params, tparams = _setup(arch, "float32", 0)
+        assert tparams.keys() == built.keys()
+        assert ("shared_attn" in tparams) == (arch == "zamba2-1.2b")
+        n_ref = sum(int(np.prod(a.shape)) for a in jax.tree.leaves(params))
+        n_port = sum(t.numel() for t in _tensors(tparams))
+        assert n_port == n_ref == cfg.param_count()
     with pytest.raises(KeyError, match="unknown"):
         tconfigs.get_config("no-such-arch")
 
 
+def _tensors(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in _tensors(v)]
+    return [tree]
+
+
+def _numpy_tree(tree):
+    """A port parameter subtree as the reference's jnp arrays."""
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    return jnp.asarray(tree.numpy())
+
+
+def _block_against_reference(jcfg, tcfg, tparams, layer, kind, positions,
+                             seed, s=9):
+    """Layer ``layer`` of the port (``block_apply``, the shared block
+    handed over where the kind reads it) against ``jdec.block_apply`` on
+    the same parameters and a seeded ``x``; returns the port's output."""
+    b = positions.shape[-2]
+    x = np.random.default_rng(seed).standard_normal(
+        (b, s, tcfg.d_model)).astype(np.float32)
+    shared = tparams.get("shared_attn")
+    want, _ = jdec.block_apply(
+        jcfg, JCTX, kind, _numpy_tree(tparams["layers"][layer]),
+        None if shared is None else _numpy_tree(shared), jnp.asarray(x),
+        jnp.asarray(positions))
+    got, _ = decoder.block_apply(
+        tcfg, CTX, kind, tparams["layers"][layer], torch.from_numpy(x),
+        torch.from_numpy(positions), shared_p=shared)
+    _close(got, want, TOL["float32"])
+    return got
+
+
+# each feature the port once refused, on glm4-9b's smoke config, and the
+# layer whose block runs it: (fields, layer, kind)
+FEATURES = [
+    (dict(mlp_act="gelu"), 0, ("attn", "dense")),
+    (dict(use_qk_norm=True), 0, ("attn", "dense")),
+    (dict(use_qk_norm=True, gemma_norm=True), 0, ("attn", "dense")),
+    (dict(sliding_window=4, global_every=2, rope_theta_global=1e6), 0,
+     ("attn_local", "dense")),
+    (dict(sliding_window=4, global_every=2, rope_theta_global=1e6), 1,
+     ("attn", "dense")),
+    (dict(mrope_sections=(2, 3, 3), partial_rotary=1.0), 0,
+     ("attn", "dense")),
+    (dict(causal=False), 0, ("attn", "dense")),
+    (dict(ssm=common.SSMConfig(d_state=16, head_dim=16, chunk=32),
+          hybrid_attn_every=2), 1, ("shared_attn", "dense")),
+]
+
+
 def test_unported_layer_kinds_raise():
-    """The features still unported refuse by name (gemma3's local/global
-    pattern, zamba2's shared attention, qwen2-vl's M-RoPE among them); MoE,
-    MLA and a sliding window on every layer build, and an MoE block runs
-    as the reference's does."""
+    """The features the port once refused (gelu, QK norm, gemma norms, the
+    local/global pattern with dual theta, M-RoPE, bidirectional attention,
+    shared attention) now build, and each one's block equals
+    ``jdec.block_apply``; an MoE block too.  The name dates from when these
+    kinds raised; none raises now."""
     gen = torch.Generator().manual_seed(0)
-    # the refusal reads the config's features, not its name
-    renamed = dataclasses.replace(tconfigs.get_smoke_config("glm4-9b"),
-                                  name="my-dense-model")
-    assert common.init_params(renamed, gen, "cpu")["layers"]
-    for feature in (dict(mlp_act="gelu"), dict(use_qk_norm=True),
-                    dict(sliding_window=8, global_every=2),
-                    dict(mrope_sections=(2, 3, 3)), dict(causal=False)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            common.init_params(dataclasses.replace(renamed, **feature), gen,
-                               "cpu")
-    for feature in (dict(sliding_window=8),
-                    dict(moe=common.MoEConfig(n_experts=4, d_expert=32)),
-                    dict(mla=common.MLAConfig(8, 8, 8, 4, 8))):
-        cfg = dataclasses.replace(renamed, **feature)
-        assert not common.unported_features(cfg)
-        assert common.init_params(cfg, gen, "cpu")["layers"]
-    zamba = tconfigs.get_smoke_config("zamba2-1.2b")
-    with pytest.raises(NotImplementedError, match="shared attention"):
-        common.init_params(zamba, gen, "cpu")
-    kind = common.LayerKind("shared_attn", "dense")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        decoder.block_apply(zamba, CTX, kind, {}, torch.zeros((1, 2, 64)),
-                            torch.zeros((1, 2), dtype=torch.int32))
+    for i, (fields, layer, kind) in enumerate(FEATURES):
+        jssm = fields.get("ssm")
+        jfields = dict(fields)
+        if jssm is not None:         # the reference's own dataclass
+            from repro.models.common import SSMConfig as JSSMConfig
+
+            jfields["ssm"] = JSSMConfig(**dataclasses.asdict(jssm))
+        tcfg = dataclasses.replace(tconfigs.get_smoke_config("glm4-9b"),
+                                   name="my-model", dtype="float32",
+                                   **fields)
+        jcfg = dataclasses.replace(jget_smoke("glm4-9b"), name="my-model",
+                                   dtype="float32", **jfields)
+        assert common.layer_plan(tcfg).kinds[layer] == common.LayerKind(*kind)
+        assert common.init_params(tcfg, gen, "cpu")["layers"]
+        params = jinit_params(jcfg, jax.random.PRNGKey(i))
+        tparams = common.params_from_numpy(
+            tcfg, jax.tree.map(np.asarray, params), "cpu")
+        s = 9
+        pos = np.tile(np.arange(s, dtype=np.int32), (2, 1))
+        if tcfg.mrope_sections is not None:       # distinct t / h / w
+            pos = np.stack([pos, pos // 3, pos % 3]).astype(np.int32)
+        _block_against_reference(jcfg, tcfg, tparams, layer,
+                                 common.LayerKind(*kind), pos, i, s)
     # a positive MoE block: mixtral's layer against the reference's
     jcfg, tcfg, params, tparams = _setup("mixtral-8x7b", "float32", 0)
-    kind = common.LayerKind("attn_local", "moe")
-    x = np.random.default_rng(0).standard_normal(
-        (2, 5, tcfg.d_model)).astype(np.float32)
     pos = np.tile(np.arange(5, dtype=np.int32), (2, 1))
-    want, _ = jdec.block_apply(
-        jcfg, JCTX, kind, jax.tree.map(lambda a: a[0],
-                                       params["blocks"]["pos0"]),
-        None, jnp.asarray(x), jnp.asarray(pos))
-    got, _ = decoder.block_apply(tcfg, CTX, kind, tparams["layers"][0],
-                                 torch.from_numpy(x), torch.from_numpy(pos))
+    _block_against_reference(jcfg, tcfg, tparams, 0,
+                             common.LayerKind("attn_local", "moe"), pos, 0,
+                             s=5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_hubert_forward_matches_reference(dtype):
+    """The encoder: a bidirectional forward over frame embeddings (the
+    stub frontend's ``embeds``), logits against repro's."""
+    jcfg, tcfg, params, tparams = _setup("hubert-xlarge", dtype, 7)
+    assert not tcfg.causal and tcfg.family == "audio"
+    batch = _batch(tcfg, 7, 2, 40)
+    want = jdec.forward(jcfg, JCTX, params, _jax(batch))
+    got = decoder.forward(tcfg, CTX, tparams, _torch(batch))
+    assert got.shape == (2, 40, tcfg.vocab_size)
+    assert got.dtype == tcfg.compute_dtype()
+    _close(got, want, TOL[dtype])
+    # bidirectional: the first frame's logits read the last frame
+    later = {"embeds": batch["embeds"].copy()}
+    later["embeds"][:, -1] += 1.0
+    moved = decoder.forward(tcfg, CTX, tparams, _torch(later))
+    assert not torch.allclose(moved[:, 0], got[:, 0])
+
+
+def _vision_positions(b, grid, n_text):
+    """Qwen2-VL's M-RoPE positions ``[3, B, S]``: a ``grid`` x ``grid``
+    patch image at t = 0 (h = row, w = column), then text, whose three
+    sections run on together from the largest image position + 1."""
+    rows, cols = np.divmod(np.arange(grid * grid), grid)
+    img = np.stack([np.zeros_like(rows), rows, cols])
+    text = grid + np.arange(n_text)
+    pos = np.concatenate([img, np.stack([text] * 3)], axis=1)
+    return np.broadcast_to(pos[:, None], (3, b, pos.shape[1])).astype(
+        np.int32).copy()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_qwen2vl_prefill_with_distinct_sections(dtype):
+    """qwen2-vl's backbone over a 4 x 4 patch image and then text: the
+    temporal, height and width sections differ, so a wrong section split
+    of the rotary bands would show.  forward and prefill (logits and KV
+    caches) against repro's."""
+    jcfg, tcfg, params, tparams = _setup("qwen2-vl-2b", dtype, 8)
+    b, grid, n_text = 2, 4, 9
+    s = grid * grid + n_text
+    batch = {"embeds": np.random.default_rng(8).standard_normal(
+        (b, s, tcfg.d_model)).astype(np.float32),
+        "positions": _vision_positions(b, grid, n_text)}
+    assert len({tuple(p) for p in batch["positions"][:, 0]}) == 3
+    want = jdec.forward(jcfg, JCTX, params, _jax(batch))
+    got = decoder.forward(tcfg, CTX, tparams, _torch(batch))
+    _close(got, want, TOL[dtype])
+    logits_j, caches_j = jdec.prefill(jcfg, JCTX, params, _jax(batch))
+    logits, caches = decoder.prefill(tcfg, CTX, tparams, _torch(batch))
+    _close(logits, logits_j, TOL[dtype])
+    for got_c, want_c in zip(caches, _ref_layer_caches(jcfg, caches_j)):
+        for leaf in ("k", "v"):
+            _close(got_c["attn"][leaf], want_c["attn"][leaf], TOL[dtype])
+    # the sections matter: the same inputs with text positions throughout
+    # give other logits
+    flat = dict(batch, positions=np.broadcast_to(
+        np.arange(s, dtype=np.int32), (3, b, s)).copy())
+    other = decoder.forward(tcfg, CTX, tparams, _torch(flat))
+    assert not torch.allclose(other, got, atol=1e-2)
+
+
+def test_zamba2_shared_sites_read_one_block_and_own_caches():
+    """zamba2's shared attention: every shared site reads the same
+    ``params["shared_attn"]`` tensors (the block is held once), each site
+    keeps its own MLP and writes its own KV cache."""
+    _, tcfg, _, tparams = _setup("zamba2-1.2b", "float32", 9)
+    kinds = common.layer_plan(tcfg).kinds
+    sites = [i for i, k in enumerate(kinds) if k.mixer == "shared_attn"]
+    assert sites == [2, 5]
+    for i in sites:
+        assert "attn" not in tparams["layers"][i]
+        assert tparams["layers"][i].keys() == {"mlp", "ln_mlp"}
+    seen = []
+    plain = decoder.gqa_attention
+
+    def watch(p, *a, **k):
+        seen.append(p)
+        return plain(p, *a, **k)
+
+    decoder.gqa_attention = watch
+    try:
+        toks = torch.from_numpy(_tokens(9, tcfg.vocab_size, 2, 12))
+        _, caches = decoder.prefill(tcfg, CTX, tparams, {"tokens": toks})
+    finally:
+        decoder.gqa_attention = plain
+    assert len(seen) == len(sites)
+    for p in seen:                        # the very same tensors each time
+        assert all(p[k] is tparams["shared_attn"]["attn"][k] for k in p)
+    a, b = (caches[i]["attn"] for i in sites)
+    assert a.keys() == b.keys() == {"k", "v"}
+    for leaf in a:
+        assert a[leaf].data_ptr() != b[leaf].data_ptr()
+        assert not torch.allclose(a[leaf], b[leaf])
+    assert all(caches[i].keys() == {"mamba"} for i, k in enumerate(kinds)
+               if k.mixer == "mamba")
+    model = decoder.Decoder(tcfg, tparams, CTX)
+    assert sum(p.numel() for p in model.parameters()) == tcfg.param_count()
+
+
+@pytest.mark.parametrize("layer,kind", [(0, "attn_local"), (5, "attn")])
+def test_gemma3_blocks_match_reference(layer, kind):
+    """gemma3's local (1 of the 5: window, theta 1e4) and global (theta
+    1e6) layers alone: (1 + w) pre- and post-block norms, QK norms, GeGLU,
+    at 40 positions, past the smoke window of 32."""
+    jcfg, tcfg, _, tparams = _setup("gemma3-27b", "float32", 10)
+    assert common.layer_plan(tcfg).kinds[layer] == common.LayerKind(
+        kind, "dense")
+    assert tparams["layers"][layer].keys() >= {"ln_post_attn", "ln_post_mlp"}
+    for p in (tparams["layers"][layer], tparams["layers"][layer]["attn"]):
+        for name, t in p.items():      # norms away from their init
+            if name.endswith("norm") or name.startswith("ln_"):
+                t.copy_(torch.linspace(-0.5, 0.5, t.numel()))
+    pos = np.tile(np.arange(40, dtype=np.int32), (2, 1))
+    _block_against_reference(jcfg, tcfg, tparams, layer,
+                             common.LayerKind(kind, "dense"), pos, 10, s=40)
+
+
+def test_zamba2_shared_block_matches_reference():
+    """zamba2's shared site alone, prefill and then one decode step into
+    its own ring at per-row depths, against ``jdec.block_apply``."""
+    jcfg, tcfg, _, tparams = _setup("zamba2-1.2b", "float32", 11)
+    kind = common.LayerKind("shared_attn", "dense")
+    b, s, ring_len = 2, 7, 10
+    pos = np.tile(np.arange(s, dtype=np.int32), (b, 1))
+    _block_against_reference(jcfg, tcfg, tparams, 2, kind, pos, 11, s=s)
+    rng = np.random.default_rng(11)
+    ring = {k: rng.standard_normal((b, ring_len, tcfg.n_kv_heads,
+                                    tcfg.head_dim)).astype(np.float32)
+            for k in ("k", "v")}
+    depth = np.array([s, s - 2], np.int32)
+    x = rng.standard_normal((b, 1, tcfg.d_model)).astype(np.float32)
+    shared, p = tparams["shared_attn"], tparams["layers"][2]
+    want, jnew = jdec.block_apply(
+        jcfg, JCTX, kind, _numpy_tree(p), _numpy_tree(shared),
+        jnp.asarray(x), jnp.asarray(depth[:, None]),
+        cache={"attn": {k: jnp.asarray(v) for k, v in ring.items()}},
+        cache_index=jnp.asarray(depth), return_cache=True)
+    tring = {k: torch.from_numpy(v.copy()) for k, v in ring.items()}
+    got, new = decoder.block_apply(
+        tcfg, CTX, kind, p, torch.from_numpy(x),
+        torch.from_numpy(depth[:, None]), shared_p=shared,
+        cache={"attn": tring}, cache_index=torch.from_numpy(depth),
+        return_cache=True)
     _close(got, want, TOL["float32"])
+    for leaf in ("k", "v"):
+        assert new["attn"][leaf] is tring[leaf]       # written in place
+        _close(new["attn"][leaf], jnew["attn"][leaf], TOL["float32"])
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -456,7 +763,29 @@ def test_init_params_follows_reference_init(arch):
 
     for p, s in zip(params["layers"], shapes):
         walk(p, s)
-    assert torch.equal(params["final_norm"], torch.ones(cfg.d_model))
+    if "shared_attn" in params:
+        walk(params["shared_attn"], common.param_shapes(cfg)["shared_attn"])
+    # gemma's (1 + w) norms start at zero, every other norm at one
+    assert torch.equal(params["final_norm"],
+                       torch.full((cfg.d_model,),
+                                  0.0 if cfg.gemma_norm else 1.0))
+    # norms and the SSM's special leaves equal the reference's init
+    # (common.py:477-497 there): its q/k norms stay one under gemma
+    _, _, _, ref = _setup(arch, "float32", 0)
+    special = set(common._NORM_NAMES) | {"A_log", "D", "dt_bias"}
+
+    def same(p, r, name=""):
+        if isinstance(p, dict):
+            assert p.keys() == r.keys()
+            for k in p:
+                same(p[k], r[k], k)
+        elif isinstance(p, list):
+            for a, b in zip(p, r):
+                same(a, b)
+        elif name in special:
+            torch.testing.assert_close(p, r, rtol=1e-6, atol=0)
+
+    same(params, ref)
     w = params["embed"]
     std = cfg.vocab_size ** -0.5
     assert w.abs().max() <= 3 * std + 1e-7

@@ -188,6 +188,9 @@ def test_unported_serving_paths_raise():
                   "16"])["tokens"] == eng.metrics.tokens
     with pytest.raises(NotImplementedError, match="item 9"):
         tmain(["--backend", "real", "--device", "cpu", "--seq-axis", "2"])
+    # hubert builds (an encoder's forward), but has nothing to decode
+    with pytest.raises(SystemExit, match="encoder-only"):
+        tmain(["--arch", "hubert-xlarge", "--device", "cpu"])
     with pytest.raises(ValueError, match="auto"):
         StepCertifier(2, backend="jax", device="cpu")
     # the sanitized certifier and engine (runtime analysis) run: a sanitized
@@ -688,7 +691,8 @@ def test_router_and_affinity_are_pinned_copies():
 
 # -- real decode: RealBackend, launch.serve --backend real, the trace CLI ---
 
-REAL_ARCHS = ("glm4-9b", "mixtral-8x7b", "deepseek-v2-236b", "mamba2-780m")
+REAL_ARCHS = ("glm4-9b", "mixtral-8x7b", "deepseek-v2-236b", "mamba2-780m",
+              "zamba2-1.2b", "minitron-4b", "gemma3-27b", "qwen2-vl-2b")
 REAL_TOL = 2e-3          # float32 logits, tests/test_torch_models.py's TOL
 REAL_LOOP = dict(n_sessions=6, tokens_per_request=3, locality=0.5, seed=3)
 
@@ -780,6 +784,7 @@ def test_real_backend_engine_equals_reference(monkeypatch, arch):
     ["--arch", "deepseek-v2-236b", "--requests", "48", "--sessions", "8",
      "--policy", "long", "--plan-epoch-ms", "2"],
     ["--arch", "mamba2-780m", "--requests", "32", "--max-len", "64"],
+    ["--arch", "zamba2-1.2b", "--requests", "32", "--max-len", "64"],
 ])
 def test_serve_main_real_equals_reference(argv, capsys):
     """``--backend real`` (the default of both launches): the engine's
