@@ -243,13 +243,47 @@ Runtime analysis (``repro_torch.analysis``) on the card:
             passing a write to a class leased elsewhere) named
             ``write-locks``.
 
+Single-device training (``repro_torch.train``, ``launch.train``):
+
+21. kernel_grad — each model kernel's autograd Function at zamba2-1.2b's
+            training shapes (attention: B 2, S 2048, H 32, D 64, causal,
+            bf16, ``prefill_tc``; SSD: B 2, S 2048, H 64, P 64, N 64,
+            chunk 256, bf16, ``tc``): the forward against the plain
+            version (attention atol 1e-3 + rtol 1.6e-2; SSD 1e-2 of max
+            |y|), the input gradients equal, bit for bit, to
+            ``torch.autograd.grad`` of the plain version on the card (the
+            backward recomputes it); forward ms, backward ms, forward +
+            backward ms beside the plain version's and, for attention,
+            ``scaled_dot_product_attention``'s under autograd (a yardstick
+            the port never calls), and the bound of forward + backward.
+22. train — ``launch.train.main`` at zamba2-1.2b's full width and depth
+            (1.27 B parameters, fp32 masters and AdamW moments, bf16
+            compute), 4 steps of 2 x 2048 tokens, counts reset just
+            before; once with remat none and once with ``--remat full``.
+            Every loss finite; per step 6 ``prefill_tc`` and 32 ``tc``
+            launches (under full remat the 36 body layers' forwards run
+            again in the backward: 12 and 62) and 6 and 32 backward
+            recomputes; step wall after the first, tokens/s, peak memory.
+    train_profile — one more step under ``torch.profiler``: device busy,
+            idle share, the largest device ops, the share of busy time in
+            the Functions' backward recomputes; then the step's gradients,
+            every leaf finite and non-zero (the shared block's attention
+            weights and every Mamba layer's ``w_in`` among them).
+23. train_held — zamba2-1.2b at full width cut to 6 layers (one shared
+            site), 1 x 2048 tokens: the train step's loss and gradients on
+            the card (kernels) and on the CPU (plain versions) from the
+            same fp32 masters; loss within 1e-2 relative, every gradient
+            leaf's relative L2 error within 5e-2.
+
 The last three lines are the ``nvidia-smi`` line, the kernels record (one
 entry per lease_validate, flash and SSD variant; ``lease_validate.drain``
 and each flash variant count their launches on every path that reaches
 them, by path in ``launches_by_path``: the runtime-analysis paths 15, 16,
-17 and 19 for the drain, the model phases 8-9, 8b-8h and serve_real for
-flash, mamba2 and zamba2 for the SSD), and ``{"ok": true, "device":
-{...}}``.
+17 and 19 for the drain, the model phases 8-9, 8b-8h, serve_real and the
+train phases for flash, mamba2, zamba2 and the train phases for the SSD;
+the model kernels also carry ``backward_recomputes``, the train phases'
+count, and the variants training runs a ``backward`` entry from phase
+21), and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -1384,6 +1418,22 @@ def ssd_records(cases: list, paths: dict) -> list:
             "src/repro/kernels/ssd_scan.py:76", sum(by_path.values()),
             first + [c for c in mine if c["case"] != head]),
             case=head, launches_by_path=by_path))
+    return out
+
+
+def with_backward(record: dict, train: dict, grad_cases: dict) -> dict:
+    """A model kernel's record with its backward: the recomputes of its
+    plain version on the training path (the train phases' counts) and,
+    for the variants training runs, the ``kernel_grad`` times."""
+    name = record["name"]
+    out = dict(record, backward_recomputes=sum(
+        t["backward_recomputes"].get(name, 0) for t in train.values()))
+    case = grad_cases.get(name)
+    if case is not None:
+        out["backward"] = {k: case[k] for k in (
+            "case", "bwd_ms", "fwd_bwd_ms", "plain_fwd_bwd_ms",
+            "library_fwd_bwd_ms", "fwd_bwd_bound_ms", "fwd_bwd_bound_by",
+            "max_abs_grad_diff")}
     return out
 
 
@@ -2787,6 +2837,373 @@ def mutants_phase() -> None:
          drain_kernel=drain_kernel_mutants(), wall_s=wall)
 
 
+# -- phases 21-23: single-device training ---------------------------------------
+
+TRAIN_ARCH = "zamba2-1.2b"
+TRAIN_ARGS = ["--arch", TRAIN_ARCH, "--preset", "full", "--steps", "4",
+              "--batch", "2", "--seq", "2048", "--log-every", "1"]
+HELD_TRAIN_LAYERS = 6          # zamba2 at full width: one shared site
+HELD_TRAIN_LOSS_TOL = 1e-2     # cuda vs cpu train_step loss, relative
+HELD_TRAIN_GRAD_TOL = 5e-2     # per leaf ||g_cuda - g_cpu|| / ||g_cpu||
+
+
+def _grads(fn, inputs, weight):
+    """``fn``'s output and the gradients of ``sum(out * weight)`` for the
+    inputs (fresh leaves each call)."""
+    import torch
+
+    leaves = [t.detach().clone().requires_grad_(t.is_floating_point())
+              if t is not None else None for t in inputs]
+    outs = fn(*leaves)
+    out = outs[0] if isinstance(outs, tuple) else outs
+    wanted = [t for t in leaves if t is not None and t.requires_grad]
+    grads = torch.autograd.grad((out.float() * weight).sum(), wanted)
+    return out.detach(), grads
+
+
+def kernel_grad_case(name: str, kind: str) -> dict:
+    """One kernel's autograd Function at zamba2's training shape: the
+    forward against the plain version (the kernels' tolerances), the input
+    gradients equal to ``torch.autograd.grad`` of the plain version on the
+    card; forward, backward, plain and SDPA (forward + backward) times."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ssd_scan as ss
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    if kind == "attention":
+        b, s, h, d = 2, 2048, 32, 64
+        q, k, v = (torch.randn((b, s, h, d), generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(3))
+        pos = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s) \
+            .contiguous()
+        kw = dict(q_positions=pos, kv_positions=pos, causal=True)
+        inputs = (q, k, v)
+        kernel = lambda q, k, v: ops.attention(q, k, v, **kw)
+        plain = lambda q, k, v: ref.sdpa_ref(q, k, v, **kw)
+        variant = f"flash_attention.{fa.variant(q.dtype, s, h, h, d, d)}"
+        out_shape = (b, s, h, d)
+        pairs = h * b * s * (s + 1) // 2
+        fwd_flops = 2.0 * pairs * (d + d)
+        # forward + backward: 2 products forward, 5 backward (S again, dP,
+        # dV, dQ, dK); q, k, v, out and dout read, dq, dk, dv written
+        flops = fwd_flops * 3.5
+        n_bytes = 8 * q.numel() * q.element_size()
+        atol, rtol = FLASH_TOL["bfloat16"]
+
+        def library(q, k, v):
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True).transpose(1, 2)
+    else:
+        b, s, h, p, n, chunk = 2, 2048, 64, 64, 64, 256
+        inputs = ssd_inputs(b, s, h, p, n, "bfloat16", 21, with_h0=False)
+        kernel = lambda *a: ops.ssd(*a[:5], chunk=chunk, h0=a[5])
+        plain = lambda *a: tuple(
+            t.to(a[0].dtype) if i == 0 else t for i, t in enumerate(
+                ops.ssd(*a[:5], chunk=chunk, h0=a[5], plain=True)))
+        variant = f"ssd_scan.{ss.variant(torch.bfloat16, p, n, chunk)}"
+        out_shape = (b, s, h, p)
+        nc, tri = s // chunk, chunk * (chunk + 1) / 2
+        fwd_flops = b * nc * (2 * tri * n + h * (2 * tri * p
+                                                 + 4 * chunk * p * n
+                                                 + 3 * tri))
+        flops = fwd_flops * 3.0        # the backward: about twice the forward
+        x, dt, a, bm, cm, _ = inputs
+        el = x.element_size()
+        n_bytes = 2 * (2 * x.numel() + bm.numel() + cm.numel()) * el \
+            + 2 * 4 * (dt.numel() + a.numel())
+        atol, rtol = None, 1e-2
+        library = None
+    weight = torch.randn(out_shape, generator=gen, device=dev)
+    out_k, g_k = _grads(kernel, inputs, weight)
+    out_p, g_p = _grads(plain, inputs, weight)
+    err = float((out_k.float() - out_p.float()).abs().max())
+    scale = float(out_p.float().abs().max())
+    if atol is not None:
+        fwd_ok = torch.allclose(out_k.float(), out_p.float(), atol=atol,
+                                rtol=rtol)
+    else:
+        fwd_ok = err / (scale + 1e-9) < rtol
+    check(fwd_ok, f"{name}: the Function's forward disagrees with the plain "
+          f"version (max abs err {err})")
+    equal = [bool(torch.equal(x, y)) for x, y in zip(g_k, g_p)]
+    grad_err = max(float((x.float() - y.float()).abs().max())
+                   for x, y in zip(g_k, g_p))
+    check(all(equal), f"{name}: the Function's input gradients differ from "
+          f"the plain version's (max abs diff {grad_err})")
+    check(all(bool(torch.isfinite(g).all()) and bool(g.abs().max() > 0)
+              for g in g_k), f"{name}: a zero or non-finite gradient")
+
+    leaves = [t.detach().clone().requires_grad_(True) if t is not None
+              else None for t in inputs]
+    wanted = [t for t in leaves if t is not None]
+    graph_out = kernel(*leaves)
+    graph_out = graph_out[0] if isinstance(graph_out, tuple) else graph_out
+    gout = weight.to(graph_out.dtype)
+    no_grad = [t.detach() if t is not None else None for t in inputs]
+
+    def fwd_bwd(fn):
+        def run():
+            ls = [t.detach().requires_grad_(True) if t is not None else None
+                  for t in no_grad]
+            o = fn(*ls)
+            o = o[0] if isinstance(o, tuple) else o
+            torch.autograd.grad(o, [t for t in ls if t is not None], gout)
+        return run
+
+    with torch.no_grad():
+        ms, g_ms, iters = timings(lambda: kernel(*no_grad))
+        plain_ms, _, _ = timings(lambda: plain(*no_grad))
+    bwd_ms = time_ms(lambda: torch.autograd.grad(graph_out, wanted, gout,
+                                                 retain_graph=True),
+                     max(3, iters // 4), warmup=2)
+    fwd_bwd_ms = time_ms(fwd_bwd(kernel), max(3, iters // 4), warmup=2)
+    plain_fwd_bwd_ms = time_ms(fwd_bwd(plain), max(3, iters // 4), warmup=2)
+    lib_ms = (time_ms(fwd_bwd(library), max(3, iters // 4), warmup=2)
+              if library is not None else None)
+    bms, by = op_bound(flops, n_bytes, BF16_FLOPS_PER_S)
+    out = dict(case=name, variant=variant, shape=list(out_shape),
+               max_abs_err=err, max_abs_want=scale, grads_equal=equal,
+               max_abs_grad_diff=grad_err, ms=ms, graph_ms=g_ms,
+               bwd_ms=bwd_ms, fwd_bwd_ms=fwd_bwd_ms, plain_ms=plain_ms,
+               plain_fwd_bwd_ms=plain_fwd_bwd_ms, library_fwd_bwd_ms=lib_ms,
+               fwd_bwd_bound_ms=bms, fwd_bwd_bound_by=by,
+               wall_s=time.perf_counter() - t_start)
+    emit("kernel_grad", **out)
+    return out
+
+
+def reset_model_counts() -> None:
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ss
+
+    fa.launches = ss.launches = 0
+    for counts in (fa.variant_launches, ss.variant_launches,
+                   ops.backward_recomputes):
+        for k in counts:
+            counts[k] = 0
+
+
+def model_counts() -> dict:
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ss
+
+    return dict(**fa.variant_launches,
+                **{f"ssd_{k}": c for k, c in ss.variant_launches.items()},
+                recomputes=dict(ops.backward_recomputes))
+
+
+def _train_setup(cfg, device, seed: int = 0):
+    import torch
+
+    from repro_torch.models.common import init_params
+    from repro_torch.train import optimizer as opt
+
+    params = init_params(cfg, torch.Generator(device).manual_seed(seed),
+                         device, torch.float32)
+    return params, opt.init(params)
+
+
+def _train_batch(cfg, b: int, s: int, device, step: int = 0) -> dict:
+    import torch
+
+    from repro_torch.data import DataConfig, SyntheticLM
+
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=s,
+                                  global_batch=b, seed=0)).batch(step)
+    return {k: torch.from_numpy(v).to(device) for k, v in data.items()}
+
+
+def train_phase(remat: str) -> dict:
+    """``launch.train.main`` at zamba2-1.2b's full width and depth, 4 steps
+    of 2 x 2048 tokens on the card, counts reset just before: every loss
+    finite; the kernels' launches per forward (6 ``prefill_tc``, 32 ``tc``;
+    under ``full`` remat the body groups' forwards run again in the
+    backward) and their backward recomputes (6 and 32 a step)."""
+    import torch
+
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.common import layer_plan
+
+    t0 = time.perf_counter()
+    reset_model_counts()
+    res = launch_train.main(TRAIN_ARGS + ["--remat", remat])
+    counts = model_counts()
+    wall = time.perf_counter() - t0
+    cfg = launch_train.scaled_config(TRAIN_ARCH, "full")
+    plan = layer_plan(cfg)
+    steps = res["steps"]
+    sites = sum(k.mixer == "shared_attn" for k in plan.kinds)
+    mamba = sum(k.mixer == "mamba" for k in plan.kinds)
+    body = plan.kinds[plan.prefix:plan.suffix_start]
+    again = remat == "full"
+    want = dict(
+        prefill_tc=steps * (sites + again * sum(k.mixer == "shared_attn"
+                                                for k in body)),
+        ssd_tc=steps * (mamba + again * sum(k.mixer == "mamba"
+                                            for k in body)),
+        decode_split=0, simt=0, ssd_simt=0)
+    got = {k: counts[k] for k in want}
+    want_re = {"flash_attention.prefill_tc": steps * sites,
+               "ssd_scan.tc": steps * mamba}
+    got_re = {k: counts["recomputes"][k] for k in want_re}
+    check(steps == 4 and all(np.isfinite(res["losses"])),
+          f"train {remat}: losses {res['losses']}")
+    check(got == want, f"train {remat}: kernel launches {got}, expected "
+          f"{want}")
+    check(got_re == want_re and sum(counts["recomputes"].values())
+          == sum(want_re.values()),
+          f"train {remat}: backward recomputes {counts['recomputes']}, "
+          f"expected {want_re}")
+    tokens = 2 * 2048
+    out = dict(remat=remat, steps=steps, losses=res["losses"],
+               step_s=res["step_s"], tokens_per_s=tokens / res["step_s"],
+               peak_mem_gb=res["peak_mem_gb"], launches=got,
+               launches_per_step={k: v / steps for k, v in got.items()},
+               backward_recomputes=got_re, params=cfg.param_count(),
+               wall_s=wall)
+    emit("train", **out)
+    del res
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_profile_phase() -> dict:
+    """One more zamba2 train step on the card under ``torch.profiler``
+    (after a warm-up step): device busy and idle share, the largest device
+    ops, and the share of busy time spent in the kernels' backward
+    recomputes (device time under the Functions' backward nodes).  Then
+    the step's gradients: every leaf finite and non-zero, so gradients
+    crossed both kernels' Functions (the shared block's attention weights
+    and every Mamba layer's ``w_in`` among them)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import decoder
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.tree import leaves_with_paths
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = launch_train.scaled_config(TRAIN_ARCH, "full")
+    ctx = decoder.RunCtx(dev)
+    params, state = _train_setup(cfg, dev)
+    step_fn = ts.make_train_step(cfg, ctx, ts.TrainConfig())
+    batch = _train_batch(cfg, 2, 2048, dev)
+    params, state, _ = step_fn(params, state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        params, state, m = step_fn(params, state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t1) * 1e3
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA), key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    recompute = {}
+    for e in prof.events():
+        if e.name.startswith("autograd::engine::evaluate_function: ") and \
+                any(f in e.name for f in ("_AttentionBackward",
+                                          "_SSDBackward")):
+            key = e.name.split(": ")[1]
+            recompute[key] = recompute.get(key, 0.0) \
+                + e.device_time_total / 1e3
+    ours = {n[:60]: ms for n, ms, _ in rows
+            if any(k in n for k in ("flash::", "ssd::"))}
+    check(busy > 0, "train_profile: the trace holds no device time")
+    grads_of = ts._grad_fn(cfg, ctx)
+    _, _, grads = grads_of(params, batch)
+    bad = [(".".join(map(str, path)), float(g.abs().max()))
+           for path, g in leaves_with_paths(grads)
+           if not bool(torch.isfinite(g).all()) or not bool(g.abs().max() > 0)]
+    check(not bad, f"train_profile: zero or non-finite gradients: {bad}")
+    n_leaves = len(leaves_with_paths(grads))
+    shared = {k: float(v.norm()) for k, v in grads["shared_attn"]["attn"].items()}
+    w_in = [float(layer["mamba"]["w_in"].norm())
+            for layer in grads["layers"] if "mamba" in layer]
+    out = dict(wall_ms=wall, device_busy_ms=busy,
+               idle_share=max(0.0, 1 - busy / wall),
+               backward_recompute_ms=recompute,
+               backward_recompute_share=sum(recompute.values()) / busy,
+               repo_kernels_ms=ours,
+               top=[dict(name=n[:90], ms=ms, calls=c) for n, ms, c in rows[:8]],
+               grad_leaves=n_leaves, grad_leaves_nonzero_finite=n_leaves,
+               shared_attn_grad_norms=shared, mamba_w_in_grad_norms=w_in,
+               loss=float(m["loss"]), wall_s=time.perf_counter() - t0)
+    emit("train_profile", **out)
+    del params, state, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_held_phase() -> dict:
+    """zamba2-1.2b at full width cut to 6 layers (one shared site), 1 x
+    2048 tokens: the train step's loss and gradients on the card (kernels)
+    and on the CPU (plain versions) from the same fp32 masters and batch;
+    loss within 1e-2 relative, each leaf's relative L2 error within 5e-2
+    (bf16 compute)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import decoder
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.tree import leaves_with_paths, tree_map
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(launch_train.scaled_config(TRAIN_ARCH, "full"),
+                              n_layers=HELD_TRAIN_LAYERS)
+    params, _ = _train_setup(cfg, dev, seed=3)
+    batch = _train_batch(cfg, 1, 2048, dev, step=3)
+    reset_model_counts()
+    loss_c, _, g_c = ts._grad_fn(cfg, decoder.RunCtx(dev))(params, batch)
+    counts = model_counts()
+    t_card = time.perf_counter() - t0
+    cpu_params = tree_map(lambda t: t.to("cpu"), params)
+    t1 = time.perf_counter()
+    loss_h, _, g_h = ts._grad_fn(cfg, decoder.RunCtx("cpu"))(
+        cpu_params, {k: v.cpu() for k, v in batch.items()})
+    t_cpu = time.perf_counter() - t1
+    rel_loss = abs(float(loss_c) - float(loss_h)) / abs(float(loss_h))
+    errs = {}
+    for (path, a), (_, b) in zip(leaves_with_paths(g_c),
+                                 leaves_with_paths(g_h)):
+        errs[".".join(map(str, path))] = float(
+            (a.cpu() - b).norm() / b.norm().clamp(min=1e-30))
+    worst = max(errs, key=errs.get)
+    check(counts["prefill_tc"] == 1 and counts["ssd_tc"] == 5,
+          f"train_held: kernel launches {counts}")
+    check(rel_loss <= HELD_TRAIN_LOSS_TOL,
+          f"train_held: loss {float(loss_c)} on cuda, {float(loss_h)} on cpu")
+    check(errs[worst] <= HELD_TRAIN_GRAD_TOL,
+          f"train_held: gradient {worst} off by {errs[worst]} (relative L2)")
+    out = dict(layers=HELD_TRAIN_LAYERS, loss_cuda=float(loss_c),
+               loss_cpu=float(loss_h), loss_rel_err=rel_loss,
+               grad_leaves=len(errs), worst_leaf=worst,
+               worst_rel_l2=errs[worst],
+               median_rel_l2=float(np.median(list(errs.values()))),
+               launches=counts, card_s=t_card, cpu_s=t_cpu,
+               wall_s=time.perf_counter() - t0)
+    emit("train_held", **out)
+    del params, g_c
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -2980,6 +3397,27 @@ def main() -> int:
     t0 = time.perf_counter()
     mutants_phase()
     emit("mutants_done", wall_s=time.perf_counter() - t0)
+
+    # 21-23. single-device training: each kernel's autograd Function at
+    # zamba2's training shapes, the trainer at full width and depth (remat
+    # none and full), one step profiled, the train step held to the CPU
+    t0 = time.perf_counter()
+    grad_cases = {c["variant"]: c for c in (
+        kernel_grad_case("zamba2_attention", "attention"),
+        kernel_grad_case("zamba2_ssd", "ssd"))}
+    emit("kernel_grad_done", wall_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    train = {remat: train_phase(remat) for remat in ("none", "full")}
+    emit("train_done", wall_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    train_profile_phase()
+    emit("train_profile_done", wall_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    train_held_phase()
+    emit("train_held_done", wall_s=time.perf_counter() - t0)
+    train_paths = {"train": train["none"]["launches"],
+                   "train_remat_full": train["full"]["launches"]}
+
     drain_paths = {"main": main_launches["drain"],
                    "serve_jax_min_1": serve_launches[1],
                    "serve_jax_min_8": serve_launches[8],
@@ -3001,14 +3439,17 @@ def main() -> int:
                            sum(drain_paths.values()),
                            [drain_cases[1], *drain_cases, *serve_cases]),
              launches_by_path=drain_paths),
-        *flash_records(flash_cases, {
-            "glm4": glm4, "mamba2": mamba2, "mixtral": mixtral,
-            "deepseek": deepseek, **rest,
-            "serve_real_mixtral": serve_real["mixtral-8x7b"],
-            "serve_real_deepseek": serve_real["deepseek-v2-236b"],
-            "serve_real_zamba2": serve_real["zamba2-1.2b"]}),
-        *ssd_records(ssd_cases, {"mamba2": mamba2,
-                                 "zamba2": rest["zamba2"]}),
+        *(with_backward(r, train, grad_cases) for r in flash_records(
+            flash_cases, {
+                "glm4": glm4, "mamba2": mamba2, "mixtral": mixtral,
+                "deepseek": deepseek, **rest,
+                "serve_real_mixtral": serve_real["mixtral-8x7b"],
+                "serve_real_deepseek": serve_real["deepseek-v2-236b"],
+                "serve_real_zamba2": serve_real["zamba2-1.2b"],
+                **train_paths})),
+        *(with_backward(r, train, grad_cases) for r in ssd_records(
+            ssd_cases, {"mamba2": mamba2, "zamba2": rest["zamba2"],
+                        **train_paths})),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}), flush=True)

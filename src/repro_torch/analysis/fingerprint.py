@@ -19,15 +19,23 @@ side additionally covers the hidden inputs of future behavior: workload
 RNG states, id counters, per-transaction phase, per-replica slot/stat
 state, and the GCS sequencer clock.
 
-The port's one change: :func:`_blob` canonicalises a ``torch.Tensor`` by
+The port's changes: :func:`_blob` canonicalises a ``torch.Tensor`` by
 dtype, shape and bytes (``repr`` elides a large tensor's middle, so two
 different states would hash equal) and a ``torch.device`` by name.  A
 replica's store is hashed by its host ``values``/``versions``, which are
-authoritative: the device table is flushed from them.
+authoritative: the device table is flushed from them.  An object whose
+repr is the default one (type and address; the planner's
+``AffinityTracker``) is identified by a serial number given when a
+fingerprint first meets it, not by its address: an address is reused once
+its object is freed, so an object of one explored run could hash equal to
+another run's (a false merge, and a dedup count that depended on the
+allocator: the planner cell's runs differed between processes).
 """
 from __future__ import annotations
 
 import hashlib
+import itertools
+import weakref
 from typing import Tuple
 
 import numpy as np
@@ -41,6 +49,18 @@ def digest(*parts) -> str:
         h.update(repr(p).encode())
         h.update(b"\x00")
     return h.hexdigest()
+
+
+# serial numbers of the default-repr objects fingerprints have met
+_SERIALS: "weakref.WeakKeyDictionary[object, int]" = weakref.WeakKeyDictionary()
+_NEXT_SERIAL = itertools.count()
+
+
+def _identity(o):
+    """A default-repr object's identity that no later object can take."""
+    if o not in _SERIALS:
+        _SERIALS[o] = next(_NEXT_SERIAL)
+    return ("object", type(o).__qualname__, _SERIALS[o])
 
 
 def _blob(o):
@@ -59,6 +79,8 @@ def _blob(o):
         return tuple(_blob(x) for x in o)
     if isinstance(o, (set, frozenset)):
         return tuple(sorted(repr(x) for x in o))
+    if type(o).__repr__ is object.__repr__ and hasattr(o, "__weakref__"):
+        return _identity(o)
     return repr(o)
 
 

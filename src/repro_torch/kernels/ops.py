@@ -13,6 +13,16 @@ One difference from the reference's dispatch: on a CUDA tensor
 decode's Sq = 1 included.  The reference sends Sq = 1 to its plain path
 (``repro/models/attention.py:120``) because its TPU tiling needs at least
 8 query rows; both compute the same function.
+
+Gradients.  The kernels compute forwards only, as the reference's Pallas
+kernels do (the reference differentiates through its plain functions
+alone).  On CUDA tensors :func:`attention` and :func:`ssd` run the kernel
+inside a ``torch.autograd.Function`` whose backward recomputes the plain
+version (``ref.sdpa_ref`` / ``ref.ssd_ref``) from the saved inputs and
+returns its input gradients: the gradients are those of the plain version,
+at the cost of one more forward of it per backward.
+:data:`backward_recomputes` counts those recomputes by kernel variant.  On
+the CPU the plain version runs, and autograd differentiates it natively.
 """
 from __future__ import annotations
 
@@ -21,10 +31,85 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from . import flash_attention as _flash
 from . import ref
-from .flash_attention import flash_attention
+from . import ssd_scan as _ssd
 from .lease_validate import DrainStaging, lease_drain, lease_validate
-from .ssd_scan import ssd_scan
+
+# backward recomputes through the plain versions since the count was last
+# reset, by the variant whose forward ran (the kernels line's names)
+backward_recomputes = {f"flash_attention.{v}": 0 for v in _flash.VARIANTS}
+backward_recomputes.update({f"ssd_scan.{v}": 0 for v in _ssd.VARIANTS})
+
+
+def _recompute_grads(ctx, plain, inputs, grads_out):
+    """Input gradients of ``plain(*inputs)`` for ``grads_out`` (None where
+    an output got no gradient): the plain version is run again on detached
+    copies of the saved inputs with autograd on."""
+    need = ctx.needs_input_grad[:len(inputs)]
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(n) if t is not None else None
+                  for t, n in zip(inputs, need)]
+        outs = plain(*leaves)
+        pairs = [(o, g) for o, g in zip(outs, grads_out) if g is not None]
+        wanted = [t for t in leaves if t is not None and t.requires_grad]
+        got = iter(torch.autograd.grad([o for o, _ in pairs],
+                                       wanted, [g for _, g in pairs],
+                                       allow_unused=True)
+                   if pairs and wanted else [None] * len(wanted))
+    return [next(got) if t is not None and t.requires_grad else None
+            for t in leaves]
+
+
+class _Attention(torch.autograd.Function):
+    """The flash kernel forward; the backward of ``ref.sdpa_ref``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_positions, kv_positions, opts):
+        ctx.save_for_backward(q, k, v, q_positions, kv_positions)
+        ctx.opts = opts
+        ctx.variant = _flash.variant(q.dtype, q.shape[1], q.shape[2],
+                                     k.shape[2], q.shape[3], v.shape[3])
+        return _flash.flash_attention(q, k, v, q_positions=q_positions,
+                                      kv_positions=kv_positions, **opts)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v, qp, kp = ctx.saved_tensors
+        backward_recomputes[f"flash_attention.{ctx.variant}"] += 1
+
+        def plain(q, k, v):
+            return (ref.sdpa_ref(q, k, v, q_positions=qp, kv_positions=kp,
+                                 **ctx.opts),)
+
+        return (*_recompute_grads(ctx, plain, (q, k, v), (grad_out,)),
+                None, None, None)
+
+
+class _SSD(torch.autograd.Function):
+    """The SSD kernel forward; the backward of ``ref.ssd_ref`` (y in x's
+    type, as the kernel returns it)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b_mat, c_mat, h0, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, a, b_mat, c_mat, h0)
+        ctx.chunk = chunk
+        ctx.variant = _ssd.variant(x.dtype, x.shape[3], b_mat.shape[3], chunk)
+        return _ssd.ssd_scan(x, dt, a, b_mat, c_mat, chunk=chunk, h0=h0)
+
+    @staticmethod
+    def backward(ctx, grad_y, grad_final):
+        saved = ctx.saved_tensors
+        backward_recomputes[f"ssd_scan.{ctx.variant}"] += 1
+
+        def plain(x, dt, a, b_mat, c_mat, h0):
+            y, final = ref.ssd_ref(x, dt, a, b_mat, c_mat, chunk=ctx.chunk,
+                                   h0=h0)
+            return y.to(x.dtype), final
+
+        return (*_recompute_grads(ctx, plain, saved, (grad_y, grad_final)),
+                None)
 
 
 def settle_lease_batch(head_req, head_proc, head_active, qlen, fresh_blocked,
@@ -104,8 +189,9 @@ def attention(q, k, v, *, q_positions, kv_positions, causal=True,
               plain=False):
     """GQA attention ``[B, Sq, Hq, Dk] x [B, Skv, Hkv, Dk|Dv]``.
 
-    CUDA tensors go to the flash kernel at every Sq; CPU tensors, and any
-    tensor when ``plain`` is set, to :func:`ref.sdpa_ref`.  Positions are
+    CUDA tensors go to the flash kernel at every Sq (differentiable, by
+    recompute of the plain version); CPU tensors, and any tensor when
+    ``plain`` is set, to :func:`ref.sdpa_ref`.  Positions are
     handed to the kernel as contiguous int32 (the model broadcasts them).
     Where q, k and v differ in dtype (a float32 model over a bf16 KV
     ring), the kernel takes all three in the widest and the output is
@@ -122,12 +208,11 @@ def attention(q, k, v, *, q_positions, kv_positions, causal=True,
                              sliding_window=sliding_window,
                              logit_softcap=logit_softcap,
                              scale=scale).to(q.dtype)
-        return flash_attention(
-            q, k, v, q_positions=q_positions.to(torch.int32).contiguous(),
-            kv_positions=kv_positions.to(torch.int32).contiguous(),
-            causal=causal,
-            sliding_window=sliding_window, logit_softcap=logit_softcap,
-            scale=scale)
+        return _Attention.apply(
+            q, k, v, q_positions.to(torch.int32).contiguous(),
+            kv_positions.to(torch.int32).contiguous(),
+            dict(causal=causal, sliding_window=sliding_window,
+                 logit_softcap=logit_softcap, scale=scale))
     return ref.sdpa_ref(q, k, v, q_positions=q_positions,
                         kv_positions=kv_positions, causal=causal,
                         sliding_window=sliding_window,
@@ -142,14 +227,16 @@ def ssd(x, dt, a, b_mat, c_mat, *, chunk=256, h0=None, plain=False
     branch does, ``repro/models/ssm.py:216-227``) and ``y`` is cut back to
     S; padded steps have ``dt = 0``, so they leave the state unchanged.
     CUDA tensors go to the SSD kernel (``n_groups == 1``; anything else
-    raises); CPU tensors, and any tensor when ``plain`` is set, to
-    :func:`ref.ssd_ref`.
+    raises; differentiable, by recompute of the plain version); CPU
+    tensors, and any tensor when ``plain`` is set, to :func:`ref.ssd_ref`.
+    The padding is torch ops outside the kernel's Function, so gradients
+    pass through it.
     """
     s = x.shape[1]
     pad = (-s) % chunk
     x, dt, b_mat, c_mat = (ref.pad_seq(t, pad) for t in (x, dt, b_mat, c_mat))
     if x.device.type == "cuda" and not plain:
-        y, final = ssd_scan(x, dt, a, b_mat, c_mat, chunk=chunk, h0=h0)
+        y, final = _SSD.apply(x, dt, a, b_mat, c_mat, h0, chunk)
     else:
         y, final = ref.ssd_ref(x, dt, a, b_mat, c_mat, chunk=chunk, h0=h0)
     return y[:, :s], final

@@ -1,1 +1,2 @@
-"""Launchers of the port: the serving entry point (``launch/serve.py``)."""
+"""Launchers of the port: serving (``launch/serve.py``) and single-device
+training (``launch/train.py``)."""

@@ -212,6 +212,38 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float,
     return (x * scale).to(dt)
 
 
+# In bf16 the activations are written out as jax.nn writes them, op by op,
+# so that they round where the reference rounds: its silu and gelu are
+# chains of bf16 ops, each rounded (XLA's CPU backend fuses them and rounds
+# every step all the same), where F.silu and F.gelu compute in fp32 and
+# round once.  The one-rounding forms differ from the reference's by one
+# bf16 step at about 40% of the elements (silu) and 1 in 3 (gelu), and
+# through a stack of bf16 layers that grows past the tolerance.  In fp32
+# every form is within an ulp of the reference's, and F.silu / F.gelu (one
+# kernel, one saved tensor for the backward) are kept.
+
+def _low_precision(x: torch.Tensor) -> bool:
+    return x.dtype in (torch.bfloat16, torch.float16)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``: in bf16 ``x * (1 / (1 + exp(-x)))``, rounded op by
+    op."""
+    if not _low_precision(x):
+        return F.silu(x)
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (tanh approximation): in bf16 rounded op by op, its
+    constants in x's type, as jax casts them."""
+    if not _low_precision(x):
+        return F.gelu(x, approximate="tanh")
+    c0 = torch.tensor(math.sqrt(2 / math.pi), dtype=x.dtype, device=x.device)
+    c1 = torch.tensor(0.044715, dtype=x.dtype, device=x.device)
+    return x * (0.5 * (1.0 + torch.tanh(c0 * (x + c1 * (x * x * x)))))
+
+
 def mlp_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
               act: str) -> torch.Tensor:
     """Feed-forward: gated (swiglu/geglu) or plain (relu2/gelu)."""
@@ -219,12 +251,11 @@ def mlp_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
         g = x @ p["w_gate"]
         u = x @ p["w_up"]
         # jax.nn.gelu defaults to the tanh approximation
-        h = (F.silu(g) if act == "swiglu"
-             else F.gelu(g, approximate="tanh")) * u
+        h = (silu(g) if act == "swiglu" else gelu_tanh(g)) * u
     elif act == "relu2":
         h = torch.square(F.relu(x @ p["w_up"]))
     elif act == "gelu":
-        h = F.gelu(x @ p["w_up"], approximate="tanh")
+        h = gelu_tanh(x @ p["w_up"])
     else:
         raise ValueError(act)
     return h @ p["w_down"]

@@ -1,6 +1,6 @@
-"""Decoder stack: full-sequence forward, prefill and decode.
+"""Decoder stack: train forward and loss, prefill and decode.
 
-The port of :mod:`repro.models.decoder` for inference.  Where the reference
+The port of :mod:`repro.models.decoder`.  Where the reference
 scans stacked layer groups with ``lax.scan``, the port runs a Python loop
 over per-layer parameter dicts (:mod:`.common` explains the layout), and a
 cache is a list with one dict per layer: ``{"attn": {"k", "v"}}`` (MLA:
@@ -21,8 +21,14 @@ partial rotary; qwen2-vl's M-RoPE over ``[3, B, S]`` positions and
 stack, whose ``shared_attn`` layers all read the one
 ``params["shared_attn"]`` block and each keep their own KV cache and
 their own MLP; an encoder (hubert, ``causal=False``) runs ``forward``
-over ``embeds``.  Not ported yet: training (``loss_fn``, remat; ROADMAP
-queue 1 item 10) and the mesh (item 9).
+over ``embeds``.
+
+Training: :func:`forward` and :func:`loss_fn` are differentiable (on CUDA
+the kernels' backward recomputes their plain versions,
+:mod:`repro_torch.kernels.ops`); ``RunCtx.remat`` checkpoints each body
+group of ``plan.period`` layers, as the reference wraps its scanned group
+body.  :func:`prefill` and :func:`decode_step` run without autograd.  Not
+ported yet: the mesh (ROADMAP queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch import resolve_device
 
@@ -44,25 +51,32 @@ Params = Dict[str, Any]
 Cache = List[Dict[str, Dict[str, torch.Tensor]]]
 
 _USE_KERNEL = ("auto", "kernel", "ref")
+_REMAT = ("none", "full", "dots")
 
 
 @dataclass(frozen=True)
 class RunCtx:
-    """Execution context: the device and the kernel policy.
+    """Execution context: the device, the kernel policy and remat.
 
     ``use_kernel``: ``"auto"`` runs the hand-written kernels on CUDA and
     their plain versions on the CPU; ``"kernel"`` insists on the kernels
     (raises on the CPU); ``"ref"`` runs the plain versions on any device,
-    as the reference's ``use_kernel="ref"`` does.
+    as the reference's ``use_kernel="ref"`` does.  ``remat``: ``"none"``,
+    ``"full"`` (each body group's activations recomputed in the backward)
+    or ``"dots"`` (only its matrix products without batch dims kept).
     """
 
     device: Any = "cuda"
     use_kernel: str = "auto"
+    remat: str = "none"
 
     def __post_init__(self):
         if self.use_kernel not in _USE_KERNEL:
             raise ValueError(f"use_kernel must be one of {_USE_KERNEL}, got "
                              f"{self.use_kernel!r}")
+        if self.remat not in _REMAT:
+            raise ValueError(f"remat must be one of {_REMAT}, got "
+                             f"{self.remat!r}")
         dev = resolve_device(self.device)
         if self.use_kernel == "kernel" and dev.type != "cuda":
             raise ValueError("use_kernel='kernel' runs the CUDA kernels, "
@@ -153,6 +167,32 @@ def block_apply(
 # Stack
 # ---------------------------------------------------------------------------
 
+# matrix products with no batch dims: what jax's
+# dots_with_no_batch_dims_saveable keeps (x @ W runs as aten.mm on 2-D views)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_wrap(fn, remat: str):
+    """``fn`` under the remat policy: ``"full"`` keeps none of its
+    activations and recomputes them in the backward; ``"dots"`` keeps the
+    matrix products with no batch dims (a selective checkpoint)."""
+    if remat == "none":
+        return fn
+    if remat == "full":
+        return lambda *a: ckpt.checkpoint(fn, *a, use_reentrant=False)
+    if remat == "dots":
+        return lambda *a: ckpt.checkpoint(
+            fn, *a, use_reentrant=False,
+            context_fn=lambda: ckpt.create_selective_checkpoint_contexts(
+                _save_dots))
+    raise ValueError(remat)
+
+
 def stack_apply(
     cfg: ModelConfig,
     ctx: RunCtx,
@@ -164,16 +204,37 @@ def stack_apply(
     cache_index: Optional[Index] = None,
     return_cache: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Cache]]:
-    """Every layer in order; the per-layer caches in, the new ones out."""
-    kinds = layer_plan(cfg).kinds
+    """Every layer in order; the per-layer caches in, the new ones out.
+
+    The body groups (``plan.period`` layers each, the reference's scanned
+    ``group_body``) run under ``ctx.remat``; the prefix and suffix layers
+    run unwrapped, as in the reference.
+    """
+    plan = layer_plan(cfg)
+    kinds, layers = plan.kinds, params["layers"]
     shared_p = params.get("shared_attn")
+
+    def run(lo: int, hi: int, x: torch.Tensor):
+        ncs = []
+        for i in range(lo, hi):
+            x, nc = block_apply(
+                cfg, ctx, kinds[i], layers[i], x, positions,
+                shared_p=shared_p,
+                cache=None if caches is None else caches[i],
+                cache_index=cache_index, return_cache=return_cache)
+            ncs.append(nc)
+        return x, ncs
+
+    group = _remat_wrap(run, ctx.remat)
     new_caches: Cache = []
-    for i, (kind, p) in enumerate(zip(kinds, params["layers"])):
-        x, nc = block_apply(
-            cfg, ctx, kind, p, x, positions, shared_p=shared_p,
-            cache=None if caches is None else caches[i],
-            cache_index=cache_index, return_cache=return_cache)
-        new_caches.append(nc)
+    x, ncs = run(0, plan.prefix, x)
+    new_caches += ncs
+    for g in range(plan.n_groups):
+        lo = plan.prefix + g * plan.period
+        x, ncs = group(lo, lo + plan.period, x)
+        new_caches += ncs
+    x, ncs = run(plan.suffix_start, len(kinds), x)
+    new_caches += ncs
     return x, (new_caches if return_cache else None)
 
 
@@ -214,13 +275,31 @@ def _positions(batch, x: torch.Tensor) -> torch.Tensor:
     return positions
 
 
-@torch.no_grad()
 def forward(cfg: ModelConfig, ctx: RunCtx, params: Params,
             batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Full-sequence forward -> logits [B, S, V]."""
+    """Full-sequence forward -> logits [B, S, V]; differentiable (autograd
+    records it where a parameter requires grad)."""
     x = embed_in(cfg, params, batch)
     x, _ = stack_apply(cfg, ctx, params, x, _positions(batch, x))
     return lm_logits(cfg, ctx, params, x)
+
+
+def loss_fn(cfg: ModelConfig, ctx: RunCtx, params: Params,
+            batch: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Mean next-token (or masked-frame) cross entropy; labels < 0 ignored.
+
+    Returns ``(loss, {"loss", "ntokens"})``, fp32 scalars.
+    """
+    logits = forward(cfg, ctx, params, batch).float()
+    labels = batch["labels"].long()
+    mask = (labels >= 0).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    nll = (lse - picked) * mask
+    denom = torch.clamp(mask.sum(), min=1.0)
+    loss = nll.sum() / denom
+    return loss, {"loss": loss, "ntokens": mask.sum()}
 
 
 def _layer_cache(cfg: ModelConfig, kind: LayerKind, batch: int, max_len: int,

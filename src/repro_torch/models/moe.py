@@ -30,7 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch.obs import trace as obs_trace
 
-from .common import ModelConfig, chunk_plan, mlp_apply
+from .common import ModelConfig, chunk_plan, mlp_apply, silu
 
 
 # ---------------------------------------------------------------------------
@@ -75,7 +75,7 @@ def _route(p: Dict[str, Any], xt: torch.Tensor, cfg: ModelConfig
 def _expert(we: Dict[str, torch.Tensor], e: int,
             x: torch.Tensor) -> torch.Tensor:
     """Expert ``e`` of the chunked ``n_chunks = 1`` layout on rows ``x``."""
-    h = F.silu(x @ we["w_gate"][0, e]) * (x @ we["w_up"][0, e])
+    h = silu(x @ we["w_gate"][0, e]) * (x @ we["w_up"][0, e])
     return h @ we["w_down"][0, e]
 
 

@@ -16,7 +16,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import segsum, ssd_chunked  # noqa: F401
 
-from .common import ModelConfig, rms_norm
+from .common import ModelConfig, rms_norm, silu
 
 
 def ssd_recurrent_step(
@@ -97,7 +97,7 @@ def mamba2_block(
                                dim=1)                        # [B,K,C]
         xbc_t = torch.einsum("bkc,kc->bc", conv_state.float(),
                              p["conv_w"].float()) + p["conv_b"]
-        xbc_t = F.silu(xbc_t).to(x.dtype)[:, None, :]
+        xbc_t = silu(xbc_t).to(x.dtype)[:, None, :]
         xs, b_mat, c_mat = torch.split(xbc_t, [di, gn, gn], dim=-1)
         y_t, new_ssm = ssd_recurrent_step(
             cache["ssm"],
@@ -114,7 +114,7 @@ def mamba2_block(
     else:
         # --- train / prefill: chunked scan -----------------------------------
         conv_in_state = cache["conv"] if cache is not None else None
-        xbc_c = F.silu(causal_conv1d(xbc, p["conv_w"], p["conv_b"],
+        xbc_c = silu(causal_conv1d(xbc, p["conv_w"], p["conv_b"],
                                      conv_in_state))
         xs, b_mat, c_mat = torch.split(xbc_c, [di, gn, gn], dim=-1)
         # the kernel takes contiguous [B, S, H, P] and [B, S, G, N]
@@ -138,7 +138,7 @@ def mamba2_block(
             new_cache = {"conv": tail.contiguous(), "ssm": final}
 
     # gated RMSNorm (Mamba2: norm(y * silu(z)))
-    y = rms_norm(y * F.silu(z.float()).to(y.dtype), p["gate_norm"],
+    y = rms_norm(y * silu(z.float()).to(y.dtype), p["gate_norm"],
                  cfg.norm_eps)
     return y @ p["w_out"], new_cache
 

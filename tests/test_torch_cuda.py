@@ -1165,3 +1165,104 @@ def test_cuda_explore_kernel_cell_matches_cpu(cuda_device):
             drains = dict(lv.variant_launches)
     assert stats["cuda"] == stats["cpu"]
     assert drains["drain"] > 0 and drains["gather"] == 0
+
+
+# -- training: the kernels' autograd Functions --------------------------------
+
+def _grads_of(fn, inputs, weight):
+    leaves = [t.detach().clone().requires_grad_(True) if t is not None
+              else None for t in inputs]
+    out = fn(*leaves)
+    out = out[0] if isinstance(out, tuple) else out
+    wanted = [t for t in leaves if t is not None]
+    return out.detach(), torch.autograd.grad((out.float() * weight).sum(),
+                                             wanted)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,sq", [("float32", 96), ("bfloat16", 160)])
+def test_cuda_attention_function_grads_match_plain(cuda_device, dtype, sq):
+    """ops.attention on the card is the flash kernel forward (``simt`` in
+    f32, ``prefill_tc`` in bf16) inside an autograd Function whose
+    backward recomputes ref.sdpa_ref: forward within the kernel's
+    tolerance, input gradients equal to the plain version's."""
+    q, k, v, qp, kp = _flash_inputs(3, 2, sq, sq, 4, 2, 64, 64, dtype,
+                                    cuda_device)
+    kw = dict(q_positions=qp, kv_positions=kp, causal=True)
+    w = torch.randn((2, sq, 4, 64), device=cuda_device)
+    before = dict(ops.backward_recomputes)
+    variant = fa.variant(q.dtype, sq, 4, 2, 64, 64)
+    out_k, g_k = _grads_of(lambda q, k, v: ops.attention(q, k, v, **kw),
+                           (q, k, v), w)
+    out_p, g_p = _grads_of(lambda q, k, v: ref.sdpa_ref(q, k, v, **kw),
+                           (q, k, v), w)
+    tol = {"float32": (2e-5, 2e-5), "bfloat16": (1e-3, 1.6e-2)}[dtype]
+    torch.testing.assert_close(out_k.float(), out_p.float(), atol=tol[0],
+                               rtol=tol[1])
+    for a, b in zip(g_k, g_p):
+        assert torch.equal(a, b)
+    assert ops.backward_recomputes[f"flash_attention.{variant}"] == \
+        before[f"flash_attention.{variant}"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,p,n,chunk", [("float32", 16, 16, 32),
+                                             ("bfloat16", 64, 64, 64)])
+def test_cuda_ssd_function_grads_match_plain(cuda_device, dtype, p, n, chunk):
+    """ops.ssd on the card (``simt`` in f32, ``tc`` in bf16) inside an
+    autograd Function whose backward recomputes ref.ssd_ref, a ragged S
+    padded outside it: forward within the kernel's tolerance, the
+    gradients of x, dt, A, B, C and h0 equal to the plain version's."""
+    b, s, h = 2, 3 * chunk - 5, 4
+    inputs = _ssd_inputs(4, b, s, h, p, n, dtype, cuda_device)
+    w = torch.randn((b, s, h, p), device=cuda_device)
+    out_k, g_k = _grads_of(lambda *a: ops.ssd(*a[:5], chunk=chunk, h0=a[5]),
+                           inputs, w)
+    out_p, g_p = _grads_of(
+        lambda *a: ops.ssd(*a[:5], chunk=chunk, h0=a[5], plain=True)[0]
+        .to(a[0].dtype), inputs, w)
+    rel = {"float32": 2e-5, "bfloat16": 1e-2}[dtype]
+    assert float((out_k.float() - out_p.float()).abs().max()) <= \
+        rel * float(out_p.float().abs().max())
+    for a, b_ in zip(g_k, g_p):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_reaches_every_leaf(cuda_device):
+    """One train step of zamba2's smoke config in f32 with
+    use_kernel="kernel" (every attention and SSD through the kernels'
+    Functions): a finite loss, every gradient leaf finite and non-zero,
+    each Function's backward recomputed once per layer."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import common, decoder
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.tree import leaves_with_paths
+
+    cfg = dataclasses.replace(get_smoke_config("zamba2-1.2b"),
+                              dtype="float32")
+    params = common.init_params(
+        cfg, torch.Generator(device=cuda_device).manual_seed(0), cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen,
+                         device=cuda_device, dtype=torch.int32)
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, dims=1)}
+    ctx = decoder.RunCtx(cuda_device, use_kernel="kernel")
+    before = dict(ops.backward_recomputes)
+    loss, _, grads = ts._grad_fn(cfg, ctx)(params, batch)
+    assert bool(torch.isfinite(loss))
+    for path, g in leaves_with_paths(grads):
+        assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0, \
+            path
+    kinds = common.layer_plan(cfg).kinds
+    done = {k: ops.backward_recomputes[k] - before[k] for k in before}
+    assert sum(v for k, v in done.items() if k.startswith("flash")) == \
+        sum(k.mixer == "shared_attn" for k in kinds)
+    assert sum(v for k, v in done.items() if k.startswith("ssd")) == \
+        sum(k.mixer == "mamba" for k in kinds)
+    step = ts.make_train_step(cfg, ctx, ts.TrainConfig())
+    _, state, metrics = step(params, opt.init(params), batch)
+    assert bool(torch.isfinite(metrics["loss"])) and int(state.count) == 1

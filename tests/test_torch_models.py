@@ -51,19 +51,16 @@ TOL = {"float32": 2e-3, "bfloat16": 6e-2}
 # bf16 keeps 8 significant bits: two router probabilities closer than this
 # can change order between the frameworks
 NEAR_TIE = 1e-2
-# archs whose smoke configs the reference does not reproduce itself within
-# TOL in bf16: its forward computed layer by layer (jdec.block_apply in a
-# Python loop, the port's order of work) and through its scanned stack
-# (XLA fuses the scan body and rounds elsewhere) differ by more than 6e-2
-# (gemma3: 0.17 in the logits and 0.52 in the KV caches, the hidden state
-# growing through eight layers of (1 + w) post-norms; zamba2: 0.11; the
-# other archs 0.02-0.04).  The port differs from either run by about as
-# much (gemma3: 0.16 in the logits from the layer-by-layer run; one bf16
-# step of a hidden state near 14 is 0.0625).  Their bf16 runs are held to
-# the reference computed layer by layer at rtol TOL, and at an atol of
-# each compared quantity's own spread (the logits; each cache leaf) where
-# that exceeds TOL, measured in the test.
-SELF_SPREAD_BF16 = ("gemma3-27b", "zamba2-1.2b")
+# archs whose bf16 smoke runs are held to the reference computed layer by
+# layer (jdec.block_apply in a Python loop, the port's order of work): its
+# scanned stack rounds elsewhere in bf16 (XLA compiles the scan body), and
+# differs from its own layer-by-layer run by more than TOL here (zamba2:
+# 0.108 in the logits, gemma3: 0.168, the hidden state growing through
+# eight layers).  The port rounds as the layer-by-layer run does (its
+# activations are jax.nn's op chains, common.silu / common.gelu_tanh) and
+# is as far from the scanned stack as that run is
+# (test_bf16_port_is_the_reference_by_layer).
+BY_LAYER_BF16 = ("gemma3-27b", "zamba2-1.2b")
 NEVER = 1 << 30
 
 
@@ -137,44 +134,45 @@ def routing_agrees(rec, b, positions, dtype):
     return first
 
 
-def _reference_by_layer(jcfg, params, tparams, batch):
+def _reference_by_layer(jcfg, params, tparams, batch, caches=None,
+                        pos=None):
     """The reference's prefill computed layer by layer (``jdec.block_apply``
     in a Python loop, the port's order of work): its logits ``[B, S, V]``
-    and one cache dict per layer."""
+    and one cache dict per layer.  With ``caches`` (one ring per layer) and
+    ``pos``, a decode step the same way, ``batch`` holding one position."""
     x = jdec.embed_in(jcfg, params, _jax(batch))
-    pos = batch.get("positions")
     s = x.shape[1]
-    pos = jnp.broadcast_to(jnp.arange(s, dtype=jnp.int32)[None],
-                           (x.shape[0], s)) if pos is None else \
-        jnp.asarray(pos)
+    if pos is not None:
+        positions = jnp.broadcast_to(jnp.asarray(pos, jnp.int32),
+                                     (x.shape[0], 1))
+        if jcfg.mrope_sections is not None:
+            positions = jnp.broadcast_to(positions[None], (3,) + positions.shape)
+    elif "positions" in batch:
+        positions = jnp.asarray(batch["positions"])
+    else:
+        positions = jnp.broadcast_to(jnp.arange(s, dtype=jnp.int32)[None],
+                                     (x.shape[0], s))
     shared = tparams.get("shared_attn")
-    caches = []
-    for kind, layer in zip(jdec.layer_plan(jcfg).kinds, tparams["layers"]):
+    out = []
+    for i, (kind, layer) in enumerate(zip(jdec.layer_plan(jcfg).kinds,
+                                          tparams["layers"])):
         x, c = jdec.block_apply(jcfg, JCTX, kind, _numpy_tree(layer),
                                 None if shared is None
-                                else _numpy_tree(shared), x, pos,
+                                else _numpy_tree(shared), x, positions,
+                                cache=None if caches is None else caches[i],
+                                cache_index=None if pos is None
+                                else jnp.asarray(pos, jnp.int32),
                                 return_cache=True)
-        caches.append(c)
-    return jdec.lm_logits(jcfg, JCTX, params, x), caches
+        out.append(c)
+    return jdec.lm_logits(jcfg, JCTX, params, x), out
 
 
-def _reference_spread(jcfg, params, tparams, batch):
-    """The reference against itself: the largest difference between its
-    prefill computed layer by layer and through its scanned stack, per
-    compared quantity: ``"logits"`` (``jdec.forward``'s) and each cache
-    leaf ``(mixer, name)`` over the layers (``jdec.prefill``'s)."""
-    diff = lambda a, b: float(jnp.abs(a.astype(jnp.float32)
-                                      - b.astype(jnp.float32)).max())
-    logits, eager_caches = _reference_by_layer(jcfg, params, tparams, batch)
-    out = {"logits": diff(logits,
-                          jdec.forward(jcfg, JCTX, params, _jax(batch)))}
-    _, caches = jdec.prefill(jcfg, JCTX, params, _jax(batch))
-    for got, want in zip(eager_caches, _ref_layer_caches(jcfg, caches)):
-        for m in got:
-            for k in got[m]:
-                out[m, k] = max(out.get((m, k), 0.0),
-                                diff(got[m][k], want[m][k]))
-    return out
+def _ref_ring(prompt, ring):
+    """The reference's prompt cache leaves copied into the leading slice of
+    a longer ring's (any tree of jnp arrays)."""
+    return jax.tree.map(
+        lambda r, p: r.at[tuple(slice(0, n) for n in p.shape)].set(
+            p.astype(r.dtype)), ring, prompt)
 
 
 def _setup(arch, dtype, seed):
@@ -213,6 +211,12 @@ def _cut(batch, n):
             for k, v in batch.items()}
 
 
+def _cut_at(batch, i):
+    """Position ``i`` of every input, as a one-position batch."""
+    return {k: v[..., i:i + 1] if k == "positions" else v[:, i:i + 1]
+            for k, v in batch.items()}
+
+
 def _step_input(batch, i):
     """decode_step's input for position ``i``: token ids ``[B]`` or the
     position's embeddings ``[B, 1, d]``."""
@@ -230,21 +234,21 @@ def _torch(batch):
             for k, v in batch.items()}
 
 
-def _close(got: torch.Tensor, want, tol, atol=None):
+def _close(got: torch.Tensor, want, tol):
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32), rtol=tol,
-                               atol=tol if atol is None else atol)
+                               atol=tol)
 
 
-def _close_before(got: torch.Tensor, want, tol, upto, pos=None, atol=None):
+def _close_before(got: torch.Tensor, want, tol, upto, pos=None):
     """Sequence ``i`` (dim 0) compared at the positions before ``upto[i]``:
     along dim 1 when ``pos`` is None, else whole when ``pos < upto[i]``."""
     want = np.asarray(want, np.float32)
     for i, u in enumerate(upto):
         if pos is None:
-            _close(got[i, :u], want[i, :u], tol, atol)
+            _close(got[i, :u], want[i, :u], tol)
         elif pos < u:
-            _close(got[i], want[i], tol, atol)
+            _close(got[i], want[i], tol)
 
 
 def _ref_layer_caches(jcfg, caches):
@@ -282,43 +286,53 @@ def test_decode_matches_reference(arch, dtype):
     tol = TOL[dtype]
     b, s = 2, 33
     batch = _batch(tcfg, 1, b, s)
-    atol = {}              # compared quantity -> atol, where not tol
-    if dtype == "bfloat16" and arch in SELF_SPREAD_BF16:
-        spread = _reference_spread(jcfg, params, tparams, batch)
-        print(f"{arch} bf16: the reference by layer against its scanned "
-              f"stack: {spread}")
-        atol = {k: max(tol, v) for k, v in spread.items()}
-
+    ring_len, dt = s + 4, jnp.dtype(dtype)
+    if dtype == "bfloat16" and arch in BY_LAYER_BF16:
         def forward_j(bt):
             return _reference_by_layer(jcfg, params, tparams, bt)[0]
 
         def prefill_j(bt):
             logits, caches = _reference_by_layer(jcfg, params, tparams, bt)
-            return logits[:, -1], caches
+            return logits[:, -1], caches, caches
+
+        def decode_j(prompt_caches, step, pos):
+            rings = [_ref_ring(c, jdec._layer_cache(jcfg, kind, b, ring_len,
+                                                    dt))
+                     for c, kind in zip(prompt_caches,
+                                        jdec.layer_plan(jcfg).kinds)]
+            return _reference_by_layer(jcfg, params, tparams, step, rings,
+                                       pos)[0][:, 0]
     else:
         def forward_j(bt):
             return jdec.forward(jcfg, JCTX, params, _jax(bt))
 
         def prefill_j(bt):
             logits, caches = jdec.prefill(jcfg, JCTX, params, _jax(bt))
-            return logits, _ref_layer_caches(jcfg, caches)
+            return logits, _ref_layer_caches(jcfg, caches), caches
+
+        def decode_j(prompt_caches, step, pos):
+            ring = _ref_ring(prompt_caches,
+                             jdec.init_cache(jcfg, b, ring_len, dt))
+            tok = step.get("tokens", step.get("embeds"))
+            return jdec.decode_step(jcfg, JCTX, params, ring,
+                                    jnp.asarray(tok[:, 0] if "tokens" in step
+                                                else tok), pos)[0]
     with recorded_routing() as rec:
         full_j = forward_j(batch)
         full_t = decoder.forward(tcfg, CTX, tparams, _torch(batch))
         upto = routing_agrees(rec, b, range(s), dtype)
         assert full_t.shape == (b, s, tcfg.vocab_size)
         assert full_t.dtype == tcfg.compute_dtype()
-        _close_before(full_t, full_j, tol, upto, atol=atol.get("logits"))
+        _close_before(full_t, full_j, tol, upto)
 
         prompt = _cut(batch, s - 1)
-        logits0_j, ref_caches = prefill_j(prompt)
+        logits0_j, ref_caches, ref_raw = prefill_j(prompt)
         logits0, caches = decoder.prefill(tcfg, CTX, tparams, _torch(prompt))
         upto = [min(u, v) for u, v in
                 zip(upto, routing_agrees(rec, b, range(s - 1), dtype))]
-        _close_before(logits0, logits0_j, tol, upto, pos=s - 2,
-                      atol=atol.get("logits"))
+        _close_before(logits0, logits0_j, tol, upto, pos=s - 2)
         _close_before(logits0, np.asarray(full_j)[:, s - 2], tol, upto,
-                      pos=s - 2, atol=atol.get("logits"))
+                      pos=s - 2)
         assert len(caches) == tcfg.n_layers
         for got, want in zip(caches, ref_caches):
             assert got.keys() == want.keys()
@@ -329,25 +343,61 @@ def test_decode_matches_reference(arch, dtype):
                         want[mixer][leaf].shape
                     _close_before(got[mixer][leaf], want[mixer][leaf], tol,
                                   upto, pos=None if mixer == "attn"
-                                  else s - 2, atol=atol.get((mixer, leaf)))
+                                  else s - 2)
 
-        ring = decoder.init_cache(tcfg, b, s + 4, tcfg.compute_dtype(), "cpu")
+        ring = decoder.init_cache(tcfg, b, ring_len, tcfg.compute_dtype(),
+                                  "cpu")
         ring = _into_ring(ring, caches)
         logits1, new = decoder.decode_step(
             tcfg, CTX, tparams, ring,
             torch.from_numpy(_step_input(batch, s - 1)), s - 1)
-        # the reference's forward is the oracle here: record its routing
-        # of position s - 1 again beside the port's decode
-        forward_j(batch)
-        rec["ref"][:] = [(lg.reshape(b, s, -1)[:, s - 1],
-                          ids.reshape(b, s, -1)[:, s - 1])
-                         for lg, ids in rec["ref"]]
+        # the oracle is the reference's own decode step from its own
+        # prompt cache (in bf16 its decode differs from its forward by more
+        # than TOL: deepseek-v2's absorbed MLA, 0.095)
+        logits1_j = decode_j(ref_raw, _cut_at(batch, s - 1), s - 1)
         upto = [min(u, v) for u, v in
                 zip(upto, routing_agrees(rec, b, [s - 1], dtype))]
-        _close_before(logits1, np.asarray(full_j)[:, s - 1], tol, upto,
-                      pos=s - 1, atol=atol.get("logits"))
+        _close_before(logits1, logits1_j, tol, upto, pos=s - 1)
         assert len(new) == tcfg.n_layers
     assert max(upto) == NEVER, "every sequence's routing flipped"
+
+
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+def test_activations_round_like_jax(act):
+    """In bf16 common.silu and common.gelu_tanh equal jax.nn.silu and
+    jax.nn.gelu bit for bit (each op rounded, as the reference's are);
+    F.silu / F.gelu, which round once, differ at many elements."""
+    x = np.random.default_rng(0).standard_normal(1 << 14).astype(
+        np.float32) * 4
+    xj, xt = jnp.asarray(x, jnp.bfloat16), torch.from_numpy(x).bfloat16()
+    jfn, tfn, once = {
+        "silu": (jax.nn.silu, common.silu, torch.nn.functional.silu),
+        "gelu": (jax.nn.gelu, common.gelu_tanh,
+                 lambda t: torch.nn.functional.gelu(t, approximate="tanh")),
+    }[act]
+    want = np.asarray(jfn(xj).astype(jnp.float32))
+    np.testing.assert_array_equal(tfn(xt).float().numpy(), want)
+    assert (once(xt).float().numpy() != want).mean() > 0.1
+
+
+@pytest.mark.parametrize("arch", BY_LAYER_BF16)
+def test_bf16_port_is_the_reference_by_layer(arch):
+    """bf16 logits: the port within TOL of the reference computed layer by
+    layer, and no further from the reference's scanned stack than that
+    layer-by-layer run is (the gap past TOL is the reference's own)."""
+    jcfg, tcfg, params, tparams = _setup(arch, "bfloat16", 1)
+    batch = _batch(tcfg, 1, 2, 33)
+    port = decoder.forward(tcfg, CTX, tparams, _torch(batch)).float().numpy()
+    by_layer = np.asarray(_reference_by_layer(jcfg, params, tparams, batch)[0],
+                          np.float32)
+    scanned = np.asarray(jdec.forward(jcfg, JCTX, params, _jax(batch)),
+                         np.float32)
+    _close(torch.from_numpy(port), by_layer, TOL["bfloat16"])
+    own = np.abs(by_layer - scanned).max()
+    print(f"{arch} bf16 logits: port - by layer "
+          f"{np.abs(port - by_layer).max()}, port - scanned "
+          f"{np.abs(port - scanned).max()}, by layer - scanned {own}")
+    assert np.abs(port - scanned).max() <= own + TOL["bfloat16"]
 
 
 def test_mixtral_window_masks_past_the_smoke_window():

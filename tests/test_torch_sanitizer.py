@@ -409,6 +409,23 @@ def test_sanitizer_classes_are_pinned_copies(name):
     assert code(TS) == code(JS)
 
 
+def test_fingerprint_blob_identifies_objects_not_addresses():
+    """A default-repr object (the planner's AffinityTracker) is identified
+    by a serial, stable while it lives: a later object at a freed one's
+    address hashes differently, and one object hashes the same twice."""
+    class Opaque:
+        pass
+
+    seen = set()
+    for _ in range(50):
+        o = Opaque()
+        key = fingerprint.digest(fingerprint._blob({"tracker": o}))
+        assert key == fingerprint.digest(fingerprint._blob({"tracker": o}))
+        assert key not in seen and "0x" not in repr(fingerprint._blob(o))
+        seen.add(key)
+        del o                        # its address is free for the next one
+
+
 def test_fingerprint_blob_sees_a_tensors_middle():
     """repr elides a large tensor's middle: the port hashes its bytes."""
     a = torch.arange(2000, dtype=torch.int32)
