@@ -275,15 +275,47 @@ Single-device training (``repro_torch.train``, ``launch.train``):
             same fp32 masters; loss within 1e-2 relative, every gradient
             leaf's relative L2 error within 5e-2.
 
+The mesh (``repro_torch.dist``, ``launch.mesh``; on one card a world of
+one NCCL rank, whose collectives still run):
+
+24. mesh_moe — one MoE layer of mixtral-8x7b and of deepseek-v2-236b at
+            full width, 1 x 2048 tokens, through ``moe_sharded`` and
+            ``moe_sharded_a2a`` at capacity factor 8 (nothing drops),
+            each within 2e-2 of max |y| of the routed no-mesh
+            ``moe_apply`` (near-tie rows left out; none expected); the
+            time of a call and its host waits on the device on each
+            path.  ``mesh_moe_gloo``: whether gloo
+            takes CUDA tensors, and if it does the a2a path as 4 gloo
+            ranks on the one card (mixtral at ep 4, tp 1; deepseek-v2's
+            widths with 2 experts at ep 2, tp 2), held to the same oracle.
+25. mesh_train — ``launch.train.main`` on the mesh (phase 22's run
+            without ``--no-mesh``), 2 steps: its losses equal phase 22's
+            first two within 1e-6 relative, the same launches a step; step
+            wall and peak memory beside phase 22's.
+26. mesh_decode — ``decode_split``'s log-sum-exp output against the
+            plain version's (fp32, 2e-5) at glm4-9b's and gemma3-27b's
+            decode shapes, f32 and bf16, with the output at its present
+            tolerance, timed with and without it; then real-decode serving
+            (SERVE_REAL) of zamba2-1.2b at 38 layers without a mesh, on
+            the mesh ``launch.serve --seq-axis 1`` builds (no seq axis on
+            a world of one) and on a (1, 1, 1) seq mesh (the decode over
+            its ring's one chunk, merged by the log-sum-exp through an
+            all-gather): the metrics of both mesh runs equal the
+            meshless run's key for key, every decode through
+            ``decode_split`` (the seq mesh's with the log-sum-exp); one
+            decode step of 16 slots on each: host waits and ms.
+
 The last three lines are the ``nvidia-smi`` line, the kernels record (one
 entry per lease_validate, flash and SSD variant; ``lease_validate.drain``
 and each flash variant count their launches on every path that reaches
 them, by path in ``launches_by_path``: the runtime-analysis paths 15, 16,
-17 and 19 for the drain, the model phases 8-9, 8b-8h, serve_real and the
-train phases for flash, mamba2, zamba2 and the train phases for the SSD;
-the model kernels also carry ``backward_recomputes``, the train phases'
-count, and the variants training runs a ``backward`` entry from phase
-21), and ``{"ok": true, "device": {...}}``.
+17 and 19 for the drain, the model phases 8-9, 8b-8h, serve_real, the
+train phases and the mesh phases 25-26 for flash, mamba2, zamba2, the
+train phases and phase 25 for the SSD; the model kernels also carry
+``backward_recomputes``, the train phases' count, and the variants
+training runs a ``backward`` entry from phase 21; ``decode_split`` also
+``lse_launches`` and the ``lse`` cases of phase 26), and ``{"ok": true,
+"device": {...}}``.
 """
 from __future__ import annotations
 
@@ -1437,6 +1469,19 @@ def with_backward(record: dict, train: dict, grad_cases: dict) -> dict:
     return out
 
 
+def with_lse(record: dict, mesh_decode: dict) -> dict:
+    """decode_split's record with its log-sum-exp output: the launches
+    that wrote it on the mesh_decode paths and its cases' times."""
+    if record["name"] != "flash_attention.decode_split":
+        return record
+    return dict(record, lse_launches=sum(
+        c["lse"] for c in mesh_decode["counts"].values()),
+        lse={c["case"]: {k: c[k] for k in (
+            "ms", "graph_ms", "ms_without_lse", "graph_ms_without_lse",
+            "plain_ms", "bound_ms", "bound_by", "max_abs_err_lse")}
+            for c in mesh_decode["cases"]})
+
+
 # -- phases 8-10: the model stack ----------------------------------------------
 
 ATTN_MIXERS = ("attn", "attn_local", "shared_attn")   # a flash call a pass
@@ -2021,16 +2066,18 @@ def held_phase(*, batch: int = 2, prompt: int = 64, steps: int = 4,
 
 # -- phases 10b-10d: routed experts, real-decode serving ----------------------
 
-def moe_layer(arch: str, seed: int):
+def moe_layer(arch: str, seed: int, **moe_change):
     """(cfg, the params of one MoE layer) at full width, bf16, seeded: the
-    first MoE layer of a model cut to it."""
+    first MoE layer of a model cut to it (``moe_change``: fields of its
+    MoEConfig replaced)."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.models import common
 
     cfg = get_config(arch)
-    cfg = dataclasses.replace(cfg, n_layers=cfg.moe.first_dense_layers + 1)
+    cfg = dataclasses.replace(cfg, n_layers=cfg.moe.first_dense_layers + 1,
+                              moe=dataclasses.replace(cfg.moe, **moe_change))
     dev = torch.device("cuda")
     params = common.init_params(cfg, torch.Generator(device=dev).manual_seed(
         seed), dev, cfg.compute_dtype())
@@ -2155,10 +2202,11 @@ def checked_backend(first_logits: list):
         decoder.decode_step = plain_decode
 
 
-def serve_real_run(cfg, params, device) -> dict:
+def serve_real_run(cfg, params, device, **mesh_kw) -> dict:
     """One ``launch.serve.serve_real`` run at SERVE_REAL, watched; the
     engine's metrics, the backend's counts, the first step's logits and
-    its routing, and the wall."""
+    its routing, and the wall.  ``mesh_kw``: serve_real's ``mesh`` and
+    ``seq_axis``."""
     import torch
 
     from repro_torch.launch.serve import serve_real
@@ -2167,7 +2215,7 @@ def serve_real_run(cfg, params, device) -> dict:
     first = []
     with recorded_routing() as routing, checked_backend(first) as stats:
         t0 = time.perf_counter()
-        eng = serve_real(cfg, params, device=device, **SERVE_REAL)
+        eng = serve_real(cfg, params, device=device, **SERVE_REAL, **mesh_kw)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         wall = time.perf_counter() - t0
@@ -2840,7 +2888,8 @@ def mutants_phase() -> None:
 # -- phases 21-23: single-device training ---------------------------------------
 
 TRAIN_ARCH = "zamba2-1.2b"
-TRAIN_ARGS = ["--arch", TRAIN_ARCH, "--preset", "full", "--steps", "4",
+TRAIN_ARGS = ["--no-mesh", "--arch", TRAIN_ARCH, "--preset", "full",
+              "--steps", "4",
               "--batch", "2", "--seq", "2048", "--log-every", "1"]
 HELD_TRAIN_LAYERS = 6          # zamba2 at full width: one shared site
 HELD_TRAIN_LOSS_TOL = 1e-2     # cuda vs cpu train_step loss, relative
@@ -2984,7 +3033,7 @@ def reset_model_counts() -> None:
     from repro_torch.kernels import ops
     from repro_torch.kernels import ssd_scan as ss
 
-    fa.launches = ss.launches = 0
+    fa.launches = ss.launches = fa.lse_launches = 0
     for counts in (fa.variant_launches, ss.variant_launches,
                    ops.backward_recomputes):
         for k in counts:
@@ -3204,6 +3253,420 @@ def train_held_phase() -> dict:
     return out
 
 
+# -- phases 24-26: the mesh (a world of one NCCL rank on the card) -------------
+
+MESH_MOE_TOKENS = 2048
+MESH_MOE_CF = 8.0              # capacity factor: no token drops
+MESH_TRAIN_LOSS_TOL = 1e-6     # mesh vs single-device losses, relative
+LSE_TOL = 2e-5                 # decode_split's log-sum-exp vs plain, fp32
+
+
+def host_syncs(fn) -> int:
+    """Host waits on the device during one call of ``fn`` (PyTorch's sync
+    debug mode warns at each)."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode(1)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def gloo_takes_cuda_tensors() -> dict:
+    """Whether the installed gloo runs ``all_to_all_single`` on CUDA
+    tensors (a gloo group of this world's one rank, beside its NCCL one)."""
+    import torch
+    import torch.distributed as dist
+
+    grp = dist.new_group(backend="gloo")
+    t = torch.arange(4, dtype=torch.float32, device="cuda")
+    out = torch.empty_like(t)
+    try:
+        dist.all_to_all_single(out, t, group=grp)
+        torch.cuda.synchronize()
+        return dict(gloo_cuda_all_to_all=bool(torch.equal(out, t)))
+    except Exception as e:          # the answer is what is recorded
+        return dict(gloo_cuda_all_to_all=False, gloo_error=str(e)[:200])
+
+
+MESH_MOE_GLOO = 4              # gloo ranks sharing the one card
+MESH_MOE_GLOO_TIMEOUT = 300.0
+
+
+def _moe_gloo_cases() -> list:
+    """(name, arch, cfg change, mesh shape) of the a2a path on gloo ranks
+    of the one card: mixtral's layer at ep 4, tp 1, and deepseek-v2's
+    widths (d 5120, d_expert 1536, two shared experts) with its 160 experts
+    cut to 2, the only way 4 ranks give its chunked layout tp 2 (ep 2)."""
+    return [("mixtral_ep4_tp1", "mixtral-8x7b", {}, (1, 4)),
+            ("deepseek_ep2_tp2", "deepseek-v2-236b",
+             dict(n_experts=2, top_k=2), (1, 4))]
+
+
+def _moe_gloo_rank(rank: int, world: int, port: int, out: str,
+                   seed: int) -> None:
+    """One gloo rank of the one-card a2a run: this rank's expert chunk of
+    each case's layer, its global result, and on rank 0 the routed
+    no-mesh oracle over the whole layer; results to ``out``."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.models import moe
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    res = {}
+    try:
+        for name, arch, change, shape in _moe_gloo_cases():
+            cfg, p = moe_layer(arch, seed, **change)
+            mesh = init_device_mesh("cpu", shape,
+                                    mesh_dim_names=("data", "model"))
+            msize = shape[1]
+            chunks = moe.to_chunked(*(p["experts"][k][0] for k in (
+                "w_gate", "w_up", "w_down")), msize)
+            mine = dict(p, experts={k: c[rank % msize:rank % msize + 1]
+                                    .clone() for k, c in zip((
+                                        "w_gate", "w_up", "w_down"), chunks)})
+            del chunks
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            x = torch.randn((1, MESH_MOE_TOKENS, cfg.d_model),
+                            generator=gen, device="cuda").to(
+                cfg.compute_dtype())
+            run = lambda: moe.moe_sharded_a2a(
+                mine, x, cfg, mesh, capacity_factor=MESH_MOE_CF)
+            y = run()
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                run()
+            torch.cuda.synchronize()
+            res[f"{name}_ms"] = (time.perf_counter() - t0) / 3 * 1e3
+            res[f"{name}_y"] = y.float().cpu()
+            if rank == 0:                # the oracle, then its time warm
+                res[f"{name}_want"] = moe.moe_apply(p, x, cfg).float().cpu()
+                t0 = time.perf_counter()
+                moe.moe_apply(p, x, cfg)
+                torch.cuda.synchronize()
+                res[f"{name}_routed_ms"] = (time.perf_counter() - t0) * 1e3
+            del p, mine
+            torch.cuda.empty_cache()
+        torch.save(res, Path(out) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_moe_gloo(seed: int) -> dict:
+    """The a2a path as MESH_MOE_GLOO gloo ranks on the one card (gloo takes
+    CUDA tensors there), each held to the routed no-mesh path within
+    MOE_TOL of max |y|; every rank returns the same global result."""
+    import socket
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as out, socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+        sock.close()
+        procs = [ctx.Process(target=_moe_gloo_rank,
+                             args=(r, MESH_MOE_GLOO, port, out, seed))
+                 for r in range(MESH_MOE_GLOO)]
+        for proc in procs:
+            proc.start()
+        deadline = time.monotonic() + MESH_MOE_GLOO_TIMEOUT
+        for proc in procs:
+            proc.join(max(0.0, deadline - time.monotonic()))
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+        check(all(proc.exitcode == 0 for proc in procs),
+              f"mesh_moe_gloo: ranks exited {[p.exitcode for p in procs]}")
+        ranks = [torch.load(Path(out) / f"rank{r}.pt")
+                 for r in range(MESH_MOE_GLOO)]
+    rec = {}
+    for name, arch, change, shape in _moe_gloo_cases():
+        want = ranks[0][f"{name}_want"]
+        top = float(want.abs().max())
+        for r in ranks[1:]:
+            check(torch.equal(r[f"{name}_y"], ranks[0][f"{name}_y"]),
+                  f"mesh_moe_gloo/{name}: ranks return different results")
+        err = float((ranks[0][f"{name}_y"] - want).abs().max())
+        check(err <= MOE_TOL * top, f"mesh_moe_gloo/{name}: a2a differs "
+              f"from the routed path by {err} (max |y| {top})")
+        rec[name] = dict(arch=arch, cut=change, mesh=shape,
+                         max_abs_diff=err, rel_diff=err / top,
+                         a2a_ms=[r[f"{name}_ms"] for r in ranks],
+                         routed_ms=ranks[0][f"{name}_routed_ms"])
+    return rec
+
+
+def mesh_moe_phase(seed: int = 7) -> dict:
+    """One full-width MoE layer of mixtral-8x7b and of deepseek-v2-236b on
+    1 x 2048 tokens through ``moe_sharded`` and ``moe_sharded_a2a`` on the
+    world-size-1 NCCL mesh (capacity factor 8: nothing drops), each held
+    to the routed no-mesh ``moe_apply`` within MOE_TOL of max |y| (rows
+    whose experts differ between the runs, near-ties, left out; the same
+    router runs in all three, so none is expected).  Times per call of
+    each path.  Then, where gloo takes CUDA tensors, the a2a path on
+    MESH_MOE_GLOO gloo ranks of the one card (``mesh_moe_gloo``)."""
+    import torch
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe
+
+    mesh = make_host_mesh(device="cuda")
+    probe = gloo_takes_cuda_tensors()
+    for arch in ("mixtral-8x7b", "deepseek-v2-236b"):
+        t_start = time.perf_counter()
+        cfg, p = moe_layer(arch, seed)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        x = torch.randn((1, MESH_MOE_TOKENS, cfg.d_model), generator=gen,
+                        device="cuda").to(cfg.compute_dtype())
+        kw = dict(capacity_factor=MESH_MOE_CF)
+        paths = {
+            "routed": lambda: moe.moe_apply(p, x, cfg),
+            "replicate": lambda: moe.moe_sharded(p, x, cfg, mesh, **kw),
+            "a2a": lambda: moe.moe_sharded_a2a(p, x, cfg, mesh, **kw)}
+        outs, ids = {}, {}
+        for name, fn in paths.items():
+            with recorded_routing() as calls:
+                outs[name] = fn()
+            ids[name] = calls[0][0]
+        torch.cuda.synchronize()
+        want = outs["routed"].float().reshape(-1, cfg.d_model)
+        top = float(want.abs().max())
+        rec = dict(arch=arch, tokens=MESH_MOE_TOKENS, d_model=cfg.d_model,
+                   n_experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
+                   capacity_factor=MESH_MOE_CF,
+                   mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)),
+                   max_abs_y=top, tol_rel=MOE_TOL)
+        for name in ("replicate", "a2a"):
+            same = (torch.sort(ids[name], -1).values
+                    == torch.sort(ids["routed"], -1).values).all(-1)
+            got = outs[name].float().reshape(-1, cfg.d_model)
+            check(bool(torch.isfinite(got).all()),
+                  f"mesh_moe/{arch}/{name}: non-finite output")
+            err = float((got - want)[same].abs().max())
+            check(err <= MOE_TOL * top, f"mesh_moe/{arch}/{name}: differs "
+                  f"from the routed path by {err} (max |y| {top})")
+            rec[f"{name}_max_abs_diff"] = err
+            rec[f"{name}_rel_diff"] = err / top
+            rec[f"{name}_rows_left_out"] = int((~same).sum())
+        for name, fn in paths.items():
+            rec[f"{name}_ms"] = time_ms(fn, 3, warmup=1)
+            rec[f"{name}_host_syncs"] = host_syncs(fn)
+        emit("mesh_moe", **rec, wall_s=time.perf_counter() - t_start)
+        del p, outs
+        torch.cuda.empty_cache()
+    if probe["gloo_cuda_all_to_all"]:
+        t0 = time.perf_counter()
+        probe["cases"] = mesh_moe_gloo(seed)
+        probe["wall_s"] = time.perf_counter() - t0
+    emit("mesh_moe_gloo", ranks=MESH_MOE_GLOO, **probe)
+    return probe
+
+
+def mesh_train_phase(train: dict) -> dict:
+    """``launch.train.main`` on the mesh (a world of one NCCL rank) at
+    zamba2-1.2b's full width and depth, 2 steps of 2 x 2048, counts reset
+    just before: its losses equal the single-device ``train`` phase's
+    first two within 1e-6 relative, with the same kernel launches a step;
+    step wall and peak memory beside train's."""
+    import torch
+
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.common import layer_plan
+
+    t0 = time.perf_counter()
+    args = [a for a in TRAIN_ARGS if a != "--no-mesh"]
+    args[args.index("--steps") + 1] = "2"
+    torch.cuda.reset_peak_memory_stats()
+    reset_model_counts()
+    res = launch_train.main(args + ["--remat", "none"])
+    counts = model_counts()
+    plan = layer_plan(launch_train.scaled_config(TRAIN_ARCH, "full"))
+    steps = res["steps"]
+    want = dict(prefill_tc=steps * sum(k.mixer == "shared_attn"
+                                       for k in plan.kinds),
+                ssd_tc=steps * sum(k.mixer == "mamba" for k in plan.kinds),
+                decode_split=0, simt=0, ssd_simt=0)
+    got = {k: counts[k] for k in want}
+    base = train["none"]["losses"][:2]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(res["losses"], base))
+    check(steps == 2 and rel <= MESH_TRAIN_LOSS_TOL,
+          f"mesh_train: losses {res['losses']}, single-device {base}")
+    check(got == want, f"mesh_train: kernel launches {got}, expected {want}")
+    out = dict(steps=steps, losses=res["losses"], train_losses=base,
+               max_rel_loss_diff=rel, tol_rel=MESH_TRAIN_LOSS_TOL,
+               step_s=res["step_s"], train_step_s=train["none"]["step_s"],
+               peak_mem_gb=res["peak_mem_gb"],
+               train_peak_mem_gb=train["none"]["peak_mem_gb"],
+               launches=got, wall_s=time.perf_counter() - t0)
+    emit("mesh_train", **out)
+    del res
+    torch.cuda.empty_cache()
+    return dict(out, counts=counts)
+
+
+def lse_case(name: str, b, skv, hq, hkv, d, *, window=None,
+             dtype="float32", seed=0) -> dict:
+    """decode_split's log-sum-exp output on one decode shape against the
+    plain version's (fp32, LSE_TOL), its output within FLASH_TOL, and the
+    call timed with and without the output."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    td = getattr(torch, dtype)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(td)
+               for shape in ((b, 1, hq, d), (b, skv, hkv, d),
+                             (b, skv, hkv, d)))
+    valid = torch.randint(skv // 2, skv + 1, (b,), generator=gen, device=dev)
+    qp = (valid - 1).to(torch.int32)[:, None].contiguous()
+    kp = torch.arange(skv, dtype=torch.int32, device=dev).expand(b, skv)
+    kp = torch.where(kp < valid[:, None], kp,
+                     torch.full_like(kp, 2 ** 30)).contiguous()
+    kw = dict(q_positions=qp, kv_positions=kp, causal=True,
+              sliding_window=window)
+    check(fa.variant(td, 1, hq, hkv, d, d) == "decode_split",
+          f"{name}: not a decode_split shape")
+    before = fa.lse_launches
+    with torch.no_grad():
+        out, lse = ops.attention(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    check(fa.lse_launches == before + 1, f"{name}: no lse launch")
+    want, want_lse = ref.sdpa_ref(q, k, v, return_lse=True, **kw)
+    lse_err = float((lse - want_lse).abs().max())
+    err = float((out.float() - want.float()).abs().max())
+    atol, rtol = FLASH_TOL[dtype]
+    check(torch.allclose(lse, want_lse, atol=LSE_TOL, rtol=LSE_TOL),
+          f"{name}: lse differs from the plain version by {lse_err}")
+    check(torch.allclose(out.float(), want.float(), atol=atol, rtol=rtol),
+          f"{name}: output differs from the plain version by {err}")
+    with_lse = lambda: ops.attention(q, k, v, return_lse=True, **kw)
+    without = lambda: ops.attention(q, k, v, **kw)
+    plain = lambda: ref.sdpa_ref(q, k, v, return_lse=True, **kw)
+    with torch.no_grad():
+        ms, g_ms, n = timings(with_lse)
+        ms0, g_ms0, _ = timings(without)
+        plain_ms, _, _ = timings(plain)
+    visible = ref.attn_mask(qp, kp, True, window) \
+        & (kp < VALID_POS_LIMIT)[:, None, :]
+    seen_keys = int(visible.any(dim=1).sum())
+    n_bytes = (q.numel() + out.numel() + seen_keys * hkv * 2 * d) \
+        * q.element_size() + 4 * (qp.numel() + kp.numel() + lse.numel())
+    bms, by = op_bound(4.0 * int(visible.sum()) * hq * d, n_bytes,
+                       SCALAR_OPS_PER_S)
+    rec = dict(case=name, B=b, Skv=skv, Hq=hq, Hkv=hkv, D=d, window=window,
+               dtype=dtype, max_abs_err_lse=lse_err, max_abs_err=err,
+               tol_lse=LSE_TOL, ms=ms, graph_ms=g_ms, ms_without_lse=ms0,
+               graph_ms_without_lse=g_ms0, plain_ms=plain_ms, bound_ms=bms,
+               bound_by=by)
+    emit("mesh_decode_lse", **rec)
+    return rec
+
+
+def mesh_decode_phase(seed: int = 11) -> dict:
+    """decode_split's log-sum-exp at glm4's and gemma3's decode shapes,
+    then real-decode serving of zamba2 (all 38 layers, SERVE_REAL) three
+    ways: without a mesh, on the mesh ``launch.serve --seq-axis 1`` builds
+    (the reference's sizing rule: no seq axis on a world of one), and on a
+    (1, 1, 1) mesh with a seq axis, whose decode merges its one chunk
+    through the log-sum-exp and an all-gather.  Each run's metrics equal
+    the meshless run's key for key, with decode_split's launches counted
+    (the seq mesh's all with the lse output)."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import common, decoder
+
+    t0 = time.perf_counter()
+    cases = [lse_case("glm4_decode", 4, 2080, 32, 2, 128, seed=60),
+             lse_case("glm4_decode_bf16", 4, 2080, 32, 2, 128,
+                      dtype="bfloat16", seed=61),
+             lse_case("gemma3_decode_local", 1, 4128, 32, 16, 128,
+                      window=1024, seed=62),
+             lse_case("gemma3_decode_local_bf16", 1, 4128, 32, 16, 128,
+                      window=1024, dtype="bfloat16", seed=63)]
+    dev = torch.device("cuda")
+    cfg = get_config("zamba2-1.2b")
+    params = common.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        seed), dev, cfg.compute_dtype())
+    n_attn = sum(k.mixer in ATTN_MIXERS for k in common.layer_plan(cfg).kinds)
+    runs, counts = {}, {}
+    meshes = {"none": {},
+              "seq_axis_1": dict(mesh=make_host_mesh(model=1, seq=1,
+                                                     device="cuda")),
+              "seq_mesh": dict(mesh=init_device_mesh(
+                  "cuda", (1, 1, 1), mesh_dim_names=("data", "seq", "model")),
+                  seq_axis="seq")}
+    for name, kw in meshes.items():
+        reset_model_counts()
+        fa.lse_launches = 0                          # just before the path
+        runs[name] = serve_real_run(cfg, params, dev, **kw)
+        counts[name] = dict(model_counts(), lse=fa.lse_launches)
+        steps = runs[name]["stats"]["steps"]
+        want = n_attn * steps
+        check(counts[name]["decode_split"] == want
+              and counts[name]["lse"] == (want if "seq_axis" in kw else 0),
+              f"mesh_decode/{name}: decode_split {counts[name]}, expected "
+              f"{want} ({steps} decode steps)")
+    # one decode step of the 16 slots by itself, per mesh: its host waits
+    # on the device and its wall
+    steps = {}
+    for name, kw in meshes.items():
+        ctx = decoder.RunCtx(dev, **kw)
+        caches = decoder.init_cache(cfg, 16, SERVE_REAL["max_len"],
+                                    cfg.compute_dtype(), dev, mesh=ctx.mesh)
+        tok = torch.zeros(16, dtype=torch.int32, device=dev)
+        pos = torch.full((16,), 5, dtype=torch.int32, device=dev)
+        step = lambda: decoder.decode_step(cfg, ctx, params, caches, tok,
+                                           pos)
+        steps[name] = dict(host_syncs=host_syncs(step),
+                           ms=time_ms(step, 10, warmup=2))
+    for name in ("seq_axis_1", "seq_mesh"):
+        check(runs[name]["metrics"] == runs["none"]["metrics"],
+              f"mesh_decode/{name}: serving metrics differ from the "
+              f"meshless run")
+        check(torch.equal(runs[name]["first_logits"],
+                          runs["none"]["first_logits"]),
+              f"mesh_decode/{name}: first decode logits differ")
+    m = runs["none"]["metrics"]
+    out = dict(arch=cfg.name, n_layers=cfg.n_layers, **SERVE_REAL,
+               tokens=m["tokens"], transfers=m["transfers"],
+               metrics_equal=True,
+               launches={k: {"decode_split": c["decode_split"],
+                             "lse": c["lse"]} for k, c in counts.items()},
+               wall_s={k: r["wall_s"] for k, r in runs.items()},
+               ms_per_engine_step={k: 1e3 * r["wall_s"] / r["steps"]
+                                   for k, r in runs.items()},
+               decode_step=steps, phase_wall_s=time.perf_counter() - t0)
+    emit("mesh_decode", **out)
+    del params, runs
+    torch.cuda.empty_cache()
+    return dict(out, cases=cases, counts=counts)
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -3418,6 +3881,25 @@ def main() -> int:
     train_paths = {"train": train["none"]["launches"],
                    "train_remat_full": train["full"]["launches"]}
 
+    # 24-26. the mesh on a world of one NCCL rank: the sharded MoE paths,
+    # data-parallel training, seq-sharded decode through decode_split's
+    # log-sum-exp
+    t0 = time.perf_counter()
+    mesh_moe_phase()
+    emit("mesh_moe_done", wall_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    mesh_train = mesh_train_phase(train)
+    emit("mesh_train_done", wall_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    mesh_decode = mesh_decode_phase()
+    emit("mesh_decode_done", wall_s=time.perf_counter() - t0)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    mesh_paths = {"mesh_train": mesh_train["counts"],
+                  **{f"mesh_decode_{k}": c
+                     for k, c in mesh_decode["counts"].items()}}
+
     drain_paths = {"main": main_launches["drain"],
                    "serve_jax_min_1": serve_launches[1],
                    "serve_jax_min_8": serve_launches[8],
@@ -3439,17 +3921,17 @@ def main() -> int:
                            sum(drain_paths.values()),
                            [drain_cases[1], *drain_cases, *serve_cases]),
              launches_by_path=drain_paths),
-        *(with_backward(r, train, grad_cases) for r in flash_records(
-            flash_cases, {
-                "glm4": glm4, "mamba2": mamba2, "mixtral": mixtral,
-                "deepseek": deepseek, **rest,
-                "serve_real_mixtral": serve_real["mixtral-8x7b"],
-                "serve_real_deepseek": serve_real["deepseek-v2-236b"],
-                "serve_real_zamba2": serve_real["zamba2-1.2b"],
-                **train_paths})),
+        *(with_lse(with_backward(r, train, grad_cases), mesh_decode)
+          for r in flash_records(flash_cases, {
+              "glm4": glm4, "mamba2": mamba2, "mixtral": mixtral,
+              "deepseek": deepseek, **rest,
+              "serve_real_mixtral": serve_real["mixtral-8x7b"],
+              "serve_real_deepseek": serve_real["deepseek-v2-236b"],
+              "serve_real_zamba2": serve_real["zamba2-1.2b"],
+              **train_paths, **mesh_paths})),
         *(with_backward(r, train, grad_cases) for r in ssd_records(
             ssd_cases, {"mamba2": mamba2, "zamba2": rest["zamba2"],
-                        **train_paths})),
+                        **train_paths, **mesh_paths})),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}), flush=True)

@@ -67,7 +67,9 @@
 //   computes scores and P V in fp32 on the CUDA cores (a decode call's
 //   arithmetic is a few microseconds there) and writes fp32 partials
 //   (m, l, acc); a combine kernel weights split s by exp(m_s - m) over the
-//   splits with l_s > 0 and rounds once.
+//   splits with l_s > 0 and rounds once.  On request it also writes each
+//   row's fp32 log-sum-exp [B, Sq, Hq] from the same (m, l) pairs: the
+//   softmax statistic a seq-sharded decode merges its ranks' chunks by.
 //
 // simt (flash_simt.cuh): everything else -- f32 prefill, other head dims
 //   and (Dk, Dv) pairs, and (80, 80) and (192, 128) at 64 rows or fewer.
@@ -104,15 +106,17 @@ bool aligned16(const void* p) {
 
 template <typename T>
 int launch_decode(const void* q, const void* k, const void* v,
-                  const void* qpos, const void* kpos, void* out, float* part,
-                  int B, int Sq, int Skv, int Hq, int Hkv, int D, float scale,
-                  float softcap, int causal, int window, cudaStream_t s) {
+                  const void* qpos, const void* kpos, void* out, float* lse,
+                  float* part, int B, int Sq, int Skv, int Hq, int Hkv, int D,
+                  float scale, float softcap, int causal, int window,
+                  cudaStream_t s) {
   if (D == 64)
-    return flash::decode_split::launch<T, 64>(q, k, v, qpos, kpos, out, part,
-                                              B, Sq, Skv, Hq, Hkv, scale,
-                                              softcap, causal, window, s);
-  return flash::decode_split::launch<T, 128>(q, k, v, qpos, kpos, out, part,
-                                             B, Sq, Skv, Hq, Hkv, scale,
+    return flash::decode_split::launch<T, 64>(q, k, v, qpos, kpos, out, lse,
+                                              part, B, Sq, Skv, Hq, Hkv,
+                                              scale, softcap, causal, window,
+                                              s);
+  return flash::decode_split::launch<T, 128>(q, k, v, qpos, kpos, out, lse,
+                                             part, B, Sq, Skv, Hq, Hkv, scale,
                                              softcap, causal, window, s);
 }
 
@@ -133,7 +137,8 @@ extern "C" int flash_attention_variant(int dtype, int B, int Sq, int Skv,
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it).
 // window <= 0: no sliding window.  softcap <= 0: no softcap.
 // scratch: fp32, at least flash_attention_variant's scratch_floats.
-// *chosen receives the variant launched.
+// lse: null, or fp32 [B, Sq, Hq] for the rows' log-sum-exp (decode_split
+// only: another variant refuses it).  *chosen receives the variant launched.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, const void* qpos,
                                       const void* kpos, void* out, int dtype,
@@ -142,13 +147,15 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       float softcap, int causal, int window,
                                       void* scratch,
                                       long long scratch_floats, int* chosen,
-                                      void* stream) {
+                                      void* lse, void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Dk <= 0 ||
       Dk > 256 || Dv <= 0 || Dv > 256 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int var = choose_variant(dtype, Sq, Hq, Hkv, Dk, Dv);
   *chosen = var;
+  if (lse != nullptr && var != kDecodeSplit)
+    return (int)cudaErrorInvalidValue;
   if (var != kSimt &&
       !(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out)))
     return (int)cudaErrorMisalignedAddress;
@@ -175,12 +182,13 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     if (scratch == nullptr || scratch_floats < need)
       return (int)cudaErrorInvalidValue;
     float* part = static_cast<float*>(scratch);
+    float* l = static_cast<float*>(lse);
     if (dtype == 0)
-      return launch_decode<float>(q, k, v, qpos, kpos, out, part, B, Sq, Skv,
-                                  Hq, Hkv, Dk, scale, softcap, causal, window,
-                                  s);
-    return launch_decode<__nv_bfloat16>(q, k, v, qpos, kpos, out, part, B, Sq,
-                                        Skv, Hq, Hkv, Dk, scale, softcap,
+      return launch_decode<float>(q, k, v, qpos, kpos, out, l, part, B, Sq,
+                                  Skv, Hq, Hkv, Dk, scale, softcap, causal,
+                                  window, s);
+    return launch_decode<__nv_bfloat16>(q, k, v, qpos, kpos, out, l, part, B,
+                                        Sq, Skv, Hq, Hkv, Dk, scale, softcap,
                                         causal, window, s);
   }
   if (dtype == 0)

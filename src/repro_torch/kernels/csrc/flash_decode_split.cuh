@@ -322,11 +322,15 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // One block per (b, kv head, row), one thread per column.  The splits'
 // (m, l) go to shared memory first, one split a thread, so the weights
 // exp(m_s - m) over the splits with l_s > 0 are computed once and every
-// column's sum reads only independent acc values; rounds once.
+// column's sum reads only independent acc values; rounds once.  With lse
+// set, thread 0 also writes the row's log-sum-exp of its (scaled, capped,
+// masked) scores, m + log(sum_s w_s l_s) in fp32, -inf for a row that saw
+// no key: what a seq-sharded decode's ranks exchange to merge their chunks.
 template <typename T, int D>
 __global__ void __launch_bounds__(D)
-combine_kernel(const float* __restrict__ part, T* __restrict__ out, int Sq,
-               int Hq, int Hkv, int n_split) {
+combine_kernel(const float* __restrict__ part, T* __restrict__ out,
+               float* __restrict__ lse, int Sq, int Hq, int Hkv,
+               int n_split) {
   __shared__ float w_s[kMaxSplits];
   __shared__ float red[D / 32];
   const int G = Hq / Hkv;
@@ -374,14 +378,16 @@ combine_kernel(const float* __restrict__ part, T* __restrict__ out, int Sq,
 #pragma unroll 8
   for (int s = 0; s < n_split; ++s)
     num = fmaf(w_s[s], pacc[(slot + (int64_t)s * R) * D + tid], num);
-  out[(((int64_t)b * Sq + r / G) * Hq + hk * G + r % G) * D + tid] =
-      from_float<T>(num / (den > 0.f ? den : 1.f));
+  const int64_t row = ((int64_t)b * Sq + r / G) * Hq + hk * G + r % G;
+  out[row * D + tid] = from_float<T>(num / (den > 0.f ? den : 1.f));
+  if (lse != nullptr && tid == 0)
+    lse[row] = den > 0.f ? mx + logf(den) : -INFINITY;
 }
 
 template <typename T, int D, int RPW>
 int launch_rows(const void* q, const void* k, const void* v, const void* qpos,
-                const void* kpos, void* out, float* part, int B, int Sq,
-                int Skv, int Hq, int Hkv, float scale, float softcap,
+                const void* kpos, void* out, float* lse, float* part, int B,
+                int Sq, int Skv, int Hq, int Hkv, float scale, float softcap,
                 int causal, int window, cudaStream_t stream) {
   auto kernel = split_kernel<T, D, RPW>;
   const int smem = Plan<T, D>::bytes(Sq * (Hq / Hkv));
@@ -404,30 +410,31 @@ int launch_rows(const void* q, const void* k, const void* v, const void* qpos,
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   combine_kernel<T, D><<<B * Hkv * R, D, 0, stream>>>(
-      part, static_cast<T*>(out), Sq, Hq, Hkv, n_split);
+      part, static_cast<T*>(out), lse, Sq, Hq, Hkv, n_split);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* qpos,
-           const void* kpos, void* out, float* part, int B, int Sq, int Skv,
-           int Hq, int Hkv, float scale, float softcap, int causal,
-           int window, cudaStream_t stream) {
+           const void* kpos, void* out, float* lse, float* part, int B,
+           int Sq, int Skv, int Hq, int Hkv, float scale, float softcap,
+           int causal, int window, cudaStream_t stream) {
   const int rpw = (Sq * (Hq / Hkv) + kWarps - 1) / kWarps;   // rows a warp
   if (rpw <= 1)
-    return launch_rows<T, D, 1>(q, k, v, qpos, kpos, out, part, B, Sq, Skv,
-                                Hq, Hkv, scale, softcap, causal, window,
+    return launch_rows<T, D, 1>(q, k, v, qpos, kpos, out, lse, part, B, Sq,
+                                Skv, Hq, Hkv, scale, softcap, causal, window,
                                 stream);
   if (rpw <= 2)
-    return launch_rows<T, D, 2>(q, k, v, qpos, kpos, out, part, B, Sq, Skv,
-                                Hq, Hkv, scale, softcap, causal, window,
+    return launch_rows<T, D, 2>(q, k, v, qpos, kpos, out, lse, part, B, Sq,
+                                Skv, Hq, Hkv, scale, softcap, causal, window,
                                 stream);
   if (rpw <= 4)
-    return launch_rows<T, D, 4>(q, k, v, qpos, kpos, out, part, B, Sq, Skv,
-                                Hq, Hkv, scale, softcap, causal, window,
+    return launch_rows<T, D, 4>(q, k, v, qpos, kpos, out, lse, part, B, Sq,
+                                Skv, Hq, Hkv, scale, softcap, causal, window,
                                 stream);
-  return launch_rows<T, D, 8>(q, k, v, qpos, kpos, out, part, B, Sq, Skv, Hq,
-                              Hkv, scale, softcap, causal, window, stream);
+  return launch_rows<T, D, 8>(q, k, v, qpos, kpos, out, lse, part, B, Sq,
+                              Skv, Hq, Hkv, scale, softcap, causal, window,
+                              stream);
 }
 
 }  // namespace decode_split

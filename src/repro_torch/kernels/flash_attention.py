@@ -22,7 +22,9 @@ shapes alone, and :func:`variant` is its twin here:
   q heads are the rows of one tile, so each K/V byte is read once per kv
   head, and the kv sweep is split across blocks (:func:`decode_splits`);
   fp32 partials go to a scratch this wrapper allocates and a second kernel
-  merges them.
+  merges them.  On request (``return_lse``) the merge also writes each
+  row's fp32 log-sum-exp ``[B, Sq, Hq]``, which a seq-sharded decode's
+  ranks exchange to combine their chunks (``models.attention``).
 - ``simt`` — everything else (f32 prefill, other head dims, other Dk !=
   Dv pairs, (80, 80) and (192, 128) at 64 rows or fewer): one block per
   (batch, q head, q tile) on the fp32 CUDA cores.
@@ -51,7 +53,7 @@ LIB = CudaLibrary("flash_attention", {
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
         + [ctypes.c_float] * 2 + [ctypes.c_int] * 2
         + [ctypes.c_void_p, ctypes.c_longlong,
-           ctypes.POINTER(ctypes.c_int), ctypes.c_void_p],
+           ctypes.POINTER(ctypes.c_int), ctypes.c_void_p, ctypes.c_void_p],
         ctypes.c_int),
     "flash_attention_variant": (
         [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_longlong)],
@@ -68,9 +70,11 @@ _TARGET_BLOCKS = 264        # decode_split: two waves of 132 SMs
 _MIN_SPLIT_KEYS = 64
 
 # kernel launches since the count was last reset (plain integers: the
-# wrapper adds one where it launches, nowhere else), in all and by variant
+# wrapper adds one where it launches, nowhere else), in all, by variant,
+# and those that wrote the log-sum-exp output
 launches = 0
 variant_launches = {name: 0 for name in VARIANTS}
+lse_launches = 0
 
 
 def variant(dtype: torch.dtype, sq: int, hq: int, hkv: int, dk: int,
@@ -118,8 +122,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     q_positions: torch.Tensor, kv_positions: torch.Tensor,
                     causal: bool = True, sliding_window: Optional[int] = None,
                     logit_softcap: float = 0.0,
-                    scale: Optional[float] = None) -> torch.Tensor:
-    """Launch the kernel on CUDA tensors; returns ``[B, Sq, Hq, Dv]``.
+                    scale: Optional[float] = None, return_lse: bool = False):
+    """Launch the kernel on CUDA tensors; returns ``[B, Sq, Hq, Dv]``, or
+    with ``return_lse`` the pair ``(out, lse)``: ``lse [B, Sq, Hq]`` fp32,
+    each row's log-sum-exp of its scaled, capped and masked scores (-inf
+    where the row saw no key), which ``decode_split`` alone computes.
 
     ``q``: ``[B, Sq, Hq, Dk]``, ``k``: ``[B, Skv, Hkv, Dk]``, ``v``:
     ``[B, Skv, Hkv, Dv]``, all float32 or all bfloat16; positions int32
@@ -128,7 +135,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     variant is ``prefill_tc`` or ``decode_split``.  Raises on anything else,
     on a failed build and on a refused launch.
     """
-    global launches
+    global launches, lse_launches
     if q.device.type != "cuda":
         raise ValueError("flash_attention launches on CUDA tensors only; "
                          "CPU callers use ref.sdpa_ref")
@@ -163,7 +170,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     name = variant(q.dtype, sq, hq, hkv, dk, dv)
     if name != "simt" and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError(f"{name} needs q, k and v 16-byte aligned")
+    if return_lse and name != "decode_split":
+        raise ValueError(f"the log-sum-exp comes from decode_split alone; "
+                         f"these shapes take {name} (Dk = {dk}, Dv = {dv}, "
+                         f"{sq * (hq // hkv)} rows a kv head)")
     out = torch.empty((b, sq, hq, dv), dtype=q.dtype, device=dev)
+    lse = (torch.empty((b, sq, hq), dtype=torch.float32, device=dev)
+           if return_lse else None)
     scratch = None
     if name == "decode_split":
         scratch = torch.empty(decode_scratch_floats(b, hkv, skv,
@@ -181,11 +194,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             int(sliding_window or 0),
             None if scratch is None else scratch.data_ptr(),
             0 if scratch is None else scratch.numel(), ctypes.byref(chosen),
-            stream)
+            None if lse is None else lse.data_ptr(), stream)
     check_launch("flash_attention", err)
     if VARIANTS[chosen.value] != name:
         raise RuntimeError(f"flash_attention: the launcher took "
                            f"{VARIANTS[chosen.value]}, variant() says {name}")
     launches += 1
     variant_launches[name] += 1
-    return out
+    lse_launches += bool(return_lse)
+    return (out, lse) if return_lse else out

@@ -132,7 +132,6 @@ def moe_combine(back, tok_slot, gate_slot, *, tp: int, capacity: int,
     scatters the gated rows to their tokens.  The reference has no Pallas
     kernel for it (its jnp oracle is the dispatch on every backend), so on
     every device it runs as the torch ops of :func:`ref.moe_combine_ref`.
-    The token all-to-all that calls it is ROADMAP queue 1 item 9.
     """
     return ref.moe_combine_ref(back, tok_slot, gate_slot, tp=tp,
                                capacity=capacity, t_out=t_out)
@@ -186,7 +185,7 @@ def certify_drain(table: torch.Tensor, staging: DrainStaging,
 
 def attention(q, k, v, *, q_positions, kv_positions, causal=True,
               sliding_window=None, logit_softcap=0.0, scale=None,
-              plain=False):
+              plain=False, return_lse=False):
     """GQA attention ``[B, Sq, Hq, Dk] x [B, Skv, Hkv, Dk|Dv]``.
 
     CUDA tensors go to the flash kernel at every Sq (differentiable, by
@@ -197,7 +196,27 @@ def attention(q, k, v, *, q_positions, kv_positions, causal=True,
     ring), the kernel takes all three in the widest and the output is
     cast back to q's, as the plain version computes in fp32 and returns
     q's dtype.
+
+    ``return_lse`` returns ``(out, lse)`` with each row's fp32 log-sum-exp
+    ``[B, Sq, Hq]`` (the seq-sharded decode's combine).  It is a forward
+    for decode: on CUDA it launches ``decode_split`` outside the autograd
+    Function, and shapes that take another variant raise.
     """
+    opts = dict(causal=causal, sliding_window=sliding_window,
+                logit_softcap=logit_softcap, scale=scale)
+    if return_lse and q.device.type == "cuda" and not plain:
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v)):
+            raise NotImplementedError("the log-sum-exp output has no "
+                                      "backward; call it under no_grad")
+        wide = torch.promote_types(torch.promote_types(q.dtype, k.dtype),
+                                   v.dtype)
+        out, lse = _flash.flash_attention(
+            q.to(wide), k.to(wide), v.to(wide),
+            q_positions=q_positions.to(torch.int32).contiguous(),
+            kv_positions=kv_positions.to(torch.int32).contiguous(),
+            return_lse=True, **opts)
+        return out.to(q.dtype), lse
     if q.device.type == "cuda" and not plain:
         if not q.dtype == k.dtype == v.dtype:
             wide = torch.promote_types(torch.promote_types(q.dtype, k.dtype),
@@ -210,13 +229,10 @@ def attention(q, k, v, *, q_positions, kv_positions, causal=True,
                              scale=scale).to(q.dtype)
         return _Attention.apply(
             q, k, v, q_positions.to(torch.int32).contiguous(),
-            kv_positions.to(torch.int32).contiguous(),
-            dict(causal=causal, sliding_window=sliding_window,
-                 logit_softcap=logit_softcap, scale=scale))
+            kv_positions.to(torch.int32).contiguous(), opts)
     return ref.sdpa_ref(q, k, v, q_positions=q_positions,
-                        kv_positions=kv_positions, causal=causal,
-                        sliding_window=sliding_window,
-                        logit_softcap=logit_softcap, scale=scale)
+                        kv_positions=kv_positions, return_lse=return_lse,
+                        **opts)
 
 
 def ssd(x, dt, a, b_mat, c_mat, *, chunk=256, h0=None, plain=False

@@ -131,8 +131,11 @@ def moe_combine_ref(
     gated = (back.reshape(-1, tp, capacity, d) * gate).sum(dim=1)
     rows = tok_slot.long()
     keep = (rows >= 0) & (rows < t_out)
-    out = torch.zeros((t_out, d), dtype=back.dtype, device=back.device)
-    return out.index_add_(0, rows[keep], gated.reshape(-1, d)[keep])
+    # empty slots land in an overflow row that is cut off: no shape
+    # depends on the slots' contents
+    out = torch.zeros((t_out + 1, d), dtype=back.dtype, device=back.device)
+    out.index_add_(0, torch.where(keep, rows, t_out), gated.reshape(-1, d))
+    return out[:t_out]
 
 
 # --- attention (twin of repro.models.attention.attn_mask / _sdpa_ref) ---------
@@ -156,8 +159,10 @@ def attn_mask(q_pos: torch.Tensor, kv_pos: torch.Tensor, causal: bool,
 
 def _sdpa_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               mask: torch.Tensor, scale: float,
-              logit_softcap: float = 0.0) -> torch.Tensor:
-    """Grouped-query attention in fp32 with a full score matrix."""
+              logit_softcap: float = 0.0, return_lse: bool = False):
+    """Grouped-query attention in fp32 with a full score matrix; with
+    ``return_lse`` also each row's fp32 log-sum-exp ``[B, Sq, Hq]`` of its
+    masked scores (hidden ones at ``NEG_INF``)."""
     b, sq, hq, d = q.shape
     hkv = k.shape[2]
     g = hq // hkv
@@ -168,15 +173,22 @@ def _sdpa_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     logits = torch.where(mask[:, None, None, :, :], logits, NEG_INF)
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
-    return out.reshape(b, sq, hq, v.shape[-1]).to(q.dtype)
+    out = out.reshape(b, sq, hq, v.shape[-1]).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.logsumexp(logits, dim=-1)                   # [b, h, g, q]
+    return out, lse.permute(0, 3, 1, 2).reshape(b, sq, hq)
 
 
 def sdpa_ref(q, k, v, *, q_positions, kv_positions, causal=True,
-             sliding_window=None, logit_softcap=0.0, scale=None):
-    """Plain version of the flash kernel (``repro.kernels.ref.sdpa_ref``)."""
+             sliding_window=None, logit_softcap=0.0, scale=None,
+             return_lse=False):
+    """Plain version of the flash kernel (``repro.kernels.ref.sdpa_ref``);
+    ``return_lse`` adds the rows' log-sum-exp, as the kernel's
+    ``decode_split`` returns it."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     mask = attn_mask(q_positions, kv_positions, causal, sliding_window)
-    return _sdpa_ref(q, k, v, mask, scale, logit_softcap)
+    return _sdpa_ref(q, k, v, mask, scale, logit_softcap, return_lse)
 
 
 # --- SSD (twin of repro.models.ssm.segsum / ssd_chunked) ------------------------

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -64,10 +65,12 @@ def build_engine(cfg: ModelConfig, n_pods: int, n_sessions: int, *,
                             seq_shards=seq_shards)
     planner = None
     if plan_epoch_ms > 0:
+        from ..dist.sharding import make_plan_mesh
         from ..plan import PlacementPlanner
 
         planner = PlacementPlanner.for_serving(
-            n_pods, n_sessions, epoch_ms=plan_epoch_ms, device=device)
+            n_pods, n_sessions, epoch_ms=plan_epoch_ms, device=device,
+            mesh=make_plan_mesh(device=device))
     return MultiPodEngine(n_pods, backend, router,
                           StepCertifier(n_pods, jax_min=jax_min,
                                         sanitize=sanitize, device=device),
@@ -105,12 +108,15 @@ def serve_real(cfg: ModelConfig, params, *, n_pods: int = 2,
                max_len: int = 256, seed: int = 0, device="cuda",
                policy: str = ROUTER_DEFAULTS.policy,
                arbitration: str = ROUTER_DEFAULTS.arbitration,
-               plan_epoch_ms: float = 0.0, trace=None) -> MultiPodEngine:
+               plan_epoch_ms: float = 0.0, trace=None, mesh=None,
+               seq_axis: Optional[str] = None) -> MultiPodEngine:
     """The reference launch's ``--backend real`` run (its defaults here):
     a ``RealBackend`` with ``max(8, n_sessions)`` slots of ``max_len`` per
     pod decoding with ``params`` on ``device``, the request loop of
-    :func:`serve_requests`.  Returns the drained engine."""
-    ctx = decoder.RunCtx(device)
+    :func:`serve_requests`.  ``mesh`` / ``seq_axis`` run the decode and
+    the KV stores on that mesh (the seq-sharded rings on ``seq_axis``).
+    Returns the drained engine."""
+    ctx = decoder.RunCtx(device, mesh=mesh, seq_axis=seq_axis)
     backend = RealBackend(cfg, ctx, params, n_pods=n_pods,
                           n_slots=max(8, n_sessions), max_len=max_len)
     eng = build_engine(cfg, n_pods, n_sessions, backend=backend,
@@ -190,8 +196,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--max-len", type=int, default=256)
     ap.add_argument("--seq-axis", type=int, default=0, metavar="N",
                     help="price KV state moves as N-way seq-sharded "
-                         "columns (0 = off; sim only: a seq-sharded KV "
-                         "store is ROADMAP queue 1 item 9)")
+                         "columns (0 = off); with --backend real, decode "
+                         "over a mesh with an N-way seq axis (as many as "
+                         "the world's ranks allow)")
     ap.add_argument("--plan-epoch-ms", type=float, default=0.0,
                     help="run the proactive placement planner "
                          "(repro_torch.plan) every this many ms of "
@@ -205,9 +212,6 @@ def main(argv=None) -> dict:
                          "export Perfetto trace_event JSON here")
     args = ap.parse_args(argv)
 
-    if args.backend == "real" and args.seq_axis > 0:
-        raise NotImplementedError("a seq-sharded KV store is not ported yet "
-                                  "(ROADMAP queue 1 item 9)")
     recorder = None
     if args.trace:
         from ..obs import trace as obs_trace
@@ -224,16 +228,24 @@ def main(argv=None) -> dict:
 
     if args.backend == "real":
         dev = resolve_device(args.device)
+        mesh = seq_axis = None
+        if args.seq_axis > 0:
+            from .mesh import make_host_mesh
+
+            mesh = make_host_mesh(model=1, seq=args.seq_axis, device=dev)
+            if "seq" in mesh.mesh_dim_names:
+                seq_axis = "seq"
         params = init_params(cfg, torch.Generator(device=dev).manual_seed(
             args.seed), dev)
-        seq_shards = 1
         eng = serve_real(cfg, params, n_pods=args.pods,
                          n_sessions=args.sessions, n_requests=args.requests,
                          tokens_per_request=args.tokens_per_request,
                          locality=args.locality, max_len=args.max_len,
                          seed=args.seed, device=dev, policy=args.policy,
                          arbitration=args.arbitration,
-                         plan_epoch_ms=args.plan_epoch_ms, trace=recorder)
+                         plan_epoch_ms=args.plan_epoch_ms, trace=recorder,
+                         mesh=mesh, seq_axis=seq_axis)
+        seq_shards = eng.backend.seq_shards
         m = eng.metrics.as_dict()
     else:
         seq_shards = max(1, args.seq_axis)

@@ -1,9 +1,14 @@
-"""End-to-end training driver on one device.
+"""End-to-end training entry point.
 
 The port of :mod:`repro.launch.train`: data pipeline -> train step (remat,
-in-place AdamW) -> metrics -> async checkpoints -> resume.  One device and
-no mesh (the sharded paths are ROADMAP queue 1 item 9).  Parameters are
-seeded from a ``torch.Generator`` on the device, in fp32.
+in-place AdamW) -> metrics -> async checkpoints -> resume.  As the
+reference, it runs on ``make_host_mesh()``: every rank of the world
+(``torchrun``: NCCL on the card, gloo with ``--device cpu``; alone, a
+world of one) takes its shard of each global batch, and the gradients are
+summed over the data axis (:mod:`repro_torch.train.train_step`).
+``--no-mesh`` runs on one device with no process group.  Parameters are
+seeded from a ``torch.Generator`` on the device, in fp32, the same on
+every rank; rank 0 prints and writes the checkpoints.
 
 Example::
 
@@ -11,6 +16,8 @@ Example::
         --preset full --steps 4 --batch 2 --seq 2048
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --arch glm4-9b --preset smoke --steps 5 --batch 4 --seq 64
+    PYTHONPATH=src torchrun --nproc_per_node 4 -m repro_torch.launch.train \\
+        --device cpu --arch glm4-9b --preset smoke --steps 5 --batch 8
 
 Presets scale the architecture down while keeping its family features
 (GQA ratios, MoE, SSD, ...) intact, as the reference's do.
@@ -27,6 +34,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data import DataConfig, SyntheticLM
+from repro_torch.dist import sharding as shd
+from repro_torch.launch.mesh import init_world, make_host_mesh
 from repro_torch.models import decoder
 from repro_torch.models.common import init_params
 from repro_torch.train import checkpoint, optimizer as opt
@@ -84,16 +93,30 @@ def main(argv=None) -> dict:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--no-mesh", action="store_true",
+                    help="one device, no process group")
     args = ap.parse_args(argv)
 
-    device = resolve_device(args.device)
     cfg = scaled_config(args.arch, args.preset)
-    ctx = decoder.RunCtx(device=device, remat=args.remat, use_kernel="auto")
-    print(f"arch={cfg.name} preset={args.preset} "
-          f"params={cfg.param_count() / 1e6:.1f}M device={device}")
+    mesh, lead = None, True
+    started = False                  # this call started the process group
+    if args.no_mesh:
+        device = resolve_device(args.device)
+    else:
+        started = not torch.distributed.is_initialized()
+        device = init_world(args.device)
+        mesh = make_host_mesh(device=device)
+        lead = torch.distributed.get_rank() == 0
+    ctx = decoder.RunCtx(device=device, remat=args.remat, use_kernel="auto",
+                         mesh=mesh, batch_axes=("data",))
+    say = print if lead else (lambda *a, **k: None)
+    say(f"arch={cfg.name} preset={args.preset} "
+        f"params={cfg.param_count() / 1e6:.1f}M device={device} "
+        f"mesh={None if mesh is None else shd.mesh_shape(mesh)}")
 
     gen = torch.Generator(device).manual_seed(args.seed)
-    params = init_params(cfg, gen, device, torch.float32)
+    params = init_params(cfg, gen, device, torch.float32,
+                         model_size=ctx.model_size)
     opt_state = opt.init(params)
     tcfg = TrainConfig(
         opt=opt.OptConfig(lr=args.lr, warmup_steps=20, total_steps=args.steps),
@@ -111,11 +134,12 @@ def main(argv=None) -> dict:
     start = 0
     writer = None
     if args.ckpt_dir:
-        writer = checkpoint.AsyncCheckpointer(args.ckpt_dir)
+        if lead:
+            writer = checkpoint.AsyncCheckpointer(args.ckpt_dir)
         if args.resume and checkpoint.latest_step(args.ckpt_dir) is not None:
             (params, opt_state), start = checkpoint.restore(
                 args.ckpt_dir, (params, opt_state))
-            print(f"resumed from step {start}")
+            say(f"resumed from step {start}")
 
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
@@ -132,10 +156,10 @@ def main(argv=None) -> dict:
             stamps.append(time.time())
             if step % args.log_every == 0 or step == args.steps - 1:
                 dt = time.time() - t0
-                print(f"step {step:5d} loss {losses[-1]:.4f} "
-                      f"gnorm {float(metrics['grad_norm']):.3f} "
-                      f"lr {float(metrics['lr']):.2e} ({dt:.1f}s)",
-                      flush=True)
+                say(f"step {step:5d} loss {losses[-1]:.4f} "
+                    f"gnorm {float(metrics['grad_norm']):.3f} "
+                    f"lr {float(metrics['lr']):.2e} ({dt:.1f}s)",
+                    flush=True)
             if writer and args.ckpt_every and \
                     (step + 1) % args.ckpt_every == 0:
                 writer.submit(step + 1, (params, opt_state))
@@ -144,6 +168,8 @@ def main(argv=None) -> dict:
     finally:
         if writer:
             writer.close()
+        if started:
+            torch.distributed.destroy_process_group()
     step_s = (float(np.mean(np.diff(stamps))) if len(stamps) > 1 else None)
     return {"first_loss": losses[0] if losses else None,
             "last_loss": losses[-1] if losses else None,

@@ -5,6 +5,7 @@ Every registered architecture runs for inference (``forward``,
 bidirectional, a sliding window on every layer or gemma3's local/global
 pattern, partial rotary, M-RoPE, QK and gemma norms), MLA, Mamba2 (SSD)
 and zamba2's shared attention block, with SwiGLU/GeGLU/ReLU²/GELU, MoE or
-no FFN.  Training and the mesh are later slices (ROADMAP queue 1 items 9
-and 10).
+no FFN.  ``decoder.loss_fn`` trains them, and ``decoder.RunCtx.mesh``
+runs them on a ``DeviceMesh`` (data parallelism, the sharded MoE paths,
+seq-sharded KV rings; :mod:`.decoder`).
 """

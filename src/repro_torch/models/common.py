@@ -465,12 +465,14 @@ def _map_shapes(fn, tree):
     return fn(tree)
 
 
-def layer_param_shapes(cfg: ModelConfig) -> List[Dict[str, Any]]:
-    """Per-layer shape trees, in layer order (the port's layout)."""
+def layer_param_shapes(cfg: ModelConfig, model_size: int = 1
+                       ) -> List[Dict[str, Any]]:
+    """Per-layer shape trees, in layer order (the port's layout); MoE
+    experts in the chunked layout of ``model_size``."""
     plan = layer_plan(cfg)
     return [_layer_shapes(_prefix_cfg(cfg) if i < plan.prefix else cfg,
                           LayerKind("attn", "dense") if i < plan.prefix
-                          else kind)
+                          else kind, model_size)
             for i, kind in enumerate(plan.kinds)]
 
 
@@ -510,7 +512,8 @@ def _init_tree(shapes, cfg, generator, device, dtype, name=""):
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device,
-                dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
+                dtype: torch.dtype = torch.float32,
+                model_size: int = 1) -> Dict[str, Any]:
     """Random parameters in the port's layout, drawn as the reference does.
 
     Matrices: truncated normal in [-3, 3] standard deviations, std
@@ -525,7 +528,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device,
         "embed": _init_tree(shapes["embed"], cfg, generator, device, dtype,
                             "embed"),
         "layers": [_init_tree(s, cfg, generator, device, dtype)
-                   for s in layer_param_shapes(cfg)],
+                   for s in layer_param_shapes(cfg, model_size)],
         "final_norm": _init_tree(shapes["final_norm"], cfg, generator,
                                  device, dtype, "final_norm"),
     }

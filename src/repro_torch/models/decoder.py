@@ -27,8 +27,22 @@ Training: :func:`forward` and :func:`loss_fn` are differentiable (on CUDA
 the kernels' backward recomputes their plain versions,
 :mod:`repro_torch.kernels.ops`); ``RunCtx.remat`` checkpoints each body
 group of ``plan.period`` layers, as the reference wraps its scanned group
-body.  :func:`prefill` and :func:`decode_step` run without autograd.  Not
-ported yet: the mesh (ROADMAP queue 1 item 9).
+body.  :func:`prefill` and :func:`decode_step` run without autograd.
+
+The mesh (``RunCtx.mesh``, a ``DeviceMesh``).  The entry points keep the
+reference's contract, global in and global out: :func:`forward`,
+:func:`loss_fn`, :func:`prefill` and :func:`decode_step` take the global
+batch, run this rank's shard of it over the batch axes (real data
+parallelism; ``RunCtx.batch_shard_axes``) and return the global result;
+caches are this rank's blocks (:func:`init_cache` with ``mesh``).  On the
+model axis the MoE layers run the sharded expert paths
+(:func:`repro_torch.models.moe.moe_apply`, experts in the chunked layout
+of ``init_params(model_size=)``), GQA decode keeps this rank's kv heads
+and a head count that the axis does not divide runs sequence-parallel
+(:mod:`.attention`); the rest of the dense stack computes replicated over
+the model axis, its parameters whole on every model rank (GSPMD's tensor
+parallelism of the dense projections is ROADMAP queue 1 item 9b).  On a
+seq axis a decode attends over this rank's chunk of every ring.
 """
 from __future__ import annotations
 
@@ -41,6 +55,8 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from repro_torch import resolve_device
+from repro_torch.dist import comm
+from repro_torch.dist import sharding as shd
 
 from .attention import Index, gqa_attention, init_attn_cache, mla_attention
 from .common import LayerKind, ModelConfig, layer_plan, mlp_apply, rms_norm
@@ -56,7 +72,7 @@ _REMAT = ("none", "full", "dots")
 
 @dataclass(frozen=True)
 class RunCtx:
-    """Execution context: the device, the kernel policy and remat.
+    """Execution context: the device, the kernel policy, remat and the mesh.
 
     ``use_kernel``: ``"auto"`` runs the hand-written kernels on CUDA and
     their plain versions on the CPU; ``"kernel"`` insists on the kernels
@@ -64,11 +80,19 @@ class RunCtx:
     as the reference's ``use_kernel="ref"`` does.  ``remat``: ``"none"``,
     ``"full"`` (each body group's activations recomputed in the backward)
     or ``"dots"`` (only its matrix products without batch dims kept).
+    ``mesh`` (None: one device), ``batch_axes``, ``model_axis``,
+    ``capacity_factor`` (the sharded MoE's) and ``seq_axis`` (shard the
+    KV rings over it) are the reference's fields.
     """
 
     device: Any = "cuda"
     use_kernel: str = "auto"
     remat: str = "none"
+    mesh: Any = None
+    batch_axes: Tuple[str, ...] = ("data",)
+    model_axis: str = "model"
+    capacity_factor: float = 1.25
+    seq_axis: Optional[str] = None
 
     def __post_init__(self):
         if self.use_kernel not in _USE_KERNEL:
@@ -82,6 +106,52 @@ class RunCtx:
             raise ValueError("use_kernel='kernel' runs the CUDA kernels, "
                              f"which need a CUDA device, not {dev}")
         object.__setattr__(self, "device", dev)
+        object.__setattr__(self, "batch_axes", tuple(self.batch_axes))
+
+    def _size(self, axis: Optional[str]) -> int:
+        if self.mesh is None or axis is None:
+            return 1
+        return shd.mesh_shape(self.mesh).get(axis, 1)
+
+    @property
+    def model_size(self) -> int:
+        return self._size(self.model_axis)
+
+    @property
+    def seq_size(self) -> int:
+        """Ranks along the seq axis (1 when the mesh has none)."""
+        return self._size(self.seq_axis)
+
+    @property
+    def seq_sharded(self) -> bool:
+        """Whether the KV rings are cut along the seq axis (the mesh has
+        ``seq_axis``, of any size, one included)."""
+        return self.mesh is not None and self.seq_axis is not None and \
+            self.seq_axis in shd.mesh_shape(self.mesh)
+
+    def seq_spec(self, seqlen: int) -> Optional[str]:
+        """Seq-axis name if the mesh divides ``seqlen``, else None (the
+        divisibility guard of :mod:`repro_torch.dist.sharding`)."""
+        s = self.seq_size
+        return self.seq_axis if s > 1 and seqlen % s == 0 else None
+
+    def shard_act(self, x: torch.Tensor, *spec) -> torch.Tensor:
+        """This rank's block of ``x``, which every rank of the named axes
+        holds whole (the per-rank form of the reference's sharding
+        constraint); ``x`` itself off a mesh."""
+        if self.mesh is None:
+            return x
+        return shd.local_shard(x, spec, self.mesh)
+
+    def batch_shard_axes(self, batch: int) -> Optional[Tuple[str, ...]]:
+        """The batch axes a global batch of ``batch`` rows is cut over
+        (:func:`repro_torch.dist.sharding._divisible_batch_axes`; None:
+        every rank runs all of it)."""
+        if self.mesh is None:
+            return None
+        names = shd.mesh_shape(self.mesh)
+        return shd._divisible_batch_axes(
+            batch, [a for a in self.batch_axes if a in names], self.mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -122,7 +192,7 @@ def block_apply(
             p["attn"], h, cfg, positions, is_global=(kind.mixer == "attn"),
             cache=None if cache is None else cache.get("attn"),
             cache_index=cache_index, return_cache=return_cache,
-            use_kernel=ctx.use_kernel)
+            use_kernel=ctx.use_kernel, ctx=ctx)
         if gm and "ln_post_attn" in p:
             a = rms_norm(a, p["ln_post_attn"], eps, gemma=gm)
         x = x + a
@@ -144,7 +214,7 @@ def block_apply(
             shared_p["attn"], h, cfg, positions, is_global=True,
             cache=None if cache is None else cache.get("attn"),
             cache_index=cache_index, return_cache=return_cache,
-            use_kernel=ctx.use_kernel)
+            use_kernel=ctx.use_kernel, ctx=ctx)
         x = x + a
         if return_cache:
             new_cache["attn"] = c
@@ -159,7 +229,11 @@ def block_apply(
         x = x + f
     elif kind.ffn == "moe":
         h = rms_norm(x, p["ln_mlp"], eps, gemma=gm)
-        x = x + moe_apply(p["moe"], h, cfg)
+        x = x + moe_apply(p["moe"], h, cfg, mesh=ctx.mesh,
+                          batch_axes=ctx.batch_axes,
+                          model_axis=ctx.model_axis,
+                          capacity_factor=ctx.capacity_factor,
+                          batch_local=True)
     return x, new_cache
 
 
@@ -275,13 +349,72 @@ def _positions(batch, x: torch.Tensor) -> torch.Tensor:
     return positions
 
 
+# ---------------------------------------------------------------------------
+# The mesh: this rank's rows of a global batch, and the rows gathered back
+# ---------------------------------------------------------------------------
+
+def _batch_dim(key: str, t: torch.Tensor) -> int:
+    """M-RoPE positions ``[3, B, S]`` carry the batch at dim 1."""
+    return 1 if key == "positions" and t.dim() == 3 else 0
+
+
+def _rows(batch: Dict[str, torch.Tensor]) -> int:
+    """The global batch size (tokens, embeds and labels: batch at dim 0)."""
+    for k in ("tokens", "embeds", "labels"):
+        if k in batch:
+            return batch[k].shape[0]
+    raise ValueError(f"no batch dim to read in {sorted(batch)}")
+
+
+def shard_batch(ctx: RunCtx, batch: Dict[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
+    """This rank's rows of a global batch (``batch_pspecs``' rule over
+    ``ctx.batch_axes``); the batch itself off a mesh or where no batch axis
+    divides it."""
+    if ctx.mesh is None:
+        return batch
+    out = {}
+    for k, t in batch.items():
+        bdim = _batch_dim(k, t)
+        axes = ctx.batch_shard_axes(t.shape[bdim]) if t.dim() > bdim \
+            else None
+        out[k] = (shd.local_shard(t, (None,) * bdim + (axes,), ctx.mesh)
+                  if axes else t)
+    return out
+
+
+def gather_rows(ctx: RunCtx, t: torch.Tensor, batch: int) -> torch.Tensor:
+    """The global ``[batch, ...]`` tensor from every rank's rows (the
+    inverse of :func:`shard_batch` at dim 0)."""
+    axes = ctx.batch_shard_axes(batch)
+    return comm.all_gather(t, ctx.mesh, axes, 0) if axes else t
+
+
 def forward(cfg: ModelConfig, ctx: RunCtx, params: Params,
             batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Full-sequence forward -> logits [B, S, V]; differentiable (autograd
     records it where a parameter requires grad)."""
+    local = shard_batch(ctx, batch)
+    x = embed_in(cfg, params, local)
+    x, _ = stack_apply(cfg, ctx, params, x, _positions(local, x))
+    logits = lm_logits(cfg, ctx, params, x)
+    return logits if ctx.mesh is None else \
+        gather_rows(ctx, logits, _rows(batch))
+
+
+def loss_parts(cfg: ModelConfig, ctx: RunCtx, params: Params,
+               batch: Dict[str, torch.Tensor]
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(sum of the token losses, tokens counted)`` of ``batch`` as it is
+    given (no sharding); labels < 0 are ignored."""
     x = embed_in(cfg, params, batch)
     x, _ = stack_apply(cfg, ctx, params, x, _positions(batch, x))
-    return lm_logits(cfg, ctx, params, x)
+    logits = lm_logits(cfg, ctx, params, x).float()
+    labels = batch["labels"].long()
+    mask = (labels >= 0).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    return ((lse - picked) * mask).sum(), mask.sum()
 
 
 def loss_fn(cfg: ModelConfig, ctx: RunCtx, params: Params,
@@ -289,17 +422,21 @@ def loss_fn(cfg: ModelConfig, ctx: RunCtx, params: Params,
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Mean next-token (or masked-frame) cross entropy; labels < 0 ignored.
 
-    Returns ``(loss, {"loss", "ntokens"})``, fp32 scalars.
+    Returns ``(loss, {"loss", "ntokens"})``, fp32 scalars.  On a mesh each
+    rank sums its rows' losses over the global token count and the parts
+    are summed over the batch axes (:func:`repro_torch.dist.comm.
+    all_reduce`): every rank returns the global loss, and its gradient on
+    a rank is that of the rank's own part, which the train step sums.
     """
-    logits = forward(cfg, ctx, params, batch).float()
-    labels = batch["labels"].long()
-    mask = (labels >= 0).float()
-    lse = torch.logsumexp(logits, dim=-1)
-    picked = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
-    nll = (lse - picked) * mask
-    denom = torch.clamp(mask.sum(), min=1.0)
-    loss = nll.sum() / denom
-    return loss, {"loss": loss, "ntokens": mask.sum()}
+    if ctx.mesh is None:
+        nll, count = loss_parts(cfg, ctx, params, batch)
+        loss = nll / torch.clamp(count, min=1.0)
+        return loss, {"loss": loss, "ntokens": count}
+    axes = ctx.batch_shard_axes(_rows(batch))
+    nll, count = loss_parts(cfg, ctx, params, shard_batch(ctx, batch))
+    total = comm.all_reduce(count.detach(), ctx.mesh, axes)
+    loss = comm.all_reduce(nll / torch.clamp(total, min=1.0), ctx.mesh, axes)
+    return loss, {"loss": loss, "ntokens": total}
 
 
 def _layer_cache(cfg: ModelConfig, kind: LayerKind, batch: int, max_len: int,
@@ -312,9 +449,31 @@ def _layer_cache(cfg: ModelConfig, kind: LayerKind, batch: int, max_len: int,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               dtype: torch.dtype = torch.bfloat16, device="cuda") -> Cache:
-    """Zeroed per-layer caches (attention rings of ``max_len``)."""
-    dev = resolve_device(device)
+               dtype: torch.dtype = torch.bfloat16, device="cuda",
+               mesh=None) -> Cache:
+    """Zeroed per-layer caches (attention rings of ``max_len``).
+
+    With ``mesh``, this rank's blocks of them under
+    :func:`repro_torch.dist.sharding.cache_pspecs`: the batch over the
+    batch axes, kv heads over the model axis and, on a seq mesh, each ring
+    cut into seq chunks (``max_len`` must divide over the seq axis).
+    """
+    if mesh is not None:
+        ssize = shd.MeshAxes.for_mesh(mesh).seq_size(mesh)
+        if max_len % ssize:
+            raise ValueError(f"max_len {max_len} does not divide over the "
+                             f"seq axis ({ssize} ranks)")
+        whole = init_cache(cfg, batch, max_len, dtype, "meta")
+        specs = shd.cache_pspecs(cfg, mesh, whole, batch)
+        dev = resolve_device(device)
+        return [{m: {k: torch.zeros(shd.local_shape(leaf.shape,
+                                                    specs[i][m][k], mesh),
+                                    dtype=leaf.dtype, device=dev)
+                     for k, leaf in leaves.items()}
+                 for m, leaves in layer.items()}
+                for i, layer in enumerate(whole)]
+    dev = torch.device("meta") if str(device) == "meta" \
+        else resolve_device(device)
     return [_layer_cache(cfg, kind, batch, max_len, dtype, dev)
             for kind in layer_plan(cfg).kinds]
 
@@ -325,14 +484,17 @@ def prefill(cfg: ModelConfig, ctx: RunCtx, params: Params,
             ) -> Tuple[torch.Tensor, Cache]:
     """Run the prompt, return (last-position logits [B, V], cache).
 
-    The returned cache holds exactly the prompt (length S); the caller
-    copies it into longer rings to decode.
+    The returned cache holds exactly the prompt (length S; on a mesh this
+    rank's block of it); the caller copies it into longer rings to decode.
     """
-    x = embed_in(cfg, params, batch)
-    x, caches = stack_apply(cfg, ctx, params, x, _positions(batch, x),
+    local = shard_batch(ctx, batch)
+    x = embed_in(cfg, params, local)
+    x, caches = stack_apply(cfg, ctx, params, x, _positions(local, x),
                             return_cache=True)
-    logits = lm_logits(cfg, ctx, params, x[:, -1:, :])
-    return logits[:, 0, :], caches
+    logits = lm_logits(cfg, ctx, params, x[:, -1:, :])[:, 0, :]
+    if ctx.mesh is not None:
+        logits = gather_rows(ctx, logits, _rows(batch))
+    return logits, caches
 
 
 @torch.no_grad()
@@ -343,9 +505,18 @@ def decode_step(cfg: ModelConfig, ctx: RunCtx, params: Params, caches: Cache,
 
     A scalar ``pos`` steps all sequences in lockstep; a ``[B]`` vector is
     the continuous-batching path (each sequence at its own depth).  The
-    attention rings of ``caches`` are written in place.
+    attention rings of ``caches`` are written in place.  On a mesh,
+    ``tokens`` and ``pos`` are global, ``caches`` this rank's blocks, and
+    the logits global.
     """
     dtype = cfg.compute_dtype()
+    b_global = tokens.shape[0]
+    if ctx.mesh is not None:
+        local = {"tokens": tokens}
+        if isinstance(pos, torch.Tensor) and pos.dim() == 1:
+            local["pos"] = pos
+        local = shard_batch(ctx, local)
+        tokens, pos = local["tokens"], local.get("pos", pos)
     if tokens.dim() == 1:
         x = params["embed"][tokens.long()[:, None]].to(dtype)
         if cfg.gemma_norm:
@@ -363,8 +534,10 @@ def decode_step(cfg: ModelConfig, ctx: RunCtx, params: Params, caches: Cache,
     x, new_caches = stack_apply(cfg, ctx, params, x, positions,
                                 caches=caches, cache_index=pos,
                                 return_cache=True)
-    logits = lm_logits(cfg, ctx, params, x)
-    return logits[:, 0, :], new_caches
+    logits = lm_logits(cfg, ctx, params, x)[:, 0, :]
+    if ctx.mesh is not None:
+        logits = gather_rows(ctx, logits, b_global)
+    return logits, new_caches
 
 
 class Decoder(nn.Module):
@@ -400,7 +573,7 @@ class Decoder(nn.Module):
 
     def init_cache(self, batch: int, max_len: int) -> Cache:
         return init_cache(self.cfg, batch, max_len, self.cfg.compute_dtype(),
-                          self.ctx.device)
+                          self.ctx.device, mesh=self.ctx.mesh)
 
 
 def _to_module(tree) -> nn.Module:

@@ -21,9 +21,9 @@ because it never touches the lease protocol: executors route every move
 through the existing lease manager / ownership ledger.
 
 The planner scores on its ``device`` ("cuda" by default: a side stream on
-the card, see :func:`repro_torch.plan.score.score_moves_async`), where the
-reference takes a plan ``mesh``; the mesh's counterpart waits for ROADMAP
-queue 1 item 9.
+the card, see :func:`repro_torch.plan.score.score_moves_async`), and with
+a plan ``mesh`` (:func:`repro_torch.dist.sharding.make_plan_mesh`; None on
+a world of one) splits the classes over its ranks, as the reference does.
 """
 from __future__ import annotations
 
@@ -132,7 +132,7 @@ class PlacementPlanner:
     def __init__(self, n_nodes: int, n_classes: int,
                  cfg: Optional[PlanConfig] = None, *,
                  grow: bool = False, track_co: bool = False,
-                 device="cuda") -> None:
+                 device="cuda", mesh=None) -> None:
         self.cfg = cfg or PlanConfig()
         self.n_nodes = n_nodes
         self.affinity = AffinityTracker(
@@ -144,22 +144,25 @@ class PlacementPlanner:
         self._history: Deque[Tuple[int, int, int, int]] = deque()
         self.planned_moves = 0
         self.planned_bytes = 0.0
-        # the device the scores are computed on; membership view counter +
+        # the device the scores are computed on, the plan mesh that splits
+        # their classes (None: unsharded); membership view counter +
         # bounded purge log for invalidating in-flight plans
         self.device = resolve_device(device)
+        self.mesh = mesh
         self._view = 0
         self._purge_log: Deque[Tuple[int, int]] = deque(maxlen=256)
 
     @classmethod
     def for_serving(cls, n_pods: int, n_sessions: int,
                     epoch_ms: Optional[float] = None, *,
-                    device="cuda") -> "PlacementPlanner":
+                    device="cuda", mesh=None) -> "PlacementPlanner":
         """The serving-stack construction (growable session space, pinned
         ``SERVE_PLAN_DEFAULTS``, optional epoch override) — the one used by
         ``launch/serve.py`` and the benches."""
         cfg = SERVE_PLAN_DEFAULTS if epoch_ms is None else \
             replace(SERVE_PLAN_DEFAULTS, epoch_ms=epoch_ms)
-        return cls(n_pods, n_sessions, cfg, grow=True, device=device)
+        return cls(n_pods, n_sessions, cfg, grow=True, device=device,
+                   mesh=mesh)
 
     # -- view change ---------------------------------------------------------
     def purge_node(self, node: int) -> None:
@@ -246,7 +249,8 @@ class PlacementPlanner:
             min_frac=cfg.min_frac, min_rate=cfg.min_events / cfg.tau_ms,
             load_gain=cfg.load_gain,
             co_gain=cfg.co_gain, co_rates=co, max_cpu=cfg.max_cpu,
-            overload_ctrl=cfg.overload_ctrl, device=self.device)
+            overload_ctrl=cfg.overload_ctrl, device=self.device,
+            mesh=self.mesh)
         return PendingPlan(
             epoch=self.epoch, view=self._view, c=c, owner=owner,
             state_bytes=np.asarray(state_bytes, dtype=np.float64).copy(),

@@ -43,6 +43,7 @@ import torch
 
 from .. import resolve_device
 from ..dist.locality import DCN_BW, DCN_RTT_S
+from ..dist.sharding import PLAN_AXIS, plan_score_shardings
 
 NEG_INF = float("-inf")
 _PAIRWISE_BLOCK = 128         # numpy's PW_BLOCKSIZE
@@ -187,6 +188,7 @@ def score_moves_async(
     max_cpu: float = 0.9,
     overload_ctrl: bool = True,
     device="cuda",
+    mesh=None,
 ) -> PendingScores:
     """Dispatch the [class, target] scoring and return WITHOUT waiting.
 
@@ -197,8 +199,14 @@ def score_moves_async(
     wait only at :meth:`PendingScores.wait` — the harvest half of the
     planner's overlapped epochs.  On ``cpu`` the evaluation runs here and
     the result is ready at once.  Both equal :func:`score_moves_np` bit for
-    bit.  (The reference's ``mesh=`` shards the class axis over a plan
-    mesh; its counterpart waits for ROADMAP queue 1 item 9.)
+    bit.
+
+    ``mesh`` (a plan mesh, :func:`repro_torch.dist.sharding.make_plan_mesh`)
+    splits the class axis over its ranks: each scores its block of rows
+    and the blocks are all-gathered back, so every rank holds the whole
+    matrix at once (a row's score does not depend on the other rows, so
+    the result is the same bits).  A class count that does not divide over
+    the mesh is scored unsharded, as the reference falls back.
     """
     dev = resolve_device(device)
     rates = np.asarray(rates, dtype=np.float32)
@@ -206,6 +214,13 @@ def score_moves_async(
     owner = np.asarray(owner, dtype=np.int32)
     co_adv = (_co_adv(co_rates, owner, n)
               if co_rates is not None and co_gain != 0.0 else None)
+    if mesh is not None and plan_score_shardings(mesh, c) is not None:
+        return _score_sharded(mesh, dev, rates, owner, fwd_cost, move_cost,
+                              cpu, co_adv, horizon_ms=horizon_ms,
+                              margin=margin, min_frac=min_frac,
+                              min_rate=min_rate, load_gain=load_gain,
+                              co_gain=co_gain, max_cpu=max_cpu,
+                              overload_ctrl=overload_ctrl)
     parts = [rates.reshape(-1), owner,
              np.asarray(fwd_cost, dtype=np.float32).reshape(-1),
              np.asarray(move_cost, dtype=np.float32).reshape(-1),
@@ -241,6 +256,36 @@ def score_moves_async(
         event = torch.cuda.Event()
         event.record(side)
     return PendingScores(host, event, keep=(buf, flat, scores))
+
+
+def _score_sharded(mesh, dev, rates, owner, fwd_cost, move_cost, cpu,
+                   co_adv, **kw) -> PendingScores:
+    """This rank's block of classes scored on ``dev``, then every rank's
+    block all-gathered over the plan axis (:func:`plan_score_shardings`
+    names what is cut: the class-indexed inputs by rows, ``cpu`` whole)."""
+    from ..dist import comm
+
+    c = rates.shape[0]
+    specs = plan_score_shardings(mesh, c)
+    k = comm.size(mesh, PLAN_AXIS)
+    lo = comm.rank(mesh, PLAN_AXIS) * (c // k)
+    rows = slice(lo, lo + c // k)
+
+    def put(a, name, dtype):
+        a = np.asarray(a, dtype=dtype)
+        if specs[name]:
+            a = a[rows]
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    block = _score(put(rates, "rates", np.float32),
+                   put(owner, "owner", np.int32),
+                   put(fwd_cost, "fwd_cost", np.float32),
+                   put(move_cost, "move_cost", np.float32),
+                   put(cpu, "cpu", np.float32),
+                   None if co_adv is None else put(co_adv, "co_adv",
+                                                   np.float32), **kw)
+    whole = comm.all_gather(block, mesh, PLAN_AXIS, 0)
+    return PendingScores(whole.cpu())
 
 
 def score_moves(*args, **kwargs) -> np.ndarray:

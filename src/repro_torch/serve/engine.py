@@ -105,10 +105,12 @@ class RealBackend:
     def __init__(self, cfg, ctx, params, n_pods: int, n_slots: int,
                  max_len: int) -> None:
         self.cfg, self.ctx, self.params = cfg, ctx, params
-        self.stores = [KVStore(cfg, n_slots, max_len, device=ctx.device)
+        self.stores = [KVStore(cfg, n_slots, max_len, device=ctx.device,
+                               mesh=getattr(ctx, "mesh", None))
                        for _ in range(n_pods)]
-        # seq shards per pod: the engine re-prices actual-byte state moves
-        # with this (1: the port has no seq-sharded layout yet)
+        # seq shards per pod mesh: the engine re-prices actual-byte state
+        # moves with this, so a seq-sharded migration charges 1/seq_shards
+        # of the bytes per hop
         self.seq_shards = self.stores[0].seq_shards
 
     def ensure(self, pod: int, sid: int, length: int) -> None:

@@ -1,7 +1,7 @@
-"""Training substrate: optimizer, train step, checkpointing, compression.
+"""Training substrate: optimizer, train step, checkpointing, compression,
+elastic restart.
 
-The port of :mod:`repro.train` on one device.  Trees are the port's nested
-dicts, lists and tuples of tensors (:mod:`.tree`).  Not ported yet:
-``elastic.py`` and ``compression.compressed_psum``, which need the mesh
-(ROADMAP queue 1 item 9).
+The port of :mod:`repro.train`, on one device or a ``DeviceMesh`` (data
+parallelism over the batch axes; :mod:`.train_step`).  Trees are the
+port's nested dicts, lists and tuples of tensors (:mod:`.tree`).
 """

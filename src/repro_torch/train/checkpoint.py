@@ -14,7 +14,10 @@ The port of :mod:`repro.train.checkpoint`, on the same on-disk protocol::
   optimizer updates the device tensors in place at the next step) and
   writes to disk in a worker thread.
 * ``restore`` loads the newest (or a given) committed step into ``like``'s
-  structure, each leaf onto ``like``'s device and dtype.
+  structure, each leaf onto ``like``'s device and dtype; with a ``mesh``
+  and a spec tree it keeps this rank's block of each leaf, so a state
+  saved by a world of one size restores onto a world of another (the
+  elastic restart, :mod:`.elastic`).
 
 Trees flatten in the port's own order (:mod:`.tree`); a bf16 leaf is
 stored as fp32 (numpy has no bf16) and cast back on restore.  Reading the
@@ -28,7 +31,7 @@ import queue
 import shutil
 import threading
 from pathlib import Path
-from typing import Any, Optional, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -102,11 +105,17 @@ def latest_step(ckpt_dir: str | Path) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def restore(ckpt_dir: str | Path, like: Any, step: Optional[int] = None
-            ) -> Tuple[Any, int]:
+def restore(ckpt_dir: str | Path, like: Any, step: Optional[int] = None,
+            mesh=None, specs: Optional[Callable] = None) -> Tuple[Any, int]:
     """Restore the newest (or given) committed step into ``like``'s
     structure: each leaf a new tensor on the device and in the dtype of
-    ``like``'s leaf at the same place."""
+    ``like``'s leaf at the same place.
+
+    ``mesh`` with ``specs`` (``(path, like_leaf) -> spec``, a
+    :mod:`repro_torch.dist.sharding` spec; ``()`` for a whole leaf)
+    reshards: each rank reads the saved global leaf and keeps its block
+    under the spec, whatever world saved it.
+    """
     ckpt_dir = Path(ckpt_dir)
     if step is None:
         step = latest_step(ckpt_dir)
@@ -120,8 +129,16 @@ def restore(ckpt_dir: str | Path, like: Any, step: Optional[int] = None
             [[str(k) for k in path] for path, _ in pairs]:
         raise ValueError(f"checkpoint {d} holds another tree than `like`")
     out = []
-    for i, (_, want) in enumerate(pairs):
+    for i, (path, want) in enumerate(pairs):
         arr = torch.from_numpy(np.load(d / f"leaf_{i:05d}.npy"))
+        if mesh is not None and specs is not None:
+            from repro_torch.dist.sharding import local_shard
+
+            arr = local_shard(arr, specs(path, want), mesh)
+        if tuple(arr.shape) != tuple(want.shape):
+            raise ValueError(f"leaf {i} of {d} restores as "
+                             f"{tuple(arr.shape)}, `like` holds "
+                             f"{tuple(want.shape)}")
         out.append(arr.to(device=want.device, dtype=want.dtype))
     return unflatten(like, out), step
 

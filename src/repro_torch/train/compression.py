@@ -3,15 +3,15 @@
 The port of :mod:`repro.train.compression`'s tensor math: per tensor and
 step, ``g_corr = g + residual``, ``scale = max|g_corr| / 127``, ``q =
 round(g_corr / scale)`` in int8, and the residual ``g_corr - q * scale``
-carried into the next step.  ``compressed_psum`` (the int8 all-reduce over
-the data axis) needs a collective and waits for the mesh (ROADMAP queue 1
-item 9).
+carried into the next step.  :func:`compressed_psum` is the int8
+all-reduce over a data-parallel process group.
 """
 from __future__ import annotations
 
 from typing import Any, NamedTuple, Tuple
 
 import torch
+import torch.distributed as dist
 
 from .tree import leaves, tree_map, unflatten
 
@@ -57,3 +57,25 @@ def decompress_tree(comp: Any) -> Any:
     if isinstance(comp, (list, tuple)):
         return type(comp)(decompress_tree(v) for v in comp)
     raise TypeError(f"not a compressed tree node: {type(comp)}")
+
+
+def compressed_psum(g: torch.Tensor, residual: torch.Tensor, group=None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Int8-on-the-wire mean of ``g`` over ``group`` (the data-parallel
+    process group; None: the world).  Returns ``(mean, new residual)``.
+
+    Each rank quantizes its gradient (with error feedback), the ranks
+    agree on the largest scale, the int8 payloads are summed in an int32
+    accumulator and the mean is rebuilt with that scale: the reference's
+    arithmetic, op for op.
+    """
+    n = torch.tensor(float(dist.get_world_size(group)), dtype=torch.float32,
+                     device=g.device)
+    c, new_res = compress(g, residual)
+    scale = c.scale.clone()
+    dist.all_reduce(scale, op=dist.ReduceOp.MAX, group=group)
+    q = torch.clamp(torch.round(decompress(c) / scale), -127, 127).to(
+        torch.int8)
+    total = q.to(torch.int32)
+    dist.all_reduce(total, group=group)
+    return total.float() * scale / n, new_res

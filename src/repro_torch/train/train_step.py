@@ -5,6 +5,14 @@ the configs and returns ``(params, opt_state, batch) -> (params,
 opt_state, metrics)``; PyTorch runs it eagerly (no jit), and gradient
 accumulation over microbatches is a Python loop.  The optimizer updates
 the fp32 masters and their moments in place (:mod:`.optimizer`).
+
+On a mesh (``ctx.mesh``) the batch is the global one and each rank runs
+its shard of it (:func:`repro_torch.models.decoder.loss_fn`).  The ranks'
+gradients are summed over the batch axes before the clip and AdamW, which
+makes them the gradients of the global batch's mean loss: every rank then
+takes the single-device update of the whole batch.  Global chunked MoE
+expert weights (``init_params(model_size=)``) are also summed over the
+model axis, where each chunk's gradient lives on the rank that owns it.
 """
 from __future__ import annotations
 
@@ -13,11 +21,12 @@ from typing import Any, Callable, Dict, Tuple
 
 import torch
 
+from repro_torch.dist import comm
 from repro_torch.models import decoder
 from repro_torch.models.common import ModelConfig, layer_plan
 
 from . import optimizer as opt
-from .tree import leaves, tree_map, unflatten
+from .tree import leaves, leaves_with_paths, tree_map, unflatten
 
 
 @dataclass(frozen=True)
@@ -67,6 +76,16 @@ def _split(batch: Dict[str, torch.Tensor], mb: int) -> list:
     return [{k: parts[k][i] for k in batch} for i in range(mb)]
 
 
+def _sum_over_mesh(ctx: decoder.RunCtx, grads, rows: int) -> None:
+    """Sum each rank's gradients over the axes the batch is cut over (in
+    place); global expert chunks also over the model axis."""
+    comm.all_reduce_(leaves(grads), ctx.mesh, ctx.batch_shard_axes(rows))
+    if ctx.model_size > 1:
+        chunks = [g for path, g in leaves_with_paths(grads)
+                  if "experts" in path and g.shape[0] == ctx.model_size]
+        comm.all_reduce_(chunks, ctx.mesh, ctx.model_axis)
+
+
 def make_train_step(cfg: ModelConfig, ctx: decoder.RunCtx,
                     tcfg: TrainConfig = TrainConfig()) -> Callable:
     grads_of = _grad_fn(cfg, ctx)
@@ -86,6 +105,9 @@ def make_train_step(cfg: ModelConfig, ctx: decoder.RunCtx,
             inv = 1.0 / tcfg.microbatches
             grads = tree_map(lambda g: g * inv, g_acc)
             loss = loss_sum * inv
+        if ctx.mesh is not None:
+            rows = decoder._rows(batch) // max(1, tcfg.microbatches)
+            _sum_over_mesh(ctx, grads, rows)
         params, opt_state, om = opt.update(tcfg.opt, params, grads,
                                            opt_state, body=body)
         return params, opt_state, {"loss": loss, **om}

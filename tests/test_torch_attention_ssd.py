@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from repro.kernels import ref as jref
+from repro.models import attention as jattn
 from repro.kernels.flash_attention import flash_attention as pallas_flash
 from repro.kernels.ssd_scan import ssd_scan as pallas_ssd
 from repro.models.ssm import ssd_chunked as jssd_chunked
@@ -79,6 +80,45 @@ def test_sdpa_ref_matches_reference_and_pallas(b, sq, skv, hq, hkv, dk, dv,
     via_ops = ops.attention(tq, tk, tv, q_positions=torch.from_numpy(qp),
                             kv_positions=torch.from_numpy(kp), **kw)
     np.testing.assert_array_equal(via_ops.float().numpy(), got)
+
+
+@pytest.mark.parametrize("window,cap", [(None, 0.0), (40, 0.0), (None, 30.0)])
+def test_sdpa_ref_lse_merges_kv_chunks(window, cap):
+    """The plain version's log-sum-exp (decode_split's new output) is the
+    reference's scores' logsumexp, and merging the attention of four kv
+    chunks by it (the seq-sharded decode's combine) gives the attention
+    over the whole ring, within f32 rounding."""
+    b, skv, hq, hkv, d = 2, 128, 8, 2, 32
+    q, k, v, _, kp = _flash_inputs(7, b, 1, skv, hq, hkv, d, d)
+    qp = np.array([[skv - 1], [skv // 2]], np.int32)      # row 1 sees half
+    kw = dict(causal=True, sliding_window=window, logit_softcap=cap)
+    t = [torch.from_numpy(a) for a in (q, k, v, qp, kp)]
+    out, lse = ref.sdpa_ref(t[0], t[1], t[2], q_positions=t[3],
+                            kv_positions=t[4], return_lse=True, **kw)
+    np.testing.assert_array_equal(
+        out.numpy(), ref.sdpa_ref(t[0], t[1], t[2], q_positions=t[3],
+                                  kv_positions=t[4], **kw).numpy())
+    # the reference's masked scores, their logsumexp
+    g = hq // hkv
+    logits = jnp.einsum("bqhgd,bkhd->bhgqk", q.reshape(b, 1, hkv, g, d), k)
+    logits = logits * d ** -0.5
+    if cap:
+        logits = cap * jnp.tanh(logits / cap)
+    mask = jattn.attn_mask(jnp.asarray(qp), jnp.asarray(kp), True, window)
+    logits = jnp.where(mask[:, None, None], logits, jattn.NEG_INF)
+    want = jnp.moveaxis(jnp.log(jnp.sum(jnp.exp(
+        logits - logits.max(-1, keepdims=True)), -1))
+        + logits.max(-1), 3, 1).reshape(b, 1, hq)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-5)
+    parts = [ref.sdpa_ref(t[0], t[1][:, c:c + 32], t[2][:, c:c + 32],
+                          q_positions=t[3], kv_positions=t[4][:, c:c + 32],
+                          return_lse=True, **kw) for c in range(0, skv, 32)]
+    lses = torch.stack([p[1] for p in parts])
+    w = torch.exp(lses - lses.max(0).values)
+    merged = (w[..., None] * torch.stack([p[0] for p in parts])).sum(0) \
+        / w.sum(0)[..., None]
+    np.testing.assert_allclose(merged.numpy(), out.numpy(), atol=2e-6)
 
 
 def _ssd_inputs(seed, b, s, h, p, n):

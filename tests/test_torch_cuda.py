@@ -1266,3 +1266,89 @@ def test_cuda_train_step_reaches_every_leaf(cuda_device):
     step = ts.make_train_step(cfg, ctx, ts.TrainConfig())
     _, state, metrics = step(params, opt.init(params), batch)
     assert bool(torch.isfinite(metrics["loss"])) and int(state.count) == 1
+
+
+# decode shapes of the seq-sharded combine: (B, Skv, Hq, Hkv, D) of glm4,
+# gemma3 and zamba2 at full width, with a ring 3/4 written
+LSE_GRID = [(4, 512, 32, 2, 128), (4, 512, 32, 16, 128),
+            (8, 256, 32, 32, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,skv,hq,hkv,d", LSE_GRID)
+def test_cuda_decode_split_lse_matches_plain(cuda_device, b, skv, hq, hkv, d,
+                                             dtype):
+    """decode_split's log-sum-exp output against the plain version's (fp32,
+    2e-5), its attention output at the present tolerance, one launch; a
+    variant without the output refuses it."""
+    q, k, v, qp, kp = _flash_inputs(b + skv, b, 1, skv, hq, hkv, d, d, dtype,
+                                    cuda_device)
+    kw = dict(q_positions=qp, kv_positions=kp, causal=True)
+    assert fa.variant(q.dtype, 1, hq, hkv, d, d) == "decode_split"
+    before = fa.variant_launches["decode_split"]
+    with torch.no_grad():
+        out, lse = ops.attention(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert fa.variant_launches["decode_split"] == before + 1
+    want, want_lse = ref.sdpa_ref(q, k, v, return_lse=True, **kw)
+    assert lse.dtype == torch.float32 and lse.shape == (b, 1, hq)
+    torch.testing.assert_close(lse, want_lse, atol=2e-5, rtol=2e-5)
+    atol, rtol = (1e-3, 1.6e-2) if dtype == "bfloat16" else (2e-5, 2e-5)
+    torch.testing.assert_close(out.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    # another variant (simt, at head dim 48) has no log-sum-exp to give
+    with pytest.raises(ValueError, match="decode_split alone"):
+        fa.flash_attention(*(t[..., :48].contiguous() for t in (q, k, v)),
+                           q_positions=qp, kv_positions=kp, return_lse=True)
+
+
+@pytest.mark.cuda
+def test_cuda_seq_mesh_of_one_decodes_bitwise(cuda_device):
+    """glm4's smoke decode on a world-of-one NCCL mesh with a seq axis (the
+    ring on one seq rank, merged through decode_split's log-sum-exp and
+    one all-gather) equals the decode without a mesh bit for bit."""
+    import dataclasses
+
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import init_world
+    from repro_torch.models import common, decoder
+
+    init_world(cuda_device)
+    mesh = init_device_mesh("cuda", (1, 1, 1),
+                            mesh_dim_names=("data", "seq", "model"))
+    cfg = dataclasses.replace(get_smoke_config("glm4-9b"), n_heads=32,
+                              n_kv_heads=2, head_dim=64, d_model=256)
+    params = common.init_params(
+        cfg, torch.Generator(device=cuda_device).manual_seed(0), cuda_device,
+        torch.bfloat16)
+    outs = []
+    for ctx in (decoder.RunCtx(cuda_device),
+                decoder.RunCtx(cuda_device, mesh=mesh, seq_axis="seq")):
+        caches = decoder.init_cache(cfg, 2, 128, torch.bfloat16, cuda_device,
+                                    mesh=ctx.mesh)
+        tok = torch.tensor([3, 5], dtype=torch.int32, device=cuda_device)
+        for pos in range(3):
+            logits, caches = decoder.decode_step(cfg, ctx, params, caches,
+                                                 tok, pos)
+            tok = logits.argmax(-1).to(torch.int32)
+            outs.append(logits)
+    n = len(outs) // 2
+    for a, b in zip(outs[:n], outs[n:]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_seq_sharded_decode_on_two_cards():
+    """Seq-sharded decode across two cards (NCCL): needs two; the one-card
+    machine skips it, and the CPU gloo worlds of
+    tests/test_torch_sharded.py hold the same path."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    import torch_gloo
+
+    res = torch_gloo.run_world("seq_decode_cards", 2, backend="nccl")
+    for r in res:
+        assert float(np.max(np.abs(r["got"] - r["ref"]))) < 2e-4

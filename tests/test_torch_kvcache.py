@@ -184,5 +184,11 @@ def test_kvstore_ledger_and_refusals():
     st.free(99)                            # unknown: nothing to free
     assert not st.has(1) and st.has(2)
     assert st.alloc(3).slot == a.slot
-    with pytest.raises(NotImplementedError, match="item 9"):
-        KVStore(CFG, 2, 16, device="cpu", mesh=object())
+    # on a seq mesh the rings are cut into seq chunks: a ring that does not
+    # divide is refused, and one that does holds S / 4 positions a rank
+    seq_mesh = {"data": 1, "seq": 4, "model": 1}
+    with pytest.raises(ValueError, match="seq axis"):
+        KVStore(CFG, 2, 30, device="cpu", mesh=seq_mesh)
+    st = KVStore(CFG, 2, 16, device="cpu", mesh=seq_mesh)
+    ring = next(layer["attn"]["k"] for layer in st.caches if "attn" in layer)
+    assert ring.shape[:2] == (2, 4) and st.seq_shards == 4.0

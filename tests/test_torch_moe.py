@@ -121,7 +121,9 @@ def test_moe_ref_matches_reference(arch, dtype):
 def test_moe_apply_routes_like_the_dense_oracle(arch, dtype):
     """moe_apply gathers each expert's routed rows; it equals moe_ref up to
     the rounding of a matrix product over fewer rows, emits the
-    reference's moe-dispatch span, and refuses a mesh."""
+    reference's moe-dispatch span, and takes the same routed path on a
+    mesh whose model axis has one rank (the reference's ``moe_ref``
+    branch)."""
     _, tcfg = _cfgs(arch, dtype)
     _, tp = _both(_params(tcfg, 4), dtype)
     x = torch.from_numpy(np.random.default_rng(5).standard_normal(
@@ -138,8 +140,13 @@ def test_moe_apply_routes_like_the_dense_oracle(arch, dtype):
     spans = [e for e in rec.to_events() if e["name"] == "moe-dispatch"]
     assert len(spans) == 1 and spans[0]["args"] == {"path": "ref",
                                                    "tokens": 33}
-    with pytest.raises(NotImplementedError, match="item 9"):
-        moe.moe_apply(tp, x, tcfg, mesh=object())
+    class OneModelRank:                  # a (data 2, model 1) mesh's shape
+        mesh_dim_names = ("data", "model")
+
+        def size(self, i):
+            return (2, 1)[i]
+
+    assert torch.equal(moe.moe_apply(tp, x, tcfg, mesh=OneModelRank()), got)
 
 
 def test_moe_apply_skips_experts_no_token_picked():

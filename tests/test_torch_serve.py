@@ -172,8 +172,9 @@ def test_serve_trace_equals_reference(tmp_path):
 
 def test_unported_serving_paths_raise():
     """What the port refuses (a certifier backend other than the store's
-    device, a seq-sharded real run: ROADMAP queue 1 item 9) and what it
-    runs: real decode on RealBackend and ``--backend real`` (the default),
+    device) and what it runs: real decode on RealBackend and ``--backend
+    real`` (the default), with ``--seq-axis`` on a world of one (the
+    reference's sizing rule leaves no seq axis there: the same tokens),
     and sanitized serving."""
     from repro_torch.launch.serve import main as tmain
     from repro_torch.launch.serve import serve_real
@@ -186,8 +187,8 @@ def test_unported_serving_paths_raise():
     assert eng.metrics.tokens > 0 and not any(eng.queues)
     assert tmain(["--backend", "real", "--device", "cpu", "--requests",
                   "16"])["tokens"] == eng.metrics.tokens
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tmain(["--backend", "real", "--device", "cpu", "--seq-axis", "2"])
+    assert tmain(["--backend", "real", "--device", "cpu", "--requests", "16",
+                  "--seq-axis", "2"])["tokens"] == eng.metrics.tokens
     # hubert builds (an encoder's forward), but has nothing to decode
     with pytest.raises(SystemExit, match="encoder-only"):
         tmain(["--arch", "hubert-xlarge", "--device", "cpu"])
