@@ -305,13 +305,51 @@ one NCCL rank, whose collectives still run):
             ``decode_split`` (the seq mesh's with the log-sum-exp); one
             decode step of 16 slots on each: host waits and ms.
 
+The batched sweep, the analytic estimates and the examples (after the mesh
+phases' process group is gone):
+
+27. vec_sim — ``core.vec_sim`` over the grid of ``benchmarks/run.py``'s
+            sweep (localities 0, 0.3, 0.6, 0.9, 1.0 x 4 seeds x ALC~, FGL~,
+            LILAC~) and a wide grid (101 localities x 64 seeds x the 3
+            variants: 19,392 points), 512 rounds, 4 nodes, 64 classes, each
+            on cuda and on cpu from the same host draws: every point's
+            totals and the means bit-equal; wall and points/s a device;
+            then the four trends of tests/test_jax_sim.py on the card.
+28. estimates_anchor — ``launch.estimates`` against real steps at full
+            width and depth on the kernels, the grid's shapes with the batch
+            cut through ``input_specs(batch_override=)``: glm4-9b
+            ``prefill_32k`` at batch 1 (``prefill_tc<128,128>`` at S =
+            32768), glm4-9b ``decode_32k`` at batch 16 (a 32768-slot ring
+            filled at init, 21.5 GB of KV beside 18.8 GB of weights; 6 steps
+            at position 32767, ``decode_split`` over the whole ring) and
+            mamba2-780m ``prefill_32k`` at batch 4 (``ssd_scan.tc`` at S =
+            32768).  Each: peak memory against ``estimate(..., n_chips=1,
+            tp=1, param_bytes=2).residency_bytes``, the step's time against
+            ``roofline_terms`` of 2·N·D (``model_flops`` / 3, as the
+            reference's dry run takes an inference step) and the estimate's
+            traffic, as a share of that bound, and of a bound that adds
+            attention's own FLOPs; one more step under ``torch.profiler``;
+            launches checked.  Each kernel's call in the first layer of the
+            untimed run is held to its plain version on the same inputs:
+            ``prefill_tc`` on its first 256 and last 512 query rows against
+            all 32768 keys, ``decode_split`` on every row over the whole
+            ring, ``ssd_scan.tc`` at 4 x 32768 (128 chunks; y and the final
+            state, batch row by batch row).
+29. examples — ``examples/torch/{quickstart,serve_migration,train_100m,
+            failover_recovery}.py`` as subprocesses on the card, all at
+            once (each with every kernel count at 0, printing its counts
+            after), beside quickstart's part 1 on ``--device cpu``: each
+            exits 0 and part 1 prints the same lines on both devices.
+
 The last three lines are the ``nvidia-smi`` line, the kernels record (one
 entry per lease_validate, flash and SSD variant; ``lease_validate.drain``
 and each flash variant count their launches on every path that reaches
 them, by path in ``launches_by_path``: the runtime-analysis paths 15, 16,
 17 and 19 for the drain, the model phases 8-9, 8b-8h, serve_real, the
 train phases and the mesh phases 25-26 for flash, mamba2, zamba2, the
-train phases and phase 25 for the SSD; the model kernels also carry
+train phases and phase 25 for the SSD; phases 28-29 add
+``anchor_*`` and ``examples_*`` paths to every kernel that counts by path,
+zeros included; the model kernels also carry
 ``backward_recomputes``, the train phases' count, and the variants
 training runs a ``backward`` entry from phase 21; ``decode_split`` also
 ``lse_launches`` and the ``lse`` cases of phase 26), and ``{"ok": true,
@@ -3667,6 +3705,455 @@ def mesh_decode_phase(seed: int = 11) -> dict:
     return dict(out, cases=cases, counts=counts)
 
 
+# -- phases 27-29: the sweep, the estimates against the card, the examples ----
+
+SWEEP_VARIANTS = (("ALC~", dict(fine_grained=False)),
+                  ("FGL~", dict(fine_grained=True)),
+                  ("LILAC~", dict(fine_grained=True, migrate=True)))
+
+
+def sweep_grid(name: str, locs, seeds: int, n_rounds: int = 512) -> dict:
+    """One grid of ``vec_sim`` for each variant, on cuda and on cpu: every
+    point's totals and the means bit-equal; wall and points/s a device."""
+    import torch
+
+    from repro_torch.core import vec_sim
+
+    t0 = time.perf_counter()
+    ccs = np.stack([vec_sim.draw_classes(s, locs, n_rounds=n_rounds)
+                    for s in range(seeds)], axis=1)          # [L, S, R, N, 2]
+    draw_s = time.perf_counter() - t0
+    points = len(locs) * seeds
+    runs = {}
+    for device in ("cuda", "cpu"):
+        runs[device] = {}
+        for vname, kw in SWEEP_VARIANTS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = vec_sim.simulate_grid(torch.from_numpy(ccs).to(device),
+                                        **kw)
+            means = vec_sim.sweep_means(locs, res)
+            res = [t.cpu().numpy() for t in res]
+            means = {k: v.cpu().numpy() for k, v in means.items()}
+            wall = time.perf_counter() - t0
+            runs[device][vname] = dict(res=res, means=means, wall_s=wall)
+    for vname, _ in SWEEP_VARIANTS:
+        a, b = runs["cuda"][vname], runs["cpu"][vname]
+        same = all(x.tobytes() == y.tobytes() for x, y in zip(a["res"], b["res"])) \
+            and all(a["means"][k].tobytes() == b["means"][k].tobytes()
+                    for k in a["means"])
+        check(same, f"vec_sim {name}/{vname}: cuda and cpu differ")
+    walls = {d: {v: r["wall_s"] for v, r in runs[d].items()} for d in runs}
+    out = dict(grid=name, localities=len(locs), seeds=seeds,
+               variants=len(SWEEP_VARIANTS), points=points * len(SWEEP_VARIANTS),
+               n_rounds=n_rounds, n_nodes=4, n_classes=64, draw_s=draw_s,
+               cuda_vs_cpu="bit-equal", wall_s=walls,
+               points_per_s={d: points * len(w) / sum(w.values())
+                             for d, w in walls.items()})
+    if len(locs) <= 8:          # the benchmark's table: throughput, reuse
+        out["table"] = {v: [[float(locs[i]),
+                             float(runs["cuda"][v]["means"]["throughput"][i]),
+                             float(runs["cuda"][v]["means"]["reuse"][i])]
+                            for i in range(len(locs))]
+                        for v, _ in SWEEP_VARIANTS}
+    emit("vec_sim", **out)
+    return out
+
+
+def sweep_trends() -> None:
+    """The four trends of tests/test_jax_sim.py, on the card."""
+    from repro_torch.core import vec_sim
+
+    def sweep(locs, seeds, **kw):
+        out = vec_sim.locality_sweep(locs, seeds=seeds, **kw)
+        return {k: v.cpu().numpy() for k, v in out.items()}
+
+    r = sweep([0.0, 0.5, 0.95], 4)["reuse"]
+    check(r[2] > r[1] > r[0] and r[2] > 0.5, f"vec_sim: reuse {r} does "
+          "not rise with locality")
+    fgl = sweep([0.9], 4, fine_grained=True)
+    alc = sweep([0.9], 4, fine_grained=False)
+    check(fgl["reuse"][0] > alc["reuse"][0]
+          and fgl["throughput"][0] >= alc["throughput"][0],
+          "vec_sim: FGL does not beat ALC at 0.9")
+    base = sweep([0.3], 4, migrate=False)
+    mig = sweep([0.3], 4, migrate=True)
+    check(mig["lease_moves"][0] < base["lease_moves"][0]
+          and mig["throughput"][0] >= base["throughput"][0],
+          "vec_sim: migration does not cut lease moves at 0.3")
+    a, f, l = (float(sweep([0.9], 6, **kw)["throughput"][0]) for kw in (
+        dict(fine_grained=False), dict(fine_grained=True),
+        dict(fine_grained=True, migrate=True)))
+    check(a <= f + 1e-6 and f <= l + 1e-6,
+          f"vec_sim: throughput ALC {a}, FGL {f}, LILAC {l} out of order")
+    emit("vec_sim_trends", reuse_0_05_095=[float(x) for x in r],
+         reuse_fgl_alc_09=[float(fgl["reuse"][0]), float(alc["reuse"][0])],
+         lease_moves_base_mig_03=[float(base["lease_moves"][0]),
+                                  float(mig["lease_moves"][0])],
+         throughput_alc_fgl_lilac_09=[a, f, l], held=4)
+
+
+def vec_sim_phase() -> None:
+    """27. The benchmark's grid and a wide grid, then the trends."""
+    sweep_grid("benchmark", [0.0, 0.3, 0.6, 0.9, 1.0], 4)
+    sweep_grid("wide", [i / 100 for i in range(101)], 64)
+    sweep_trends()
+
+
+def anchor_inputs(cfg, shape: str, batch: int, gen, device) -> dict:
+    """Real tensors of ``input_specs``' shapes and dtypes (token ids drawn,
+    positions counted; a decode step's ``pos`` the cache's last slot)."""
+    import torch
+
+    from repro_torch.configs.shapes import input_specs
+
+    out = {}
+    for k, meta in input_specs(cfg, shape, batch_override=batch).items():
+        if k == "tokens":
+            out[k] = torch.randint(0, cfg.vocab_size, meta.shape,
+                                   generator=gen, device=device,
+                                   dtype=meta.dtype)
+        elif k == "positions":
+            s = meta.shape[-1]
+            out[k] = torch.arange(s, dtype=meta.dtype, device=device
+                                  ).expand(meta.shape).contiguous()
+        elif k == "pos":
+            from repro_torch.configs.shapes import SHAPES
+
+            out[k] = torch.tensor(SHAPES[shape].seq_len - 1, dtype=meta.dtype,
+                                  device=device)
+        else:
+            raise ValueError(f"anchor cell input {k!r}")
+    return out
+
+
+@contextlib.contextmanager
+def first_kernel_calls():
+    """Copies of the arguments and output of the first ``ops.attention``
+    and the first ``ops.ssd`` call while it is open: one layer's kernel
+    call at the path's own shapes and inputs."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    seen = {}
+    plain = ops.attention, ops.ssd
+    copy = lambda t: t.detach().clone() if isinstance(t, torch.Tensor) else t
+
+    def recording(name, fn):
+        def run(*args, **kw):
+            out = fn(*args, **kw)
+            if name not in seen:
+                seen[name] = (tuple(map(copy, args)),
+                              {k: copy(v) for k, v in kw.items()},
+                              tuple(map(copy, out)) if isinstance(out, tuple)
+                              else copy(out))
+            return out
+        return run
+
+    ops.attention, ops.ssd = (recording("attention", plain[0]),
+                              recording("ssd", plain[1]))
+    try:
+        yield seen
+    finally:
+        ops.attention, ops.ssd = plain
+
+
+def hold_anchor_calls(path: str, seen: dict, rows=(256, 512)) -> dict:
+    """Each recorded kernel call held to its plain version on the same
+    inputs: attention to ``ref.sdpa_ref`` at ``FLASH_TOL`` (a prefill on
+    its first ``rows[0]`` and last ``rows[1]`` query rows against every
+    key, as a full score matrix at S = 32768 would not fit; a decode on
+    every row over the whole ring), the SSD scan to ``ref.ssd_ref`` batch
+    row by batch row (y within 1e-2 of max |y| in bf16, 2e-5 in f32; the
+    final state at atol 2e-3, rtol 1e-4, as ``ssd_case``)."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    out = {}
+    if "attention" in seen:
+        (q, k, v), kw, got = seen["attention"]
+        kw = {n: x for n, x in kw.items() if n not in ("plain", "return_lse")}
+        sq = q.shape[1]
+        spans = [slice(0, sq)] if sq <= sum(rows) else \
+            [slice(0, rows[0]), slice(sq - rows[1], sq)]
+        atol, rtol = FLASH_TOL[str(q.dtype).removeprefix("torch.")]
+        err, held = 0.0, 0
+        for sl in spans:
+            want = ref.sdpa_ref(
+                q[:, sl], k, v, **dict(kw, q_positions=kw["q_positions"][:, sl]))
+            part = got[:, sl].float()
+            check(bool(torch.isfinite(part).all()) and torch.allclose(
+                part, want.float(), atol=atol, rtol=rtol),
+                f"{path}: flash kernel disagrees with ref.sdpa_ref at "
+                f"{tuple(q.shape)} x {tuple(k.shape)} rows {sl}")
+            err = max(err, float((part - want.float()).abs().max()))
+            held += sl.stop - sl.start
+            del want, part
+        out["attention"] = dict(q=list(q.shape), kv=list(k.shape),
+                                rows_held=held, max_abs_err=err,
+                                atol=atol, rtol=rtol)
+    if "ssd" in seen:
+        (x, dt, a, bm, cm), kw, (y, f) = seen["ssd"]
+        rel = 1e-2 if x.dtype == torch.bfloat16 else 2e-5
+        err_y = err_f = y_max = 0.0
+        for i in range(x.shape[0]):
+            h0 = kw.get("h0")
+            y_r, f_r = ref.ssd_ref(x[i:i + 1], dt[i:i + 1], a, bm[i:i + 1],
+                                   cm[i:i + 1], chunk=kw["chunk"],
+                                   h0=None if h0 is None else h0[i:i + 1])
+            check(bool(torch.isfinite(y[i]).all() and torch.isfinite(f[i]).all()),
+                  f"{path}: SSD kernel output not finite")
+            check(torch.allclose(f[i:i + 1], f_r, atol=2e-3, rtol=1e-4),
+                  f"{path}: SSD kernel final state disagrees with ref.ssd_ref "
+                  f"(row {i}, max abs err {float((f[i:i + 1] - f_r).abs().max())})")
+            err_y = max(err_y, float((y[i:i + 1].float() - y_r).abs().max()))
+            err_f = max(err_f, float((f[i:i + 1] - f_r).abs().max()))
+            y_max = max(y_max, float(y_r.abs().max()))
+            del y_r, f_r
+        check(err_y / (y_max + 1e-9) < rel,
+              f"{path}: SSD kernel y disagrees with ref.ssd_ref (max abs err "
+              f"{err_y}, max |y| {y_max})")
+        out["ssd"] = dict(x=list(x.shape), chunks=x.shape[1] // kw["chunk"],
+                          max_abs_err_y=err_y, max_abs_y=y_max,
+                          max_abs_err_state=err_f, y_rel_tol=rel,
+                          state_atol=2e-3, state_rtol=1e-4)
+    check(bool(out), f"{path}: no kernel call recorded")
+    return out
+
+
+def anchor_cell(path: str, arch: str, shape: str, batch: int, params,
+                steps: int = 6) -> dict:
+    """One grid cell at full width and depth, its batch cut to ``batch``,
+    on the kernels: peak memory against ``estimate(..., n_chips=1, tp=1,
+    param_bytes=2)``'s residency and the step's time against the roofline
+    bound of 2·N·D and the estimate's traffic (the reference dry run's
+    yardsticks for an inference step).  A prefill runs once untimed, then
+    timed with the counts reset just before; a decode step runs at the
+    cache's last position against a full ring filled at init (``steps``
+    steps timed), then one step under the profiler."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.launch.estimates import estimate
+    from repro_torch.launch.roofline import model_flops, roofline_terms
+    from repro_torch.models import common, decoder
+
+    cfg = get_config(arch)
+    full = SHAPES[shape]
+    spec = dataclasses.replace(full, global_batch=batch)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    inputs = anchor_inputs(cfg, shape, batch, gen, dev)
+    ctx = decoder.RunCtx(dev, use_kernel="auto")
+    dt = cfg.compute_dtype()
+    kinds = common.layer_plan(cfg).kinds
+    n_attn = sum(k.mixer in ATTN_MIXERS for k in kinds)
+    n_mamba = sum(k.mixer == "mamba" for k in kinds)
+    want = dict.fromkeys(fa.VARIANTS, 0)
+    want.update({f"ssd_{v}": 0 for v in ss.VARIANTS})
+    if spec.kind == "prefill":
+        def run():
+            return decoder.prefill(cfg, ctx, params, inputs)
+
+        with first_kernel_calls() as seen:        # untimed: allocator growth
+            logits, caches = run()
+        del logits, caches
+        passes, tokens = 1, batch * full.seq_len
+        if n_attn:
+            want[fa.variant(dt, full.seq_len, cfg.n_heads, cfg.n_kv_heads,
+                            cfg.head_dim, cfg.head_dim)] = n_attn
+        if n_mamba:
+            s = cfg.ssm
+            want[f"ssd_{ss.variant(dt, s.head_dim, s.d_state, s.chunk)}"] = \
+                n_mamba
+    else:
+        ring = decoder.init_cache(cfg, batch, full.seq_len, dt, dev)
+        for layer in ring:                        # a full ring of random K/V
+            for leaves in layer.values():
+                for buf in leaves.values():
+                    buf.normal_(generator=gen)
+
+        def run():
+            return decoder.decode_step(cfg, ctx, params, ring,
+                                       inputs["tokens"], inputs["pos"])
+
+        with first_kernel_calls() as seen:        # untimed
+            run()
+        passes, tokens = steps, batch
+        want[fa.variant(dt, 1, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                        cfg.head_dim)] = n_attn * steps
+    held = hold_anchor_calls(path, seen)
+    del seen
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_model_counts()                          # just before the path
+    t0 = time.perf_counter()
+    for _ in range(passes):
+        logits, _ = run()
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / passes
+    counts = model_counts()
+    counts.pop("recomputes")
+    peak = torch.cuda.max_memory_allocated()
+    check(counts == want, f"{path}: kernel launches {counts}, expected {want}")
+    check(tuple(logits.shape) == (batch, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          f"{path}: logits {tuple(logits.shape)} not finite or misshapen")
+    del logits, _
+    prof = device_profile(run)
+    est = estimate(cfg, spec, n_chips=1, tp=1, param_bytes=2)
+    # 6·N·D counts forward and backward; an inference step is 2·N·D
+    flops = model_flops(cfg.param_count(), tokens,
+                        cfg.active_param_count()) / 3.0
+    terms = roofline_terms(flops, est.traffic_bytes, 0.0)
+    # 2·N·D leaves out attention's own work: 2·(Dk + Dv) a visible
+    # (query, key) pair and head, causal in a prefill, the whole ring in
+    # a decode step
+    s_kv = full.seq_len
+    pairs = (s_kv * (s_kv + 1) // 2 if spec.kind == "prefill" else s_kv) \
+        * batch
+    attn_flops = 2.0 * pairs * cfg.n_heads * 2 * cfg.head_dim * n_attn
+    terms_attn = roofline_terms(flops + attn_flops, est.traffic_bytes, 0.0)
+    busy = prof["device_busy_ms"]
+    out = dict(path=path, arch=arch, shape=shape, batch=batch,
+               published_batch=full.global_batch, seq=full.seq_len,
+               n_layers=cfg.n_layers, d_model=cfg.d_model,
+               step_s=step_s, steps_timed=passes, launches=counts,
+               peak_gb=peak / 1e9, est_residency_gb=est.residency_bytes / 1e9,
+               peak_over_est=peak / est.residency_bytes,
+               est_traffic_gb=est.traffic_bytes / 1e9,
+               est_detail_gb={k: v / 1e9 for k, v in est.detail.items()},
+               est_fits=est.as_dict(), flops_2nd=flops, roofline=terms,
+               bound_share_of_step=terms["bound_s"] / step_s,
+               attn_flops=attn_flops, roofline_with_attn=terms_attn,
+               bound_with_attn_share_of_step=terms_attn["bound_s"] / step_s,
+               held=held,
+               device_busy_ms=busy,
+               bound_share_of_busy=(terms["bound_s"] * 1e3 / busy
+                                    if busy else None),
+               idle=(1 - busy / prof["wall_ms"]) if busy else None,
+               profile_wall_ms=prof["wall_ms"], top=prof["top"],
+               repo_kernels=prof["repo_kernels"])
+    out["est_fits"].pop("detail")
+    emit("estimates_anchor", **out)
+    return dict(counts, cell=out)
+
+
+def estimates_anchor_phase() -> dict:
+    """28. The analytic estimates against real steps on the card."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import common
+
+    dev = torch.device("cuda")
+    out = {}
+    for arch, cells in (
+            ("glm4-9b", (("anchor_glm4_prefill_32k", "prefill_32k", 1),
+                         ("anchor_glm4_decode_32k", "decode_32k", 16))),
+            ("mamba2-780m", (("anchor_mamba2_prefill_32k", "prefill_32k",
+                              4),))):
+        cfg = get_config(arch)
+        params = common.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0), dev,
+            cfg.compute_dtype())
+        for path, shape, batch in cells:
+            t0 = time.perf_counter()
+            out[path] = anchor_cell(path, arch, shape, batch, params)
+            emit(f"{path}_done", wall_s=time.perf_counter() - t0)
+            torch.cuda.empty_cache()
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+# run an example as ``__main__`` with every kernel count at 0, then print
+# the counts the run made
+EXAMPLE_RUNNER = r"""
+import json, runpy, sys
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import lease_validate as lv
+from repro_torch.kernels import ssd_scan as ss
+fa.launches = ss.launches = lv.launches = 0
+for counts in (fa.variant_launches, ss.variant_launches, lv.variant_launches):
+    for k in counts:
+        counts[k] = 0
+sys.argv = sys.argv[1:]
+runpy.run_path(sys.argv[0], run_name="__main__")
+print("kernel_counts " + json.dumps(dict(
+    **fa.variant_launches, **{"ssd_" + k: v for k, v in ss.variant_launches.items()},
+    **{"lease_" + k: v for k, v in lv.variant_launches.items()})), flush=True)
+"""
+
+EXAMPLES = ("quickstart", "serve_migration", "train_100m", "failover_recovery")
+
+
+def _part1(text: str) -> list:
+    """quickstart's part 1: its header through the blank line after it."""
+    lines = text.splitlines()
+    start = lines.index("== 1. Replicated STM cluster (paper §4, Bank "
+                        "benchmark) ==")
+    return lines[start:lines.index("", start)]
+
+
+def examples_phase(timeout_s: float = 420.0) -> dict:
+    """29. The four examples as subprocesses on the card, all at once, and
+    quickstart's part 1 on ``--device cpu`` beside them: each exits 0, and
+    part 1 prints the same lines on both devices."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    procs = {}
+    try:
+        for name in EXAMPLES:
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-c", EXAMPLE_RUNNER,
+                 str(ROOT / "examples" / "torch" / f"{name}.py")],
+                cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+        procs["quickstart_cpu"] = subprocess.Popen(
+            [sys.executable, "-c", "import sys; sys.path.insert(0, "
+             f"{str(ROOT / 'examples' / 'torch')!r}); import quickstart; "
+             "quickstart.part1_cluster('cpu')"],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        t0 = time.perf_counter()
+        done = {}
+        for name, p in procs.items():
+            left = max(1.0, timeout_s - (time.perf_counter() - t0))
+            out, err = p.communicate(timeout=left)
+            done[name] = dict(rc=p.returncode, out=out, err=err,
+                              wall_s=time.perf_counter() - t0)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    counts = {}
+    for name, r in done.items():
+        check(r["rc"] == 0, f"examples/torch/{name}: exit {r['rc']}\n"
+              f"{r['out'][-2000:]}\n{r['err'][-3000:]}")
+        if name in EXAMPLES:
+            line = [x for x in r["out"].splitlines()
+                    if x.startswith("kernel_counts ")]
+            check(len(line) == 1, f"examples/torch/{name}: no counts")
+            counts[name] = json.loads(line[0].split(" ", 1)[1])
+        emit("examples", example=name, rc=r["rc"], done_by_s=r["wall_s"],
+             launches=counts.get(name), tail=r["out"].splitlines()[-6:])
+    same = _part1(done["quickstart"]["out"]) == _part1(
+        done["quickstart_cpu"]["out"])
+    emit("examples_quickstart_part1", cuda_equals_cpu=same,
+         lines=_part1(done["quickstart"]["out"]))
+    check(same, "quickstart part 1 differs between cuda and cpu")
+    return {f"examples_{k}": v for k, v in counts.items()}
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -3900,6 +4387,20 @@ def main() -> int:
                   **{f"mesh_decode_{k}": c
                      for k, c in mesh_decode["counts"].items()}}
 
+    # 27-29. the batched policy sweep, the analytic estimates against real
+    # steps at the grid's 32k shapes, the four examples as users run them
+    t0 = time.perf_counter()
+    vec_sim_phase()
+    emit("vec_sim_done", wall_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    anchors = estimates_anchor_phase()
+    emit("estimates_anchor_done", wall_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    example_paths = examples_phase()
+    emit("examples_done", wall_s=time.perf_counter() - t0)
+    new_paths = {**{k: {n: c for n, c in v.items() if n != "cell"}
+                    for k, v in anchors.items()}, **example_paths}
+
     drain_paths = {"main": main_launches["drain"],
                    "serve_jax_min_1": serve_launches[1],
                    "serve_jax_min_8": serve_launches[8],
@@ -3907,7 +4408,8 @@ def main() -> int:
                    "main_sanitized": main_san["launches"]["drain"],
                    "forced_sanitized": forced_san["launches"]["drain"],
                    "serve_sanitized": serve_san,
-                   "explore_kernel": explore_kernel}
+                   "explore_kernel": explore_kernel,
+                   **{k: v["lease_drain"] for k, v in example_paths.items()}}
 
     lease = "src/repro_torch/kernels/csrc/lease_validate.cu"
     lease_tpu = "src/repro/kernels/lease_validate.py:70"
@@ -3928,10 +4430,10 @@ def main() -> int:
               "serve_real_mixtral": serve_real["mixtral-8x7b"],
               "serve_real_deepseek": serve_real["deepseek-v2-236b"],
               "serve_real_zamba2": serve_real["zamba2-1.2b"],
-              **train_paths, **mesh_paths})),
+              **train_paths, **mesh_paths, **new_paths})),
         *(with_backward(r, train, grad_cases) for r in ssd_records(
             ssd_cases, {"mamba2": mamba2, "zamba2": rest["zamba2"],
-                        **train_paths, **mesh_paths})),
+                        **train_paths, **mesh_paths, **new_paths})),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}), flush=True)

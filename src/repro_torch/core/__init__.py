@@ -3,9 +3,9 @@
 The same modules as the reference — lease management (Algorithm 1 and the
 sharded batched manager), the DTD, the Transaction Forwarder, the TL2 STM,
 the simulated GCS and the discrete-event cluster — with the replica version
-tables, write-lock derivation and batched certification on a torch device.
-The reference's vectorized ``lax.scan`` model (``jax_sim``) is not part of
-this slice.
+tables, write-lock derivation and batched certification on a torch device —
+and ``vec_sim``, the counterpart of the reference's vectorized sweep model
+(``jax_sim``), with every sweep point batched on the device.
 """
 from .conflict import ConflictClassMap
 from .cluster import Cluster, Metrics, SimConfig, TxnSpec, Workload
@@ -17,6 +17,7 @@ from .lease import ALCLeaseManager, FGLLeaseManager, LeaseRequest, LOR
 from .stats import CpuMeter, DecayedFrequency
 from .stm import Transaction, VersionedStore, validate_batch
 from .workloads import BankWorkload, TpccConflictMap, TpccLayout, TpccWorkload
+from . import vec_sim
 
 ALGORITHMS = {
     # paper variant -> (lease_kind, dtd policy)

@@ -1,2 +1,4 @@
-"""Launchers of the port: serving (``launch/serve.py``) and single-device
-training (``launch/train.py``)."""
+"""Launchers of the port: serving (``launch/serve.py``), training
+(``launch/train.py``), meshes (``launch/mesh.py``), and the shape grid's
+analytic estimates and roofline terms (``launch/estimates.py``,
+``launch/roofline.py``)."""

@@ -1,6 +1,6 @@
-"""Host meshes over the ranks of a ``torch.distributed`` world.
+"""Meshes over the ranks of a ``torch.distributed`` world.
 
-The port of :mod:`repro.launch.mesh`'s ``make_host_mesh``.  The reference
+The port of :mod:`repro.launch.mesh`.  The reference
 lays a ``jax.sharding.Mesh`` over the devices of one process; the port
 runs one process per rank (``torchrun``, or a world of one) and lays a
 :class:`torch.distributed.device_mesh.DeviceMesh` over the ranks.  With no
@@ -8,8 +8,11 @@ process group yet, :func:`make_host_mesh` starts a world of one itself:
 NCCL on ``cuda``, gloo where the caller asks for the CPU.  A world of one
 still runs every collective of the mesh paths.
 
-Left out: ``make_production_mesh`` (the 512-placeholder-device mesh of the
-compile-only dry run) belongs to the dry run, ROADMAP queue 1 item 10b.
+:func:`make_production_mesh` is the production layout (16 x 16 per pod, a
+2-pod axis in front) over a world of placeholder ranks: the ``"fake"``
+process group of ``torch.testing``, 512 ranks in one process, as the
+reference lays its mesh over 512 placeholder host devices.  No collective
+moves data there; it is for counting and layout passes.
 
 Example (four CPU ranks)::
 
@@ -18,6 +21,7 @@ Example (four CPU ranks)::
 """
 from __future__ import annotations
 
+import math
 import os
 import socket
 from typing import Optional, Sequence, Tuple
@@ -56,6 +60,56 @@ def init_world(device="cuda") -> torch.device:
                 rank=0, world_size=1,
                 device_id=dev if dev.type == "cuda" else None)
     return dev
+
+
+PRODUCTION_WORLD = 512      # two pods of 16 x 16: both meshes in one world
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         seq: int = 1) -> DeviceMesh:
+    """16×16 ranks per pod; the multi-pod mesh prepends a 2-pod axis.
+
+    ``seq`` > 1 splits the data axis into ``data × seq`` (e.g. ``seq=4``
+    yields a 4×4×16 pod) so long-context KV caches shard their sequence
+    dim (:mod:`repro_torch.dist.sharding`'s long-context rule) without
+    changing the rank count per pod.
+
+    The ranks are placeholders: the first call starts a world of 512
+    ``"fake"`` ranks in this process (``torch.testing``'s fake process
+    group), and later calls reuse it; the single-pod mesh takes its first
+    256, so both meshes are constructible in one process.  Raises
+    ``RuntimeError`` if another process group is already up (it is neither
+    joined nor replaced) or the fake backend is not in this torch.
+    """
+    if 16 % seq:
+        raise ValueError(f"seq axis {seq} must divide the 16-wide data axis")
+    data = 16 // seq
+    if seq > 1:
+        shape = (2, data, seq, 16) if multi_pod else (data, seq, 16)
+        axes = (("pod",) if multi_pod else ()) + ("data", "seq", "model")
+    else:
+        shape = (2, 16, 16) if multi_pod else (16, 16)
+        axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    try:
+        from torch.testing._internal.distributed import fake_pg
+    except ImportError as e:
+        raise RuntimeError(
+            "make_production_mesh needs torch's fake process group "
+            "(torch.testing._internal.distributed.fake_pg)") from e
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise RuntimeError(
+                f"a {dist.get_backend()!r} process group is up: the "
+                "production mesh needs a world of placeholder ranks of its "
+                "own (run it in a process with no process group)")
+    else:
+        dist.init_process_group("fake", store=fake_pg.FakeStore(), rank=0,
+                                world_size=PRODUCTION_WORLD)
+    n = math.prod(shape)
+    if dist.get_world_size() < n:
+        raise RuntimeError(f"need {n} ranks for mesh {shape}, the fake "
+                           f"world has {dist.get_world_size()}")
+    return init_device_mesh("cpu", shape, mesh_dim_names=axes)
 
 
 def _device_type(device) -> str:

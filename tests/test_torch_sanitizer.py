@@ -451,7 +451,8 @@ def _imports(tree):
 
 @pytest.mark.parametrize("path", sorted(
     [*(REPO / "src/repro_torch/analysis").glob("*.py"),
-     *(REPO / "tools").glob("*.py"), REPO / "chip_smoke.py"]),
+     *(REPO / "tools").glob("*.py"), *(REPO / "examples/torch").glob("*.py"),
+     REPO / "chip_smoke.py"]),
     ids=lambda p: p.name)
 def test_no_reference_or_jax_import_at_any_depth(path):
     """Function bodies included: a ``from repro...`` left inside a function
