@@ -304,9 +304,26 @@ one NCCL rank, whose collectives still run):
             meshless run's key for key, every decode through
             ``decode_split`` (the seq mesh's with the log-sum-exp); one
             decode step of 16 slots on each: host waits and ms.
+26b. mesh_tp — the dense stack tensor-parallel over 4 gloo ranks that
+            share the card, a (1, 4) mesh (NCCL takes one rank a card):
+            glm4-9b at full width and depth in bf16 (8 of its 32 q heads
+            a rank, its 2 kv heads gathered), 1 x 2048 then 8 decode
+            steps into a 2080-slot ring, and zamba2-1.2b (its Mamba heads
+            split, 2 x 2048 then 4 steps); each rank's blocks drawn with
+            ``init_params(mesh=)``.  Per rank: parameter bytes against its
+            local shapes' sum (and the whole tree's), peak memory, the
+            kernels' launches, the collectives by op, and the first
+            ``prefill_tc``, ``decode_split`` and ``ssd_scan.tc`` calls
+            held to their plain versions on the same inputs at the
+            rank's shapes (as phase 28 holds them); rank 0's logits held
+            to the single-device run of the same seed within 6% of the
+            largest logit, beside the same gap with the plain versions
+            on both sides and the single device's kernels against its
+            plain versions.  Walls are recorded; no speed is claimed
+            (the ranks share the SMs).
 
 The batched sweep, the analytic estimates and the examples (after the mesh
-phases' process group is gone):
+phases' process group is gone), then the dry run:
 
 27. vec_sim — ``core.vec_sim`` over the grid of ``benchmarks/run.py``'s
             sweep (localities 0, 0.3, 0.6, 0.9, 1.0 x 4 seeds x ALC~, FGL~,
@@ -340,14 +357,23 @@ phases' process group is gone):
             once (each with every kernel count at 0, printing its counts
             after), beside quickstart's part 1 on ``--device cpu``: each
             exits 0 and part 1 prints the same lines on both devices.
+26c. dryrun — ``launch.dryrun``'s counting pass on the host, in a
+            subprocess started beside phase 29 (which claims no time):
+            ``count_serve`` of the mesh_tp cells on a fake (1, 4) mesh,
+            whose collective records must equal the
+            ranks' (its predicted peak a rank beside theirs), the three
+            anchors of phase 28 on a mesh of one (predicted peaks beside
+            the measured ones) and glm4-9b ``train_4k`` on pod16x16 with
+            its host seconds.
 
 The last three lines are the ``nvidia-smi`` line, the kernels record (one
 entry per lease_validate, flash and SSD variant; ``lease_validate.drain``
 and each flash variant count their launches on every path that reaches
 them, by path in ``launches_by_path``: the runtime-analysis paths 15, 16,
 17 and 19 for the drain, the model phases 8-9, 8b-8h, serve_real, the
-train phases and the mesh phases 25-26 for flash, mamba2, zamba2, the
-train phases and phase 25 for the SSD; phases 28-29 add
+train phases and the mesh phases 25-26b for flash, mamba2, zamba2, the
+train phases and phases 25, 26b for the SSD (26b's counts summed over its
+four ranks); phases 28-29 add
 ``anchor_*`` and ``examples_*`` paths to every kernel that counts by path,
 zeros included; the model kernels also carry
 ``backward_recomputes``, the train phases' count, and the variants
@@ -357,6 +383,7 @@ training runs a ``backward`` entry from phase 21; ``decode_split`` also
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import io
@@ -1524,16 +1551,6 @@ def with_lse(record: dict, mesh_decode: dict) -> dict:
 
 ATTN_MIXERS = ("attn", "attn_local", "shared_attn")   # a flash call a pass
 
-def into_ring(ring, prompt_cache):
-    """Copy each prompt cache leaf into the leading slice of the ring's."""
-    for r, c in zip(ring, prompt_cache):
-        for mixer, leaves in r.items():
-            for leaf, buf in leaves.items():
-                src = c[mixer][leaf]
-                buf[tuple(slice(0, d) for d in src.shape)] = src
-    return ring
-
-
 def vision_positions(b: int, s: int, device):
     """M-RoPE positions ``[3, B, S]`` of an image and then text: a square
     grid of ``isqrt(S / 2)``^2 patches at t = 0 (h = row, w = column), then
@@ -1595,8 +1612,9 @@ def generate(cfg, ctx, params, inputs: dict, step_tokens,
     logits, caches = decoder.prefill(cfg, ctx, params, inputs)
     sync()
     t1 = time.perf_counter()
-    ring = into_ring(decoder.init_cache(cfg, b, ring_len,
-                                        cfg.compute_dtype(), dev), caches)
+    ring = decoder.into_ring(decoder.init_cache(cfg, b, ring_len,
+                                                cfg.compute_dtype(), dev),
+                             caches)
     del caches
     sync()
     t2 = time.perf_counter()
@@ -1815,9 +1833,8 @@ def layerwise(cfg, sides, inputs: dict, step_tok, ring_len: int) -> dict:
         if not cfg.causal:
             return out
         b, s = x.shape[:2]
-        ring = into_ring(decoder.init_cache(cfg, b, ring_len,
-                                            cfg.compute_dtype(), dev_b),
-                         caches)
+        ring = decoder.into_ring(decoder.init_cache(
+            cfg, b, ring_len, cfg.compute_dtype(), dev_b), caches)
         del caches
         x = decoder.embed_in(cfg, pb, {"tokens": step_tok.to(dev_b)[:, None]})
         at = torch.full((b,), s, dtype=torch.int32, device=dev_b)
@@ -3375,6 +3392,12 @@ def _moe_gloo_rank(rank: int, world: int, port: int, out: str,
             mine = dict(p, experts={k: c[rank % msize:rank % msize + 1]
                                     .clone() for k, c in zip((
                                         "w_gate", "w_up", "w_down"), chunks)})
+            if "shared" in p:     # the dense rules: this rank's blocks
+                f = p["shared"]["w_down"].shape[0] // msize
+                lo = rank % msize * f
+                mine["shared"] = {k: w.narrow(0 if k == "w_down" else -1,
+                                              lo, f).clone()
+                                  for k, w in p["shared"].items()}
             del chunks
             gen = torch.Generator(device="cuda").manual_seed(seed)
             x = torch.randn((1, MESH_MOE_TOKENS, cfg.d_model),
@@ -3705,6 +3728,343 @@ def mesh_decode_phase(seed: int = 11) -> dict:
     return dict(out, cases=cases, counts=counts)
 
 
+# ---------------------------------------------------------------------------
+# 26b-26c. tensor parallelism of the dense stack, and the dry run
+# ---------------------------------------------------------------------------
+
+MESH_TP = 4                    # gloo ranks sharing the one card: (1, 4)
+MESH_TP_TIMEOUT = 420.0
+MESH_TP_RING = 2080
+# (tag, arch, batch, prompt, decode steps)
+MESH_TP_CELLS = (("glm4", "glm4-9b", 1, 2048, 8),
+                 ("zamba2", "zamba2-1.2b", 2, 2048, 4))
+# cells also served in f32 on the plain versions, TP against one device
+# within MESH_TP_F32_TOL of the largest logit (glm4-9b's f32 tree on four
+# ranks and one device would not fit beside each other on the card)
+MESH_TP_F32 = ("zamba2",)
+MESH_TP_F32_TOL = 1e-3
+DRYRUN_TIMEOUT = 600.0         # from its start, beside phase 29
+
+
+def _tp_rank(rank: int, world: int, port: int, out: str, seed: int) -> None:
+    """One gloo rank of ``mesh_tp``: each cell's blocks drawn with
+    ``init_params(mesh=)`` and served on the kernels, the first prefill
+    and decode kernel calls (and the first SSD scan) recorded and held to
+    their plain versions at this rank's shapes, the bytes, peak, launches
+    and records; the same pass on the plain versions (``use_kernel=
+    "ref"``), and for the MESH_TP_F32 cells in f32 too; then on rank 0
+    the single-device runs of the same seed and inputs."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch.dryrun import serve_pass
+    from repro_torch.models import common, decoder
+    from repro_torch.train.tree import leaves
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda")
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    res = {}
+    try:
+        mesh = init_device_mesh("cpu", (1, world),
+                                mesh_dim_names=("data", "model"))
+        for tag, arch, b, prompt, steps in MESH_TP_CELLS:
+            cfg = get_config(arch)
+            dt = cfg.compute_dtype()
+            size = torch.empty((), dtype=dt).element_size()
+            t0 = time.perf_counter()
+            params = common.init_params(
+                cfg, torch.Generator(device=dev).manual_seed(seed), dev, dt,
+                mesh=mesh)
+            init_s = time.perf_counter() - t0
+            inputs, toks = model_inputs(
+                cfg, b, prompt, steps,
+                torch.Generator(device=dev).manual_seed(seed + 1), dev)
+            shapes = leaves(shd._map_tree(
+                lambda _, s: int(np.prod(s)),
+                shd.local_param_shapes(cfg, mesh)))
+            whole = leaves(shd._map_tree(
+                lambda _, s: int(np.prod(s)), shd.param_tree_shapes(cfg, 1)))
+            ctx = decoder.RunCtx(dev, mesh=mesh, batch_axes=("data",))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            dist.barrier()
+            with first_kernel_calls() as seen:
+                reset_model_counts()              # just before the path
+                t0 = time.perf_counter()
+                run = serve_pass(cfg, ctx, params, inputs, toks, MESH_TP_RING)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts = model_counts()
+            counts.pop("recomputes")
+            rec = dict(
+                held_bytes=sum(t.numel() * t.element_size()
+                               for t in leaves(params)),
+                local_bytes=sum(shapes) * size, whole_bytes=sum(whole) * size,
+                peak_bytes=torch.cuda.max_memory_allocated(),
+                launches=counts, wall_s=wall, init_s=init_s,
+                prefill_records=run["prefill_records"],
+                decode_records=run["decode_records"],
+                finite=all(bool(torch.isfinite(x).all())
+                           for x in run["logits"]))
+            logits = [x.float().cpu() for x in run["logits"]]
+            del run
+            try:                  # each kernel at this rank's own shapes
+                rec["held"] = hold_anchor_calls(f"mesh_tp/{tag}/rank{rank}",
+                                                seen)
+            except RuntimeError as e:     # reported by the parent
+                rec["held_error"] = str(e)
+            del seen
+            plain = serve_pass(cfg, decoder.RunCtx(
+                dev, mesh=mesh, batch_axes=("data",), use_kernel="ref"),
+                params, inputs, toks, MESH_TP_RING)["logits"]
+            plain = [x.float().cpu() for x in plain]
+            del params
+            torch.cuda.empty_cache()
+            f32 = dataclasses.replace(cfg, dtype="float32")
+            if tag in MESH_TP_F32:    # the same draws, in f32, plain
+                params = common.init_params(
+                    f32, torch.Generator(device=dev).manual_seed(seed), dev,
+                    torch.float32, mesh=mesh)
+                plain32 = serve_pass(f32, decoder.RunCtx(
+                    dev, mesh=mesh, batch_axes=("data",), use_kernel="ref"),
+                    params, inputs, toks, MESH_TP_RING)["logits"]
+                plain32 = [x.cpu() for x in plain32]
+                del params
+                torch.cuda.empty_cache()
+            dist.barrier()
+            if rank == 0:                 # the single-device runs
+                params = common.init_params(
+                    cfg, torch.Generator(device=dev).manual_seed(seed), dev,
+                    dt)
+                one = serve_pass(cfg, decoder.RunCtx(dev), params, inputs,
+                                 toks, MESH_TP_RING)["logits"]
+                one_plain = serve_pass(
+                    cfg, decoder.RunCtx(dev, use_kernel="ref"), params,
+                    inputs, toks, MESH_TP_RING)["logits"]
+                # the TP gap beside the gaps with no TP (kernels against
+                # plain) and with no kernel (TP against one device, both
+                # plain): bf16 rounding in each
+                rec["vs_single"] = compare_logits(logits, one)
+                rec["plain_vs_single_plain"] = compare_logits(plain,
+                                                              one_plain)
+                rec["single_vs_single_plain"] = compare_logits(one,
+                                                               one_plain)
+                del params, one, one_plain
+                torch.cuda.empty_cache()
+                if tag in MESH_TP_F32:
+                    params = common.init_params(
+                        f32, torch.Generator(device=dev).manual_seed(seed),
+                        dev, torch.float32)
+                    rec["f32_plain_vs_single"] = compare_logits(
+                        plain32, serve_pass(f32, decoder.RunCtx(
+                            dev, use_kernel="ref"), params, inputs, toks,
+                            MESH_TP_RING)["logits"])
+                    del params
+                    torch.cuda.empty_cache()
+            dist.barrier()
+            res[tag] = rec
+        torch.save(res, Path(out) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_tp_phase(seed: int = 24) -> dict:
+    """26b. The dense stack tensor-parallel over MESH_TP gloo ranks of the
+    one card, a (1, 4) mesh: glm4-9b (bf16, all 40 layers: 8 of its 32
+    q heads a rank, its 2 kv heads gathered) and zamba2-1.2b at full
+    width, each prefill then decode steps on the kernels; every rank's
+    first prefill_tc, decode_split and ssd_scan.tc calls held to
+    ``ref.sdpa_ref`` / ``ref.ssd_ref`` on the same inputs
+    (:func:`hold_anchor_calls`); rank 0's logits held to the single-device
+    run of the same seed within MODEL_TOL of the largest logit (over the
+    prefill and every step, as ``compare_logits`` takes it), and the same
+    gap reported with the plain versions on both sides and between the
+    single device's kernels and plain versions; the MESH_TP_F32 cells
+    also served in f32 on the plain versions, TP held to one device
+    within MESH_TP_F32_TOL.  Each rank's parameter
+    bytes equal its local shapes' sum, below the whole tree's.  No TP
+    speed is claimed: the four ranks share the SMs (``wall_s`` is
+    recorded)."""
+    import socket
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs import get_config
+
+    torch.cuda.empty_cache()
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as out, socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+        sock.close()
+        procs = [ctx.Process(target=_tp_rank,
+                             args=(r, MESH_TP, port, out, seed))
+                 for r in range(MESH_TP)]
+        for proc in procs:
+            proc.start()
+        deadline = time.monotonic() + MESH_TP_TIMEOUT
+        for proc in procs:
+            proc.join(max(0.0, deadline - time.monotonic()))
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+        check(all(proc.exitcode == 0 for proc in procs),
+              f"mesh_tp: ranks exited {[p.exitcode for p in procs]}")
+        ranks = [torch.load(Path(out) / f"rank{r}.pt")
+                 for r in range(MESH_TP)]
+    out = {}
+    for tag, arch, b, prompt, steps in MESH_TP_CELLS:
+        cfg = get_config(arch)
+        want = {k: v for k, v in expected_launches(cfg, prompt, steps).items()
+                if k not in ("flash", "ssd", "lease")}
+        for r, res in enumerate(ranks):
+            rec = res[tag]
+            emit("mesh_tp", cell=tag, arch=arch, rank=r, batch=b,
+                 prompt=prompt, steps=steps, mesh=[1, MESH_TP],
+                 **{k: v for k, v in rec.items() if not k.endswith(
+                     "_records")},
+                 **{f"{k}_by_op": collections.Counter(
+                     f"{op} {dt}" for op, dt, _, _ in rec[k])
+                    for k in ("prefill_records", "decode_records")})
+            check("held_error" not in rec, rec.get("held_error", ""))
+            check(rec["held_bytes"] == rec["local_bytes"] < rec["whole_bytes"],
+                  f"mesh_tp/{tag}: rank {r} holds {rec['held_bytes']} B, its "
+                  f"blocks are {rec['local_bytes']} B of {rec['whole_bytes']}")
+            check(rec["launches"] == want, f"mesh_tp/{tag}: rank {r} "
+                  f"launches {rec['launches']}, expected {want}")
+            check(rec["finite"], f"mesh_tp/{tag}: rank {r} logits not finite")
+            check(rec["decode_records"] == ranks[0][tag]["decode_records"],
+                  f"mesh_tp/{tag}: ranks record different collectives")
+        cmp = ranks[0][tag]["vs_single"]
+        check(cmp["rel_diff"] <= MODEL_TOL, f"mesh_tp/{tag}: rank 0's "
+              f"logits differ from the single-device run by {cmp}")
+        if tag in MESH_TP_F32:
+            cmp = ranks[0][tag]["f32_plain_vs_single"]
+            check(cmp["rel_diff"] <= MESH_TP_F32_TOL, f"mesh_tp/{tag}: in "
+                  f"f32 rank 0's logits differ from one device's by {cmp}")
+        out[tag] = dict(ranks[0][tag],
+                        peaks=[res[tag]["peak_bytes"] for res in ranks],
+                        launches_all_ranks={
+                            k: sum(res[tag]["launches"][k] for res in ranks)
+                            for k in want})
+    return out
+
+
+# run in a process of its own (the world of placeholder ranks is
+# process-wide): the mesh_tp cells on a fake (1, 4) mesh, the estimates
+# anchors on a mesh of one, and a production cell; one JSON line a job
+DRYRUN_RUNNER = r"""
+import dataclasses, json, sys, time
+sys.path.insert(0, sys.argv[1])
+from torch._subclasses.fake_tensor import FakeTensorMode
+from repro_torch.configs import get_config
+from repro_torch.configs.shapes import SHAPES
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_fake_mesh
+
+job = json.loads(sys.argv[2])
+def out(**kw):
+    print(json.dumps(kw), flush=True)
+
+mesh = make_fake_mesh((1, job["tp"]))
+for tag, arch, b, prompt, steps in job["tp_cells"]:
+    t0 = time.perf_counter()
+    with FakeTensorMode():
+        c, run = dryrun.count_serve(get_config(arch), mesh, b, prompt,
+                                    job["ring"])
+    out(job="mesh_tp", cell=tag, peak_bytes=c.peak_bytes,
+        dot_flops=c.dot_flops, host_s=time.perf_counter() - t0,
+        prefill_records=run["prefill_records"],
+        decode_records=run["decode_records"])
+mesh = make_fake_mesh((1, 1))
+for path, arch, shape, batch in job["anchors"]:
+    t0 = time.perf_counter()
+    with FakeTensorMode():
+        c, args = dryrun.count_cell(get_config(arch), dataclasses.replace(
+            SHAPES[shape], global_batch=batch), mesh)
+    out(job="anchor", path=path, peak_bytes=c.peak_bytes,
+        argument_bytes=args, dot_flops=c.dot_flops,
+        host_s=time.perf_counter() - t0)
+t0 = time.perf_counter()
+cell = dryrun.run_cell("glm4-9b", "train_4k", False)
+out(job="production", host_s=time.perf_counter() - t0, **cell)
+"""
+
+
+def start_dryrun() -> subprocess.Popen:
+    """Start :data:`DRYRUN_RUNNER` (host only: it runs beside the examples
+    phase, which claims no time, and is read by :func:`dryrun_phase`)."""
+    import atexit
+
+    job = dict(tp=MESH_TP, tp_cells=MESH_TP_CELLS, ring=MESH_TP_RING,
+               anchors=ANCHOR_CELLS)
+    proc = subprocess.Popen(
+        [sys.executable, "-c", DRYRUN_RUNNER, str(SRC), json.dumps(job)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc
+
+
+def dryrun_phase(proc: subprocess.Popen, t_start: float, tp: dict,
+                 anchors: dict) -> dict:
+    """26c. The port's dry run in a subprocess: the ``mesh_tp`` cells on a
+    fake (1, 4) world, whose collective records must equal the ranks'
+    (its per-rank peak reported against theirs), the estimates anchors on
+    a mesh of one (the predicted peaks against the measured ones), and
+    glm4-9b train_4k on pod16x16 with its host seconds."""
+    try:
+        stdout, stderr = proc.communicate(
+            timeout=max(1.0, DRYRUN_TIMEOUT - (time.perf_counter()
+                                               - t_start)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    check(proc.returncode == 0, f"dryrun: exit {proc.returncode}: "
+          f"{stderr[-3000:]}")
+    jobs = [json.loads(line) for line in stdout.splitlines()
+            if line.startswith("{")]
+    out = {"wall_s": time.perf_counter() - t_start}
+    for job in jobs:
+        if job["job"] == "mesh_tp":
+            got = tp[job["cell"]]
+            for key in ("prefill_records", "decode_records"):
+                check(job[key] == got[key], f"dryrun/{job['cell']}: the "
+                      f"fake world's {key} differ from mesh_tp's")
+            emit("dryrun_tp", cell=job["cell"], host_s=job["host_s"],
+                 records_equal=True, dot_flops=job["dot_flops"],
+                 predicted_peak_gb=job["peak_bytes"] / 1e9,
+                 measured_peaks_gb=[p / 1e9 for p in got["peaks"]],
+                 predicted_over_measured=job["peak_bytes"]
+                 / max(got["peaks"]))
+        elif job["job"] == "anchor":
+            measured = anchors[job["path"]]["cell"]["peak_gb"]
+            emit("dryrun_anchor", path=job["path"], host_s=job["host_s"],
+                 predicted_peak_gb=job["peak_bytes"] / 1e9,
+                 argument_gb=job["argument_bytes"] / 1e9,
+                 measured_peak_gb=measured,
+                 predicted_over_measured=job["peak_bytes"] / 1e9 / measured)
+        else:
+            check(job["status"] == "OK", f"dryrun: production cell "
+                  f"{job.get('error', job)}")
+            emit("dryrun_production", **{k: job[k] for k in (
+                "arch", "shape", "mesh", "host_s", "run_s",
+                "dot_flops_per_device", "memory_analysis", "roofline")},
+                 collective_bytes=job["collectives"]["total_bytes"])
+    check(sorted(j["job"] for j in jobs) == ["anchor"] * 3 + ["mesh_tp"] * 2
+          + ["production"], f"dryrun: jobs {[j['job'] for j in jobs]}")
+    return out
+
+
 # -- phases 27-29: the sweep, the estimates against the card, the examples ----
 
 SWEEP_VARIANTS = (("ALC~", dict(fine_grained=False)),
@@ -3830,8 +4190,10 @@ def anchor_inputs(cfg, shape: str, batch: int, gen, device) -> dict:
 @contextlib.contextmanager
 def first_kernel_calls():
     """Copies of the arguments and output of the first ``ops.attention``
-    and the first ``ops.ssd`` call while it is open: one layer's kernel
-    call at the path's own shapes and inputs."""
+    call over several query rows (``"attention"``, a prefill) and over one
+    (``"attention_decode"``), and of the first ``ops.ssd`` call, while it
+    is open: one layer's kernel call at the path's own shapes and
+    inputs."""
     import torch
 
     from repro_torch.kernels import ops
@@ -3840,9 +4202,11 @@ def first_kernel_calls():
     plain = ops.attention, ops.ssd
     copy = lambda t: t.detach().clone() if isinstance(t, torch.Tensor) else t
 
-    def recording(name, fn):
+    def recording(kind, fn):
         def run(*args, **kw):
             out = fn(*args, **kw)
+            name = kind if kind == "ssd" or args[0].shape[1] > 1 \
+                else "attention_decode"
             if name not in seen:
                 seen[name] = (tuple(map(copy, args)),
                               {k: copy(v) for k, v in kw.items()},
@@ -3872,8 +4236,10 @@ def hold_anchor_calls(path: str, seen: dict, rows=(256, 512)) -> dict:
     from repro_torch.kernels import ref
 
     out = {}
-    if "attention" in seen:
-        (q, k, v), kw, got = seen["attention"]
+    for name in ("attention", "attention_decode"):
+        if name not in seen:
+            continue
+        (q, k, v), kw, got = seen[name]
         kw = {n: x for n, x in kw.items() if n not in ("plain", "return_lse")}
         sq = q.shape[1]
         spans = [slice(0, sq)] if sq <= sum(rows) else \
@@ -3891,9 +4257,8 @@ def hold_anchor_calls(path: str, seen: dict, rows=(256, 512)) -> dict:
             err = max(err, float((part - want.float()).abs().max()))
             held += sl.stop - sl.start
             del want, part
-        out["attention"] = dict(q=list(q.shape), kv=list(k.shape),
-                                rows_held=held, max_abs_err=err,
-                                atol=atol, rtol=rtol)
+        out[name] = dict(q=list(q.shape), kv=list(k.shape), rows_held=held,
+                         max_abs_err=err, atol=atol, rtol=rtol)
     if "ssd" in seen:
         (x, dt, a, bm, cm), kw, (y, f) = seen["ssd"]
         rel = 1e-2 if x.dtype == torch.bfloat16 else 2e-5
@@ -4045,6 +4410,13 @@ def anchor_cell(path: str, arch: str, shape: str, batch: int, params,
     return dict(counts, cell=out)
 
 
+# (path, arch, shape, batch): the grid cells held to the estimates
+ANCHOR_CELLS = (("anchor_glm4_prefill_32k", "glm4-9b", "prefill_32k", 1),
+                ("anchor_glm4_decode_32k", "glm4-9b", "decode_32k", 16),
+                ("anchor_mamba2_prefill_32k", "mamba2-780m", "prefill_32k",
+                 4))
+
+
 def estimates_anchor_phase() -> dict:
     """28. The analytic estimates against real steps on the card."""
     import torch
@@ -4054,16 +4426,13 @@ def estimates_anchor_phase() -> dict:
 
     dev = torch.device("cuda")
     out = {}
-    for arch, cells in (
-            ("glm4-9b", (("anchor_glm4_prefill_32k", "prefill_32k", 1),
-                         ("anchor_glm4_decode_32k", "decode_32k", 16))),
-            ("mamba2-780m", (("anchor_mamba2_prefill_32k", "prefill_32k",
-                              4),))):
+    for arch in dict.fromkeys(a for _, a, _, _ in ANCHOR_CELLS):
         cfg = get_config(arch)
         params = common.init_params(
             cfg, torch.Generator(device=dev).manual_seed(0), dev,
             cfg.compute_dtype())
-        for path, shape, batch in cells:
+        for path, _, shape, batch in (c for c in ANCHOR_CELLS
+                                      if c[1] == arch):
             t0 = time.perf_counter()
             out[path] = anchor_cell(path, arch, shape, batch, params)
             emit(f"{path}_done", wall_s=time.perf_counter() - t0)
@@ -4387,6 +4756,13 @@ def main() -> int:
                   **{f"mesh_decode_{k}": c
                      for k, c in mesh_decode["counts"].items()}}
 
+    # 26b. the dense stack tensor-parallel over 4 gloo ranks of the card
+    t0 = time.perf_counter()
+    tp = mesh_tp_phase()
+    emit("mesh_tp_done", wall_s=time.perf_counter() - t0)
+    mesh_paths.update({f"mesh_tp_{tag}": rec["launches_all_ranks"]
+                       for tag, rec in tp.items()})
+
     # 27-29. the batched policy sweep, the analytic estimates against real
     # steps at the grid's 32k shapes, the four examples as users run them
     t0 = time.perf_counter()
@@ -4395,9 +4771,16 @@ def main() -> int:
     t0 = time.perf_counter()
     anchors = estimates_anchor_phase()
     emit("estimates_anchor_done", wall_s=time.perf_counter() - t0)
-    t0 = time.perf_counter()
+    # 26c. the dry run on the host, beside the examples (which claim no
+    # time): fake ranks against mesh_tp's and the anchors, a production
+    # cell
+    t0 = dry_t0 = time.perf_counter()
+    dry = start_dryrun()
     example_paths = examples_phase()
     emit("examples_done", wall_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    dryrun_phase(dry, dry_t0, tp, anchors)
+    emit("dryrun_done", wall_s=time.perf_counter() - t0)
     new_paths = {**{k: {n: c for n, c in v.items() if n != "cell"}
                     for k, v in anchors.items()}, **example_paths}
 

@@ -90,7 +90,7 @@ def _pos_spec(cfg: ModelConfig, b: int, s: int) -> torch.Tensor:
     return _meta((b, s), POS_DTYPE)
 
 
-def input_specs(cfg: ModelConfig, shape: str,
+def input_specs(cfg: ModelConfig, shape,
                 batch_override: Optional[int] = None
                 ) -> Dict[str, torch.Tensor]:
     """Meta tensors for every model input of a (config, shape) cell.
@@ -98,9 +98,10 @@ def input_specs(cfg: ModelConfig, shape: str,
     ``train``/``prefill``: token (or stub-frontend embedding) batch;
     ``decode``: one new token per sequence (the KV cache is a separate
     argument, ``decoder.init_cache`` at ``seq_len``).  ``batch_override``
-    cuts the global batch (a cell sized to fit fewer devices).
+    cuts the global batch (a cell sized to fit fewer devices).  ``shape``
+    is a name of :data:`SHAPES` or a :class:`ShapeSpec`.
     """
-    spec = SHAPES[shape]
+    spec = SHAPES[shape] if isinstance(shape, str) else shape
     b = batch_override or spec.global_batch
     s = spec.seq_len
     stub_frontend = cfg.family in ("vlm", "audio")

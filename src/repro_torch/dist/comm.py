@@ -26,15 +26,44 @@ what comes after it is computed identically on every rank of the group:
 running it on the gradient.  A group of one rank still runs its
 collectives, so a world of one exercises the code path it shares with a
 larger mesh.
+
+Counting.  Every collective here (and :func:`reduce_`, for callers that
+hold a process group rather than a mesh) appends one record ``(op, dtype,
+result shape, group size)`` to the lists that :func:`recording` has
+opened, in the form :func:`repro_torch.launch.roofline.collective_bytes`
+prices; ``broadcast_`` (the elastic restart's) is not recorded.  The
+records of a world of fake ranks equal those of a real one.
 """
 from __future__ import annotations
 
-from typing import Mapping, Sequence, Tuple, Union
+import contextlib
+from typing import Iterator, List, Mapping, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
 
 Axes = Union[None, str, Sequence[str]]
+
+_RECORDERS: List[list] = []
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[list]:
+    """Collect the records of every collective run inside the block."""
+    out: list = []
+    _RECORDERS.append(out)
+    try:
+        yield out
+    finally:          # by identity: nested lists may hold equal records
+        del _RECORDERS[next(i for i, r in enumerate(_RECORDERS)
+                            if r is out)]
+
+
+def _record(op: str, t: torch.Tensor, grp) -> None:
+    if _RECORDERS:
+        rec = (op, t.dtype, tuple(t.shape), dist.get_world_size(grp))
+        for r in _RECORDERS:
+            r.append(rec)
 
 
 def axes_of(axes: Axes) -> Tuple[str, ...]:
@@ -79,18 +108,27 @@ def group(mesh, axes: Axes):
     return mesh[names]._flatten().get_group()
 
 
-def _gather_list(t: torch.Tensor, grp) -> list:
+def _gather(t: torch.Tensor, grp, dim: int) -> torch.Tensor:
     parts = [torch.empty_like(t) for _ in range(dist.get_world_size(grp))]
     dist.all_gather(parts, t.contiguous(), group=grp)
-    return parts
+    out = torch.cat(parts, dim=dim)
+    _record("all-gather", out, grp)
+    return out
+
+
+def reduce_(t: torch.Tensor, group=None, op=None) -> torch.Tensor:
+    """``dist.all_reduce`` of ``t`` in place over a process group (None:
+    the world), recorded; ``op`` a ``dist.ReduceOp`` (default the sum)."""
+    dist.all_reduce(t, op=dist.ReduceOp.SUM if op is None else op,
+                    group=group)
+    _record("all-reduce", t, group)
+    return t
 
 
 class _AllReduce(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, grp):
-        out = t.clone()
-        dist.all_reduce(out, group=grp)
-        return out
+        return reduce_(t.clone(), grp)
 
     @staticmethod
     def backward(ctx, g):
@@ -105,9 +143,7 @@ class _RegionInput(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        g = g.clone()
-        dist.all_reduce(g, group=ctx.grp)
-        return g, None
+        return reduce_(g.clone(), ctx.grp), None
 
 
 class _AllGather(torch.autograd.Function):
@@ -115,7 +151,7 @@ class _AllGather(torch.autograd.Function):
     def forward(ctx, t, grp, dim):
         ctx.dim, ctx.n = dim, t.shape[dim]
         ctx.at = dist.get_group_rank(grp, dist.get_rank())
-        return torch.cat(_gather_list(t, grp), dim=dim)
+        return _gather(t, grp, dim)
 
     @staticmethod
     def backward(ctx, g):
@@ -127,15 +163,18 @@ class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, grp):
         ctx.grp = grp
-        out = torch.empty_like(t)
-        dist.all_to_all_single(out, t.contiguous(), group=grp)
-        return out
+        return _all_to_all(t, grp)
 
     @staticmethod
     def backward(ctx, g):
-        out = torch.empty_like(g)
-        dist.all_to_all_single(out, g.contiguous(), group=ctx.grp)
-        return out, None
+        return _all_to_all(g, ctx.grp), None
+
+
+def _all_to_all(t: torch.Tensor, grp) -> torch.Tensor:
+    out = torch.empty_like(t)
+    dist.all_to_all_single(out, t.contiguous(), group=grp)
+    _record("all-to-all", out, grp)
+    return out
 
 
 def all_reduce(t: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
@@ -186,8 +225,7 @@ def all_reduce_(tensors: Sequence[torch.Tensor], mesh, axes: Axes, *,
             while j < len(ts) and (j == i or n + ts[j].numel() <= bucket):
                 n += ts[j].numel()
                 j += 1
-            flat = torch.cat([t.reshape(-1) for t in ts[i:j]])
-            dist.all_reduce(flat, group=grp)
+            flat = reduce_(torch.cat([t.reshape(-1) for t in ts[i:j]]), grp)
             at = 0
             for t in ts[i:j]:
                 t.copy_(flat[at:at + t.numel()].view_as(t))

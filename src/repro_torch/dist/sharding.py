@@ -39,6 +39,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.models.common import (ModelConfig, attn_shapes,
@@ -183,6 +184,101 @@ def param_pspecs(cfg: ModelConfig, mesh) -> Dict[str, Any]:
     msize = ax.model_size(mesh)
     return _map_tree(lambda p, s: _param_spec(p, tuple(s), ax.model, msize),
                      param_tree_shapes(cfg, msize))
+
+
+def spec_at(specs, path: Sequence) -> Spec:
+    """The spec at ``path`` (keys and list indices) of a spec tree."""
+    for k in path:
+        specs = specs[int(k)] if isinstance(specs, list) else specs[k]
+    return specs
+
+
+def local_param_shapes(cfg: ModelConfig, mesh) -> Dict[str, Any]:
+    """This rank's parameter shapes under :func:`param_pspecs` (the tree of
+    :func:`param_tree_shapes` at the mesh's model size, each leaf cut)."""
+    specs = param_pspecs(cfg, mesh)
+    msize = MeshAxes.for_mesh(mesh).model_size(mesh)
+    return _map_tree(lambda p, s: local_shape(s, spec_at(specs, p), mesh),
+                     param_tree_shapes(cfg, msize))
+
+
+def _block_rule(cfg: ModelConfig, mesh):
+    """``(path, leaf) -> (is this rank's block, spec)`` for the port's
+    parameter tree: a leaf of the whole shape is not a block, one of the
+    block's shape is, any other shape raises."""
+    specs = param_pspecs(cfg, mesh)
+    shapes = param_tree_shapes(cfg, MeshAxes.for_mesh(mesh).model_size(mesh))
+
+    def rule(path, t):
+        whole, spec = tuple(spec_at(shapes, path)), spec_at(specs, path)
+        if tuple(t.shape) == whole:
+            return False, spec
+        want = local_shape(whole, spec, mesh)
+        if tuple(t.shape) != want:
+            raise ValueError(f"leaf {'/'.join(map(str, path))} is "
+                             f"{tuple(t.shape)}: neither the whole {whole} "
+                             f"nor this rank's block {want}")
+        return True, spec
+    return rule
+
+
+def shard_params(cfg: ModelConfig, params, mesh) -> Dict[str, Any]:
+    """This rank's blocks of a whole parameter tree (the port's layout,
+    torch or numpy leaves; experts chunked at the mesh's model size):
+    :func:`local_shard` of each leaf under :func:`param_pspecs`.  A leaf
+    that is already this rank's block is kept."""
+    rule = _block_rule(cfg, mesh)
+
+    def cut(path, t):
+        if not isinstance(t, torch.Tensor):
+            t = torch.from_numpy(np.array(t))
+        block, spec = rule(path, t)
+        return t if block else local_shard(t, spec, mesh)
+
+    return _map_tree(cut, params)
+
+
+_TOP = ("embed", "layers", "final_norm", "shared_attn", "lm_head")
+
+
+def param_spec_fn(cfg: ModelConfig, mesh):
+    """``(path, leaf) -> spec`` for :func:`repro_torch.train.checkpoint.
+    save` / ``restore`` over any tree that holds parameter trees (the
+    parameters, AdamW's ``m`` and ``v``): the leaf's spec under
+    :func:`param_pspecs` where it is this rank's block, ``()`` for a whole
+    leaf and for anything that is not a parameter (the step count)."""
+    rule = _block_rule(cfg, mesh)
+
+    def spec(path, leaf) -> Spec:
+        path = tuple(path)
+        at = next((i for i, k in enumerate(path) if k in _TOP), None)
+        if at is None:
+            return ()
+        block, s = rule(path[at:], leaf)
+        return s if block else ()
+    return spec
+
+
+def block_tp(tp, t: torch.Tensor, dim: int, whole: int):
+    """``tp = (mesh, model axis)`` when the dense leaf ``t``, of size
+    ``whole`` along ``dim`` in the whole tree, is this rank's block: the
+    rule of :func:`param_pspecs` cuts it there wherever the model axis
+    divides ``whole``.  None where the rule keeps it whole, and when
+    ``tp`` is None or the axis has one rank.  On a model axis the dense
+    stack's parameters are this rank's blocks (``init_params(mesh=)``,
+    :func:`shard_params`), so a whole leaf where the rule cuts raises."""
+    if tp is None:
+        return None
+    m = comm.size(*tp)
+    if m == 1 or whole % m:
+        return None
+    if t.shape[dim] != whole // m:
+        raise ValueError(
+            f"a leaf of {tuple(t.shape)} is not this rank's block ({whole} "
+            f"over {m} ranks along dim {dim}): on a model axis the "
+            "parameters are the blocks of init_params(mesh=) or "
+            "shard_params")
+    return tp
 
 
 # ---------------------------------------------------------------------------

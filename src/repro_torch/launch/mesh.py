@@ -90,17 +90,26 @@ def make_production_mesh(*, multi_pod: bool = False,
     else:
         shape = (2, 16, 16) if multi_pod else (16, 16)
         axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_fake_mesh(shape, axes)
+
+
+def make_fake_mesh(shape: Tuple[int, ...],
+                   axes: Tuple[str, ...] = ("data", "model")) -> DeviceMesh:
+    """A mesh of ``shape`` over the first ranks of the world of
+    ``PRODUCTION_WORLD`` placeholder ranks (started by the first call in
+    this process, then reused; the raises of :func:`make_production_mesh`):
+    the dry run's counting pass on any mesh that fits in it."""
     try:
         from torch.testing._internal.distributed import fake_pg
     except ImportError as e:
         raise RuntimeError(
-            "make_production_mesh needs torch's fake process group "
+            "a mesh of placeholder ranks needs torch's fake process group "
             "(torch.testing._internal.distributed.fake_pg)") from e
     if dist.is_initialized():
         if dist.get_backend() != "fake":
             raise RuntimeError(
                 f"a {dist.get_backend()!r} process group is up: the "
-                "production mesh needs a world of placeholder ranks of its "
+                "mesh needs a world of placeholder ranks of its "
                 "own (run it in a process with no process group)")
     else:
         dist.init_process_group("fake", store=fake_pg.FakeStore(), rank=0,

@@ -8,8 +8,9 @@ collectives out of optimized HLO text; here they are a list of records
 ``(op, dtype, shape, group_size)``, each the collective's result, in its
 true dtype.  (The reference's ``tpu_bf16_bytes`` corrects for XLA's CPU
 backend widening bf16 collectives to f32; records carry no such widening,
-so it has no counterpart.)  Reading the records out of a traced program is
-the dry run's counting pass, which is not ported yet.
+so it has no counterpart.)  The records come from
+:func:`repro_torch.dist.comm.recording`, the dry run's counting pass
+(:mod:`.op_count`).
 
 Constants are one H100 SXM's (NVIDIA data sheet): 989 TFLOP/s dense bf16,
 3.35 TB/s HBM3, NVLink 450 GB/s each way (all 18 links together).

@@ -12,6 +12,15 @@ On a mesh (``ctx.mesh``) each rank runs its own block; the layout of a
 KV buffer is :func:`repro_torch.dist.sharding.kv_buffer_spec`'s (kv heads
 over the model axis, the sequence over the seq axis):
 
+* **tensor parallelism** — with this rank's blocks of the projections
+  (``param_pspecs``: ``wq``, ``wk``, ``wv`` column-, ``wo`` row-parallel)
+  the rank attends over its ``H / m`` q heads and ``wo``'s partial
+  products are summed over the model axis (:class:`_GQALayout`).  A ``wk``
+  block that splits a kv head is gathered, and each rank takes the kv
+  heads its q heads read; MLA runs its expanded prefill and its absorbed
+  decode over the rank's heads, its down-projections over the rank's
+  rows of the sequence.
+
 * **seq-sharded decode** — each seq rank holds one contiguous chunk of
   the ring and attends over it alone, then the ranks merge their ``(out,
   lse)`` pairs with one all-gather over the seq group: only the softmax
@@ -111,16 +120,16 @@ def _on_mesh(ctx) -> bool:
 
 def _shard_kv(ctx, arr: torch.Tensor) -> torch.Tensor:
     """This rank's block of a prefill's KV buffer ``[B, S, ...]`` (the
-    batch is already this rank's): :func:`~repro_torch.dist.sharding.
-    kv_buffer_spec`'s kv heads over the model axis and, on a seq mesh, the
+    batch is already this rank's, and so are the kv heads, which the
+    tensor-parallel projection yields where the model axis divides them):
+    on a seq mesh :func:`~repro_torch.dist.sharding.kv_buffer_spec`'s
     sequence over the seq axis, so the cache a prefill returns is laid
     out as ``init_cache(mesh=)`` allocates it."""
     if not _on_mesh(ctx):
         return arr
     spec = shd.kv_buffer_spec(
-        arr.shape, bdim=0, batch=None, model=ctx.model_axis,
-        msize=ctx.model_size, seq=ctx.seq_axis if ctx.seq_sharded else None,
-        ssize=ctx.seq_size)
+        arr.shape, bdim=0, batch=None,
+        seq=ctx.seq_axis if ctx.seq_sharded else None, ssize=ctx.seq_size)
     if ctx.seq_sharded and ctx.seq_size > 1 and spec[1] is None:
         raise ValueError(f"a prompt of {arr.shape[1]} tokens does not "
                          f"divide over the seq axis ({ctx.seq_size} ranks)")
@@ -180,9 +189,60 @@ def _ring_chunk(ctx, buf: torch.Tensor) -> Tuple[int, bool]:
     return 0, False
 
 
-def _split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
-    b, s, _ = x.shape
-    return x.reshape(b, s, n_heads, -1)
+def _model_tp(ctx):
+    return ctx.model_tp if ctx is not None else None
+
+
+class _GQALayout:
+    """How one rank computes a GQA block from the leaves it holds.
+
+    ``tq`` / ``tkv``: ``wq`` (and ``wo``) / ``wk``, ``wv`` are this rank's
+    blocks (column- and row-parallel), not whole leaves.  ``head_par``:
+    the model axis divides the q heads, and the rank attends over its own
+    ``H / m`` of them; ``kv_local``: its projection also yields exactly
+    the kv heads those q heads read (the model axis divides the kv heads).
+    A block of ``wq`` that splits a head is gathered (the sequence-parallel
+    path), and so is a block of ``wk`` / ``wv`` that splits a kv head
+    (glm4-9b's 2 kv heads on 4 ranks).
+    """
+
+    def __init__(self, p, cfg: ModelConfig, ctx):
+        self.tp = _model_tp(ctx)
+        m = ctx.model_size if self.tp else 1
+        hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        self.tq = shd.block_tp(self.tp, p["wq"], -1, hq * hd) is not None
+        self.tkv = shd.block_tp(self.tp, p["wk"], -1, hkv * hd) is not None
+        self.head_par = self.tq and hq % m == 0
+        self.kv_local = self.head_par and self.tkv and hkv % m == 0
+        self.ql = hq // m if self.head_par else hq
+        self.q0 = comm.rank(*self.tp) * self.ql if self.head_par else 0
+        self.group = hq // hkv
+
+    def kv_heads(self, t: torch.Tensor) -> torch.Tensor:
+        """The kv heads ``[B, S, Hkv, D]`` this rank's q heads read, from
+        the whole set (a whole ring, or a gathered projection)."""
+        if not self.head_par or self.kv_local:
+            return t
+        if t.requires_grad:
+            t = comm.region_input(t, *self.tp)
+        g, q0, ql = self.group, self.q0, self.ql
+        if ql % g == 0:
+            return t[:, :, q0 // g:(q0 + ql) // g]
+        if g % ql == 0:
+            return t[:, :, q0 // g:q0 // g + 1]
+        return t.repeat_interleave(g, dim=2)[:, :, q0:q0 + ql]
+
+    def out_proj(self, out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+        """``out [B, S, H * D] @ wo``: row-parallel over the model axis
+        when ``wo`` is a block (``out`` whole, as a head-splitting layout
+        leaves it, is cut to this rank's rows of ``wo`` first)."""
+        if not self.tq:
+            return out @ wo
+        if not self.head_par:
+            w = wo.shape[0]
+            out = comm.region_input(out, *self.tp).narrow(
+                -1, comm.rank(*self.tp) * w, w)
+        return comm.all_reduce(out @ wo, *self.tp)
 
 
 def gqa_project_qkv(
@@ -191,13 +251,32 @@ def gqa_project_qkv(
     cfg: ModelConfig,
     positions: torch.Tensor,          # [B, S] or [3, B, S]
     rope_theta: float,
+    lay: Optional[_GQALayout] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    q = _split_heads(x @ p["wq"], cfg.n_heads)
-    k = _split_heads(x @ p["wk"], cfg.n_kv_heads)
-    v = _split_heads(x @ p["wv"], cfg.n_kv_heads)
+    """q, k, v ``[B, S, heads, D]``: every head, or under ``lay`` this
+    rank's q heads (``head_par``) and kv heads (``kv_local``)."""
+    b, s, _ = x.shape
+    hd = cfg.head_dim
+    tq = lay is not None and lay.tq
+    tkv = lay is not None and lay.tkv
+    xin = comm.region_input(x, *lay.tp) if tq or tkv else x
+    q = (xin if tq else x) @ p["wq"]
+    if tq and not lay.head_par:
+        q = comm.all_gather(q, *lay.tp, -1)
+    k = (xin if tkv else x) @ p["wk"]
+    v = (xin if tkv else x) @ p["wv"]
+    if tkv and not lay.kv_local:
+        k = comm.all_gather(k, *lay.tp, -1)
+        v = comm.all_gather(v, *lay.tp, -1)
+    q, k, v = (t.reshape(b, s, -1, hd) for t in (q, k, v))
     if cfg.use_qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps, gemma=cfg.gemma_norm)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps, gemma=cfg.gemma_norm)
+        qn, kn = p["q_norm"], p["k_norm"]
+        if tq and lay.head_par:        # a replicated leaf, used per rank
+            qn = comm.region_input(qn, *lay.tp)
+        if tkv and lay.kv_local:
+            kn = comm.region_input(kn, *lay.tp)
+        q = rms_norm(q, qn, cfg.norm_eps, gemma=cfg.gemma_norm)
+        k = rms_norm(k, kn, cfg.norm_eps, gemma=cfg.gemma_norm)
     q = apply_rope(q, positions, rope_theta, cfg.partial_rotary,
                    cfg.mrope_sections)
     k = apply_rope(k, positions, rope_theta, cfg.partial_rotary,
@@ -224,10 +303,13 @@ def gqa_attention(
     at ``cache_index`` (a scalar, or ``[B]`` for continuous batching); on a
     mesh, this rank's block of it (module docstring).
 
-    When the head count does not divide the model axis, a multi-token
-    pass without a cache runs *sequence-parallel*: the query sequence is
-    split over the model axis (k and v whole), so the quadratic score work
-    is partitioned, and the outputs are gathered back before ``wo``.
+    With this rank's blocks of the projections (:class:`_GQALayout`) the
+    block is tensor-parallel: the rank attends over its q heads and ``wo``
+    sums the ranks' parts.  When the head count does not divide the model
+    axis, a multi-token pass without a cache runs *sequence-parallel*: the
+    query sequence is split over the model axis (k and v whole), so the
+    quadratic score work is partitioned, and the outputs are gathered back
+    before ``wo``.
     """
     theta = cfg.rope_theta
     window = None
@@ -237,20 +319,14 @@ def gqa_attention(
         theta = cfg.rope_theta_global
 
     b, s = x.shape[:2]
-    q, k, v = gqa_project_qkv(p, x, cfg, positions, theta)
+    lay = _GQALayout(p, cfg, ctx)
+    q, k, v = gqa_project_qkv(p, x, cfg, positions, theta, lay)
     q_pos = positions[0] if positions.dim() == 3 else positions
     opts = dict(causal=cfg.causal, sliding_window=window, logit_softcap=0.0,
                 use_kernel=use_kernel)
 
     new_cache = None
     if cache is not None and cache_index is not None:
-        hkv = cache["k"].shape[2]
-        heads = hkv != k.shape[2]         # kv heads sharded over the model axis
-        if heads:
-            lo = comm.rank(ctx.mesh, ctx.model_axis) * hkv
-            g = cfg.n_heads // cfg.n_kv_heads
-            q, k, v = q[:, :, lo * g:(lo + hkv) * g], k[:, :, lo:lo + hkv], \
-                v[:, :, lo:lo + hkv]
         offset, sharded = _ring_chunk(ctx, cache["k"])
         if sharded:
             k_all = _chunk_update(cache["k"], k, cache_index, offset)
@@ -262,15 +338,16 @@ def gqa_attention(
             new_cache = {"k": k_all, "v": v_all}
         kv_pos = _ring_positions(cache_index, s, k_all.shape[1], b, x.device,
                                  offset)
+        k_use, v_use = lay.kv_heads(k_all), lay.kv_heads(v_all)
+        if k_use is not k_all:
+            k_use, v_use = k_use.contiguous(), v_use.contiguous()
         if sharded:
             out = _seq_combine(ctx, *sdpa(
-                q.contiguous(), k_all, v_all, q_positions=q_pos,
+                q.contiguous(), k_use, v_use, q_positions=q_pos,
                 kv_positions=kv_pos, return_lse=True, **opts))
         else:
-            out = sdpa(q.contiguous(), k_all, v_all, q_positions=q_pos,
+            out = sdpa(q.contiguous(), k_use, v_use, q_positions=q_pos,
                        kv_positions=kv_pos, **opts)
-        if heads:
-            out = comm.all_gather(out, ctx.mesh, ctx.model_axis, 2)
     else:
         if return_cache:
             new_cache = {"k": _shard_kv(ctx, k), "v": _shard_kv(ctx, v)}
@@ -287,9 +364,10 @@ def gqa_attention(
                        kv_positions=q_pos, **opts)
             out = comm.all_gather(out, ctx.mesh, ctx.model_axis, 1)
         else:
-            out = sdpa(q, k, v, q_positions=q_pos, kv_positions=q_pos,
-                       **opts)
-    return out.reshape(b, s, -1) @ p["wo"], new_cache
+            k, v = lay.kv_heads(k), lay.kv_heads(v)
+            out = sdpa(q, k.contiguous(), v.contiguous(), q_positions=q_pos,
+                       kv_positions=q_pos, **opts)
+    return lay.out_proj(out.reshape(b, s, -1), p["wo"]), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -322,21 +400,50 @@ def mla_attention(
     192, Dv 128, the flash kernel's ``simt`` variant on the card).  One
     token against a cache scores in latent space (``w_k`` absorbed into
     the query) in fp32 einsums and never expands the cache.
+
+    With this rank's blocks of ``wq_b``, ``wkv_b`` (column-parallel) and
+    ``wo`` (row-parallel) on a model axis that divides the heads, both
+    forms run over the rank's own heads and ``wo`` sums the parts; the
+    latent and ``k_pe`` are whole on every rank.  Blocks that split a head
+    are gathered and the block runs whole.
     """
     m = cfg.mla
     b, s, _ = x.shape
     h = cfg.n_heads
     dn, r = m.qk_nope_head_dim, m.kv_lora_rank
     qk_dim = dn + m.qk_rope_head_dim
+    tp = _model_tp(ctx)
+    head_par = tp is not None and h % ctx.model_size == 0
+    wq_b, wkv_b, wo = (
+        comm.all_gather(w, *tp, dim)
+        if shd.block_tp(tp, w, dim, n) and not head_par else w
+        for w, n, dim in ((p["wq_b"], h * qk_dim, -1),
+                          (p["wkv_b"], h * (dn + m.v_head_dim), -1),
+                          (p["wo"], h * m.v_head_dim, 0)))
+    if head_par:
+        h //= ctx.model_size
+
+    # the down-projections' weights are whole on every rank: on a model
+    # axis that divides the sequence, each rank projects its rows of it
+    # and the rows are gathered (GSPMD partitions them so too)
+    rows = tp is not None and s > 1 and s % ctx.model_size == 0
+
+    def down(w: torch.Tensor) -> torch.Tensor:
+        if not rows:
+            return x @ w
+        xs = ctx.shard_act(comm.region_input(x, *tp), None, ctx.model_axis)
+        return comm.all_gather(xs @ comm.region_input(w, *tp), *tp, 1)
 
     # --- queries (low-rank) -------------------------------------------------
-    cq = rms_norm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps)
-    q = (cq @ p["wq_b"]).reshape(b, s, h, qk_dim)
+    cq = rms_norm(down(p["wq_a"]), p["q_norm"], cfg.norm_eps)
+    if head_par:
+        cq = comm.region_input(cq, *tp)
+    q = (cq @ wq_b).reshape(b, s, h, qk_dim)
     q_nope, q_pe = q[..., :dn], q[..., dn:]
     q_pe = apply_rope(q_pe, positions, cfg.rope_theta)
 
     # --- compressed KV latent (k_pe rotated on a singleton head axis) --------
-    ckv_full = x @ p["wkv_a"]                              # [B,S,kv_lora+rope]
+    ckv_full = down(p["wkv_a"])                            # [B,S,kv_lora+rope]
     c_kv = rms_norm(ckv_full[..., :r], p["kv_norm"], cfg.norm_eps)
     k_pe = apply_rope(ckv_full[..., None, r:], positions,
                       cfg.rope_theta)[..., 0, :]           # [B,S,rope_dim]
@@ -363,8 +470,12 @@ def mla_attention(
         kv_pos = q_pos
         c_use, pe_use = c_kv, k_pe
 
+    if head_par:                  # whole on every rank, used per rank
+        c_use = comm.region_input(c_use, *tp)
+        pe_use = comm.region_input(pe_use, *tp)
+
     # --- expand latent to per-head K/V (absorbed form for decode) -----------
-    wkv_b = p["wkv_b"].reshape(r, h, dn + m.v_head_dim)
+    wkv_b = wkv_b.reshape(r, h, dn + m.v_head_dim)
     w_k, w_v = wkv_b[..., :dn], wkv_b[..., dn:]            # [r, h, dk|dv]
     scale = qk_dim ** -0.5
     if s == 1 and cache is not None:
@@ -399,7 +510,8 @@ def mla_attention(
         out = sdpa(q_full, k_full, v_full, q_positions=q_pos,
                    kv_positions=kv_pos, causal=cfg.causal,
                    sliding_window=None, scale=scale, use_kernel=use_kernel)
-    return out.reshape(b, s, -1) @ p["wo"], new_cache
+    out = out.reshape(b, s, -1) @ wo
+    return (comm.all_reduce(out, *tp) if head_par else out), new_cache
 
 
 # ---------------------------------------------------------------------------

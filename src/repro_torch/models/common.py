@@ -245,8 +245,18 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
 
 
 def mlp_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
-              act: str) -> torch.Tensor:
-    """Feed-forward: gated (swiglu/geglu) or plain (relu2/gelu)."""
+              act: str, tp: Optional[Tuple[Any, str]] = None) -> torch.Tensor:
+    """Feed-forward: gated (swiglu/geglu) or plain (relu2/gelu).
+
+    ``tp = (mesh, axis)``: the leaves are this rank's blocks (``w_gate``,
+    ``w_up`` column-parallel, ``w_down`` row-parallel) and the partial
+    outputs are summed over ``axis`` (Megatron's MLP: ``x`` enters the
+    region, whose gradients add up over the ranks)."""
+    if tp is not None:
+        from repro_torch.dist import comm   # dist imports this module
+
+        return comm.all_reduce(
+            mlp_apply(p, comm.region_input(x, *tp), act), *tp)
     if act in ("swiglu", "geglu"):
         g = x @ p["w_gate"]
         u = x @ p["w_up"]
@@ -259,6 +269,17 @@ def mlp_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
     else:
         raise ValueError(act)
     return h @ p["w_down"]
+
+
+def mlp_tp(p: Dict[str, torch.Tensor], width: int, ctx
+           ) -> Optional[Tuple[Any, str]]:
+    """``ctx.model_tp`` when ``p`` holds this rank's blocks of an MLP of
+    hidden ``width`` (:func:`repro_torch.dist.sharding.block_tp`), else
+    None."""
+    from repro_torch.dist import sharding as shd   # it imports this
+
+    return shd.block_tp(None if ctx is None else ctx.model_tp,
+                        p["w_down"], 0, width)
 
 
 def mlp_shapes(d_model: int, d_ff: int, act: str) -> Dict[str, Tuple[int, ...]]:
@@ -504,16 +525,9 @@ def _init_leaf(name: str, shape: Tuple[int, ...], cfg: ModelConfig,
     return w.to(dtype)
 
 
-def _init_tree(shapes, cfg, generator, device, dtype, name=""):
-    if isinstance(shapes, dict):
-        return {k: _init_tree(v, cfg, generator, device, dtype, k)
-                for k, v in shapes.items()}
-    return _init_leaf(name, tuple(shapes), cfg, generator, device, dtype)
-
-
 def init_params(cfg: ModelConfig, generator: torch.Generator, device,
                 dtype: torch.dtype = torch.float32,
-                model_size: int = 1) -> Dict[str, Any]:
+                model_size: int = 1, mesh=None) -> Dict[str, Any]:
     """Random parameters in the port's layout, drawn as the reference does.
 
     Matrices: truncated normal in [-3, 3] standard deviations, std
@@ -522,20 +536,39 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device,
     ``dt_bias`` = softplus^-1(0.01).  ``generator`` must live on
     ``device``.  The draws differ from ``jax.random``'s: to compare with
     the reference, load its parameters with :func:`params_from_numpy`.
+
+    ``mesh``: this rank's blocks under
+    :func:`repro_torch.dist.sharding.param_pspecs` (experts chunked at the
+    mesh's model size).  Each leaf is drawn whole, in the same order as
+    without a mesh, and cut at once, so the blocks are those of the whole
+    tree and the peak is one leaf.
     """
+    specs = None
+    if mesh is not None:
+        from repro_torch.dist import sharding as shd   # it imports this
+
+        model_size = shd.MeshAxes.for_mesh(mesh).model_size(mesh)
+        specs = shd.param_pspecs(cfg, mesh)
+
+    def draw(shapes, name, path):
+        if isinstance(shapes, dict):
+            return {k: draw(v, k, path + (k,)) for k, v in shapes.items()}
+        t = _init_leaf(name, tuple(shapes), cfg, generator, device, dtype)
+        if specs is None:
+            return t
+        return shd.local_shard(t, shd.spec_at(specs, path), mesh)
+
     shapes = param_shapes(cfg)
     params: Dict[str, Any] = {
-        "embed": _init_tree(shapes["embed"], cfg, generator, device, dtype,
-                            "embed"),
-        "layers": [_init_tree(s, cfg, generator, device, dtype)
-                   for s in layer_param_shapes(cfg, model_size)],
-        "final_norm": _init_tree(shapes["final_norm"], cfg, generator,
-                                 device, dtype, "final_norm"),
+        "embed": draw(shapes["embed"], "embed", ("embed",)),
+        "layers": [draw(s, "", ("layers", i)) for i, s in
+                   enumerate(layer_param_shapes(cfg, model_size))],
+        "final_norm": draw(shapes["final_norm"], "final_norm",
+                           ("final_norm",)),
     }
     for name in ("shared_attn", "lm_head"):
         if name in shapes:
-            params[name] = _init_tree(shapes[name], cfg, generator, device,
-                                      dtype, name)
+            params[name] = draw(shapes[name], name, (name,))
     return params
 
 

@@ -34,15 +34,22 @@ reference's contract, global in and global out: :func:`forward`,
 :func:`loss_fn`, :func:`prefill` and :func:`decode_step` take the global
 batch, run this rank's shard of it over the batch axes (real data
 parallelism; ``RunCtx.batch_shard_axes``) and return the global result;
-caches are this rank's blocks (:func:`init_cache` with ``mesh``).  On the
-model axis the MoE layers run the sharded expert paths
-(:func:`repro_torch.models.moe.moe_apply`, experts in the chunked layout
-of ``init_params(model_size=)``), GQA decode keeps this rank's kv heads
-and a head count that the axis does not divide runs sequence-parallel
-(:mod:`.attention`); the rest of the dense stack computes replicated over
-the model axis, its parameters whole on every model rank (GSPMD's tensor
-parallelism of the dense projections is ROADMAP queue 1 item 9b).  On a
-seq axis a decode attends over this rank's chunk of every ring.
+caches are this rank's blocks (:func:`init_cache` with ``mesh``).
+
+On the model axis the stack is tensor-parallel.  Each rank holds its
+blocks of the leaves :func:`repro_torch.dist.sharding.param_pspecs`
+shards (``init_params(mesh=)``, or ``shard_params`` of a whole tree) and
+computes the same function as one device, with the collectives of
+:mod:`repro_torch.dist.comm`: the MLPs and the attention projections are
+column- then row-parallel (the rank attends over its own q heads; a head
+count the axis does not divide runs sequence-parallel, :mod:`.attention`),
+Mamba2 splits its heads (:mod:`.ssm`), the embedding and the logits are
+vocab-parallel (the loss too), and the MoE layers run the sharded expert
+paths (:func:`repro_torch.models.moe.moe_apply`, experts chunked).  A
+leaf is a block wherever the rule cuts it (the model axis divides its
+dim; :func:`repro_torch.dist.sharding.block_tp` decides, and raises on a
+whole leaf there), and whole on every rank elsewhere.  On a seq axis a
+decode attends over this rank's chunk of every ring.
 """
 from __future__ import annotations
 
@@ -59,7 +66,8 @@ from repro_torch.dist import comm
 from repro_torch.dist import sharding as shd
 
 from .attention import Index, gqa_attention, init_attn_cache, mla_attention
-from .common import LayerKind, ModelConfig, layer_plan, mlp_apply, rms_norm
+from .common import (LayerKind, ModelConfig, layer_plan, mlp_apply, mlp_tp,
+                     rms_norm)
 from .moe import moe_apply
 from .ssm import init_ssm_cache, mamba2_block
 
@@ -116,6 +124,13 @@ class RunCtx:
     @property
     def model_size(self) -> int:
         return self._size(self.model_axis)
+
+    @property
+    def model_tp(self) -> Optional[Tuple[Any, str]]:
+        """``(mesh, model axis)`` on a model axis of more than one rank,
+        the collectives' arguments of a tensor-parallel layer; else
+        None."""
+        return (self.mesh, self.model_axis) if self.model_size > 1 else None
 
     @property
     def seq_size(self) -> int:
@@ -203,7 +218,7 @@ def block_apply(
         y, c = mamba2_block(
             p["mamba"], h, cfg,
             cache=None if cache is None else cache.get("mamba"),
-            return_cache=return_cache, use_kernel=ctx.use_kernel)
+            return_cache=return_cache, use_kernel=ctx.use_kernel, ctx=ctx)
         x = x + y
         if return_cache:
             new_cache["mamba"] = c
@@ -223,7 +238,10 @@ def block_apply(
 
     if kind.ffn == "dense":
         h = rms_norm(x, p["ln_mlp"], eps, gemma=gm)
-        f = mlp_apply(p["mlp"], h, cfg.mlp_act)
+        # the dense layers of an MoE stack are its prefix, of their width
+        width = (cfg.moe.d_first_dense or cfg.d_ff) if cfg.moe is not None \
+            else cfg.d_ff
+        f = mlp_apply(p["mlp"], h, cfg.mlp_act, mlp_tp(p["mlp"], width, ctx))
         if gm and "ln_post_mlp" in p:
             f = rms_norm(f, p["ln_post_mlp"], eps, gemma=gm)
         x = x + f
@@ -316,27 +334,63 @@ def stack_apply(
 # Model-level entry points
 # ---------------------------------------------------------------------------
 
+def _vocab_tp(ctx: Optional[RunCtx], t: torch.Tensor, dim: int,
+              cfg: ModelConfig) -> Optional[Tuple[Any, str]]:
+    """``ctx.model_tp`` when ``t``, indexed by the vocab along ``dim``, is
+    this rank's block (vocab-parallel; :func:`repro_torch.dist.sharding.
+    block_tp`), else None."""
+    return shd.block_tp(None if ctx is None else ctx.model_tp, t, dim,
+                        cfg.vocab_size)
+
+
+def _lookup(cfg: ModelConfig, ctx: Optional[RunCtx], embed: torch.Tensor,
+            ids: torch.Tensor) -> torch.Tensor:
+    """``embed[ids]``; vocab-parallel on a block of rows: each rank looks
+    up the ids it owns, zeros the rest, and the rows are summed over the
+    model axis (one term of each sum is not zero, so the sum is exact)."""
+    ids = ids.long()
+    tp = _vocab_tp(ctx, embed, 0, cfg)
+    if tp is None:
+        return embed[ids]
+    n = embed.shape[0]
+    local = ids - comm.rank(*tp) * n
+    own = (local >= 0) & (local < n)
+    rows = embed[local.clamp(0, n - 1)]
+    rows = torch.where(own[..., None], rows, torch.zeros_like(rows))
+    return comm.all_reduce(rows, *tp)
+
+
 def embed_in(cfg: ModelConfig, params: Params,
-             batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+             batch: Dict[str, torch.Tensor],
+             ctx: Optional[RunCtx] = None) -> torch.Tensor:
     """Token ids -> embeddings, or pass through stub-frontend features."""
     dtype = cfg.compute_dtype()
     if "embeds" in batch:
         x = batch["embeds"].to(dtype)
     else:
-        x = params["embed"][batch["tokens"].long()].to(dtype)
+        x = _lookup(cfg, ctx, params["embed"], batch["tokens"]).to(dtype)
     if cfg.gemma_norm:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
     return x
 
 
 def lm_logits(cfg: ModelConfig, ctx: RunCtx, params: Params,
-              x: torch.Tensor) -> torch.Tensor:
+              x: torch.Tensor, gather: bool = True) -> torch.Tensor:
+    """Final norm and the logits ``[.., V]``.  With a block of the head's
+    vocab columns (vocab-parallel; tied heads too), each rank computes its
+    columns and they are gathered over the model axis, unless ``gather``
+    is False (then this rank's ``[.., V / m]``)."""
     x = rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps,
                  gemma=cfg.gemma_norm)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    tp = _vocab_tp(ctx, head, -1, cfg)
+    if tp is not None:
+        x = comm.region_input(x, *tp)
     logits = x @ head.to(x.dtype)
     if cfg.logit_softcap > 0:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+    if tp is not None and gather:
+        logits = comm.all_gather(logits, *tp, -1)
     return logits
 
 
@@ -395,7 +449,7 @@ def forward(cfg: ModelConfig, ctx: RunCtx, params: Params,
     """Full-sequence forward -> logits [B, S, V]; differentiable (autograd
     records it where a parameter requires grad)."""
     local = shard_batch(ctx, batch)
-    x = embed_in(cfg, params, local)
+    x = embed_in(cfg, params, local, ctx)
     x, _ = stack_apply(cfg, ctx, params, x, _positions(local, x))
     logits = lm_logits(cfg, ctx, params, x)
     return logits if ctx.mesh is None else \
@@ -406,14 +460,26 @@ def loss_parts(cfg: ModelConfig, ctx: RunCtx, params: Params,
                batch: Dict[str, torch.Tensor]
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(sum of the token losses, tokens counted)`` of ``batch`` as it is
-    given (no sharding); labels < 0 are ignored."""
-    x = embed_in(cfg, params, batch)
+    given (no sharding); labels < 0 are ignored.  Vocab-parallel logits
+    stay this rank's columns: the log-sum-exp merges the ranks' own, and
+    the label's logit is summed from the rank that holds it."""
+    x = embed_in(cfg, params, batch, ctx)
     x, _ = stack_apply(cfg, ctx, params, x, _positions(batch, x))
-    logits = lm_logits(cfg, ctx, params, x).float()
+    logits = lm_logits(cfg, ctx, params, x, gather=False).float()
     labels = batch["labels"].long()
     mask = (labels >= 0).float()
+    tp = _vocab_tp(ctx, logits, -1, cfg)
     lse = torch.logsumexp(logits, dim=-1)
-    picked = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    at = labels.clamp(min=0)
+    if tp is not None:
+        n = logits.shape[-1]
+        lse = torch.logsumexp(comm.all_gather(lse[None], *tp, 0), dim=0)
+        at = at - comm.rank(*tp) * n
+        own = (at >= 0) & (at < n)
+        at = at.clamp(0, n - 1)
+    picked = torch.gather(logits, -1, at[..., None])[..., 0]
+    if tp is not None:
+        picked = comm.all_reduce(torch.where(own, picked, 0.0), *tp)
     return ((lse - picked) * mask).sum(), mask.sum()
 
 
@@ -478,6 +544,18 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
             for kind in layer_plan(cfg).kinds]
 
 
+def into_ring(ring: Cache, prompt_cache: Cache) -> Cache:
+    """Copy each leaf of a prefill's cache into the leading slice of the
+    ring's (:func:`init_cache` at a longer ``max_len``, the same mesh);
+    returns ``ring``."""
+    for r, c in zip(ring, prompt_cache):
+        for mixer, leaves in r.items():
+            for leaf, buf in leaves.items():
+                src = c[mixer][leaf]
+                buf[tuple(slice(0, d) for d in src.shape)] = src
+    return ring
+
+
 @torch.no_grad()
 def prefill(cfg: ModelConfig, ctx: RunCtx, params: Params,
             batch: Dict[str, torch.Tensor], max_len: Optional[int] = None
@@ -488,7 +566,7 @@ def prefill(cfg: ModelConfig, ctx: RunCtx, params: Params,
     rank's block of it); the caller copies it into longer rings to decode.
     """
     local = shard_batch(ctx, batch)
-    x = embed_in(cfg, params, local)
+    x = embed_in(cfg, params, local, ctx)
     x, caches = stack_apply(cfg, ctx, params, x, _positions(local, x),
                             return_cache=True)
     logits = lm_logits(cfg, ctx, params, x[:, -1:, :])[:, 0, :]
@@ -518,7 +596,7 @@ def decode_step(cfg: ModelConfig, ctx: RunCtx, params: Params, caches: Cache,
         local = shard_batch(ctx, local)
         tokens, pos = local["tokens"], local.get("pos", pos)
     if tokens.dim() == 1:
-        x = params["embed"][tokens.long()[:, None]].to(dtype)
+        x = _lookup(cfg, ctx, params["embed"], tokens[:, None]).to(dtype)
         if cfg.gemma_norm:
             x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
     else:

@@ -115,6 +115,18 @@ def _finish(p: Dict[str, Any], out: torch.Tensor, xt: torch.Tensor,
     return y.reshape(shape)
 
 
+def _shared(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, mesh,
+            model_axis: str) -> torch.Tensor:
+    """The shared experts on a mesh: outside the expert paths, under the
+    dense rules (``w_gate`` / ``w_up`` column-, ``w_down`` row-parallel)
+    when ``p["shared"]`` holds this rank's blocks, as GSPMD partitions
+    the reference's (it applies them outside its ``shard_map``)."""
+    m = cfg.moe
+    tp = shd.block_tp((mesh, model_axis), p["shared"]["w_down"], 0,
+                      m.n_shared * m.d_shared)
+    return mlp_apply(p["shared"], x, "swiglu", tp)
+
+
 # ---------------------------------------------------------------------------
 # Reference path (oracle; exact, no drops)
 # ---------------------------------------------------------------------------
@@ -287,7 +299,7 @@ def moe_sharded(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, mesh,
                    model_axis=model_axis, capacity=capacity)
     y = y.reshape(x_loc.shape).to(x.dtype)
     if m.n_shared:
-        y = y + mlp_apply(p["shared"], x_loc, "swiglu")
+        y = y + _shared(p, x_loc, cfg, mesh, model_axis)
     return comm.all_gather(y, mesh, baxes, 0) if baxes else y
 
 
@@ -432,7 +444,7 @@ def moe_sharded_a2a(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
     y = comm.all_gather(y.to(x.dtype), mesh, axes, 0)[:b * s]
     y = y.reshape(b, s, d)
     if m.n_shared:
-        y = y + mlp_apply(p["shared"], x, "swiglu")
+        y = y + _shared(p, x, cfg, mesh, model_axis)
     return y
 
 

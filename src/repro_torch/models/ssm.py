@@ -5,6 +5,14 @@ The port of :mod:`repro.models.ssm`.  Prefill goes through
 of the chunk and runs the SSD kernel on a CUDA tensor, or the plain version
 when the caller asks for it with ``use_kernel="ref"``.  Decode is the O(1)-per-token
 recurrent step over the cached state, as in the reference.
+
+Tensor parallelism (this rank's blocks of ``w_in`` / ``w_out`` on a
+model axis, :class:`_Heads`): the in-projection's output is gathered,
+then the rank runs the conv, the scan (the SSD kernel over its ``H / m``
+heads) and the gated norm over its own heads, as GSPMD partitions the
+reference's block (its dot FLOPs a device are the single device's over
+the axis size), and ``w_out`` sums the parts.  The caches stay whole on
+every rank.
 """
 from __future__ import annotations
 
@@ -13,6 +21,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import comm
+from repro_torch.dist import sharding as shd
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import segsum, ssd_chunked  # noqa: F401
 
@@ -69,6 +79,75 @@ def _split_in_proj(cfg: ModelConfig, proj: torch.Tensor):
     return z, xbc, dt                                        # dt: [B,S,nh]
 
 
+class _Heads:
+    """The heads one rank of a tensor-parallel Mamba2 block computes.
+
+    ``w_in``'s column block cuts the concatenation ``[z | x | B | C |
+    dt]``, not the heads, so its output is gathered whole over the model
+    axis.  Where ``w_out`` is a row block and the axis divides the heads
+    (and the groups line up with them), the rank then runs the conv, the
+    scan and the gated norm over its own ``H / m`` heads (the ``B`` / ``C``
+    groups they read are whole on every rank), as GSPMD partitions the
+    reference's block; the norm's sum of squares is summed over the axis.
+    Otherwise every rank runs all heads.  The caches stay whole on every
+    rank (:func:`repro_torch.dist.sharding.cache_pspecs` replicates them
+    over the model axis): the conv tail is the whole gathered input, the
+    final states are gathered over the heads.
+    """
+
+    def __init__(self, p, cfg: ModelConfig, ctx):
+        s = cfg.ssm
+        d = cfg.d_model
+        self.di, self.nh = s.d_inner(d), s.n_heads(d)
+        self.gn, self.P, self.N = s.n_groups * s.d_state, s.head_dim, \
+            s.d_state
+        self.tp = ctx.model_tp if ctx is not None else None
+        width = 2 * self.di + 2 * self.gn + self.nh
+        self.t_in = shd.block_tp(self.tp, p["w_in"], -1, width) is not None
+        self.t_out = shd.block_tp(self.tp, p["w_out"], 0, self.di) \
+            is not None
+        self.h0, self.hl, self.g0, self.gl = 0, self.nh, 0, s.n_groups
+        if self.t_out and self.nh % ctx.model_size == 0:
+            hl = self.nh // ctx.model_size
+            hpg = self.nh // s.n_groups
+            if hl % hpg == 0 or hpg % hl == 0:
+                self.hl = hl
+                self.h0 = comm.rank(*self.tp) * hl
+                self.g0, self.gl = self.h0 // hpg, max(1, hl // hpg)
+        self.part = self.hl != self.nh
+
+    def channels(self, device) -> torch.Tensor:
+        """This rank's columns of ``[x | B | C]`` (the conv's channels)."""
+        c0, cl = self.h0 * self.P, self.hl * self.P
+        b0, bl = self.g0 * self.N, self.gl * self.N
+        return torch.cat([torch.arange(c0, c0 + cl, device=device),
+                          self.di + torch.arange(b0, b0 + bl, device=device),
+                          self.di + self.gn + torch.arange(b0, b0 + bl,
+                                                           device=device)])
+
+    def leaf(self, t: torch.Tensor, lo: int, n: int, dim: int = -1
+             ) -> torch.Tensor:
+        """Columns ``[lo, lo + n)`` of a replicated leaf ``t`` (its gradient
+        summed over the ranks that each use a part of it)."""
+        if not self.part:
+            return t
+        return comm.region_input(t, *self.tp).narrow(dim, lo, n)
+
+
+def _gated_norm(y: torch.Tensor, w: torch.Tensor, eps: float, hd: _Heads
+                ) -> torch.Tensor:
+    """:func:`rms_norm` over all ``d_inner`` channels, of which ``y`` holds
+    this rank's when the heads are split (the sum of squares is summed
+    over the model axis)."""
+    if not hd.part:
+        return rms_norm(y, w, eps)
+    dt = y.dtype
+    y = y.float()
+    ss = comm.all_reduce(torch.sum(y * y, dim=-1, keepdim=True), *hd.tp)
+    ss = comm.region_input(ss, *hd.tp)         # each rank uses it on its part
+    return (y * torch.rsqrt(ss / hd.di + eps) * w.float()).to(dt)
+
+
 def mamba2_block(
     p: Dict[str, torch.Tensor],
     x: torch.Tensor,                 # [B, S, d]
@@ -77,57 +156,82 @@ def mamba2_block(
     cache: Optional[Dict[str, torch.Tensor]] = None,
     return_cache: bool = False,
     use_kernel: str = "auto",
+    ctx=None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    """Full Mamba2 mixer.  ``cache`` = {conv [B,K-1,C], ssm [B,H,P,N]}."""
+    """Full Mamba2 mixer.  ``cache`` = {conv [B,K-1,C], ssm [B,H,P,N]}.
+
+    With this rank's blocks of ``w_in`` / ``w_out`` on a mesh (``ctx``),
+    tensor-parallel over the model axis as :class:`_Heads` says."""
     s = cfg.ssm
     bsz, seq, _ = x.shape
-    di = s.d_inner(cfg.d_model)
-    nh = s.n_heads(cfg.d_model)
-    gn = s.n_groups * s.d_state
-    a = -torch.exp(p["A_log"].float())
-    d_skip = p["D"].to(x.dtype).repeat_interleave(s.head_dim)[None, None, :]
+    hd = _Heads(p, cfg, ctx)
+    di, h0, hl = hd.di, hd.h0, hd.hl
+    cl, bl = hl * s.head_dim, hd.gl * s.d_state
+    a = -torch.exp(hd.leaf(p["A_log"], h0, hl).float())
+    d_skip = hd.leaf(p["D"], h0, hl).to(x.dtype).repeat_interleave(
+        s.head_dim)[None, None, :]
 
-    proj = x @ p["w_in"]
+    if hd.t_in:
+        proj = comm.all_gather(comm.region_input(x, *hd.tp) @ p["w_in"],
+                               *hd.tp, -1)
+    else:
+        proj = x @ p["w_in"]
+    if hd.part:                       # whole on every rank, used per rank
+        proj = comm.region_input(proj, *hd.tp)
     z, xbc, dt_raw = _split_in_proj(cfg, proj)
-    dt = F.softplus(dt_raw.float() + p["dt_bias"].float())
+    conv_w, conv_b = p["conv_w"], p["conv_b"]
+    if hd.part:
+        chans = hd.channels(x.device)
+        z = z.narrow(-1, h0 * s.head_dim, cl)
+        dt_raw = dt_raw.narrow(-1, h0, hl)
+        conv_w = comm.region_input(conv_w, *hd.tp).index_select(1, chans)
+        conv_b = comm.region_input(conv_b, *hd.tp).index_select(0, chans)
+    mine = (lambda t: t.index_select(-1, chans)) if hd.part else \
+        (lambda t: t)
+    dt = F.softplus(dt_raw.float()
+                    + hd.leaf(p["dt_bias"], h0, hl).float())
 
     if seq == 1 and cache is not None:
         # --- decode: shift conv state, recurrent SSD step --------------------
         conv_state = torch.cat([cache["conv"], xbc.to(cache["conv"].dtype)],
                                dim=1)                        # [B,K,C]
-        xbc_t = torch.einsum("bkc,kc->bc", conv_state.float(),
-                             p["conv_w"].float()) + p["conv_b"]
+        xbc_t = torch.einsum("bkc,kc->bc", mine(conv_state).float(),
+                             conv_w.float()) + conv_b
         xbc_t = silu(xbc_t).to(x.dtype)[:, None, :]
-        xs, b_mat, c_mat = torch.split(xbc_t, [di, gn, gn], dim=-1)
+        xs, b_mat, c_mat = torch.split(xbc_t, [cl, bl, bl], dim=-1)
         y_t, new_ssm = ssd_recurrent_step(
-            cache["ssm"],
-            xs.reshape(bsz, nh, s.head_dim),
+            cache["ssm"].narrow(1, h0, hl),
+            xs.reshape(bsz, hl, s.head_dim),
             dt[:, 0],
             a,
-            b_mat.reshape(bsz, s.n_groups, s.d_state),
-            c_mat.reshape(bsz, s.n_groups, s.d_state),
+            b_mat.reshape(bsz, hd.gl, s.d_state),
+            c_mat.reshape(bsz, hd.gl, s.d_state),
         )
-        y = y_t.reshape(bsz, 1, di)
+        y = y_t.reshape(bsz, 1, cl)
         y = y + xs * d_skip
+        if hd.part and return_cache:
+            new_ssm = comm.all_gather(new_ssm, *hd.tp, 1)
         new_cache = ({"conv": conv_state[:, 1:, :], "ssm": new_ssm}
                      if return_cache else None)
     else:
         # --- train / prefill: chunked scan -----------------------------------
-        conv_in_state = cache["conv"] if cache is not None else None
-        xbc_c = silu(causal_conv1d(xbc, p["conv_w"], p["conv_b"],
-                                     conv_in_state))
-        xs, b_mat, c_mat = torch.split(xbc_c, [di, gn, gn], dim=-1)
+        conv_in_state = mine(cache["conv"]) if cache is not None else None
+        xbc_c = silu(causal_conv1d(mine(xbc), conv_w, conv_b,
+                                   conv_in_state))
+        xs, b_mat, c_mat = torch.split(xbc_c, [cl, bl, bl], dim=-1)
         # the kernel takes contiguous [B, S, H, P] and [B, S, G, N]
-        xh = xs.reshape(bsz, seq, nh, s.head_dim).contiguous()
-        bm = b_mat.reshape(bsz, seq, s.n_groups, s.d_state).contiguous()
-        cm = c_mat.reshape(bsz, seq, s.n_groups, s.d_state).contiguous()
-        h0 = cache["ssm"] if cache is not None else None
-        y_h, final = ops.ssd(xh, dt, a, bm, cm, chunk=s.chunk, h0=h0,
+        xh = xs.reshape(bsz, seq, hl, s.head_dim).contiguous()
+        bm = b_mat.reshape(bsz, seq, hd.gl, s.d_state).contiguous()
+        cm = c_mat.reshape(bsz, seq, hd.gl, s.d_state).contiguous()
+        h_in = cache["ssm"].narrow(1, h0, hl) if cache is not None else None
+        y_h, final = ops.ssd(xh, dt, a, bm, cm, chunk=s.chunk, h0=h_in,
                              plain=use_kernel == "ref")
-        y = y_h.reshape(bsz, seq, di).to(x.dtype)
+        y = y_h.reshape(bsz, seq, cl).to(x.dtype)
         y = y + xs * d_skip
         new_cache = None
         if return_cache:
+            if hd.part:
+                final = comm.all_gather(final, *hd.tp, 1)
             k = s.d_conv
             tail = xbc[:, -(k - 1):, :]
             if cache is not None:
@@ -138,9 +242,15 @@ def mamba2_block(
             new_cache = {"conv": tail.contiguous(), "ssm": final}
 
     # gated RMSNorm (Mamba2: norm(y * silu(z)))
-    y = rms_norm(y * silu(z.float()).to(y.dtype), p["gate_norm"],
-                 cfg.norm_eps)
-    return y @ p["w_out"], new_cache
+    y = _gated_norm(y * silu(z.float()).to(y.dtype),
+                    hd.leaf(p["gate_norm"], h0 * s.head_dim, cl),
+                    cfg.norm_eps, hd)
+    if not hd.t_out:
+        return y @ p["w_out"], new_cache
+    if not hd.part:                   # whole y, this rank's rows of w_out
+        w = p["w_out"].shape[0]
+        y = comm.region_input(y, *hd.tp).narrow(-1, comm.rank(*hd.tp) * w, w)
+    return comm.all_reduce(y @ p["w_out"], *hd.tp), new_cache
 
 
 def init_ssm_cache(cfg: ModelConfig, batch: int, dtype: torch.dtype,

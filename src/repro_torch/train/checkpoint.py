@@ -18,6 +18,12 @@ The port of :mod:`repro.train.checkpoint`, on the same on-disk protocol::
   and a spec tree it keeps this rank's block of each leaf, so a state
   saved by a world of one size restores onto a world of another (the
   elastic restart, :mod:`.elastic`).
+* ``save`` with a ``mesh`` and the same specs takes a tree of this
+  rank's blocks (tensor parallelism): each leaf is gathered whole over
+  the mesh (every rank calls) and the world's rank 0 writes it, so the
+  files always hold whole leaves
+  (:func:`repro_torch.dist.sharding.param_spec_fn` gives the specs of a
+  parameter or optimizer-state tree).
 
 Trees flatten in the port's own order (:mod:`.tree`); a bf16 leaf is
 stored as fp32 (numpy has no bf16) and cast back on restore.  Reading the
@@ -35,6 +41,7 @@ from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .tree import leaves_with_paths, unflatten
 
@@ -82,8 +89,27 @@ def _write(ckpt_dir: Path, step: int, manifest: dict, arrays: list) -> Path:
     return final
 
 
-def save(ckpt_dir: str | Path, step: int, tree: Any) -> Path:
-    """Synchronous atomic save; returns the committed directory."""
+def _whole(tree: Any, mesh, specs: Optional[Callable]) -> Optional[Any]:
+    """``tree`` with every block gathered whole over ``mesh`` (None on a
+    rank other than the world's 0, which writes nothing)."""
+    if mesh is None or specs is None:
+        return tree
+    from repro_torch.dist.sharding import gather
+
+    flat = [gather(t, specs(path, t), mesh)
+            for path, t in leaves_with_paths(tree)]
+    return unflatten(tree, flat) if dist.get_rank() == 0 else None
+
+
+def save(ckpt_dir: str | Path, step: int, tree: Any, mesh=None,
+         specs: Optional[Callable] = None) -> Optional[Path]:
+    """Synchronous atomic save; returns the committed directory.  With
+    ``mesh`` and ``specs`` (as :func:`restore` takes them) ``tree`` is
+    this rank's blocks: every rank of the mesh calls, rank 0 writes the
+    whole leaves, the others return None."""
+    tree = _whole(tree, mesh, specs)
+    if tree is None:
+        return None
     manifest, flat = _tree_to_manifest(tree)
     return _write(Path(ckpt_dir), step, manifest, [_host(x) for x in flat])
 

@@ -13,6 +13,8 @@ from typing import Any, NamedTuple, Tuple
 import torch
 import torch.distributed as dist
 
+from repro_torch.dist import comm
+
 from .tree import leaves, tree_map, unflatten
 
 
@@ -73,9 +75,8 @@ def compressed_psum(g: torch.Tensor, residual: torch.Tensor, group=None
                      device=g.device)
     c, new_res = compress(g, residual)
     scale = c.scale.clone()
-    dist.all_reduce(scale, op=dist.ReduceOp.MAX, group=group)
+    comm.reduce_(scale, group, dist.ReduceOp.MAX)
     q = torch.clamp(torch.round(decompress(c) / scale), -127, 127).to(
         torch.int8)
-    total = q.to(torch.int32)
-    dist.all_reduce(total, group=group)
+    total = comm.reduce_(q.to(torch.int32), group)
     return total.float() * scale / n, new_res

@@ -11,9 +11,11 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+
+from repro_torch.dist import comm
 
 from .tree import leaves, leaves_with_paths, tree_map, unflatten
 
@@ -68,14 +70,24 @@ def schedule_lr(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * decay
 
 
-def global_norm(tree: Any) -> torch.Tensor:
-    return torch.sqrt(torch.sum(torch.stack(
-        [torch.sum(torch.square(g.float())) for g in leaves(tree)])))
+def global_norm(tree: Any, blocks: Optional[Sequence[bool]] = None,
+                tp: Optional[Tuple[Any, str]] = None) -> torch.Tensor:
+    """The L2 norm of every leaf together.  ``blocks`` (one flag a leaf,
+    in flattening order) marks the leaves that are this rank's blocks of
+    leaves sharded over ``tp = (mesh, axis)``: their squares are summed
+    over the axis, and a whole leaf counts once."""
+    sq = [torch.sum(torch.square(g.float())) for g in leaves(tree)]
+    if not blocks or not any(blocks):
+        return torch.sqrt(torch.sum(torch.stack(sq)))
+    part = torch.sum(torch.stack([q for q, b in zip(sq, blocks) if b]))
+    comm.all_reduce_([part], *tp)
+    rest = [q for q, b in zip(sq, blocks) if not b]
+    return torch.sqrt(part + (torch.sum(torch.stack(rest)) if rest else 0.0))
 
 
-def clip_by_global_norm(grads: Any, max_norm: float
+def clip_by_global_norm(grads: Any, max_norm: float, **norm_kw
                         ) -> Tuple[Any, torch.Tensor]:
-    gn = global_norm(grads)
+    gn = global_norm(grads, **norm_kw)
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), gn
 
@@ -108,12 +120,13 @@ def decay_mask(params: Any, body: range = range(0)) -> Any:
 
 
 def update(cfg: OptConfig, params: Any, grads: Any, state: OptState, *,
-           body: range = range(0)
+           body: range = range(0), **norm_kw
            ) -> Tuple[Any, OptState, Dict[str, torch.Tensor]]:
     """One AdamW step, in place.  Returns ``(params, state, metrics)``:
     the same tensors, updated, and ``{"grad_norm", "lr"}``.  ``body`` as
-    for :func:`decay_mask`."""
-    grads, gn = clip_by_global_norm(grads, cfg.clip_norm)
+    for :func:`decay_mask`; ``norm_kw`` (``blocks``, ``tp``) as for
+    :func:`global_norm`."""
+    grads, gn = clip_by_global_norm(grads, cfg.clip_norm, **norm_kw)
     b1, b2 = cfg.betas
     cnt = state.count + 1
     lr = schedule_lr(cfg, state.count)

@@ -10,9 +10,12 @@ On a mesh (``ctx.mesh``) the batch is the global one and each rank runs
 its shard of it (:func:`repro_torch.models.decoder.loss_fn`).  The ranks'
 gradients are summed over the batch axes before the clip and AdamW, which
 makes them the gradients of the global batch's mean loss: every rank then
-takes the single-device update of the whole batch.  Global chunked MoE
-expert weights (``init_params(model_size=)``) are also summed over the
-model axis, where each chunk's gradient lives on the rank that owns it.
+takes the single-device update of the whole batch.  A leaf that is this
+rank's block on the model axis (tensor parallelism, ``init_params(mesh=)``)
+already has the gradient of its block, and is never summed over the model
+axis; the global norm sums its squares there.  Global chunked MoE expert
+weights (``init_params(model_size=)``) are summed over the model axis,
+where each chunk's gradient lives on the rank that owns it.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ from typing import Any, Callable, Dict, Tuple
 import torch
 
 from repro_torch.dist import comm
+from repro_torch.dist import sharding as shd
 from repro_torch.models import decoder
 from repro_torch.models.common import ModelConfig, layer_plan
 
@@ -105,11 +109,17 @@ def make_train_step(cfg: ModelConfig, ctx: decoder.RunCtx,
             inv = 1.0 / tcfg.microbatches
             grads = tree_map(lambda g: g * inv, g_acc)
             loss = loss_sum * inv
+        norm_kw = {}
         if ctx.mesh is not None:
             rows = decoder._rows(batch) // max(1, tcfg.microbatches)
             _sum_over_mesh(ctx, grads, rows)
+            if ctx.model_size > 1:
+                spec = shd.param_spec_fn(cfg, ctx.mesh)
+                norm_kw = {"blocks": [bool(spec(path, p)) for path, p in
+                                      leaves_with_paths(params)],
+                           "tp": (ctx.mesh, ctx.model_axis)}
         params, opt_state, om = opt.update(tcfg.opt, params, grads,
-                                           opt_state, body=body)
+                                           opt_state, body=body, **norm_kw)
         return params, opt_state, {"loss": loss, **om}
 
     return train_step

@@ -1,9 +1,10 @@
 """Multi-process gloo worlds on the CPU for the port's mesh tests.
 
 :func:`run_world` spawns ``world`` processes, each joins a gloo (or, one
-card a rank, NCCL) process group on a free local port, runs one of the worker functions below (by
-name) and saves what it returns (a dict of numpy arrays) as
-``rank{r}.npz``; the parent gets one dict per rank.  A world that does not
+card a rank, NCCL) process group through a file store in the world's
+own directory, runs one of the worker functions below (by name) and
+saves what it returns (a dict of numpy arrays) as ``rank{r}.npz``; the
+parent gets one dict per rank.  A world that does not
 finish within ``timeout`` seconds is killed and fails the test.  The
 workers import torch and the port only (never jax), single-threaded.
 """
@@ -11,7 +12,6 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-import socket
 import tempfile
 import time
 import traceback
@@ -23,18 +23,14 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 
-def _free_port() -> int:
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
-def _entry(rank: int, world: int, port: int, fn: str, args: dict,
-           out: str, backend: str) -> None:
+def _entry(rank: int, world: int, fn: str, args: dict, out: str,
+           backend: str) -> None:
     torch.set_num_threads(1)
     if backend == "nccl":
         torch.cuda.set_device(rank)
-    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+    # a file store in the world's own directory: worlds started at once
+    # (one per test worker) never meet on a port
+    dist.init_process_group(backend, init_method=f"file://{out}/store",
                             rank=rank, world_size=world)
     try:
         res = globals()[fn](rank, world, **args)
@@ -53,9 +49,8 @@ def run_world(fn: str, world: int, timeout: float = 300.0,
     rank); their results by rank."""
     ctx = mp.get_context("spawn")
     with tempfile.TemporaryDirectory() as out:
-        port = _free_port()
         procs = [ctx.Process(target=_entry,
-                             args=(r, world, port, fn, args, out, backend))
+                             args=(r, world, fn, args, out, backend))
                  for r in range(world)]
         for p in procs:
             p.start()
@@ -227,10 +222,11 @@ def _seq_decode_cases(rank: int) -> dict:
         mesh = _mesh(shape, ("data", "seq", "model"))
         ctx8 = decoder.RunCtx("cpu", mesh=mesh, batch_axes=("data",),
                               use_kernel="ref", seq_axis="seq")
+        blocks = shd.shard_params(cfg, params, mesh)
         c8 = decoder.init_cache(cfg, 4, 32, torch.float32, "cpu", mesh=mesh)
-        got, c8 = _decode(cfg, ctx8, params, c8, toks, 0)
+        got, c8 = _decode(cfg, ctx8, blocks, c8, toks, 0)
         nxt = got.argmax(-1).to(torch.int32)
-        got2, c8 = _decode(cfg, ctx8, params, c8, nxt,
+        got2, c8 = _decode(cfg, ctx8, blocks, c8, nxt,
                            torch.ones(4, dtype=torch.int32))
         ref2, c1 = _decode(cfg, ctx1, params, c1,
                            ref.argmax(-1).to(torch.int32), 1)
@@ -240,7 +236,7 @@ def _seq_decode_cases(rank: int) -> dict:
         # of the prompt cache is its block of the single-device one
         batch = {"tokens": torch.arange(32, dtype=torch.int32).reshape(4, 8)
                  % cfg.vocab_size}
-        got_p, cache_p = decoder.prefill(cfg, ctx8, params, batch)
+        got_p, cache_p = decoder.prefill(cfg, ctx8, blocks, batch)
         want_p, whole = decoder.prefill(cfg, ctx1, params, batch)
         specs = shd.cache_pspecs(cfg, mesh, whole, 4)
         out[f"{tag}_prefill"] = np.asarray([
@@ -304,7 +300,9 @@ def _train_pair(cfg, shape, names, batch, microbatches: int = 1,
                 model_size: int = 1, **mesh_kw) -> dict:
     """One train step on one device and on a mesh, from the same params
     (``model_size``: the mesh's MoE experts in its chunked layout, which
-    for tp 1 flattens in the unchunked layout's order)."""
+    for tp 1 flattens in the unchunked layout's order).  The mesh's ranks
+    hold their blocks, gathered whole after the step."""
+    from repro_torch.dist import sharding as shd
     from repro_torch.models import common, decoder
     from repro_torch.train import optimizer as opt
     from repro_torch.train.train_step import TrainConfig, make_train_step
@@ -319,13 +317,28 @@ def _train_pair(cfg, shape, names, batch, microbatches: int = 1,
                                     batch_axes=("data",), use_kernel="ref",
                                     **mesh_kw))):
         p = copy.deepcopy(params)
-        if tag == "mesh" and model_size > 1:
-            p = _chunk_experts(p, model_size)
+        if tag == "mesh":
+            if model_size > 1:
+                p = _chunk_experts(p, model_size)
+            p = shd.shard_params(cfg, p, ctx.mesh)
         p, _, m = make_train_step(cfg, ctx, tcfg)(p, opt.init(p), batch)
+        if tag == "mesh":
+            p = _gathered(cfg, p, ctx.mesh)
         out[f"{tag}_loss"] = np.asarray(float(m["loss"]))
         out[f"{tag}_params"] = torch.cat([t.reshape(-1)
                                           for t in leaves(p)]).numpy()
     return out
+
+
+def _gathered(cfg, tree, mesh):
+    """Every leaf of ``tree`` (parameters, or a state that holds them) that
+    is this rank's block gathered whole over ``mesh``."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.train.tree import leaves_with_paths, unflatten
+
+    spec = shd.param_spec_fn(cfg, mesh)
+    return unflatten(tree, [shd.gather(t, spec(path, t), mesh)
+                            for path, t in leaves_with_paths(tree)])
 
 
 def _chunk_experts(params, model_size: int):
@@ -431,26 +444,32 @@ def _expert_specs(mesh):
 
 def elastic_save(rank: int, world: int, ckpt: str) -> dict:
     """Four ranks take one mesh train step of mixtral (experts chunked over
-    a model axis of 2); rank 0 commits the state.  Then ranks 2 and 3
+    a model axis of 2, each rank holding its blocks); rank 0 commits the
+    state, gathered whole.  Then ranks 2 and 3
     fail, and the survivors resume on the (1, 2) mesh they still make."""
     from repro_torch.models import decoder
     from repro_torch.train import checkpoint
     from repro_torch.train.elastic import resume_after_failure
     from repro_torch.train.train_step import make_train_step
 
+    from repro_torch.dist import sharding as shd
+    from repro_torch.train import optimizer as opt
+
     cfg = _f32("mixtral-8x7b")
-    params, state = _state("mixtral-8x7b", 2)
-    ctx = decoder.RunCtx("cpu", mesh=_mesh((2, 2), ("data", "model")),
-                         use_kernel="ref", capacity_factor=8.0)
+    mesh = _mesh((2, 2), ("data", "model"))
+    params = shd.shard_params(cfg, _state("mixtral-8x7b", 2)[0], mesh)
+    ctx = decoder.RunCtx("cpu", mesh=mesh, use_kernel="ref",
+                         capacity_factor=8.0)
     params, state, m = make_train_step(cfg, ctx)(
-        params, state, _lm_batch(cfg, 4, 16, 2))
+        params, opt.init(params), _lm_batch(cfg, 4, 16, 2))
+    whole = _gathered(cfg, (params, state), mesh)
     if rank == 0:
-        checkpoint.save(ckpt, 7, (params, state))
+        checkpoint.save(ckpt, 7, whole)
     dist.barrier()
     from repro_torch.train.tree import leaves
 
     out = {"saved": torch.cat([t.reshape(-1).float()
-                               for t in leaves((params, state))]).numpy()}
+                               for t in leaves(whole)]).numpy()}
     if rank >= 2:                       # these hosts are lost
         return out
     like = _state("mixtral-8x7b", 2)
@@ -520,3 +539,155 @@ def seq_decode_cards(rank: int, world: int) -> dict:
             tok = logits.argmax(-1).to(torch.int32)
         out[tag] = logits.cpu().numpy()
     return out
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_tp.py: tensor parallelism of the dense stack
+# ---------------------------------------------------------------------------
+
+def _nested(flat: dict, prefix: str) -> dict:
+    """``{"a/b/c": array}`` entries under ``prefix`` -> a nested dict."""
+    tree: dict = {}
+    for key, arr in flat.items():
+        if not key.startswith(prefix):
+            continue
+        *path, leaf = key[len(prefix):].split("/")
+        node = tree
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = arr
+    return tree
+
+
+def _tp_case(inp: dict, tag: str, arch: str, shape, ckpt: str) -> dict:
+    """One arch on one (data, model) mesh, each rank holding its blocks:
+    forward, prefill + two decode steps, one train step, the parameter
+    bytes and a checkpoint round trip."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.models import common, decoder
+    from repro_torch.train import checkpoint
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import make_train_step
+    from repro_torch.train.tree import leaves, leaves_with_paths
+
+    cfg = _f32(arch)
+    mesh = _mesh(shape, ("data", "model"))
+    whole = common.params_from_numpy(cfg, _nested(inp, f"{tag}|params|"),
+                                     "cpu")
+    params = shd.shard_params(cfg, whole, mesh)
+    ctx = decoder.RunCtx("cpu", mesh=mesh, batch_axes=("data",),
+                         use_kernel="ref", capacity_factor=8.0)
+    batch = {k.split("|")[2]: _t(v) for k, v in inp.items()
+             if k.startswith(f"{tag}|batch|")}
+    out = {}
+    fwd = {k: v for k, v in batch.items() if k != "labels"}
+    with torch.no_grad():
+        out["fwd"] = decoder.forward(cfg, ctx, params, fwd)
+    if cfg.causal:
+        b, s = next(iter(fwd.values())).shape[:2]
+        logits, cache = decoder.prefill(cfg, ctx, params, fwd)
+        out["prefill"] = logits
+        ring = decoder.into_ring(decoder.init_cache(
+            cfg, b, s + 4, torch.float32, "cpu", mesh=mesh), cache)
+        for i, tok in enumerate(_t(inp[f"{tag}|dec"])):
+            out[f"dec{i}"], ring = decoder.decode_step(cfg, ctx, params,
+                                                       ring, tok, s + i)
+    specs = shd.param_spec_fn(cfg, mesh)
+    whole_bytes = sum(t.numel() * t.element_size() for t in leaves(whole))
+    local_bytes = leaves(shd._map_tree(lambda _, sh: 4 * int(np.prod(sh)),
+                                       shd.local_param_shapes(cfg, mesh)))
+    out["bytes"] = np.asarray([
+        sum(t.numel() * t.element_size() for t in leaves(params)),
+        sum(local_bytes), whole_bytes,
+        sum(1 for path, t in leaves_with_paths(params) if specs(path, t))])
+    state = opt.init(params)
+    params, state, m = make_train_step(cfg, ctx)(params, state, batch)
+    out["loss"] = m["loss"]
+    out["trained"] = torch.cat([shd.gather(t, specs(path, t), mesh)
+                                .reshape(-1)
+                                for path, t in leaves_with_paths(params)])
+    # the blocks saved whole by the world, restored as this rank's blocks
+    checkpoint.save(ckpt, 1, (params, state), mesh=mesh, specs=specs)
+    dist.barrier()
+    back, _ = checkpoint.restore(ckpt, (params, state), mesh=mesh,
+                                 specs=specs)
+    out["restored"] = np.asarray(max(
+        float((a - b).abs().max()) for a, b in zip(leaves(back),
+                                                   leaves((params, state)))))
+    dist.barrier()
+    return {f"{tag}|{k}": v.detach().numpy() if isinstance(v, torch.Tensor)
+            else v for k, v in out.items()}
+
+
+def tp8(rank: int, world: int, inputs: str, cases: list, ckpt: str
+        ) -> dict:
+    """Every case of tests/test_torch_tp.py in one 8-rank world."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.models import common
+    from repro_torch.train.tree import leaves
+
+    inp = dict(np.load(inputs))
+    out = {}
+    for tag, arch, shape in cases:
+        out.update(_tp_case(inp, tag, arch, tuple(shape), f"{ckpt}/{tag}"))
+    # init_params(mesh=) draws the blocks of the whole tree's draw
+    for arch in ("glm4-9b", "deepseek-v2-236b"):
+        cfg, mesh = _f32(arch), _mesh((2, 4), ("data", "model"))
+        got = common.init_params(cfg, torch.Generator().manual_seed(5),
+                                 "cpu", mesh=mesh)
+        want = shd.shard_params(cfg, common.init_params(
+            cfg, torch.Generator().manual_seed(5), "cpu", model_size=4),
+            mesh)
+        out[f"init|{arch}"] = np.asarray([
+            len(leaves(got)) == len(leaves(want)) and all(
+                torch.equal(a, b) for a, b in zip(leaves(got),
+                                                  leaves(want)))])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_dryrun.py: the counting pass in a world of real ranks
+# ---------------------------------------------------------------------------
+
+def count_cells(cells: list, shape, fake: bool = False,
+                serve: list = ()) -> dict:
+    """Each ``(arch, kind, seq, batch)`` smoke cell's step on this rank of
+    a ``(data, model)`` mesh under the dry run's counting pass (on zeros
+    of real tensors, or of fake ones): its dot FLOPs, its argument bytes
+    and its collective records (JSON); and each ``(arch, batch, prompt,
+    ring)`` of ``serve`` through ``dryrun.count_serve``: its dot FLOPs
+    and the records of its prefill and first decode step."""
+    import contextlib
+    import json
+
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import dryrun
+
+    mesh = _mesh(shape, ("data", "model"))
+    out = {}
+    for arch, kind, seq, batch in cells:
+        spec = ShapeSpec(f"smoke_{kind}", seq, batch, kind)
+        with FakeTensorMode() if fake else contextlib.nullcontext():
+            counts, arg = dryrun.count_cell(get_smoke_config(arch), spec,
+                                            mesh)
+        tag = f"{arch}|{kind}"
+        out[f"{tag}|dot"] = np.asarray(counts.dot_flops)
+        out[f"{tag}|args"] = np.asarray(arg)
+        out[f"{tag}|records"] = np.asarray(json.dumps(
+            [[op, str(dt), list(sh), g] for op, dt, sh, g in counts.records]))
+    for arch, batch, prompt, ring in serve:
+        with FakeTensorMode() if fake else contextlib.nullcontext():
+            counts, run = dryrun.count_serve(get_smoke_config(arch), mesh,
+                                             batch, prompt, ring)
+        out[f"serve|{arch}|dot"] = np.asarray(counts.dot_flops)
+        out[f"serve|{arch}|records"] = np.asarray(json.dumps(
+            [run["prefill_records"], run["decode_records"]]))
+    return out
+
+
+def count4(rank: int, world: int, cells: list, serve: list = ()) -> dict:
+    """:func:`count_cells` on a (1, 4) mesh of real ranks."""
+    return count_cells(cells, (1, 4), serve=serve)
