@@ -365,6 +365,22 @@ phases' process group is gone), then the dry run:
             anchors of phase 28 on a mesh of one (predicted peaks beside
             the measured ones) and glm4-9b ``train_4k`` on pod16x16 with
             its host seconds.
+30. lint — ``python -m repro_torch.analysis.lint --no-baseline`` over
+            ``src/repro_torch`` in a process of its own: exit code 0, 8
+            rules, 0 violations, the allows by rule, host seconds.  Then
+            the host's waits on the card recorded above (``sync_sites``:
+            PyTorch's sync debug mode, the innermost frame of the port at
+            each warning) in one call each of: glm4-9b's, mixtral's and
+            deepseek-v2's prefill and decode step, mamba2's prefill,
+            zamba2's and gemma3's decode step (phases 8-8h), one engine
+            step of each serve_real arch, one device settle and one drain
+            of the forced run (phase 5), one certifier drain through the
+            kernel (phase 11, ``jax_min`` 1) and one scoring with its
+            harvest (phase 13): the sites by call with their counts, and
+            the lines ``host-sync`` flags that ran in a call without a
+            wait there (``flagged_quiet``).  A site that is not a line
+            ``host-sync`` flags fails the run.  A wait inside a ctypes
+            library (the drain's) warns under neither.
 
 The last three lines are the ``nvidia-smi`` line, the kernels record (one
 entry per lease_validate, flash and SSD variant; ``lease_validate.drain``
@@ -1892,7 +1908,7 @@ def expected_launches(cfg, prompt: int, steps: int) -> dict:
 
 def model_phase(phase: str, arch: str, *, n_layers=None, batch: int = 4,
                 prompt: int = 2048, steps: int = 16, ring: int = 2080,
-                seed: int = 0, by_layer: bool = False) -> dict:
+                seed: int = 0, by_layer: bool = False, sites=()) -> dict:
     """Full width (depth cut to ``n_layers`` where given): "auto" (the
     kernels) then "ref" on the card.  The launches of the "auto" run are
     checked against :func:`expected_launches` and returned.  Where the
@@ -1905,7 +1921,10 @@ def model_phase(phase: str, arch: str, *, n_layers=None, batch: int = 4,
     embedding is one bf16 step larger differs as much), the logits of the
     two runs are reported beside that sensitivity and the check is
     :func:`layerwise` instead: every layer's output and attention term
-    within MODEL_TOL."""
+    within MODEL_TOL.
+
+    ``sites``: the calls (``"prefill"``, ``"decode_step"``) whose sync
+    sites are recorded once each after the "auto" run (SYNC_SITES)."""
     import torch
 
     from repro_torch.configs import get_config
@@ -1962,6 +1981,13 @@ def model_phase(phase: str, arch: str, *, n_layers=None, batch: int = 4,
             if cfg.causal:
                 nxt = torch.full((batch,), prompt + steps, dtype=torch.int32,
                                  device=dev)
+                calls = {"prefill": lambda: decoder.prefill(
+                             cfg, ctx, params, inputs),
+                         "decode_step": lambda: decoder.decode_step(
+                             cfg, ctx, params, run["ring"], step_toks[0],
+                             nxt)}
+                for name in sites:
+                    record_sites(f"{phase}/{name}", calls[name])
                 emit(phase, profile="prefill", **device_profile(
                     lambda: decoder.prefill(cfg, ctx, params, inputs)))
                 emit(phase, profile="decode_step", **device_profile(
@@ -2297,6 +2323,7 @@ def serve_real_phase(layers: dict, seed: int = 11) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import common
+    from repro_torch.serve.engine import MultiPodEngine
 
     dev = torch.device("cuda")
     out = {}
@@ -2307,7 +2334,9 @@ def serve_real_phase(layers: dict, seed: int = 11) -> dict:
             device=dev).manual_seed(seed), dev, cfg.compute_dtype())
         fa.launches = 0                              # just before the path
         fa.variant_launches.update(dict.fromkeys(fa.VARIANTS, 0))
-        run = serve_real_run(cfg, params, dev)
+        with sites_of_call(f"serve_real/{arch}/engine_step", MultiPodEngine,
+                           "run_step", nth=4):
+            run = serve_real_run(cfg, params, dev)
         counts = dict(fa.variant_launches)
         st, m = run["stats"], run["metrics"]
         n_attn = sum(k.mixer in ATTN_MIXERS
@@ -2432,9 +2461,17 @@ def serve_phase() -> dict:
     certification batch packed (``jax_min=1``), where each batch must
     launch ``drain`` once and ``gather`` never.  Returns the card's drain
     launches by ``jax_min`` and its ``jax_min=1`` results."""
+    from repro_torch.serve.certifier import StepCertifier
+
     launched, results = {}, {}
     for jax_min in (8, 1):
-        card, stats, launches, card_s = serve_runs("cuda", jax_min)
+        with contextlib.ExitStack() as once:
+            if jax_min == 1:
+                once.enter_context(sites_of_call(
+                    "serve/certifier_drain", StepCertifier, "drain", nth=3,
+                    when=lambda self, pod: len(self.pending[pod])
+                    >= self.jax_min))
+            card, stats, launches, card_s = serve_runs("cuda", jax_min)
         host, _, _, cpu_s = serve_runs("cpu", jax_min)
         for i, (a, b) in enumerate(zip(card, host)):
             check(same_result(a, b), f"serve (jax_min {jax_min}): run {i} "
@@ -2571,6 +2608,8 @@ def plan_score_phase(reps: int = 20) -> dict:
             decode[0] = decode[0] + decode[1]
         return time.perf_counter() - t0
 
+    record_sites("plan_score/score_harvest", lambda: score_moves_async(
+        *args, device="cuda", **kw).wait())
     t = dict(sync=0.0, kick=0.0, harvest=0.0, decode=0.0, cpu_torch=0.0,
              numpy=0.0)
     for _ in range(reps):
@@ -3316,22 +3355,105 @@ MESH_TRAIN_LOSS_TOL = 1e-6     # mesh vs single-device losses, relative
 LSE_TOL = 2e-5                 # decode_split's log-sum-exp vs plain, fp32
 
 
-def host_syncs(fn) -> int:
-    """Host waits on the device during one call of ``fn`` (PyTorch's sync
-    debug mode warns at each)."""
+def sync_sites(fn) -> tuple:
+    """One call of ``fn`` under PyTorch's sync debug mode, which warns at
+    each host wait on the device: ``(result, sites, executed)``.  ``sites``
+    counts the waits by site, the innermost frame under ``src/repro_torch/``
+    at each warning as ``file:line`` (a sync inside torch's own Python
+    names torch's file; the port's frame that called into it is the site),
+    ``"other"`` where no frame of the port is on the stack.  ``executed``
+    holds every ``file:line`` of the port that ran in the call (a
+    ``sys.monitoring`` line hook that disables itself at each line once
+    seen).  A wait inside a ctypes library (the drain's) or on a
+    ``torch.cuda.Event`` does not warn."""
+    import traceback
     import warnings
 
     import torch
 
+    root = str(SRC / "repro_torch") + "/"
+    sites = collections.Counter()
+    executed = set()
+
+    def site(filename: str, line: int) -> str:
+        return f"{Path(filename).relative_to(ROOT).as_posix()}:{line}"
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        at = "other"
+        for frame in reversed(traceback.extract_stack()):
+            if frame.filename.startswith(root):
+                at = site(frame.filename, frame.lineno)
+                break
+        sites[at] += 1
+
+    mon = sys.monitoring
+    tool = mon.COVERAGE_ID
+
+    def on_line(code, line):
+        if code.co_filename.startswith(root):
+            executed.add(site(code.co_filename, line))
+        return mon.DISABLE
+
     torch.cuda.synchronize()
+    mon.use_tool_id(tool, "chip_smoke")
+    mon.register_callback(tool, mon.events.LINE, on_line)
+    mon.restart_events()
+    mon.set_events(tool, mon.events.LINE)
     torch.cuda.set_sync_debug_mode(1)
     try:
-        with warnings.catch_warnings(record=True) as caught:
+        with warnings.catch_warnings():
             warnings.simplefilter("always")
-            fn()
+            warnings.showwarning = hook
+            result = fn()
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    return sum("synchroniz" in str(w.message) for w in caught)
+        mon.set_events(tool, 0)
+        mon.register_callback(tool, mon.events.LINE, None)
+        mon.free_tool_id(tool)
+    return result, sites, executed
+
+
+def host_syncs(fn) -> int:
+    """Host waits on the device during one call of ``fn``."""
+    return sum(sync_sites(fn)[1].values())
+
+
+# sync sites of one call each of the main paths, by call (phase/call ->
+# (sites, executed)); the lint phase holds every site to the host-sync rule
+SYNC_SITES = {}
+
+
+def record_sites(label: str, fn):
+    """``fn()`` with its sync sites recorded under ``label``."""
+    result, sites, executed = sync_sites(fn)
+    SYNC_SITES[label] = (sites, executed)
+    return result
+
+
+@contextlib.contextmanager
+def sites_of_call(label: str, owner, name: str, nth: int = 1,
+                  when=lambda *a, **kw: True):
+    """Inside the block, the ``nth`` call of ``owner.name`` that ``when``
+    accepts runs under :func:`record_sites` as ``label``."""
+    plain = getattr(owner, name)
+    seen = [0]
+
+    def wrapped(*args, **kw):
+        if label in SYNC_SITES or not when(*args, **kw):
+            return plain(*args, **kw)
+        seen[0] += 1
+        if seen[0] < nth:
+            return plain(*args, **kw)
+        return record_sites(label, lambda: plain(*args, **kw))
+
+    setattr(owner, name, wrapped)
+    try:
+        yield
+    finally:
+        setattr(owner, name, plain)
+    check(label in SYNC_SITES, f"{label}: the call to record never ran")
 
 
 def gloo_takes_cuda_tensors() -> dict:
@@ -4523,6 +4645,73 @@ def examples_phase(timeout_s: float = 420.0) -> dict:
     return {f"examples_{k}": v for k, v in counts.items()}
 
 
+# -- phase 30: the static lint, and the card's sync sites held to it ---------
+
+LINT_TIMEOUT = 300.0
+INVISIBLE_SYNCS = (
+    "a wait inside a ctypes library (lease_drain_launch's, the drain's one "
+    "wait) warns under neither the sync debug mode nor the lint; a "
+    "torch.cuda.Event wait (the scorer's harvest, plan/score.py) does not "
+    "warn under the debug mode, and the lint flags it")
+
+
+def lint_phase() -> dict:
+    """``python -m repro_torch.analysis.lint --no-baseline`` over
+    ``src/repro_torch`` in a process of its own (exit code 0, no violation;
+    its host seconds), the inline allows by rule, and the sync sites of
+    SYNC_SITES by call, each with its count in that one call.  Every
+    observed site must be a line the ``host-sync`` rule flags (allows not
+    applied: an intended sync is flagged and allowed); ``flagged_quiet``
+    lists the flagged lines that ran in a recorded call without a wait
+    being seen there."""
+    import os
+
+    from repro_torch.analysis import lint
+    from repro_torch.analysis.rules import ALL_RULES, host_sync
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis.lint", "--no-baseline"],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(SRC)),
+        capture_output=True, text=True, timeout=LINT_TIMEOUT)
+    host_s = time.perf_counter() - t0
+    violations = []
+    allows = collections.Counter()      # violations an allow suppresses
+    flagged = {}                        # file -> lines host-sync flags
+    for path in sorted(lint.DEFAULT_TARGET.rglob("*.py")):
+        rel = path.relative_to(ROOT).as_posix()
+        ctx = lint.FileCtx(path, rel, path.read_text(), lint.Project())
+        raw = [v for rule in ALL_RULES for v in rule.check(ctx)]
+        kept = lint.apply_allows(ctx, raw)
+        violations += kept
+        allows += collections.Counter(v.rule for v in raw) \
+            - collections.Counter(v.rule for v in kept)
+        flagged[rel] = {v.line for v in raw if v.rule == host_sync.RULE.id}
+    by_call, unflagged = {}, []
+    for call, (sites, executed) in SYNC_SITES.items():
+        for at in sites:
+            rel, _, line = at.rpartition(":")
+            if not line.isdigit() or int(line) not in flagged.get(rel, ()):
+                unflagged.append(f"{call}: {at}")
+        quiet = sorted(at for at in executed if at not in sites
+                       and int(at.rpartition(":")[2]) in flagged.get(
+                           at.rpartition(":")[0], ()))
+        by_call[call] = dict(syncs=sum(sites.values()), sites=dict(sites),
+                             flagged_quiet=quiet)
+    out = dict(exit_code=proc.returncode, rules=len(ALL_RULES),
+               violations=len(violations), allows=dict(sorted(allows.items())),
+               host_sync_flagged=sum(map(len, flagged.values())),
+               host_s=host_s, calls=len(by_call), sync_sites=by_call,
+               unflagged=unflagged, invisible=INVISIBLE_SYNCS)
+    emit("lint", **out)
+    check(proc.returncode == 0, f"lint: exit code {proc.returncode}: "
+          f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    check(not violations, f"lint: {len(violations)} violations")
+    check(not unflagged, f"lint: sync sites the host-sync rule does not "
+          f"flag: {unflagged}")
+    return out
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -4591,8 +4780,16 @@ def main() -> int:
     # 5. forced path: every drain and settle on the device
     forced_cfg = dict(certify_jax_min=1, lease_jax_min=1,
                       cert_slot_mode="per_txn")
-    card = forced_card = run_cluster("bank", "cuda", forced_cfg,
-                                     fail_at=120.0)
+    from repro_torch.core import cluster as cluster_mod
+    from repro_torch.core.lease_batched import ShardedLeaseManager
+
+    with sites_of_call("forced/settle", ShardedLeaseManager, "settle",
+                       nth=3, when=lambda *a, use_kernel=False, **kw:
+                       use_kernel), \
+            sites_of_call("forced/drain", cluster_mod, "validate_batch",
+                          nth=3):
+        card = forced_card = run_cluster("bank", "cuda", forced_cfg,
+                                         fail_at=120.0)
     emit("forced", device="cuda", **summary(card))
     check_drains("forced", card)
     host = run_cluster("bank", "cpu", forced_cfg, fail_at=120.0)
@@ -4613,14 +4810,15 @@ def main() -> int:
     emit("kernel_ssd_done", wall_s=time.perf_counter() - t0)
 
     # 8-9. the model stack at full width and depth
-    glm4 = model_phase("glm4", "glm4-9b")
-    mamba2 = model_phase("mamba2", "mamba2-780m")
+    both = ("prefill", "decode_step")
+    glm4 = model_phase("glm4", "glm4-9b", sites=both)
+    mamba2 = model_phase("mamba2", "mamba2-780m", sites=("prefill",))
 
     # 8b-8c. the MoE models at full width, depth cut to fit one card; at
     # 8192 tokens mixtral's 4096-key window masks
     t0 = time.perf_counter()
     mixtral = model_phase("mixtral", "mixtral-8x7b", n_layers=8, batch=1,
-                          prompt=8192, ring=8224)
+                          prompt=8192, ring=8224, sites=both)
     emit("mixtral_done", wall_s=time.perf_counter() - t0)
     check(dict(prefill_tc=mixtral["prefill_tc"],
                decode_split=mixtral["decode_split"], simt=mixtral["simt"])
@@ -4628,7 +4826,7 @@ def main() -> int:
           f"mixtral: flash launches {mixtral}")
     t0 = time.perf_counter()
     deepseek = model_phase("deepseek", "deepseek-v2-236b", n_layers=4,
-                           batch=2, prompt=2048, ring=2080)
+                           batch=2, prompt=2048, ring=2080, sites=both)
     emit("deepseek_done", wall_s=time.perf_counter() - t0)
     check(dict(simt=deepseek["simt"], prefill_tc=deepseek["prefill_tc"],
                decode_split=deepseek["decode_split"], flash=deepseek["flash"])
@@ -4642,13 +4840,14 @@ def main() -> int:
     # embeddings, M-RoPE positions), hubert (the encoder's forward)
     rest = {}
     for phase, arch, kw, want in (
-            ("zamba2", "zamba2-1.2b", {},
+            ("zamba2", "zamba2-1.2b", dict(sites=("decode_step",)),
              dict(ssd_tc=32, ssd_simt=0, prefill_tc=6, decode_split=96,
                   simt=0)),
             ("minitron", "minitron-4b", {},
              dict(prefill_tc=32, decode_split=512, simt=0)),
             ("gemma3", "gemma3-27b", dict(batch=1, prompt=4096, ring=4128,
-                                          by_layer=True),
+                                          by_layer=True,
+                                          sites=("decode_step",)),
              dict(prefill_tc=62, decode_split=992, simt=0)),
             ("qwen2vl", "qwen2-vl-2b", {},
              dict(prefill_tc=28, decode_split=448, simt=0)),
@@ -4783,6 +4982,11 @@ def main() -> int:
     emit("dryrun_done", wall_s=time.perf_counter() - t0)
     new_paths = {**{k: {n: c for n, c in v.items() if n != "cell"}
                     for k, v in anchors.items()}, **example_paths}
+
+    # 30. the static lint over the port, and the sync sites recorded above
+    t0 = time.perf_counter()
+    lint_phase()
+    emit("lint_done", wall_s=time.perf_counter() - t0)
 
     drain_paths = {"main": main_launches["drain"],
                    "serve_jax_min_1": serve_launches[1],

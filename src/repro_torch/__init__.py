@@ -8,15 +8,15 @@ on the CPU.
 """
 from __future__ import annotations
 
-import torch
 
-
-def resolve_device(device) -> torch.device:
+def resolve_device(device) -> "torch.device":
     """``"cuda"``/``"cpu"`` (or a ``torch.device``) -> a usable device.
 
     Raises ``RuntimeError`` when a CUDA device is asked for and none is
     present, and ``ValueError`` for any other device type.
     """
+    import torch     # here, so that the stdlib-only lint imports no torch
+
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():

@@ -1,4 +1,4 @@
-"""repro_torch.analysis — runtime checks of the lease/certification stack.
+"""repro_torch.analysis — runtime and static checks of the port.
 
 The port of :mod:`repro.analysis`'s runtime engines:
 
@@ -10,8 +10,14 @@ The port of :mod:`repro.analysis`'s runtime engines:
   (``python -m repro_torch.analysis.explore``), a stateless model checker
   over legal delivery reorderings of the simulator.
 
-The reference's static lint (``repro.analysis.lint`` and its rules) reads
-jit/jnp idioms in source text and has no counterpart here.
+and the static lint:
+
+* :mod:`repro_torch.analysis.lint` — repo-specific AST checks
+  (``python -m repro_torch.analysis.lint``), stdlib-only, over
+  ``src/repro_torch`` with an empty baseline: the reference's framework
+  and six of its rules pointed at the port, ``host-sync`` rewritten for
+  eager torch (host waits in the bodies that run per step or per drain)
+  and ``ctypes-sig`` for the kernels' ctypes tables.
 
 The sanitizer import is deferred so importing the package pulls in nothing.
 """

@@ -265,8 +265,8 @@ class NoBornBlockedFGL(FGLLeaseManager):
         if req.proc in self._dead:
             return []
         lors = self._create_lors(req)
-        # the seeded mutant re-implements the manager's own enqueue minus
-        # the catch-up under test
+        # lint: allow(state-mutation): seeded mutant re-implements the
+        # manager's own enqueue minus the catch-up under test
         self._by_req[req.req_id] = lors
         for lor in lors:
             for cc in lor.ccs:

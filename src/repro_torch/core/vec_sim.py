@@ -101,10 +101,13 @@ def simulate_classes(ccs: torch.Tensor, *, n_nodes: int = 4,
     # flat ids into the [G * C] tables, round-major: each round's [G, N, 2]
     # slab contiguous
     base = torch.arange(g, device=dev).mul_(n_classes).view(g, 1, 1, 1)
+    # lint: allow(id-dtype): the flat ids only index the tables, and
+    # advanced indexing (owner[cc], lor[idx] = ...) widens int32 indices
+    # to int64 at every call: one more kernel a lookup
     flat = (ccs.to(torch.int64) + base).transpose(0, 1).contiguous()
     nodes = torch.arange(n_nodes, device=dev)
     owner = nodes.repeat_interleave(classes_per_node).repeat(g)   # [G * C]
-    lor = torch.zeros(g * n_classes, dtype=torch.int64, device=dev)
+    lor = torch.zeros(g * n_classes, dtype=torch.int32, device=dev)
     # per round: [round time, commits, piggybacks, lease moves, forwards]
     stats = torch.zeros((n_rounds, g, 5), dtype=torch.float32, device=dev)
     stats[:, :, 1] = float(n_nodes)

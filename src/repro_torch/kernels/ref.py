@@ -2,8 +2,8 @@
 
 Twins of :func:`repro.kernels.ref.lease_settle_ref` and
 :func:`repro.kernels.ref.lease_validate_ref` (bitwise targets: int32 ids at
-the boundary, -1 padding, the same clip semantics; torch indexes with
-int64, so indices are widened inside); :func:`lease_drain_ref`, the
+the boundary, -1 padding, the same clip semantics; torch's indexing
+widens the int32 ids itself); :func:`lease_drain_ref`, the
 certification drain composed as the reference's cluster composes it
 (flush, per-item locks from the class owners, ``lease_validate_ref``); and
 twins of the model stack's float
@@ -41,6 +41,8 @@ def lease_settle_ref(
                         torch.full_like(head_proc, -1)).to(torch.int32)
     free = occupied & fresh_blocked & (head_proc == proc) & (head_active == 0)
     valid = wait_cc >= 0
+    # lint: allow(id-dtype): widened once for the two lookups below (an
+    # int32 index is widened by advanced indexing at each)
     cc = wait_cc.clamp(0, max(c - 1, 0)).long()
     at_head = occupied[cc] & (head_req[cc] == wait_req)
     enabled = torch.where(valid, at_head, torch.ones_like(at_head)).all(dim=1)
@@ -61,12 +63,12 @@ def lease_validate_ref(
     """
     n = store_versions.shape[0]
     valid = read_items >= 0
-    cur = store_versions[read_items.clamp(0, n - 1).long()]
+    cur = store_versions[read_items.clamp(0, n - 1)]
     ok = torch.where(valid, cur == read_versions,
                      torch.ones_like(valid)).all(dim=1)
     if write_locks is not None and write_items is not None:
         wvalid = write_items >= 0
-        locked = write_locks[write_items.clamp(0, n - 1).long()]
+        locked = write_locks[write_items.clamp(0, n - 1)]
         ok &= torch.where(wvalid, ~locked, torch.ones_like(wvalid)).all(dim=1)
     return ok
 
@@ -99,7 +101,7 @@ def lease_drain_ref(
     if item_cc is not None and write_items is not None:
         n, n_classes = versions_dev.shape[0], owners.shape[0]
         valid = write_items >= 0
-        cc = item_cc[write_items.clamp(0, n - 1).long()].long()
+        cc = item_cc[write_items.clamp(0, n - 1)]
         known = (cc >= 0) & (cc < n_classes)
         owner = owners[cc.clamp(0, max(n_classes - 1, 0))]
         locked = ~known | ((owner >= 0) & (owner != node))
@@ -129,7 +131,7 @@ def moe_combine_ref(
     d = back.shape[-1]
     gate = gate_slot.reshape(-1, 1, capacity, 1).to(back.dtype)
     gated = (back.reshape(-1, tp, capacity, d) * gate).sum(dim=1)
-    rows = tok_slot.long()
+    rows = tok_slot
     keep = (rows >= 0) & (rows < t_out)
     # empty slots land in an overflow row that is cut off: no shape
     # depends on the slots' contents

@@ -239,8 +239,11 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     constants in x's type, as jax casts them."""
     if not _low_precision(x):
         return F.gelu(x, approximate="tanh")
-    c0 = torch.tensor(math.sqrt(2 / math.pi), dtype=x.dtype, device=x.device)
-    c1 = torch.tensor(0.044715, dtype=x.dtype, device=x.device)
+    # a fill on x's device: a tensor built from a host scalar would be a
+    # blocking copy
+    c0 = torch.full((), math.sqrt(2 / math.pi), dtype=x.dtype,
+                    device=x.device)
+    c1 = torch.full((), 0.044715, dtype=x.dtype, device=x.device)
     return x * (0.5 * (1.0 + torch.tanh(c0 * (x + c1 * (x * x * x)))))
 
 
@@ -578,6 +581,7 @@ def _to_torch(tree, device, dtype):
     t = torch.from_numpy(np.array(tree))        # a writable copy
     if t.is_floating_point():
         t = t.to(dtype)
+    # lint: allow(host-sync): loading a parameter tree, once, not a step
     return t.to(device)
 
 

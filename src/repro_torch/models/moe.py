@@ -241,6 +241,8 @@ def _moe_local(x_loc: torch.Tensor, router: torch.Tensor, wg: torch.Tensor,
     y = torch.zeros((t_loc, d), dtype=acc_dt, device=x_loc.device)
     for le in range(n_e):
         gid = ep_rank * n_e + le
+        # lint: allow(id-dtype): an expert-capacity slot (an int64 cumsum),
+        # not a protocol id: scatter takes int64 indices
         slot_e = slot[:, gid].long()
         keep = (flat_ids == gid) & (slot_e < capacity)
         # the capacity buffer, slot -> (token, gate), scattered as the
@@ -349,6 +351,8 @@ def _moe_local_a2a(x_loc: torch.Tensor, router: torch.Tensor,
     onehot = F.one_hot(flat_ids, m.n_experts).to(torch.int32) \
         * valid[:, None]
     slot = torch.cumsum(onehot, dim=0) - onehot           # [T*K, E]
+    # lint: allow(id-dtype): an expert-capacity slot (an int64 cumsum), not
+    # a protocol id: index_put's index
     slot_d = (slot * onehot).sum(dim=1).long()
     keep = (slot_d < cap_e) & valid
 
@@ -540,6 +544,8 @@ def _moe_routed(p: Dict[str, Any], x: torch.Tensor,
     order = torch.argsort(flat, stable=True)
     tokens = order // m.top_k
     gate = gates.reshape(-1)[order]
+    # lint: allow(host-sync): the routed path runs each expert on its own
+    # rows only, so the host needs the counts (the capacity paths do not)
     counts = torch.bincount(flat, minlength=m.n_experts).tolist()
     out = torch.zeros(xt.shape, dtype=torch.float32, device=x.device)
     start = 0

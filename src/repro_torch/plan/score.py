@@ -115,6 +115,7 @@ def _score(rates, owner, fwd_cost, move_cost, cpu, co_adv, *, horizon_ms,
     dev = rates.device
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     owned = owner >= 0
+    # lint: allow(id-dtype): torch.gather takes int64 indices
     safe = owner.clamp(0, n - 1).long()
     own_rate = torch.where(owned, rates.gather(1, safe[:, None])[:, 0], zero)
     adv = rates - own_rate[:, None]
@@ -165,6 +166,8 @@ class PendingScores:
 
     def wait(self) -> np.ndarray:
         if self._event is not None:
+            # lint: allow(host-sync): the harvest, the planner's one wait,
+            # on the scoring's own event after the host work it overlaps
             self._event.synchronize()
             self._event = None
             self._keep = ()
@@ -275,6 +278,7 @@ def _score_sharded(mesh, dev, rates, owner, fwd_cost, move_cost, cpu,
         a = np.asarray(a, dtype=dtype)
         if specs[name]:
             a = a[rows]
+        # lint: allow(host-sync): this rank's block of the host's inputs
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
     block = _score(put(rates, "rates", np.float32),
@@ -285,6 +289,8 @@ def _score_sharded(mesh, dev, rates, owner, fwd_cost, move_cost, cpu,
                    None if co_adv is None else put(co_adv, "co_adv",
                                                    np.float32), **kw)
     whole = comm.all_gather(block, mesh, PLAN_AXIS, 0)
+    # lint: allow(host-sync): the sharded scorer hands back host scores,
+    # gathered
     return PendingScores(whole.cpu())
 
 

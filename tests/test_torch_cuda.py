@@ -1352,3 +1352,56 @@ def test_cuda_seq_sharded_decode_on_two_cards():
     res = torch_gloo.run_world("seq_decode_cards", 2, backend="nccl")
     for r in res:
         assert float(np.max(np.abs(r["got"] - r["ref"]))) < 2e-4
+
+
+@pytest.mark.cuda
+def test_cuda_moe_decode_syncs_are_flagged_by_host_sync(cuda_device):
+    """The decode step of a narrow routed-MoE model (mixtral's smoke
+    config, 2 layers) under PyTorch's sync debug mode: the host waits (the
+    routed path needs its expert counts), and every site where it waits,
+    the innermost frame under ``src/repro_torch/``, is a line the lint's
+    ``host-sync`` rule flags (allows not applied)."""
+    import dataclasses
+    import traceback
+    import warnings
+    from pathlib import Path
+
+    from repro_torch.analysis import lint
+    from repro_torch.analysis.rules import host_sync
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import common, decoder
+
+    cfg = dataclasses.replace(get_smoke_config("mixtral-8x7b"), n_layers=2)
+    params = common.init_params(
+        cfg, torch.Generator(device=cuda_device).manual_seed(3), cuda_device)
+    ctx = decoder.RunCtx(cuda_device)
+    caches = decoder.init_cache(cfg, 2, 64, cfg.compute_dtype(), cuda_device)
+    tok = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    pos = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    decoder.decode_step(cfg, ctx, params, caches, tok, pos)
+    root = str(lint.DEFAULT_TARGET) + "/"
+    sites = []
+
+    def hook(message, *args, **kw):
+        if "synchroniz" in str(message):
+            ours = [f for f in traceback.extract_stack()
+                    if f.filename.startswith(root)]
+            sites.append((ours[-1].filename, ours[-1].lineno) if ours
+                         else None)
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode(1)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = hook
+            decoder.decode_step(cfg, ctx, params, caches, tok, pos)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert sites and None not in sites
+    for filename, line in sorted(set(sites)):
+        path = Path(filename)
+        rel = path.relative_to(lint.REPO_ROOT).as_posix()
+        flagged = {v.line for v in host_sync.RULE.check(
+            lint.FileCtx(path, rel, path.read_text(), lint.Project()))}
+        assert line in flagged, f"{rel}:{line} waits, host-sync is quiet"
