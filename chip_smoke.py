@@ -175,8 +175,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             launches one a decode step per attention layer or shared site
             (deepseek: none); ms
             per engine step, decoded tokens/s, µs a migration.
-10d. serve_real_held — the same loop at 2 layers (zamba2: 6) on cuda and
-            on cpu:
+10d. serve_real_held — the same loop at 2 layers (zamba2: 6), cut to
+            32 of its 64 requests, on cuda and on cpu:
             engine metrics equal key for key but ``plan_block_s``, the
             first step's logits within 6e-2.
 
@@ -219,7 +219,9 @@ Runtime analysis (``repro_torch.analysis``) on the card:
             device tables equal to the host versions; then on the cpu,
             with equal sanitizer counters and check counts.  ``run_s``
             sanitized beside the unsanitized run's.
-16. forced_sanitized — phase 5's run the same way: every settle on the
+16. forced_sanitized — phase 5's run cut to 600 of its 2000 simulated
+            ms (node 3 still fails at 120 ms; a plain cuda run at that
+            length is the one it is held to), the same way: every settle on the
             device ops and each ``enabled_mask`` verdict held to the
             sequential ``is_enabled`` (``enabled_checks``).  Phases 5 and
             16 print the settle's calls and host wall on both devices
@@ -245,35 +247,48 @@ Runtime analysis (``repro_torch.analysis``) on the card:
 
 Single-device training (``repro_torch.train``, ``launch.train``):
 
-21. kernel_grad — each model kernel's autograd Function at zamba2-1.2b's
-            training shapes (attention: B 2, S 2048, H 32, D 64, causal,
-            bf16, ``prefill_tc``; SSD: B 2, S 2048, H 64, P 64, N 64,
-            chunk 256, bf16, ``tc``): the forward against the plain
-            version (attention atol 1e-3 + rtol 1.6e-2; SSD 1e-2 of max
-            |y|), the input gradients equal, bit for bit, to
-            ``torch.autograd.grad`` of the plain version on the card (the
-            backward recomputes it); forward ms, backward ms, forward +
-            backward ms beside the plain version's and, for attention,
-            ``scaled_dot_product_attention``'s under autograd (a yardstick
-            the port never calls), and the bound of forward + backward.
+21. kernel_grad — the backward kernels (``flash_backward.cuh``,
+            ``ssd_backward.cuh``) through the autograd Functions at the
+            training shapes: attention at zamba2's (B 2, S 2048, H 32, D
+            64, causal, bf16), glm4's (128, 128) over GQA groups of 16,
+            hubert's (80, 80) bidirectional, deepseek-v2's MLA (192,
+            128), a window of 512 with a softcap of 50, and zamba2's in
+            f32 (``simt``); the SSD at zamba2's (H 64, N 64) and
+            mamba2's (H 48, N 128), bf16, with h0 and the final state's
+            gradient.  Each: one backward launch a backward and no plain
+            version called; the gradients within 2e-2 (bf16) or 2e-5 /
+            1e-4 (f32, attention / SSD) of each input's largest, against
+            the plain backward (``ref.sdpa_bwd_ref`` / ``ssd_bwd_ref``) and
+            against autograd of the plain forward; two calls equal bits;
+            attention's lse within 1e-4 of the plain one and the output's
+            bits equal without it (both timed).  The backward's ms and
+            device ms and its bound; at zamba2's shapes also the plain
+            backward's, forward + backward against the old recompute
+            (autograd of the plain forward) and, for attention,
+            ``scaled_dot_product_attention``'s backward and forward +
+            backward (a yardstick the port never calls).
 22. train — ``launch.train.main`` at zamba2-1.2b's full width and depth
             (1.27 B parameters, fp32 masters and AdamW moments, bf16
             compute), 4 steps of 2 x 2048 tokens, counts reset just
             before; once with remat none and once with ``--remat full``.
             Every loss finite; per step 6 ``prefill_tc`` and 32 ``tc``
             launches (under full remat the 36 body layers' forwards run
-            again in the backward: 12 and 62) and 6 and 32 backward
-            recomputes; step wall after the first, tokens/s, peak memory.
+            again in the backward: 12 and 62) and 6 and 32 backward kernel
+            launches, no plain version called; step wall after the first,
+            tokens/s, peak memory.
     train_profile — one more step under ``torch.profiler``: device busy,
             idle share, the largest device ops, the share of busy time in
-            the Functions' backward recomputes; then the step's gradients,
+            the Functions' backward kernels; a third step's host waits
+            recorded (phase 30: none in the kernels' modules); then the
+            step's gradients,
             every leaf finite and non-zero (the shared block's attention
             weights and every Mamba layer's ``w_in`` among them).
 23. train_held — zamba2-1.2b at full width cut to 6 layers (one shared
             site), 1 x 2048 tokens: the train step's loss and gradients on
             the card (kernels) and on the CPU (plain versions) from the
             same fp32 masters; loss within 1e-2 relative, every gradient
-            leaf's relative L2 error within 5e-2.
+            leaf's relative L2 error within 5e-2; on the card one backward
+            launch a Function and no plain version called.
 
 The mesh (``repro_torch.dist``, ``launch.mesh``; on one card a world of
 one NCCL rank, whose collectives still run):
@@ -303,7 +318,13 @@ one NCCL rank, whose collectives still run):
             all-gather): the metrics of both mesh runs equal the
             meshless run's key for key, every decode through
             ``decode_split`` (the seq mesh's with the log-sum-exp); one
-            decode step of 16 slots on each: host waits and ms.
+            decode step of 16 slots on each: host waits and ms.  Then
+            deepseek-v2's MLA (its first layer, full width) takes steps of
+            96 and 3 tokens into a latent cache on the seq mesh and
+            without one: the seq mesh's expanded path runs
+            ``prefill_tc<192,128>`` and then ``simt``, each with the rows'
+            lse, and merges its one chunk; logits equal bit for bit
+            (``mesh_decode_mla_multi``).
 26b. mesh_tp — the dense stack tensor-parallel over 4 gloo ranks that
             share the card, a (1, 4) mesh (NCCL takes one rank a card):
             glm4-9b at full width and depth in bf16 (8 of its 32 q heads
@@ -325,6 +346,15 @@ one NCCL rank, whose collectives still run):
 The batched sweep, the analytic estimates and the examples (after the mesh
 phases' process group is gone), then the dry run:
 
+26d. mesh_mla_seq — the MLA steps of phase 26 (96 then 3 tokens) into a
+            256-slot latent cache cut over 4 gloo ranks that share the
+            card, a (1, 4, 1) seq mesh: each rank's chunk through
+            ``prefill_tc<192,128>`` and then ``simt`` with the rows' lse,
+            the four chunks merged; ranks whose chunk a row cannot see
+            write a lse at most NEG_INF / 2 there, weight 0 in the merge
+            (both kernels, checked);
+            rank 0's logits within 6% of the largest logit of the same
+            steps without a mesh.
 27. vec_sim — ``core.vec_sim`` over the grid of ``benchmarks/run.py``'s
             sweep (localities 0, 0.3, 0.6, 0.9, 1.0 x 4 seeds x ALC~, FGL~,
             LILAC~) and a wide grid (101 localities x 64 seeds x the 3
@@ -355,8 +385,9 @@ phases' process group is gone), then the dry run:
 29. examples — ``examples/torch/{quickstart,serve_migration,train_100m,
             failover_recovery}.py`` as subprocesses on the card, all at
             once (each with every kernel count at 0, printing its counts
-            after), beside quickstart's part 1 on ``--device cpu``: each
-            exits 0 and part 1 prints the same lines on both devices.
+            after; train_100m cut to 100 of its 300 steps), beside
+            quickstart's part 1 on ``--device cpu``: each exits 0 and
+            part 1 prints the same lines on both devices.
 26c. dryrun — ``launch.dryrun``'s counting pass on the host, in a
             subprocess started beside phase 29 (which claims no time):
             ``count_serve`` of the mesh_tp cells on a fake (1, 4) mesh,
@@ -391,10 +422,10 @@ train phases and the mesh phases 25-26b for flash, mamba2, zamba2, the
 train phases and phases 25, 26b for the SSD (26b's counts summed over its
 four ranks); phases 28-29 add
 ``anchor_*`` and ``examples_*`` paths to every kernel that counts by path,
-zeros included; the model kernels also carry
-``backward_recomputes``, the train phases' count, and the variants
-training runs a ``backward`` entry from phase 21; ``decode_split`` also
-``lse_launches`` and the ``lse`` cases of phase 26), and ``{"ok": true,
+zeros included; ``decode_split`` also ``lse_launches`` and the ``lse``
+cases of phase 26; one entry per backward kernel, timed at phase 21's
+zamba2 case, its launches by training path: train, train_remat_full,
+train_held, mesh_train and examples_train_100m), and ``{"ok": true,
 "device": {...}}``.
 """
 from __future__ import annotations
@@ -1534,33 +1565,63 @@ def ssd_records(cases: list, paths: dict) -> list:
     return out
 
 
-def with_backward(record: dict, train: dict, grad_cases: dict) -> dict:
-    """A model kernel's record with its backward: the recomputes of its
-    plain version on the training path (the train phases' counts) and,
-    for the variants training runs, the ``kernel_grad`` times."""
-    name = record["name"]
-    out = dict(record, backward_recomputes=sum(
-        t["backward_recomputes"].get(name, 0) for t in train.values()))
-    case = grad_cases.get(name)
-    if case is not None:
-        out["backward"] = {k: case[k] for k in (
-            "case", "bwd_ms", "fwd_bwd_ms", "plain_fwd_bwd_ms",
-            "library_fwd_bwd_ms", "fwd_bwd_bound_ms", "fwd_bwd_bound_by",
-            "max_abs_grad_diff")}
+BACKWARD_SOURCES = {
+    "flash_attention.backward": (
+        "src/repro_torch/kernels/csrc/flash_backward.cuh",
+        "src/repro/kernels/flash_attention.py:90"),
+    "ssd_scan.backward": ("src/repro_torch/kernels/csrc/ssd_backward.cuh",
+                          "src/repro/kernels/ssd_scan.py:76"),
+}
+
+
+def backward_records(grad_cases: dict, paths: dict) -> list:
+    """One entry per backward kernel, timed at its first case (zamba2's
+    training shape), the largest error over its cases; ``launches`` sums
+    the training paths' counts, by path beside it.  ``replaces`` names the
+    TPU kernel whose function's gradient it computes: the reference has
+    no backward kernel and differentiates its plain version."""
+    out = []
+    for name, cases in grad_cases.items():
+        head = cases[0]
+        source, replaces = BACKWARD_SOURCES[name]
+        by_path = {path: counts.get(name, 0) for path, counts in paths.items()}
+        out.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "ms": head["bwd_ms"], "graph_ms": head["bwd_graph_ms"],
+            "plain_ms": head["plain_bwd_ms"], "bound_ms": head["bwd_bound_ms"],
+            "bound_by": head["bwd_bound_by"],
+            "library_ms": head["library_bwd_ms"], "case": head["case"],
+            "launches_by_path": by_path,
+            "max_rel_err": max(max(c["rel_err_vs_plain"]) for c in cases),
+            **{k: head[k] for k in ("fwd_bwd_ms", "plain_fwd_bwd_ms",
+                                    "library_fwd_bwd_ms",
+                                    "fwd_bwd_bound_ms")},
+            "cases": {c["case"]: {k: c[k] for k in (
+                "bwd_ms", "bwd_graph_ms", "bwd_bound_ms", "max_abs_err")}
+                for c in cases}})
     return out
 
 
 def with_lse(record: dict, mesh_decode: dict) -> dict:
-    """decode_split's record with its log-sum-exp output: the launches
-    that wrote it on the mesh_decode paths and its cases' times."""
+    """A flash variant's record with its log-sum-exp output on the
+    mesh_decode paths: decode_split's launches that wrote it and its
+    cases' times; prefill_tc's and simt's on MLA's multi-token seq-mesh
+    steps (each launch there wrote it)."""
+    counts = dict(mesh_decode["counts"])
+    mla = counts.pop("mla_multi")
+    variant = record["name"].split(".")[1]
+    if variant in ("prefill_tc", "simt"):
+        return dict(record, lse_launches=mla[variant])
     if record["name"] != "flash_attention.decode_split":
         return record
-    return dict(record, lse_launches=sum(
-        c["lse"] for c in mesh_decode["counts"].values()),
-        lse={c["case"]: {k: c[k] for k in (
-            "ms", "graph_ms", "ms_without_lse", "graph_ms_without_lse",
-            "plain_ms", "bound_ms", "bound_by", "max_abs_err_lse")}
-            for c in mesh_decode["cases"]})
+    return dict(record, lse_launches=sum(c["lse"] for c in counts.values()),
+                lse={c["case"]: {k: c[k] for k in (
+                    "ms", "graph_ms", "ms_without_lse",
+                    "graph_ms_without_lse", "plain_ms", "bound_ms",
+                    "bound_by", "max_abs_err_lse")}
+                    for c in mesh_decode["cases"]})
 
 
 # -- phases 8-10: the model stack ----------------------------------------------
@@ -2221,6 +2282,7 @@ def moe_routed_phase(seed: int = 7) -> None:
 # launch.serve's --backend real defaults (the reference launch's)
 SERVE_REAL = dict(n_pods=2, n_sessions=16, n_requests=64,
                   tokens_per_request=4, locality=0.8, max_len=256, seed=0)
+SERVE_REAL_HELD_REQUESTS = 32  # the held phase's cut: half the requests
 
 
 @contextlib.contextmanager
@@ -2283,11 +2345,11 @@ def checked_backend(first_logits: list):
         decoder.decode_step = plain_decode
 
 
-def serve_real_run(cfg, params, device, **mesh_kw) -> dict:
-    """One ``launch.serve.serve_real`` run at SERVE_REAL, watched; the
-    engine's metrics, the backend's counts, the first step's logits and
-    its routing, and the wall.  ``mesh_kw``: serve_real's ``mesh`` and
-    ``seq_axis``."""
+def serve_real_run(cfg, params, device, requests=None, **mesh_kw) -> dict:
+    """One ``launch.serve.serve_real`` run at SERVE_REAL (``requests``:
+    that many of its requests), watched; the engine's metrics, the
+    backend's counts, the first step's logits and its routing, and the
+    wall.  ``mesh_kw``: serve_real's ``mesh`` and ``seq_axis``."""
     import torch
 
     from repro_torch.launch.serve import serve_real
@@ -2296,7 +2358,8 @@ def serve_real_run(cfg, params, device, **mesh_kw) -> dict:
     first = []
     with recorded_routing() as routing, checked_backend(first) as stats:
         t0 = time.perf_counter()
-        eng = serve_real(cfg, params, device=device, **SERVE_REAL, **mesh_kw)
+        kw = dict(SERVE_REAL, n_requests=requests or SERVE_REAL["n_requests"])
+        eng = serve_real(cfg, params, device=device, **kw, **mesh_kw)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         wall = time.perf_counter() - t0
@@ -2370,9 +2433,10 @@ def serve_real_phase(layers: dict, seed: int = 11) -> dict:
 
 
 def serve_real_held_phase(layers: dict, seed: int = 12) -> None:
-    """The same loop for each arch of ``layers`` at full width and that
-    depth, on the card and on the CPU through the port, the same bf16
-    weights: engine metrics equal key for key (but the wall-clock
+    """The same loop, cut to SERVE_REAL_HELD_REQUESTS requests, for each
+    arch of ``layers`` at full width and that depth, on the card and on
+    the CPU through the port, the same bf16 weights: engine metrics equal
+    key for key (but the wall-clock
     ``plan_block_s``: the engine's routing does not read token values),
     the first decode step's logits within HELD_TOL (rows whose expert
     routing differs, near-ties, left out)."""
@@ -2388,8 +2452,9 @@ def serve_real_held_phase(layers: dict, seed: int = 12) -> None:
         on_card = common.init_params(cfg, torch.Generator(
             device=dev).manual_seed(seed), dev, cfg.compute_dtype())
         on_cpu = to_cpu(on_card)
-        card = serve_real_run(cfg, on_card, dev)
-        host = serve_real_run(cfg, on_cpu, torch.device("cpu"))
+        card = serve_real_run(cfg, on_card, dev, SERVE_REAL_HELD_REQUESTS)
+        host = serve_real_run(cfg, on_cpu, torch.device("cpu"),
+                              SERVE_REAL_HELD_REQUESTS)
         a, b = dict(card["metrics"]), dict(host["metrics"])
         check(a.pop("plan_block_s") >= 0 and b.pop("plan_block_s") >= 0,
               "serve_real_held: plan_block_s < 0")
@@ -2732,6 +2797,11 @@ SANITIZER_KEYS = ("sanitizer", "verified_replicas", "check_write_locks_calls",
                   "class_view_calls", "write_slots_checked", "enabled_checks")
 
 
+# forced_sanitized's cut: 600 of the forced run's 2000 simulated ms (the
+# 200 ms warm-up and node 3's failure at 120 ms stay inside it)
+FORCED_SANITIZED_MS = 600.0
+
+
 def sanitized_phase(phase: str, workload: str, cfg_kw: dict,
                     plain_card: dict, fail_at=None) -> dict:
     """``cfg_kw``'s run on cuda with ``sanitize=True``: byte-identical to
@@ -2990,158 +3060,337 @@ HELD_TRAIN_LOSS_TOL = 1e-2     # cuda vs cpu train_step loss, relative
 HELD_TRAIN_GRAD_TOL = 5e-2     # per leaf ||g_cuda - g_cpu|| / ||g_cpu||
 
 
-def _grads(fn, inputs, weight):
-    """``fn``'s output and the gradients of ``sum(out * weight)`` for the
-    inputs (fresh leaves each call)."""
+# backward kernels against their plain versions: share of each input's
+# largest |gradient|; the lse against the plain one, absolute
+GRAD_TOL = {"attention": {"float32": 2e-5, "bfloat16": 2e-2},
+            "ssd": {"float32": 1e-4, "bfloat16": 2e-2}}
+GRAD_LSE_TOL = 1e-4
+# the plain versions a kernel's path must not call on the card
+PLAIN_FNS = ("sdpa_ref", "ssd_ref", "sdpa_bwd_ref", "ssd_bwd_ref")
+
+
+@contextlib.contextmanager
+def plain_calls():
+    """Inside the block, calls of the model kernels' plain versions
+    (``ref``'s forwards and backwards) counted by name."""
+    from repro_torch.kernels import ref
+
+    counts = collections.Counter()
+    saved = {name: getattr(ref, name) for name in PLAIN_FNS}
+
+    def counted(name, fn):
+        def call(*args, **kw):
+            counts[name] += 1
+            return fn(*args, **kw)
+        return call
+
+    for name, fn in saved.items():
+        setattr(ref, name, counted(name, fn))
+    try:
+        yield counts
+    finally:
+        for name, fn in saved.items():
+            setattr(ref, name, fn)
+
+
+def _grads(fn, inputs, weights):
+    """``fn``'s outputs and the gradients of ``sum(out_i * weight_i)``
+    (``weights`` pairs with ``fn``'s first outputs) for the inputs, fresh
+    leaves each call."""
     import torch
 
     leaves = [t.detach().clone().requires_grad_(t.is_floating_point())
               if t is not None else None for t in inputs]
     outs = fn(*leaves)
-    out = outs[0] if isinstance(outs, tuple) else outs
+    outs = outs if isinstance(outs, tuple) else (outs,)
     wanted = [t for t in leaves if t is not None and t.requires_grad]
-    grads = torch.autograd.grad((out.float() * weight).sum(), wanted)
-    return out.detach(), grads
+    loss = sum((o.float() * w).sum() for o, w in zip(outs, weights))
+    return ([o.detach() for o in outs[:len(weights)]],
+            torch.autograd.grad(loss, wanted))
 
 
-def kernel_grad_case(name: str, kind: str) -> dict:
-    """One kernel's autograd Function at zamba2's training shape: the
-    forward against the plain version (the kernels' tolerances), the input
-    gradients equal to ``torch.autograd.grad`` of the plain version on the
-    card; forward, backward, plain and SDPA (forward + backward) times."""
+def _rel_errs(got, want) -> list:
+    """Per pair: max |got - want| over the largest |want|."""
+    return [float((g.float() - w.float()).abs().max())
+            / max(float(w.float().abs().max()), 1e-30)
+            for g, w in zip(got, want)]
+
+
+def _grad_checks(name: str, kind: str, dtype: str, g_k, g_p, g_a,
+                 again) -> dict:
+    """The kernel's gradients against the plain backward and autograd of
+    the plain forward (GRAD_TOL of each input's largest |gradient|), and
+    a second call's bits."""
+    import torch
+
+    tol = GRAD_TOL[kind][dtype]
+    vs_plain, vs_auto = _rel_errs(g_k, g_p), _rel_errs(g_k, g_a)
+    same = [bool(torch.equal(a, b)) for a, b in zip(g_k, again)]
+    abs_err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(g_k, g_p))
+    check(max(vs_plain) <= tol and max(vs_auto) <= tol,
+          f"{name}: backward kernel gradients off by {vs_plain} (plain "
+          f"backward) / {vs_auto} (autograd of the plain forward), limit "
+          f"{tol}")
+    check(all(same), f"{name}: two backward calls differ ({same})")
+    check(all(bool(torch.isfinite(g).all()) and bool(g.abs().max() > 0)
+              for g in g_k), f"{name}: a zero or non-finite gradient")
+    return dict(grad_tol=tol, rel_err_vs_plain=vs_plain,
+                rel_err_vs_autograd=vs_auto, max_abs_err=abs_err,
+                deterministic=all(same))
+
+
+def attention_grad_case(name: str, b, s, hq, hkv, dk, dv, *, causal=True,
+                        window=None, cap=0.0, dtype="bfloat16",
+                        timed=False, seed=21) -> dict:
+    """The flash forward's lse and the flash backward kernels at one
+    training shape (self-attention, positions 0..S-1): the lse within
+    GRAD_LSE_TOL of the plain one, the output's bits equal with and
+    without it (both timed); ``ops.attention`` under grad launches the
+    backward once, its gradients held by :func:`_grad_checks`; the
+    backward's time a call and its device time, its bound.  ``timed``
+    adds the plain backward's, the Function's forward + backward, the old
+    recompute's (autograd of the plain forward) and SDPA's."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels import ssd_scan as ss
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(21)
-    if kind == "attention":
-        b, s, h, d = 2, 2048, 32, 64
-        q, k, v = (torch.randn((b, s, h, d), generator=gen, device=dev)
-                   .to(torch.bfloat16) for _ in range(3))
-        pos = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s) \
-            .contiguous()
-        kw = dict(q_positions=pos, kv_positions=pos, causal=True)
-        inputs = (q, k, v)
-        kernel = lambda q, k, v: ops.attention(q, k, v, **kw)
-        plain = lambda q, k, v: ref.sdpa_ref(q, k, v, **kw)
-        variant = f"flash_attention.{fa.variant(q.dtype, s, h, h, d, d)}"
-        out_shape = (b, s, h, d)
-        pairs = h * b * s * (s + 1) // 2
-        fwd_flops = 2.0 * pairs * (d + d)
-        # forward + backward: 2 products forward, 5 backward (S again, dP,
-        # dV, dQ, dK); q, k, v, out and dout read, dq, dk, dv written
-        flops = fwd_flops * 3.5
-        n_bytes = 8 * q.numel() * q.element_size()
-        atol, rtol = FLASH_TOL["bfloat16"]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    td = getattr(torch, dtype)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(td)
+               for shape in ((b, s, hq, dk), (b, s, hkv, dk), (b, s, hkv, dv)))
+    pos = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s) \
+        .contiguous()
+    kw = dict(q_positions=pos, kv_positions=pos, causal=causal,
+              sliding_window=window, logit_softcap=cap)
+    variant = fa.variant(td, s, hq, hkv, dk, dv)
+    weight = torch.randn((b, s, hq, dv), generator=gen, device=dev)
+    dout = weight.to(td)
+    with torch.no_grad():
+        out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+        bare = fa.flash_attention(q, k, v, **kw)
+        _, lse_p = ref.sdpa_ref(q, k, v, return_lse=True, **kw)
+    lse_err = float((lse - lse_p).abs().max())
+    check(bool(torch.equal(out, bare)), f"{name}: the forward's output "
+          f"changes when the lse is asked for")
+    check(lse_err <= GRAD_LSE_TOL, f"{name}: lse off by {lse_err}")
+    del lse_p
+
+    before = fa.backward_launches
+    with plain_calls() as plain_n:
+        _, g_k = _grads(lambda q, k, v: ops.attention(q, k, v, **kw),
+                        (q, k, v), (weight,))
+    check(fa.backward_launches == before + 1 and not plain_n,
+          f"{name}: {fa.backward_launches - before} backward launches, "
+          f"plain calls {dict(plain_n)}")
+    g_p = ref.sdpa_bwd_ref(q, k, v, out, lse, dout, **kw)
+    _, g_a = _grads(lambda q, k, v: ref.sdpa_ref(q, k, v, **kw), (q, k, v),
+                    (weight,))
+    again = fa.flash_attention_backward(q, k, v, out, lse, dout, **kw)
+    grads = _grad_checks(name, "attention", dtype, g_k, g_p, g_a, again)
+    del g_p, g_a, again
+
+    fwd_ms, fwd_g_ms, _ = timings(lambda: fa.flash_attention(q, k, v, **kw))
+    lse_ms, lse_g_ms, _ = timings(
+        lambda: fa.flash_attention(q, k, v, return_lse=True, **kw))
+    bwd_ms, bwd_g_ms, iters = timings(
+        lambda: fa.flash_attention_backward(q, k, v, out, lse, dout, **kw))
+    # work this data needs: the visible (row, key) pairs of every q head;
+    # the backward's products S, dP, dV, dQ, dK (forward: S, P V); q, k,
+    # v, out, dout and the lse read once, dq, dk, dv written once
+    visible = ref.attn_mask(pos[:1], pos[:1], causal, window)
+    pairs = int(visible.sum()) * b * hq
+    el = q.element_size()
+    n_bytes = (2 * (q.numel() + k.numel() + v.numel()) + 2 * out.numel()) \
+        * el + 4 * lse.numel()
+    rate = BF16_FLOPS_PER_S if dtype == "bfloat16" else SCALAR_OPS_PER_S
+    bms, by = op_bound(2.0 * pairs * (3 * dk + 2 * dv), n_bytes, rate)
+    fbms, fby = op_bound(2.0 * pairs * (4 * dk + 3 * dv), n_bytes, rate)
+    rec = dict(case=name, kind="attention", variant=variant, dtype=dtype,
+               shape=[b, s, hq, hkv, dk, dv], causal=causal, window=window,
+               softcap=cap, lse_max_abs_err=lse_err, lse_tol=GRAD_LSE_TOL,
+               out_bits_equal_without_lse=True, fwd_ms=fwd_ms,
+               fwd_graph_ms=fwd_g_ms, fwd_lse_ms=lse_ms,
+               fwd_lse_graph_ms=lse_g_ms, bwd_ms=bwd_ms,
+               bwd_graph_ms=bwd_g_ms, bwd_bound_ms=bms, bwd_bound_by=by,
+               fwd_bwd_bound_ms=fbms, fwd_bwd_bound_by=fby, **grads)
+    if timed:
+        no_grad = (q, k, v)
+
+        def fwd_bwd(fn):
+            def run():
+                ls = [t.detach().requires_grad_(True) for t in no_grad]
+                torch.autograd.grad(fn(*ls), ls, dout)
+            return run
 
         def library(q, k, v):
             return F.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                is_causal=True).transpose(1, 2)
-    else:
-        b, s, h, p, n, chunk = 2, 2048, 64, 64, 64, 256
-        inputs = ssd_inputs(b, s, h, p, n, "bfloat16", 21, with_h0=False)
-        kernel = lambda *a: ops.ssd(*a[:5], chunk=chunk, h0=a[5])
-        plain = lambda *a: tuple(
-            t.to(a[0].dtype) if i == 0 else t for i, t in enumerate(
-                ops.ssd(*a[:5], chunk=chunk, h0=a[5], plain=True)))
-        variant = f"ssd_scan.{ss.variant(torch.bfloat16, p, n, chunk)}"
-        out_shape = (b, s, h, p)
-        nc, tri = s // chunk, chunk * (chunk + 1) / 2
-        fwd_flops = b * nc * (2 * tri * n + h * (2 * tri * p
-                                                 + 4 * chunk * p * n
-                                                 + 3 * tri))
-        flops = fwd_flops * 3.0        # the backward: about twice the forward
-        x, dt, a, bm, cm, _ = inputs
-        el = x.element_size()
-        n_bytes = 2 * (2 * x.numel() + bm.numel() + cm.numel()) * el \
-            + 2 * 4 * (dt.numel() + a.numel())
-        atol, rtol = None, 1e-2
-        library = None
-    weight = torch.randn(out_shape, generator=gen, device=dev)
-    out_k, g_k = _grads(kernel, inputs, weight)
-    out_p, g_p = _grads(plain, inputs, weight)
-    err = float((out_k.float() - out_p.float()).abs().max())
-    scale = float(out_p.float().abs().max())
-    if atol is not None:
-        fwd_ok = torch.allclose(out_k.float(), out_p.float(), atol=atol,
-                                rtol=rtol)
-    else:
-        fwd_ok = err / (scale + 1e-9) < rtol
-    check(fwd_ok, f"{name}: the Function's forward disagrees with the plain "
-          f"version (max abs err {err})")
-    equal = [bool(torch.equal(x, y)) for x, y in zip(g_k, g_p)]
-    grad_err = max(float((x.float() - y.float()).abs().max())
-                   for x, y in zip(g_k, g_p))
-    check(all(equal), f"{name}: the Function's input gradients differ from "
-          f"the plain version's (max abs diff {grad_err})")
-    check(all(bool(torch.isfinite(g).all()) and bool(g.abs().max() > 0)
-              for g in g_k), f"{name}: a zero or non-finite gradient")
+                is_causal=causal, enable_gqa=hkv != hq).transpose(1, 2)
 
-    leaves = [t.detach().clone().requires_grad_(True) if t is not None
-              else None for t in inputs]
-    wanted = [t for t in leaves if t is not None]
-    graph_out = kernel(*leaves)
-    graph_out = graph_out[0] if isinstance(graph_out, tuple) else graph_out
-    gout = weight.to(graph_out.dtype)
-    no_grad = [t.detach() if t is not None else None for t in inputs]
+        n = max(3, iters // 4)
+        rec["plain_bwd_ms"] = time_ms(
+            lambda: ref.sdpa_bwd_ref(q, k, v, out, lse, dout, **kw), n,
+            warmup=2)
+        rec["fwd_bwd_ms"] = time_ms(
+            fwd_bwd(lambda q, k, v: ops.attention(q, k, v, **kw)), n,
+            warmup=2)
+        rec["plain_fwd_bwd_ms"] = time_ms(
+            fwd_bwd(lambda q, k, v: ref.sdpa_ref(q, k, v, **kw)), n,
+            warmup=2)
+        rec["library_fwd_bwd_ms"] = time_ms(fwd_bwd(library), n, warmup=2)
+        ls = [t.detach().requires_grad_(True) for t in no_grad]
+        lib_out = library(*ls)
+        rec["library_bwd_ms"] = time_ms(
+            lambda: torch.autograd.grad(lib_out, ls, dout,
+                                        retain_graph=True), n, warmup=2)
+        del lib_out, ls
+    rec["wall_s"] = time.perf_counter() - t_start
+    emit("kernel_grad", **rec)
+    del q, k, v, out, lse, g_k
+    torch.cuda.empty_cache()
+    return rec
 
-    def fwd_bwd(fn):
-        def run():
-            ls = [t.detach().requires_grad_(True) if t is not None else None
-                  for t in no_grad]
-            o = fn(*ls)
-            o = o[0] if isinstance(o, tuple) else o
-            torch.autograd.grad(o, [t for t in ls if t is not None], gout)
-        return run
 
-    with torch.no_grad():
-        ms, g_ms, iters = timings(lambda: kernel(*no_grad))
-        plain_ms, _, _ = timings(lambda: plain(*no_grad))
-    bwd_ms = time_ms(lambda: torch.autograd.grad(graph_out, wanted, gout,
-                                                 retain_graph=True),
-                     max(3, iters // 4), warmup=2)
-    fwd_bwd_ms = time_ms(fwd_bwd(kernel), max(3, iters // 4), warmup=2)
-    plain_fwd_bwd_ms = time_ms(fwd_bwd(plain), max(3, iters // 4), warmup=2)
-    lib_ms = (time_ms(fwd_bwd(library), max(3, iters // 4), warmup=2)
-              if library is not None else None)
-    bms, by = op_bound(flops, n_bytes, BF16_FLOPS_PER_S)
-    out = dict(case=name, variant=variant, shape=list(out_shape),
-               max_abs_err=err, max_abs_want=scale, grads_equal=equal,
-               max_abs_grad_diff=grad_err, ms=ms, graph_ms=g_ms,
-               bwd_ms=bwd_ms, fwd_bwd_ms=fwd_bwd_ms, plain_ms=plain_ms,
-               plain_fwd_bwd_ms=plain_fwd_bwd_ms, library_fwd_bwd_ms=lib_ms,
-               fwd_bwd_bound_ms=bms, fwd_bwd_bound_by=by,
-               wall_s=time.perf_counter() - t_start)
-    emit("kernel_grad", **out)
-    return out
+def ssd_grad_case(name: str, b, s, h, p, n, chunk, *, dtype="bfloat16",
+                  timed=False, seed=22) -> dict:
+    """The SSD backward kernels at one training shape, with h0 and the
+    final state's gradient: ``ops.ssd`` under grad launches the backward
+    once, its gradients (x, dt, A, B, C, h0) held by :func:`_grad_checks`;
+    the backward's time a call and its device time, its bound.  ``timed``
+    adds the plain backward's, the Function's forward + backward and the
+    old recompute's (autograd of the plain forward)."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ssd_scan as ss
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    inputs = ssd_inputs(b, s, h, p, n, dtype, seed)
+    x, dt, a, bm, cm, h0 = inputs
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    wy = torch.randn((b, s, h, p), generator=gen, device=dev)
+    wf = torch.randn((b, h, p, n), generator=gen, device=dev)
+    dy = wy.to(x.dtype)
+    variant = ss.variant(x.dtype, p, n, chunk)
+
+    def kernel(*t):
+        return ops.ssd(*t[:5], chunk=chunk, h0=t[5])
+
+    def plain(*t):
+        y, final = ops.ssd(*t[:5], chunk=chunk, h0=t[5], plain=True)
+        return y.to(t[0].dtype), final
+
+    before = ss.backward_launches
+    with plain_calls() as plain_n:
+        _, g_k = _grads(kernel, inputs, (wy, wf))
+    check(ss.backward_launches == before + 1 and not plain_n,
+          f"{name}: {ss.backward_launches - before} backward launches, "
+          f"plain calls {dict(plain_n)}")
+    args = (x, dt, a, bm, cm, h0, dy, wf)
+    g_p = ref.ssd_bwd_ref(*args, chunk=chunk)
+    _, g_a = _grads(plain, inputs, (wy, wf))
+    again = ss.ssd_scan_backward(*args, chunk=chunk)
+    grads = _grad_checks(name, "ssd", dtype, g_k, g_p, g_a, again)
+    del g_p, g_a, again
+
+    bwd_ms, bwd_g_ms, iters = timings(
+        lambda: ss.ssd_scan_backward(*args, chunk=chunk))
+    # the forward's products at these shapes, twice for the backward; its
+    # bytes: x, dy, dx, B, C, dB, dC in x's type, dt and ddt, a and da, h0,
+    # dfinal and dh0 in fp32
+    nc, tri = s // chunk, chunk * (chunk + 1) / 2
+    fwd_flops = b * nc * (2 * tri * n + h * (2 * tri * p + 4 * chunk * p * n
+                                             + 3 * tri))
+    el = x.element_size()
+    n_bytes = (3 * x.numel() + 2 * (bm.numel() + cm.numel())) * el \
+        + 4 * (2 * dt.numel() + 2 * a.numel() + 3 * h0.numel())
+    rate = BF16_FLOPS_PER_S if dtype == "bfloat16" else SCALAR_OPS_PER_S
+    bms, by = op_bound(2.0 * fwd_flops, n_bytes, rate)
+    # forward + backward: x, B, C and dt, A read once, their gradients
+    # and y written once
+    fbms, fby = op_bound(3.0 * fwd_flops, 2 * (2 * x.numel() + bm.numel()
+                                               + cm.numel()) * el
+                         + 2 * 4 * (dt.numel() + a.numel()), rate)
+    rec = dict(case=name, kind="ssd", variant=variant, dtype=dtype,
+               shape=[b, s, h, p, n, chunk], with_h0=True, with_dfinal=True,
+               bwd_ms=bwd_ms, bwd_graph_ms=bwd_g_ms, bwd_bound_ms=bms,
+               bwd_bound_by=by, fwd_bwd_bound_ms=fbms, fwd_bwd_bound_by=fby,
+               **grads)
+    if timed:
+        def fwd_bwd(fn):
+            def run():
+                ls = [t.detach().requires_grad_(True) for t in inputs]
+                y, final = fn(*ls)
+                torch.autograd.grad([y, final], ls, [dy, wf])
+            return run
+
+        n_it = max(3, iters // 4)
+        rec["plain_bwd_ms"] = time_ms(
+            lambda: ref.ssd_bwd_ref(*args, chunk=chunk), n_it, warmup=2)
+        rec["fwd_bwd_ms"] = time_ms(fwd_bwd(kernel), n_it, warmup=2)
+        rec["plain_fwd_bwd_ms"] = time_ms(fwd_bwd(plain), n_it, warmup=2)
+        rec["library_fwd_bwd_ms"] = rec["library_bwd_ms"] = None
+    rec["wall_s"] = time.perf_counter() - t_start
+    emit("kernel_grad", **rec)
+    del inputs, x, g_k
+    torch.cuda.empty_cache()
+    return rec
+
+
+def kernel_grad_phase() -> dict:
+    """21. The backward kernels at the model paths' training shapes, each
+    against its plain backward and autograd of the plain forward: zamba2's
+    attention (timed in full) and glm4's (128, 128) GQA, hubert's (80, 80)
+    bidirectional, deepseek-v2's MLA (192, 128), a window with a softcap,
+    an f32 case on ``simt``; the SSD at zamba2's N 64 (timed in full) and
+    mamba2's N 128.  Returns the cases by backward kernel, the timed case
+    first."""
+    flash = [
+        attention_grad_case("zamba2_attention", 2, 2048, 32, 32, 64, 64,
+                            timed=True),
+        attention_grad_case("glm4_attention", 1, 2048, 32, 2, 128, 128),
+        attention_grad_case("hubert_attention", 2, 1024, 16, 16, 80, 80,
+                            causal=False),
+        attention_grad_case("mla_attention", 1, 1024, 128, 128, 192, 128),
+        attention_grad_case("window_softcap", 1, 2048, 16, 8, 128, 128,
+                            window=512, cap=50.0),
+        attention_grad_case("zamba2_attention_f32", 1, 1024, 32, 32, 64, 64,
+                            dtype="float32"),
+    ]
+    ssd = [
+        ssd_grad_case("zamba2_ssd", 2, 2048, 64, 64, 64, 256, timed=True),
+        ssd_grad_case("mamba2_ssd", 2, 2048, 48, 64, 128, 256),
+    ]
+    return {"flash_attention.backward": flash, "ssd_scan.backward": ssd}
 
 
 def reset_model_counts() -> None:
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ops
     from repro_torch.kernels import ssd_scan as ss
 
     fa.launches = ss.launches = fa.lse_launches = 0
-    for counts in (fa.variant_launches, ss.variant_launches,
-                   ops.backward_recomputes):
+    fa.backward_launches = ss.backward_launches = 0
+    for counts in (fa.variant_launches, ss.variant_launches):
         for k in counts:
             counts[k] = 0
 
 
 def model_counts() -> dict:
+    """Forward launches by variant, and the backward kernels' launches
+    under ``backward``."""
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ops
     from repro_torch.kernels import ssd_scan as ss
 
     return dict(**fa.variant_launches,
                 **{f"ssd_{k}": c for k, c in ss.variant_launches.items()},
-                recomputes=dict(ops.backward_recomputes))
+                backward={"flash_attention.backward": fa.backward_launches,
+                          "ssd_scan.backward": ss.backward_launches})
 
 
 def _train_setup(cfg, device, seed: int = 0):
@@ -3170,7 +3419,8 @@ def train_phase(remat: str) -> dict:
     of 2 x 2048 tokens on the card, counts reset just before: every loss
     finite; the kernels' launches per forward (6 ``prefill_tc``, 32 ``tc``;
     under ``full`` remat the body groups' forwards run again in the
-    backward) and their backward recomputes (6 and 32 a step)."""
+    backward), the backward kernels' (6 and 32 a step, one a Function's
+    backward), and no call of a plain version."""
     import torch
 
     from repro_torch.launch import train as launch_train
@@ -3178,7 +3428,8 @@ def train_phase(remat: str) -> dict:
 
     t0 = time.perf_counter()
     reset_model_counts()
-    res = launch_train.main(TRAIN_ARGS + ["--remat", remat])
+    with plain_calls() as plain_n:
+        res = launch_train.main(TRAIN_ARGS + ["--remat", remat])
     counts = model_counts()
     wall = time.perf_counter() - t0
     cfg = launch_train.scaled_config(TRAIN_ARCH, "full")
@@ -3195,23 +3446,23 @@ def train_phase(remat: str) -> dict:
                                             for k in body)),
         decode_split=0, simt=0, ssd_simt=0)
     got = {k: counts[k] for k in want}
-    want_re = {"flash_attention.prefill_tc": steps * sites,
-               "ssd_scan.tc": steps * mamba}
-    got_re = {k: counts["recomputes"][k] for k in want_re}
+    want_bwd = {"flash_attention.backward": steps * sites,
+                "ssd_scan.backward": steps * mamba}
     check(steps == 4 and all(np.isfinite(res["losses"])),
           f"train {remat}: losses {res['losses']}")
     check(got == want, f"train {remat}: kernel launches {got}, expected "
           f"{want}")
-    check(got_re == want_re and sum(counts["recomputes"].values())
-          == sum(want_re.values()),
-          f"train {remat}: backward recomputes {counts['recomputes']}, "
-          f"expected {want_re}")
+    check(counts["backward"] == want_bwd, f"train {remat}: backward "
+          f"launches {counts['backward']}, expected {want_bwd}")
+    check(not plain_n, f"train {remat}: plain versions called "
+          f"{dict(plain_n)}")
     tokens = 2 * 2048
     out = dict(remat=remat, steps=steps, losses=res["losses"],
                step_s=res["step_s"], tokens_per_s=tokens / res["step_s"],
                peak_mem_gb=res["peak_mem_gb"], launches=got,
                launches_per_step={k: v / steps for k, v in got.items()},
-               backward_recomputes=got_re, params=cfg.param_count(),
+               backward_launches=counts["backward"],
+               plain_calls=sum(plain_n.values()), params=cfg.param_count(),
                wall_s=wall)
     emit("train", **out)
     del res
@@ -3222,11 +3473,12 @@ def train_phase(remat: str) -> dict:
 def train_profile_phase() -> dict:
     """One more zamba2 train step on the card under ``torch.profiler``
     (after a warm-up step): device busy and idle share, the largest device
-    ops, and the share of busy time spent in the kernels' backward
-    recomputes (device time under the Functions' backward nodes).  Then
-    the step's gradients: every leaf finite and non-zero, so gradients
-    crossed both kernels' Functions (the shared block's attention weights
-    and every Mamba layer's ``w_in`` among them)."""
+    ops, and the share of busy time spent in the kernels' backward (device
+    time under the Functions' backward nodes).  A third step's host waits
+    are recorded for the lint phase.  Then the step's gradients: every
+    leaf finite and non-zero, so gradients crossed both kernels'
+    Functions (the shared block's attention weights and every Mamba
+    layer's ``w_in`` among them)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3255,17 +3507,19 @@ def train_profile_phase() -> dict:
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA), key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    recompute = {}
+    backward = {}
     for e in prof.events():
         if e.name.startswith("autograd::engine::evaluate_function: ") and \
                 any(f in e.name for f in ("_AttentionBackward",
                                           "_SSDBackward")):
             key = e.name.split(": ")[1]
-            recompute[key] = recompute.get(key, 0.0) \
+            backward[key] = backward.get(key, 0.0) \
                 + e.device_time_total / 1e3
     ours = {n[:60]: ms for n, ms, _ in rows
             if any(k in n for k in ("flash::", "ssd::"))}
     check(busy > 0, "train_profile: the trace holds no device time")
+    params, state, _ = record_sites("train_profile/train_step",
+                                    lambda: step_fn(params, state, batch))
     grads_of = ts._grad_fn(cfg, ctx)
     _, _, grads = grads_of(params, batch)
     bad = [(".".join(map(str, path)), float(g.abs().max()))
@@ -3278,8 +3532,8 @@ def train_profile_phase() -> dict:
             for layer in grads["layers"] if "mamba" in layer]
     out = dict(wall_ms=wall, device_busy_ms=busy,
                idle_share=max(0.0, 1 - busy / wall),
-               backward_recompute_ms=recompute,
-               backward_recompute_share=sum(recompute.values()) / busy,
+               backward_ms=backward,
+               backward_share=sum(backward.values()) / busy,
                repo_kernels_ms=ours,
                top=[dict(name=n[:90], ms=ms, calls=c) for n, ms, c in rows[:8]],
                grad_leaves=n_leaves, grad_leaves_nonzero_finite=n_leaves,
@@ -3313,7 +3567,8 @@ def train_held_phase() -> dict:
     params, _ = _train_setup(cfg, dev, seed=3)
     batch = _train_batch(cfg, 1, 2048, dev, step=3)
     reset_model_counts()
-    loss_c, _, g_c = ts._grad_fn(cfg, decoder.RunCtx(dev))(params, batch)
+    with plain_calls() as plain_n:
+        loss_c, _, g_c = ts._grad_fn(cfg, decoder.RunCtx(dev))(params, batch)
     counts = model_counts()
     t_card = time.perf_counter() - t0
     cpu_params = tree_map(lambda t: t.to("cpu"), params)
@@ -3328,8 +3583,12 @@ def train_held_phase() -> dict:
         errs[".".join(map(str, path))] = float(
             (a.cpu() - b).norm() / b.norm().clamp(min=1e-30))
     worst = max(errs, key=errs.get)
-    check(counts["prefill_tc"] == 1 and counts["ssd_tc"] == 5,
-          f"train_held: kernel launches {counts}")
+    check(counts["prefill_tc"] == 1 and counts["ssd_tc"] == 5
+          and counts["backward"] == {"flash_attention.backward": 1,
+                                     "ssd_scan.backward": 5}
+          and not plain_n,
+          f"train_held: kernel launches {counts}, plain calls "
+          f"{dict(plain_n)}")
     check(rel_loss <= HELD_TRAIN_LOSS_TOL,
           f"train_held: loss {float(loss_c)} on cuda, {float(loss_h)} on cpu")
     check(errs[worst] <= HELD_TRAIN_GRAD_TOL,
@@ -3679,7 +3938,8 @@ def mesh_train_phase(train: dict) -> dict:
     args[args.index("--steps") + 1] = "2"
     torch.cuda.reset_peak_memory_stats()
     reset_model_counts()
-    res = launch_train.main(args + ["--remat", "none"])
+    with plain_calls() as plain_n:
+        res = launch_train.main(args + ["--remat", "none"])
     counts = model_counts()
     plan = layer_plan(launch_train.scaled_config(TRAIN_ARCH, "full"))
     steps = res["steps"]
@@ -3693,12 +3953,18 @@ def mesh_train_phase(train: dict) -> dict:
     check(steps == 2 and rel <= MESH_TRAIN_LOSS_TOL,
           f"mesh_train: losses {res['losses']}, single-device {base}")
     check(got == want, f"mesh_train: kernel launches {got}, expected {want}")
+    want_bwd = {"flash_attention.backward": want["prefill_tc"],
+                "ssd_scan.backward": want["ssd_tc"]}
+    check(counts["backward"] == want_bwd and not plain_n,
+          f"mesh_train: backward launches {counts['backward']}, expected "
+          f"{want_bwd}; plain calls {dict(plain_n)}")
     out = dict(steps=steps, losses=res["losses"], train_losses=base,
                max_rel_loss_diff=rel, tol_rel=MESH_TRAIN_LOSS_TOL,
                step_s=res["step_s"], train_step_s=train["none"]["step_s"],
                peak_mem_gb=res["peak_mem_gb"],
                train_peak_mem_gb=train["none"]["peak_mem_gb"],
-               launches=got, wall_s=time.perf_counter() - t0)
+               launches=got, backward_launches=counts["backward"],
+               wall_s=time.perf_counter() - t0)
     emit("mesh_train", **out)
     del res
     torch.cuda.empty_cache()
@@ -3847,7 +4113,220 @@ def mesh_decode_phase(seed: int = 11) -> dict:
     emit("mesh_decode", **out)
     del params, runs
     torch.cuda.empty_cache()
-    return dict(out, cases=cases, counts=counts)
+    mla = mla_multi_case(meshes["seq_mesh"])
+    return dict(out, cases=cases, counts=dict(counts, mla_multi=mla))
+
+
+MLA_RING = 128                 # ring slots of the one-chunk steps
+MLA_STEPS = (96, 3)            # tokens a step: prefill_tc, then simt
+
+
+def _mla_inputs(seed: int, dev):
+    """deepseek-v2 cut to its first layer (full width), its parameters
+    drawn from ``seed`` and the tokens of the MLA_STEPS steps, batch 2."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import common
+
+    cfg = dataclasses.replace(get_config("deepseek-v2-236b"), n_layers=1)
+    params = common.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        seed), dev, cfg.compute_dtype())
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    steps = [torch.randint(0, cfg.vocab_size, (2, t), generator=gen,
+                           device=dev, dtype=torch.int32) for t in MLA_STEPS]
+    return cfg, params, steps
+
+
+def _mla_run(cfg, ctx, params, steps, ring: int):
+    """The steps into a fresh ring of ``ring`` slots on ``ctx``: each
+    step's logits and the launches, counted from just before the first."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import decoder
+
+    caches = decoder.init_cache(cfg, 2, ring, cfg.compute_dtype(),
+                                ctx.device, mesh=ctx.mesh)
+    reset_model_counts()                             # just before the path
+    pos, outs = 0, []
+    for toks in steps:
+        out, caches = decoder.multi_token_step(cfg, ctx, params, caches,
+                                               toks, pos)
+        outs.append(out)
+        pos += toks.shape[1]
+    torch.cuda.synchronize()
+    counts = dict(model_counts(), lse=fa.lse_launches)
+    counts.pop("backward")
+    return outs, counts
+
+
+def mla_multi_case(seq_mesh: dict, seed: int = 13) -> dict:
+    """deepseek-v2's MLA at full width (its first layer), steps of 96 and
+    then 3 tokens into a seq-sharded latent cache on the (1, 1, 1) seq
+    mesh, against the same steps without a mesh: the expanded path runs
+    ``prefill_tc<192,128>`` (96 rows a kv head), then ``simt`` (3), each
+    with the rows' lse, and merges its one chunk through the combine, so
+    the logits are equal bit for bit; one lse launch a step.  The merge of
+    several chunks is :func:`mla_seq_gloo_phase`'s."""
+    import torch
+
+    from repro_torch.models import decoder
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg, params, steps = _mla_inputs(seed, dev)
+    logits, counts = {}, {}
+    for name, kw in (("none", {}), ("seq_mesh", seq_mesh)):
+        logits[name], counts[name] = _mla_run(
+            cfg, decoder.RunCtx(dev, **kw), params, steps, MLA_RING)
+    equal = all(torch.equal(a, b) for a, b in zip(logits["none"],
+                                                  logits["seq_mesh"]))
+    want = dict(prefill_tc=1, simt=1, lse=2)
+    got = {k: counts["seq_mesh"][k] for k in want}
+    check(equal, "mesh_decode/mla_multi: the seq mesh's logits differ")
+    check(got == want and counts["none"]["lse"] == 0,
+          f"mesh_decode/mla_multi: launches {counts}, expected {want}")
+    out = dict(arch=cfg.name, n_layers=1, steps=list(MLA_STEPS),
+               logits_equal=equal, launches=got,
+               wall_s=time.perf_counter() - t0)
+    emit("mesh_decode_mla_multi", **out)
+    del params, logits
+    torch.cuda.empty_cache()
+    return counts["seq_mesh"]
+
+
+MLA_SEQ = 4                    # gloo ranks sharing the one card: (1, 4, 1)
+MLA_SEQ_RING = 256             # 64 slots a rank
+MLA_SEQ_TIMEOUT = 300.0
+
+
+def _mla_seq_rank(rank: int, world: int, port: int, out: str,
+                  seed: int) -> None:
+    """One gloo rank of :func:`mla_seq_gloo_phase`: the MLA steps into its
+    64-slot chunk of a MLA_SEQ_RING ring cut over the (1, world, 1) seq
+    mesh, every lse the attention kernels return recorded (its rows that
+    saw no key: lse at most NEG_INF / 2); on rank 0 also the same steps
+    without a mesh, and the gap between the two."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.models import decoder
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda")
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        mesh = init_device_mesh("cpu", (1, world, 1),
+                                mesh_dim_names=("data", "seq", "model"))
+        cfg, params, steps = _mla_inputs(seed, dev)
+        launch, calls = fa.flash_attention, []
+
+        def recorded(q, k, v, **kw):
+            res = launch(q, k, v, **kw)
+            if kw.get("return_lse"):
+                o, lse = res
+                none = lse <= ref.NEG_INF / 2
+                calls.append(dict(
+                    variant=fa.variant(q.dtype, q.shape[1], q.shape[2],
+                                       k.shape[2], q.shape[3], v.shape[3]),
+                    rows=lse.numel(), rows_no_key=int(none.sum()),
+                    rows_lse_inf=int(torch.isneginf(lse).sum()),
+                    finite=bool(torch.isfinite(lse[~none]).all()
+                                and torch.isfinite(o[~none]).all())))
+            return res
+
+        fa.flash_attention = recorded
+        try:
+            logits, counts = _mla_run(
+                cfg, decoder.RunCtx(dev, mesh=mesh, seq_axis="seq"), params,
+                steps, MLA_SEQ_RING)
+        finally:
+            fa.flash_attention = launch
+        res = dict(calls=calls, launches=counts,
+                   finite=all(bool(torch.isfinite(x).all()) for x in logits))
+        if rank == 0:
+            one, _ = _mla_run(cfg, decoder.RunCtx(dev), params, steps,
+                              MLA_SEQ_RING)
+            rows = lambda xs: [x.reshape(-1, x.shape[-1]) for x in xs]
+            res["vs_meshless"] = compare_logits(rows(logits), rows(one))
+        torch.save(res, Path(out) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def mla_seq_gloo_phase(seed: int = 13) -> dict:
+    """26d. deepseek-v2's MLA steps of 96 and then 3 tokens into a latent
+    cache cut over MLA_SEQ gloo ranks of the one card, a (1, 4, 1) seq
+    mesh of 64 slots a rank: each rank runs the expanded path over its
+    chunk (``prefill_tc<192,128>``, then ``simt``) with the rows' lse, and
+    the chunks merge through ``attention._seq_combine``.  In the 96-token
+    step rows 0-63 see no key of rank 1's chunk and no row one of rank 2's
+    or 3's; in the 3-token step no row sees one of rank 2's or 3's.  So
+    both kernels write rows that saw no key into the merge (lse at most
+    NEG_INF / 2: weight 0), and each is checked to have done so.  Rank
+    0's logits are held to the same steps without a mesh within MODEL_TOL
+    of the largest logit."""
+    import socket
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as out, socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+        sock.close()
+        procs = [ctx.Process(target=_mla_seq_rank,
+                             args=(r, MLA_SEQ, port, out, seed))
+                 for r in range(MLA_SEQ)]
+        for proc in procs:
+            proc.start()
+        deadline = time.monotonic() + MLA_SEQ_TIMEOUT
+        for proc in procs:
+            proc.join(max(0.0, deadline - time.monotonic()))
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+        check(all(proc.exitcode == 0 for proc in procs),
+              f"mesh_mla_seq: ranks exited {[p.exitcode for p in procs]}")
+        ranks = [torch.load(Path(out) / f"rank{r}.pt")
+                 for r in range(MLA_SEQ)]
+    want = dict(prefill_tc=1, simt=1, lse=2)
+    no_key = collections.Counter()
+    for r, res in enumerate(ranks):
+        got = {k: res["launches"][k] for k in want}
+        check(got == want, f"mesh_mla_seq: rank {r} launches {got}, "
+              f"expected {want}")
+        check(res["finite"], f"mesh_mla_seq: rank {r} logits not finite")
+        for call in res["calls"]:
+            check(call["finite"], f"mesh_mla_seq: rank {r} {call}: a row "
+                  f"that saw keys has a lse or output not finite")
+            no_key[call["variant"]] += call["rows_no_key"]
+    check(no_key["prefill_tc"] > 0 and no_key["simt"] > 0,
+          f"mesh_mla_seq: rows that saw no key by variant {dict(no_key)}: "
+          f"each kernel should write some into the merge")
+    cmp = ranks[0]["vs_meshless"]
+    check(cmp["rel_diff"] <= MODEL_TOL, f"mesh_mla_seq: rank 0's logits "
+          f"differ from the meshless steps by {cmp}")
+    out = dict(arch="deepseek-v2-236b", n_layers=1, steps=list(MLA_STEPS),
+               mesh=[1, MLA_SEQ, 1], ring=MLA_SEQ_RING,
+               rows_no_key=dict(no_key), vs_meshless=cmp,
+               calls=[res["calls"] for res in ranks],
+               launches_all_ranks={k: sum(res["launches"][k] for res in ranks)
+                                   for k in ranks[0]["launches"]},
+               phase_wall_s=time.perf_counter() - t0)
+    emit("mesh_mla_seq", **out)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3923,7 +4402,7 @@ def _tp_rank(rank: int, world: int, port: int, out: str, seed: int) -> None:
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
                 counts = model_counts()
-            counts.pop("recomputes")
+            counts.pop("backward")
             rec = dict(
                 held_bytes=sum(t.numel() * t.element_size()
                                for t in leaves(params)),
@@ -4486,7 +4965,7 @@ def anchor_cell(path: str, arch: str, shape: str, batch: int, params,
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / passes
     counts = model_counts()
-    counts.pop("recomputes")
+    counts.pop("backward")
     peak = torch.cuda.max_memory_allocated()
     check(counts == want, f"{path}: kernel launches {counts}, expected {want}")
     check(tuple(logits.shape) == (batch, cfg.vocab_size)
@@ -4572,6 +5051,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import lease_validate as lv
 from repro_torch.kernels import ssd_scan as ss
 fa.launches = ss.launches = lv.launches = 0
+fa.backward_launches = ss.backward_launches = 0
 for counts in (fa.variant_launches, ss.variant_launches, lv.variant_launches):
     for k in counts:
         counts[k] = 0
@@ -4579,10 +5059,15 @@ sys.argv = sys.argv[1:]
 runpy.run_path(sys.argv[0], run_name="__main__")
 print("kernel_counts " + json.dumps(dict(
     **fa.variant_launches, **{"ssd_" + k: v for k, v in ss.variant_launches.items()},
-    **{"lease_" + k: v for k, v in lv.variant_launches.items()})), flush=True)
+    **{"lease_" + k: v for k, v in lv.variant_launches.items()},
+    **{"flash_attention.backward": fa.backward_launches,
+       "ssd_scan.backward": ss.backward_launches})), flush=True)
 """
 
 EXAMPLES = ("quickstart", "serve_migration", "train_100m", "failover_recovery")
+# the smoke's cut of an example's run: train_100m takes 100 of its 300
+# default steps
+EXAMPLE_ARGS = {"train_100m": ["--steps", "100"]}
 
 
 def _part1(text: str) -> list:
@@ -4594,9 +5079,10 @@ def _part1(text: str) -> list:
 
 
 def examples_phase(timeout_s: float = 420.0) -> dict:
-    """29. The four examples as subprocesses on the card, all at once, and
-    quickstart's part 1 on ``--device cpu`` beside them: each exits 0, and
-    part 1 prints the same lines on both devices."""
+    """29. The four examples as subprocesses on the card, all at once
+    (train_100m at EXAMPLE_ARGS' 100 steps), and quickstart's part 1 on
+    ``--device cpu`` beside them: each exits 0, and part 1 prints the same
+    lines on both devices."""
     import os
 
     env = dict(os.environ, PYTHONPATH=str(SRC))
@@ -4605,7 +5091,8 @@ def examples_phase(timeout_s: float = 420.0) -> dict:
         for name in EXAMPLES:
             procs[name] = subprocess.Popen(
                 [sys.executable, "-c", EXAMPLE_RUNNER,
-                 str(ROOT / "examples" / "torch" / f"{name}.py")],
+                 str(ROOT / "examples" / "torch" / f"{name}.py"),
+                 *EXAMPLE_ARGS.get(name, [])],
                 cwd=ROOT, env=env, stdout=subprocess.PIPE,
                 stderr=subprocess.PIPE, text=True)
         procs["quickstart_cpu"] = subprocess.Popen(
@@ -4648,6 +5135,10 @@ def examples_phase(timeout_s: float = 420.0) -> dict:
 # -- phase 30: the static lint, and the card's sync sites held to it ---------
 
 LINT_TIMEOUT = 300.0
+# where a train step must not wait on the device (the kernels' forward and
+# backward dispatch)
+TRAIN_QUIET_FILES = tuple(f"src/repro_torch/kernels/{m}.py" for m in (
+    "ops", "flash_attention", "ssd_scan"))
 INVISIBLE_SYNCS = (
     "a wait inside a ctypes library (lease_drain_launch's, the drain's one "
     "wait) warns under neither the sync debug mode nor the lint; a "
@@ -4709,6 +5200,12 @@ def lint_phase() -> dict:
     check(not violations, f"lint: {len(violations)} violations")
     check(not unflagged, f"lint: sync sites the host-sync rule does not "
           f"flag: {unflagged}")
+    train = SYNC_SITES.get("train_profile/train_step", ({}, set()))[0]
+    in_kernels = [at for at in train
+                  if at.rpartition(":")[0] in TRAIN_QUIET_FILES]
+    check("train_profile/train_step" in SYNC_SITES and not in_kernels,
+          f"lint: the train step waits in the kernels' modules: "
+          f"{in_kernels}")
     return out
 
 
@@ -4900,8 +5397,11 @@ def main() -> int:
     main_san = sanitized_phase("main_sanitized", "tpcc", main_cfg, main_card)
     emit("main_sanitized_done", wall_s=time.perf_counter() - t0)
     t0 = time.perf_counter()
-    forced_san = sanitized_phase("forced_sanitized", "bank", forced_cfg,
-                                 forced_card, fail_at=120.0)
+    forced_cut = dict(forced_cfg, duration_ms=FORCED_SANITIZED_MS)
+    forced_san = sanitized_phase(
+        "forced_sanitized", "bank", forced_cut,
+        run_cluster("bank", "cuda", forced_cut, fail_at=120.0),
+        fail_at=120.0)
     emit("forced_sanitized_done", wall_s=time.perf_counter() - t0)
     t0 = time.perf_counter()
     serve_san = serve_sanitized_phase(serve_results)
@@ -4920,9 +5420,7 @@ def main() -> int:
     # zamba2's training shapes, the trainer at full width and depth (remat
     # none and full), one step profiled, the train step held to the CPU
     t0 = time.perf_counter()
-    grad_cases = {c["variant"]: c for c in (
-        kernel_grad_case("zamba2_attention", "attention"),
-        kernel_grad_case("zamba2_ssd", "ssd"))}
+    grad_cases = kernel_grad_phase()
     emit("kernel_grad_done", wall_s=time.perf_counter() - t0)
     t0 = time.perf_counter()
     train = {remat: train_phase(remat) for remat in ("none", "full")}
@@ -4931,10 +5429,13 @@ def main() -> int:
     train_profile_phase()
     emit("train_profile_done", wall_s=time.perf_counter() - t0)
     t0 = time.perf_counter()
-    train_held_phase()
+    train_held = train_held_phase()
     emit("train_held_done", wall_s=time.perf_counter() - t0)
     train_paths = {"train": train["none"]["launches"],
                    "train_remat_full": train["full"]["launches"]}
+    backward_paths = {"train": train["none"]["backward_launches"],
+                      "train_remat_full": train["full"]["backward_launches"],
+                      "train_held": train_held["launches"]["backward"]}
 
     # 24-26. the mesh on a world of one NCCL rank: the sharded MoE paths,
     # data-parallel training, seq-sharded decode through decode_split's
@@ -4951,6 +5452,7 @@ def main() -> int:
     import torch.distributed as dist
 
     dist.destroy_process_group()
+    backward_paths["mesh_train"] = mesh_train["backward_launches"]
     mesh_paths = {"mesh_train": mesh_train["counts"],
                   **{f"mesh_decode_{k}": c
                      for k, c in mesh_decode["counts"].items()}}
@@ -4961,6 +5463,14 @@ def main() -> int:
     emit("mesh_tp_done", wall_s=time.perf_counter() - t0)
     mesh_paths.update({f"mesh_tp_{tag}": rec["launches_all_ranks"]
                        for tag, rec in tp.items()})
+
+    # 26d. MLA's multi-token steps over a ring cut over 4 gloo ranks
+    t0 = time.perf_counter()
+    mla_seq = mla_seq_gloo_phase()
+    emit("mesh_mla_seq_done", wall_s=time.perf_counter() - t0)
+    mesh_paths["mesh_mla_seq"] = {k: v for k, v in
+                                  mla_seq["launches_all_ranks"].items()
+                                  if k != "lse"}
 
     # 27-29. the batched policy sweep, the analytic estimates against real
     # steps at the grid's 32k shapes, the four examples as users run them
@@ -5010,17 +5520,19 @@ def main() -> int:
                            sum(drain_paths.values()),
                            [drain_cases[1], *drain_cases, *serve_cases]),
              launches_by_path=drain_paths),
-        *(with_lse(with_backward(r, train, grad_cases), mesh_decode)
-          for r in flash_records(flash_cases, {
+        *(with_lse(r, mesh_decode) for r in flash_records(flash_cases, {
               "glm4": glm4, "mamba2": mamba2, "mixtral": mixtral,
               "deepseek": deepseek, **rest,
               "serve_real_mixtral": serve_real["mixtral-8x7b"],
               "serve_real_deepseek": serve_real["deepseek-v2-236b"],
               "serve_real_zamba2": serve_real["zamba2-1.2b"],
               **train_paths, **mesh_paths, **new_paths})),
-        *(with_backward(r, train, grad_cases) for r in ssd_records(
-            ssd_cases, {"mamba2": mamba2, "zamba2": rest["zamba2"],
-                        **train_paths, **mesh_paths, **new_paths})),
+        *ssd_records(ssd_cases, {"mamba2": mamba2, "zamba2": rest["zamba2"],
+                                 **train_paths, **mesh_paths, **new_paths}),
+        *backward_records(grad_cases, {
+            **backward_paths,
+            **{k: v for k, v in example_paths.items()
+               if k == "examples_train_100m"}}),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}), flush=True)

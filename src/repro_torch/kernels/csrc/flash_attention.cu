@@ -76,10 +76,23 @@
 //   One block per (b, q head, q tile) on the fp32 CUDA cores.  No model
 //   path the port runs at full width reaches it.
 //
+// On request every variant also writes each row's fp32 log-sum-exp [B, Sq,
+// Hq] (m + log l) and leaves the output's bits as they are without it.  A
+// row that saw no key gets kNegInf + log of the hidden keys its tiles held,
+// or -inf where every tile was skipped: no weight in a merge.  The seq-sharded paths merge their ranks'
+// chunks by it, and the backward recomputes P from it.
+//
+// The backward (flash_backward.cuh, its own entry point below): the input
+// gradients of the same function from q, k, v, the output, its lse and the
+// output's gradient, in three kernels on the fp32 CUDA cores (a rowsum
+// pre-pass, dK/dV per key tile, dQ per q tile), for every dtype, head dims
+// and option the forward takes; deterministic, no atomics.
+//
 // The kernels allocate nothing and do not synchronise: decode_split's
 // partials live in a scratch the caller allocates.  The launcher returns
 // cudaGetLastError() so a refused launch is reported at once.
 
+#include "flash_backward.cuh"
 #include "flash_common.cuh"
 #include "flash_decode_split.cuh"
 #include "flash_prefill_tc.cuh"
@@ -137,8 +150,8 @@ extern "C" int flash_attention_variant(int dtype, int B, int Sq, int Skv,
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it).
 // window <= 0: no sliding window.  softcap <= 0: no softcap.
 // scratch: fp32, at least flash_attention_variant's scratch_floats.
-// lse: null, or fp32 [B, Sq, Hq] for the rows' log-sum-exp (decode_split
-// only: another variant refuses it).  *chosen receives the variant launched.
+// lse: null, or fp32 [B, Sq, Hq] for the rows' log-sum-exp.  *chosen
+// receives the variant launched.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, const void* qpos,
                                       const void* kpos, void* out, int dtype,
@@ -154,26 +167,25 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int var = choose_variant(dtype, Sq, Hq, Hkv, Dk, Dv);
   *chosen = var;
-  if (lse != nullptr && var != kDecodeSplit)
-    return (int)cudaErrorInvalidValue;
   if (var != kSimt &&
       !(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out)))
     return (int)cudaErrorMisalignedAddress;
+  float* l = static_cast<float*>(lse);
   if (var == kPrefillTc) {
     if (Dk == 64)
-      return flash::prefill_tc::launch<64, 64>(q, k, v, qpos, kpos, out, B,
+      return flash::prefill_tc::launch<64, 64>(q, k, v, qpos, kpos, out, l, B,
                                                Sq, Skv, Hq, Hkv, scale,
                                                softcap, causal, window, s);
     if (Dk == 80)
-      return flash::prefill_tc::launch<80, 80>(q, k, v, qpos, kpos, out, B,
+      return flash::prefill_tc::launch<80, 80>(q, k, v, qpos, kpos, out, l, B,
                                                Sq, Skv, Hq, Hkv, scale,
                                                softcap, causal, window, s);
     if (Dk == 128)
-      return flash::prefill_tc::launch<128, 128>(q, k, v, qpos, kpos, out, B,
-                                                 Sq, Skv, Hq, Hkv, scale,
+      return flash::prefill_tc::launch<128, 128>(q, k, v, qpos, kpos, out, l,
+                                                 B, Sq, Skv, Hq, Hkv, scale,
                                                  softcap, causal, window, s);
-    return flash::prefill_tc::launch<192, 128>(q, k, v, qpos, kpos, out, B,
-                                               Sq, Skv, Hq, Hkv, scale,
+    return flash::prefill_tc::launch<192, 128>(q, k, v, qpos, kpos, out, l,
+                                               B, Sq, Skv, Hq, Hkv, scale,
                                                softcap, causal, window, s);
   }
   if (var == kDecodeSplit) {
@@ -182,7 +194,6 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     if (scratch == nullptr || scratch_floats < need)
       return (int)cudaErrorInvalidValue;
     float* part = static_cast<float*>(scratch);
-    float* l = static_cast<float*>(lse);
     if (dtype == 0)
       return launch_decode<float>(q, k, v, qpos, kpos, out, l, part, B, Sq,
                                   Skv, Hq, Hkv, Dk, scale, softcap, causal,
@@ -192,11 +203,39 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                         causal, window, s);
   }
   if (dtype == 0)
-    return flash::simt::dispatch_bq<float>(q, k, v, qpos, kpos, out, B, Sq,
+    return flash::simt::dispatch_bq<float>(q, k, v, qpos, kpos, out, l, B, Sq,
                                            Skv, Hq, Hkv, Dk, Dv, scale,
                                            softcap, causal, window, s);
-  return flash::simt::dispatch_bq<__nv_bfloat16>(q, k, v, qpos, kpos, out, B,
-                                                 Sq, Skv, Hq, Hkv, Dk, Dv,
+  return flash::simt::dispatch_bq<__nv_bfloat16>(q, k, v, qpos, kpos, out, l,
+                                                 B, Sq, Skv, Hq, Hkv, Dk, Dv,
                                                  scale, softcap, causal,
                                                  window, s);
+}
+
+// The input gradients dq, dk, dv (the inputs' shapes and dtype) of the
+// forward above for the output gradient dout, from the forward's out and
+// lse (fp32 [B, Sq, Hq]).  delta: fp32 scratch of B * Sq * Hq floats.
+// Arguments as the forward's otherwise.
+extern "C" int flash_attention_backward_launch(
+    const void* q, const void* k, const void* v, const void* out,
+    const void* dout, const void* lse, const void* qpos, const void* kpos,
+    void* dq, void* dk, void* dv, void* delta, long long delta_floats,
+    int dtype, int B, int Sq, int Skv, int Hq, int Hkv, int Dk, int Dv,
+    float scale, float softcap, int causal, int window, void* stream) {
+  if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Dk <= 0 ||
+      Dk > 256 || Dv <= 0 || Dv > 256 || (dtype != 0 && dtype != 1) ||
+      lse == nullptr || delta == nullptr ||
+      delta_floats < (long long)B * Sq * Hq)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  float* d = static_cast<float*>(delta);
+  if (dtype == 0)
+    return flash::backward::launch<float>(q, k, v, out, dout, l, qpos, kpos,
+                                          dq, dk, dv, d, B, Sq, Skv, Hq, Hkv,
+                                          Dk, Dv, scale, softcap, causal,
+                                          window, s);
+  return flash::backward::launch<__nv_bfloat16>(
+      q, k, v, out, dout, l, qpos, kpos, dq, dk, dv, d, B, Sq, Skv, Hq, Hkv,
+      Dk, Dv, scale, softcap, causal, window, s);
 }

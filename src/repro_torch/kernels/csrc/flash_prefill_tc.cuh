@@ -71,9 +71,9 @@ prefill_tc_kernel(const __grid_constant__ CUtensorMap tq,
                   const __grid_constant__ CUtensorMap tv,
                   const int32_t* __restrict__ qpos,
                   const int32_t* __restrict__ kpos,
-                  __nv_bfloat16* __restrict__ out, int B, int Sq, int Skv,
-                  int Hq, int Hkv, float scale, float softcap, int causal,
-                  int window) {
+                  __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                  int B, int Sq, int Skv, int Hq, int Hkv, float scale,
+                  float softcap, int causal, int window) {
   using P = Plan<DK, DV>;
   constexpr int kKeysPerLane = kBN / 32;
   extern __shared__ uint8_t smem_raw[];
@@ -357,7 +357,9 @@ prefill_tc_kernel(const __grid_constant__ CUtensorMap tq,
     }
 
     // epilogue: the row sums over the four lanes of a row, acc / l in fp32,
-    // rounded once to bf16; the DV columns of the tensor, not the panels
+    // rounded once to bf16; the DV columns of the tensor, not the panels.
+    // On request a row's first lane also writes its log-sum-exp m + log l
+    // (-inf where no key reached the row: every tile skipped)
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
       l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 1);
@@ -375,6 +377,9 @@ prefill_tc_kernel(const __grid_constant__ CUtensorMap tq,
         *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + c0) =
             __floats2bfloat162_rn(o[4 * j + 2 * hr] / safe,
                                   o[4 * j + 2 * hr + 1] / safe);
+      if (lse != nullptr && c0 == 0)
+        lse[((int64_t)b * Sq + row) * Hq + h] =
+            l[hr] > 0.f ? m[hr] + logf(l[hr]) : -INFINITY;
     }
   }
 }
@@ -383,9 +388,9 @@ prefill_tc_kernel(const __grid_constant__ CUtensorMap tq,
 
 template <int DK, int DV>
 int launch(const void* q, const void* k, const void* v, const void* qpos,
-           const void* kpos, void* out, int B, int Sq, int Skv, int Hq,
-           int Hkv, float scale, float softcap, int causal, int window,
-           cudaStream_t stream) {
+           const void* kpos, void* out, float* lse, int B, int Sq, int Skv,
+           int Hq, int Hkv, float scale, float softcap, int causal,
+           int window, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   int err = make_map(&tq, q, B, Sq, Hq, DK, kBM);
   if (!err) err = make_map(&tk, k, B, Skv, Hkv, DK, kBN);
@@ -404,8 +409,8 @@ int launch(const void* q, const void* k, const void* v, const void* qpos,
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   kernel<<<(unsigned)blocks, kThreads, P::kAlloc, stream>>>(
       tq, tk, tv, static_cast<const int32_t*>(qpos),
-      static_cast<const int32_t*>(kpos), static_cast<__nv_bfloat16*>(out), B,
-      Sq, Skv, Hq, Hkv, scale, softcap, causal, window);
+      static_cast<const int32_t*>(kpos), static_cast<__nv_bfloat16*>(out), lse,
+      B, Sq, Skv, Hq, Hkv, scale, softcap, causal, window);
   return (int)cudaGetLastError();
 }
 

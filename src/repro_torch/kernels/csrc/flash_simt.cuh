@@ -24,9 +24,10 @@ template <typename T, int BQ, int DV_CHUNKS>
 __global__ void __launch_bounds__((BQ / 4) * (kBK / 4))
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, const int32_t* __restrict__ qpos,
-             const int32_t* __restrict__ kpos, T* __restrict__ out, int Sq,
-             int Skv, int Hq, int Hkv, int Dk, int Dv, float scale,
-             float softcap, int causal, int window) {
+             const int32_t* __restrict__ kpos, T* __restrict__ out,
+             float* __restrict__ lse, int Sq, int Skv, int Hq, int Hkv,
+             int Dk, int Dv, float scale, float softcap, int causal,
+             int window) {
   constexpr int kThreads = (BQ / 4) * (kBK / 4);
   constexpr int kQS = BQ + kPad;       // row stride of the staged q
   constexpr int kKS = kBK + kPad;      // row stride of staged k and of p
@@ -191,14 +192,18 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int c = 64 * cc + 4 * tx + e;
         if (c < Dv) orow[c] = from_float<T>(acc[r][4 * cc + e] / safe);
       }
+    // on request, the row's log-sum-exp (-inf where no key reached it)
+    if (lse != nullptr && tx == 0)
+      lse[((int64_t)b * Sq + row) * Hq + h] =
+          l_i[r] > 0.f ? m_i[r] + logf(l_i[r]) : -INFINITY;
   }
 }
 
 template <typename T, int BQ, int DV_CHUNKS>
 int launch(const void* q, const void* k, const void* v, const void* qpos,
-           const void* kpos, void* out, int B, int Sq, int Skv, int Hq,
-           int Hkv, int Dk, int Dv, float scale, float softcap, int causal,
-           int window, cudaStream_t stream) {
+           const void* kpos, void* out, float* lse, int B, int Sq, int Skv,
+           int Hq, int Hkv, int Dk, int Dv, float scale, float softcap,
+           int causal, int window, cudaStream_t stream) {
   auto kernel = flash_kernel<T, BQ, DV_CHUNKS>;
   const size_t smem = smem_bytes<BQ, DV_CHUNKS, T>(Dk);
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
@@ -213,44 +218,51 @@ int launch(const void* q, const void* k, const void* v, const void* qpos,
   kernel<<<grid, (BQ / 4) * (kBK / 4), smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int32_t*>(qpos),
-      static_cast<const int32_t*>(kpos), static_cast<T*>(out), Sq, Skv, Hq,
-      Hkv, Dk, Dv, scale, softcap, causal, window);
+      static_cast<const int32_t*>(kpos), static_cast<T*>(out), lse, Sq, Skv,
+      Hq, Hkv, Dk, Dv, scale, softcap, causal, window);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int BQ>
 int dispatch_dv(const void* q, const void* k, const void* v, const void* qpos,
-                const void* kpos, void* out, int B, int Sq, int Skv, int Hq,
-                int Hkv, int Dk, int Dv, float scale, float softcap,
-                int causal, int window, cudaStream_t stream) {
+                const void* kpos, void* out, float* lse, int B, int Sq,
+                int Skv, int Hq, int Hkv, int Dk, int Dv, float scale,
+                float softcap, int causal, int window, cudaStream_t stream) {
   switch ((Dv + 63) / 64) {
     case 1:
-      return launch<T, BQ, 1>(q, k, v, qpos, kpos, out, B, Sq, Skv, Hq, Hkv,
-                              Dk, Dv, scale, softcap, causal, window, stream);
+      return launch<T, BQ, 1>(q, k, v, qpos, kpos, out, lse, B, Sq, Skv, Hq,
+                              Hkv, Dk, Dv, scale, softcap, causal, window,
+                              stream);
     case 2:
-      return launch<T, BQ, 2>(q, k, v, qpos, kpos, out, B, Sq, Skv, Hq, Hkv,
-                              Dk, Dv, scale, softcap, causal, window, stream);
+      return launch<T, BQ, 2>(q, k, v, qpos, kpos, out, lse, B, Sq, Skv, Hq,
+                              Hkv, Dk, Dv, scale, softcap, causal, window,
+                              stream);
     case 3:
-      return launch<T, BQ, 3>(q, k, v, qpos, kpos, out, B, Sq, Skv, Hq, Hkv,
-                              Dk, Dv, scale, softcap, causal, window, stream);
+      return launch<T, BQ, 3>(q, k, v, qpos, kpos, out, lse, B, Sq, Skv, Hq,
+                              Hkv, Dk, Dv, scale, softcap, causal, window,
+                              stream);
     case 4:
-      return launch<T, BQ, 4>(q, k, v, qpos, kpos, out, B, Sq, Skv, Hq, Hkv,
-                              Dk, Dv, scale, softcap, causal, window, stream);
+      return launch<T, BQ, 4>(q, k, v, qpos, kpos, out, lse, B, Sq, Skv, Hq,
+                              Hkv, Dk, Dv, scale, softcap, causal, window,
+                              stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
+// lse: null, or fp32 [B, Sq, Hq] for the rows' log-sum-exp
 template <typename T>
 int dispatch_bq(const void* q, const void* k, const void* v, const void* qpos,
-                const void* kpos, void* out, int B, int Sq, int Skv, int Hq,
-                int Hkv, int Dk, int Dv, float scale, float softcap,
-                int causal, int window, cudaStream_t stream) {
+                const void* kpos, void* out, float* lse, int B, int Sq,
+                int Skv, int Hq, int Hkv, int Dk, int Dv, float scale,
+                float softcap, int causal, int window, cudaStream_t stream) {
   if (Sq <= 16)
-    return dispatch_dv<T, 16>(q, k, v, qpos, kpos, out, B, Sq, Skv, Hq, Hkv,
-                              Dk, Dv, scale, softcap, causal, window, stream);
-  return dispatch_dv<T, 64>(q, k, v, qpos, kpos, out, B, Sq, Skv, Hq, Hkv, Dk,
-                            Dv, scale, softcap, causal, window, stream);
+    return dispatch_dv<T, 16>(q, k, v, qpos, kpos, out, lse, B, Sq, Skv, Hq,
+                              Hkv, Dk, Dv, scale, softcap, causal, window,
+                              stream);
+  return dispatch_dv<T, 64>(q, k, v, qpos, kpos, out, lse, B, Sq, Skv, Hq,
+                            Hkv, Dk, Dv, scale, softcap, causal, window,
+                            stream);
 }
 
 }  // namespace simt

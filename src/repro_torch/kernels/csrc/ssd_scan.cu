@@ -59,11 +59,19 @@
 //   64 x 64 tiles on the fp32 CUDA cores, a sequential fp32 dacum.  It
 //   keeps f32 within 2e-5 of max |y|, which the tensor cores cannot.
 //
+// The backward (ssd_backward.cuh, its own entry point below): the
+// gradients of the same scan (x, dt, A, B, C and h0) for dy and the final
+// state's gradient, for every shape either variant takes, on the fp32 CUDA
+// cores: the entering states, a reverse pass over the chunks, then every
+// chunk's own gradients in parallel; no atomics.
+//
 // The kernels allocate nothing and do not synchronise: tc's entering
-// states and dacum / dt live in scratch the caller allocates.  The
+// states and dacum / dt, and the backward's fp32 partials, live in scratch
+// the caller allocates.  The
 // launcher returns cudaGetLastError() so a refused launch is reported at
 // once; a tc-shaped call never falls back to simt.
 
+#include "ssd_backward.cuh"
 #include "ssd_simt.cuh"
 #include "ssd_tc.cuh"
 
@@ -203,4 +211,31 @@ extern "C" int ssd_tc_chunk_launch(const void* x, const void* bm,
     return (int)cudaErrorMisalignedAddress;
   return tc_chunk(x, bm, cm, states, meta, y, B, S, H, N, L,
                   static_cast<cudaStream_t>(stream));
+}
+
+// The gradients dx (x's type), ddt (f32 [B, S, H]), da (f32 [H]), db and dc
+// (x's type, [B, S, 1, N]) and dh0 (f32 [B, H, P, N]) of ssd_scan_launch's
+// scan for dy (x's type) and dfinal (f32 [B, H, P, N], or null: zero).  h0
+// null: zeros.  scratch: fp32, at least ssd::backward::scratch_floats.
+// P <= 64; N <= 128 and a multiple of 4; S a multiple of L.
+extern "C" int ssd_scan_backward_launch(
+    const void* x, const void* dt, const void* a, const void* bm,
+    const void* cm, const void* h0, const void* dy, const void* dfinal,
+    void* dx, void* ddt, void* da, void* db, void* dc, void* dh0,
+    void* scratch, long long scratch_floats, int dtype, int B, int S, int H,
+    int P, int N, int L, void* stream) {
+  if (!valid_shape(B, S, H, P, N, L) || (dtype != 0 && dtype != 1) ||
+      P > ssd::backward::kPMax || N > ssd::backward::kNMax || N % 4 != 0 ||
+      scratch == nullptr || dh0 == nullptr ||
+      scratch_floats < ssd::backward::scratch_floats(B, S, H, P, N, L))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* sc = static_cast<float*>(scratch);
+  if (dtype == 0)
+    return ssd::backward::launch<float>(x, dt, a, bm, cm, h0, dy, dfinal, dx,
+                                        ddt, da, db, dc, dh0, sc, B, S, H, P,
+                                        N, L, s);
+  return ssd::backward::launch<__nv_bfloat16>(x, dt, a, bm, cm, h0, dy,
+                                              dfinal, dx, ddt, da, db, dc,
+                                              dh0, sc, B, S, H, P, N, L, s);
 }

@@ -22,12 +22,24 @@ shapes alone, and :func:`variant` is its twin here:
   q heads are the rows of one tile, so each K/V byte is read once per kv
   head, and the kv sweep is split across blocks (:func:`decode_splits`);
   fp32 partials go to a scratch this wrapper allocates and a second kernel
-  merges them.  On request (``return_lse``) the merge also writes each
-  row's fp32 log-sum-exp ``[B, Sq, Hq]``, which a seq-sharded decode's
-  ranks exchange to combine their chunks (``models.attention``).
+  merges them.
 - ``simt`` — everything else (f32 prefill, other head dims, other Dk !=
   Dv pairs, (80, 80) and (192, 128) at 64 rows or fewer): one block per
   (batch, q head, q tile) on the fp32 CUDA cores.
+
+On request (``return_lse``) every variant also writes each row's fp32
+log-sum-exp ``[B, Sq, Hq]``, with the output's bits unchanged: a
+seq-sharded decode's ranks exchange it to combine their chunks
+(``models.attention``), and the backward recomputes P from it.
+
+The backward (:func:`flash_attention_backward`, ``csrc/flash_backward.cuh``)
+has no Pallas counterpart: the reference differentiates its plain
+function.  It computes that gradient from the forward's output and lse
+in three kernels on the fp32 CUDA cores (``D = rowsum(dO O)``; dK and dV
+per (b, kv head, key tile) over the group's q tiles; dQ per (b, q head, q
+tile)), for every dtype, (Dk, Dv) and option the forward takes, with no
+atomics (two calls give equal bits).  Its plain version is
+:func:`repro_torch.kernels.ref.sdpa_bwd_ref`.
 
 Semantics follow the Pallas kernel in every variant: masking by position
 (causal, sliding window, kv positions >= 2^29 are padding), the finite
@@ -58,6 +70,10 @@ LIB = CudaLibrary("flash_attention", {
     "flash_attention_variant": (
         [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_longlong)],
         ctypes.c_int),
+    "flash_attention_backward_launch": (
+        [ctypes.c_void_p] * 12 + [ctypes.c_longlong] + [ctypes.c_int] * 8
+        + [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+        ctypes.c_int),
 })
 MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -70,11 +86,12 @@ _TARGET_BLOCKS = 264        # decode_split: two waves of 132 SMs
 _MIN_SPLIT_KEYS = 64
 
 # kernel launches since the count was last reset (plain integers: the
-# wrapper adds one where it launches, nowhere else), in all, by variant,
-# and those that wrote the log-sum-exp output
+# wrappers add one where they launch, nowhere else): forward calls in all,
+# by variant, and those that wrote the log-sum-exp output; backward calls
 launches = 0
 variant_launches = {name: 0 for name in VARIANTS}
 lse_launches = 0
+backward_launches = 0
 
 
 def variant(dtype: torch.dtype, sq: int, hq: int, hkv: int, dk: int,
@@ -118,27 +135,8 @@ def _check(name: str, t: torch.Tensor, ndim: int, device: torch.device,
         raise ValueError(f"{name} must be contiguous")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    q_positions: torch.Tensor, kv_positions: torch.Tensor,
-                    causal: bool = True, sliding_window: Optional[int] = None,
-                    logit_softcap: float = 0.0,
-                    scale: Optional[float] = None, return_lse: bool = False):
-    """Launch the kernel on CUDA tensors; returns ``[B, Sq, Hq, Dv]``, or
-    with ``return_lse`` the pair ``(out, lse)``: ``lse [B, Sq, Hq]`` fp32,
-    each row's log-sum-exp of its scaled, capped and masked scores (-inf
-    where the row saw no key), which ``decode_split`` alone computes.
-
-    ``q``: ``[B, Sq, Hq, Dk]``, ``k``: ``[B, Skv, Hkv, Dk]``, ``v``:
-    ``[B, Skv, Hkv, Dv]``, all float32 or all bfloat16; positions int32
-    ``[B, Sq]`` / ``[B, Skv]``.  Every tensor contiguous, Hq a multiple of
-    Hkv, Dk and Dv at most 256; q, k and v 16-byte aligned where the
-    variant is ``prefill_tc`` or ``decode_split``.  Raises on anything else,
-    on a failed build and on a refused launch.
-    """
-    global launches, lse_launches
-    if q.device.type != "cuda":
-        raise ValueError("flash_attention launches on CUDA tensors only; "
-                         "CPU callers use ref.sdpa_ref")
+def _shapes(q, k, v, q_positions, kv_positions, sliding_window):
+    """Check the forward's operands; ``(B, Sq, Skv, Hq, Hkv, Dk, Dv)``."""
     dev = q.device
     if q.dtype not in _DTYPES:
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
@@ -167,13 +165,39 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"sliding_window must be >= 1, got {sliding_window}")
     if min(b, sq, skv, hq) < 1:
         raise ValueError("flash_attention needs B, Sq, Skv and Hq >= 1")
+    return b, sq, skv, hq, hkv, dk, dv
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    q_positions: torch.Tensor, kv_positions: torch.Tensor,
+                    causal: bool = True, sliding_window: Optional[int] = None,
+                    logit_softcap: float = 0.0,
+                    scale: Optional[float] = None, return_lse: bool = False):
+    """Launch the kernel on CUDA tensors; returns ``[B, Sq, Hq, Dv]``, or
+    with ``return_lse`` the pair ``(out, lse)``: ``lse [B, Sq, Hq]`` fp32,
+    each row's log-sum-exp of its scaled, capped and masked scores, which
+    every variant writes on request without changing the output's bits.
+    A row that saw no key gets at most NEG_INF / 2 (NEG_INF + log of the
+    hidden keys its tiles held, or -inf where every tile was skipped), so
+    it weighs nothing in a merge; its output is not defined.
+
+    ``q``: ``[B, Sq, Hq, Dk]``, ``k``: ``[B, Skv, Hkv, Dk]``, ``v``:
+    ``[B, Skv, Hkv, Dv]``, all float32 or all bfloat16; positions int32
+    ``[B, Sq]`` / ``[B, Skv]``.  Every tensor contiguous, Hq a multiple of
+    Hkv, Dk and Dv at most 256; q, k and v 16-byte aligned where the
+    variant is ``prefill_tc`` or ``decode_split``.  Raises on anything else,
+    on a failed build and on a refused launch.
+    """
+    global launches, lse_launches
+    if q.device.type != "cuda":
+        raise ValueError("flash_attention launches on CUDA tensors only; "
+                         "CPU callers use ref.sdpa_ref")
+    dev = q.device
+    b, sq, skv, hq, hkv, dk, dv = _shapes(q, k, v, q_positions, kv_positions,
+                                          sliding_window)
     name = variant(q.dtype, sq, hq, hkv, dk, dv)
     if name != "simt" and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError(f"{name} needs q, k and v 16-byte aligned")
-    if return_lse and name != "decode_split":
-        raise ValueError(f"the log-sum-exp comes from decode_split alone; "
-                         f"these shapes take {name} (Dk = {dk}, Dv = {dv}, "
-                         f"{sq * (hq // hkv)} rows a kv head)")
     out = torch.empty((b, sq, hq, dv), dtype=q.dtype, device=dev)
     lse = (torch.empty((b, sq, hq), dtype=torch.float32, device=dev)
            if return_lse else None)
@@ -203,3 +227,53 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     variant_launches[name] += 1
     lse_launches += bool(return_lse)
     return (out, lse) if return_lse else out
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, out: torch.Tensor,
+                             lse: torch.Tensor, dout: torch.Tensor, *,
+                             q_positions: torch.Tensor,
+                             kv_positions: torch.Tensor, causal: bool = True,
+                             sliding_window: Optional[int] = None,
+                             logit_softcap: float = 0.0,
+                             scale: Optional[float] = None):
+    """Launch the backward kernels on CUDA tensors: ``(dq, dk, dv)`` of
+    :func:`flash_attention` for the output gradient ``dout``, from the
+    forward's ``out`` and ``lse`` (``return_lse=True``).
+
+    ``out`` and ``dout`` are ``[B, Sq, Hq, Dv]`` in q's dtype, ``lse``
+    ``[B, Sq, Hq]`` fp32; the rest as :func:`flash_attention` takes it,
+    every variant's shapes included.  Each gradient is in its input's
+    shape and dtype.  Plain version: :func:`ref.sdpa_bwd_ref`.  Raises on
+    anything else, on a failed build and on a refused launch.
+    """
+    global backward_launches
+    if q.device.type != "cuda":
+        raise ValueError("flash_attention_backward launches on CUDA tensors "
+                         "only; CPU callers use ref.sdpa_bwd_ref")
+    dev = q.device
+    b, sq, skv, hq, hkv, dk, dv = _shapes(q, k, v, q_positions, kv_positions,
+                                          sliding_window)
+    for name, t in (("out", out), ("dout", dout)):
+        _check(name, t, 4, dev, q.dtype)
+        if tuple(t.shape) != (b, sq, hq, dv):
+            raise ValueError(f"{name} {tuple(t.shape)} != {(b, sq, hq, dv)}")
+    _check("lse", lse, 3, dev, torch.float32)
+    if tuple(lse.shape) != (b, sq, hq):
+        raise ValueError(f"lse {tuple(lse.shape)} != {(b, sq, hq)}")
+    dq, dk_, dv_ = (torch.empty_like(t) for t in (q, k, v))
+    delta = torch.empty((b, sq, hq), dtype=torch.float32, device=dev)
+    scale = float(scale) if scale is not None else dk ** -0.5
+    lib = LIB.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.flash_attention_backward_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), q_positions.data_ptr(),
+            kv_positions.data_ptr(), dq.data_ptr(), dk_.data_ptr(),
+            dv_.data_ptr(), delta.data_ptr(), delta.numel(), _DTYPES[q.dtype],
+            b, sq, skv, hq, hkv, dk, dv, scale, float(logit_softcap),
+            int(causal), int(sliding_window or 0), stream)
+    check_launch("flash_attention_backward", err)
+    backward_launches += 1
+    return dq, dk_, dv_

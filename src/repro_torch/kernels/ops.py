@@ -14,15 +14,17 @@ decode's Sq = 1 included.  The reference sends Sq = 1 to its plain path
 (``repro/models/attention.py:120``) because its TPU tiling needs at least
 8 query rows; both compute the same function.
 
-Gradients.  The kernels compute forwards only, as the reference's Pallas
-kernels do (the reference differentiates through its plain functions
-alone).  On CUDA tensors :func:`attention` and :func:`ssd` run the kernel
-inside a ``torch.autograd.Function`` whose backward recomputes the plain
-version (``ref.sdpa_ref`` / ``ref.ssd_ref``) from the saved inputs and
-returns its input gradients: the gradients are those of the plain version,
-at the cost of one more forward of it per backward.
-:data:`backward_recomputes` counts those recomputes by kernel variant.  On
-the CPU the plain version runs, and autograd differentiates it natively.
+Gradients.  The reference differentiates through its plain functions
+alone (its Pallas kernels are forwards).  Here, where a gradient will flow
+from CUDA tensors, :func:`attention` and :func:`ssd` run the forward kernel
+inside a ``torch.autograd.Function`` whose backward launches the
+hand-written backward kernels (``flash_attention.flash_attention_backward``
+from the saved output and rows' log-sum-exp; ``ssd_scan.ssd_scan_backward``
+from the saved inputs): the gradients of the plain version, computed in
+fp32 and rounded once, with no plain version and no recompute on the
+card.  Their plain versions, ``ref.sdpa_bwd_ref`` and ``ref.ssd_bwd_ref``,
+serve the tests.  On the CPU the plain forward runs, and autograd
+differentiates it natively.
 """
 from __future__ import annotations
 
@@ -36,80 +38,53 @@ from . import ref
 from . import ssd_scan as _ssd
 from .lease_validate import DrainStaging, lease_drain, lease_validate
 
-# backward recomputes through the plain versions since the count was last
-# reset, by the variant whose forward ran (the kernels line's names)
-backward_recomputes = {f"flash_attention.{v}": 0 for v in _flash.VARIANTS}
-backward_recomputes.update({f"ssd_scan.{v}": 0 for v in _ssd.VARIANTS})
-
-
-def _recompute_grads(ctx, plain, inputs, grads_out):
-    """Input gradients of ``plain(*inputs)`` for ``grads_out`` (None where
-    an output got no gradient): the plain version is run again on detached
-    copies of the saved inputs with autograd on."""
-    need = ctx.needs_input_grad[:len(inputs)]
-    with torch.enable_grad():
-        leaves = [t.detach().requires_grad_(n) if t is not None else None
-                  for t, n in zip(inputs, need)]
-        outs = plain(*leaves)
-        pairs = [(o, g) for o, g in zip(outs, grads_out) if g is not None]
-        wanted = [t for t in leaves if t is not None and t.requires_grad]
-        got = iter(torch.autograd.grad([o for o, _ in pairs],
-                                       wanted, [g for _, g in pairs],
-                                       allow_unused=True)
-                   if pairs and wanted else [None] * len(wanted))
-    return [next(got) if t is not None and t.requires_grad else None
-            for t in leaves]
+def _wants_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
 
 
 class _Attention(torch.autograd.Function):
-    """The flash kernel forward; the backward of ``ref.sdpa_ref``."""
+    """The flash kernel forward (which also writes the rows' lse) and the
+    flash backward kernels."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_positions, kv_positions, opts):
-        ctx.save_for_backward(q, k, v, q_positions, kv_positions)
+        out, lse = _flash.flash_attention(q, k, v, q_positions=q_positions,
+                                          kv_positions=kv_positions,
+                                          return_lse=True, **opts)
+        ctx.save_for_backward(q, k, v, out, lse, q_positions, kv_positions)
         ctx.opts = opts
-        ctx.variant = _flash.variant(q.dtype, q.shape[1], q.shape[2],
-                                     k.shape[2], q.shape[3], v.shape[3])
-        return _flash.flash_attention(q, k, v, q_positions=q_positions,
-                                      kv_positions=kv_positions, **opts)
+        return out
 
     @staticmethod
     def backward(ctx, grad_out):
-        q, k, v, qp, kp = ctx.saved_tensors
-        backward_recomputes[f"flash_attention.{ctx.variant}"] += 1
-
-        def plain(q, k, v):
-            return (ref.sdpa_ref(q, k, v, q_positions=qp, kv_positions=kp,
-                                 **ctx.opts),)
-
-        return (*_recompute_grads(ctx, plain, (q, k, v), (grad_out,)),
-                None, None, None)
+        q, k, v, out, lse, qp, kp = ctx.saved_tensors
+        dq, dk, dv = _flash.flash_attention_backward(
+            q, k, v, out, lse, grad_out.contiguous(), q_positions=qp,
+            kv_positions=kp, **ctx.opts)
+        return dq, dk, dv, None, None, None
 
 
 class _SSD(torch.autograd.Function):
-    """The SSD kernel forward; the backward of ``ref.ssd_ref`` (y in x's
-    type, as the kernel returns it)."""
+    """The SSD kernel forward and the SSD backward kernels (y in x's type,
+    as the kernel returns it)."""
 
     @staticmethod
     def forward(ctx, x, dt, a, b_mat, c_mat, h0, chunk):
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(x, dt, a, b_mat, c_mat, h0)
         ctx.chunk = chunk
-        ctx.variant = _ssd.variant(x.dtype, x.shape[3], b_mat.shape[3], chunk)
         return _ssd.ssd_scan(x, dt, a, b_mat, c_mat, chunk=chunk, h0=h0)
 
     @staticmethod
     def backward(ctx, grad_y, grad_final):
-        saved = ctx.saved_tensors
-        backward_recomputes[f"ssd_scan.{ctx.variant}"] += 1
-
-        def plain(x, dt, a, b_mat, c_mat, h0):
-            y, final = ref.ssd_ref(x, dt, a, b_mat, c_mat, chunk=ctx.chunk,
-                                   h0=h0)
-            return y.to(x.dtype), final
-
-        return (*_recompute_grads(ctx, plain, saved, (grad_y, grad_final)),
-                None)
+        x, dt, a, b_mat, c_mat, h0 = ctx.saved_tensors
+        dy = (torch.zeros_like(x) if grad_y is None
+              else grad_y.contiguous())
+        dfinal = None if grad_final is None else grad_final.contiguous()
+        dx, ddt, da, db, dc, dh0 = _ssd.ssd_scan_backward(
+            x, dt, a, b_mat, c_mat, h0, dy, dfinal, chunk=ctx.chunk)
+        return dx, ddt, da, db, dc, None if h0 is None else dh0, None
 
 
 def settle_lease_batch(head_req, head_proc, head_active, qlen, fresh_blocked,
@@ -188,8 +163,9 @@ def attention(q, k, v, *, q_positions, kv_positions, causal=True,
               plain=False, return_lse=False):
     """GQA attention ``[B, Sq, Hq, Dk] x [B, Skv, Hkv, Dk|Dv]``.
 
-    CUDA tensors go to the flash kernel at every Sq (differentiable, by
-    recompute of the plain version); CPU tensors, and any tensor when
+    CUDA tensors go to the flash kernel at every Sq (differentiable:
+    where a gradient will flow, inside :class:`_Attention`, whose backward
+    launches the backward kernels); CPU tensors, and any tensor when
     ``plain`` is set, to :func:`ref.sdpa_ref`.  Positions are
     handed to the kernel as contiguous int32 (the model broadcasts them).
     Where q, k and v differ in dtype (a float32 model over a bf16 KV
@@ -198,15 +174,14 @@ def attention(q, k, v, *, q_positions, kv_positions, causal=True,
     q's dtype.
 
     ``return_lse`` returns ``(out, lse)`` with each row's fp32 log-sum-exp
-    ``[B, Sq, Hq]`` (the seq-sharded decode's combine).  It is a forward
-    for decode: on CUDA it launches ``decode_split`` outside the autograd
-    Function, and shapes that take another variant raise.
+    ``[B, Sq, Hq]`` (the seq-sharded paths' combine), from every kernel
+    variant.  It is a forward: on CUDA it raises where a gradient would
+    flow (the lse output has no backward).
     """
     opts = dict(causal=causal, sliding_window=sliding_window,
                 logit_softcap=logit_softcap, scale=scale)
     if return_lse and q.device.type == "cuda" and not plain:
-        if torch.is_grad_enabled() and any(t.requires_grad
-                                           for t in (q, k, v)):
+        if _wants_grad(q, k, v):
             raise NotImplementedError("the log-sum-exp output has no "
                                       "backward; call it under no_grad")
         wide = torch.promote_types(torch.promote_types(q.dtype, k.dtype),
@@ -227,9 +202,12 @@ def attention(q, k, v, *, q_positions, kv_positions, causal=True,
                              sliding_window=sliding_window,
                              logit_softcap=logit_softcap,
                              scale=scale).to(q.dtype)
-        return _Attention.apply(
-            q, k, v, q_positions.to(torch.int32).contiguous(),
-            kv_positions.to(torch.int32).contiguous(), opts)
+        qp = q_positions.to(torch.int32).contiguous()
+        kp = kv_positions.to(torch.int32).contiguous()
+        if _wants_grad(q, k, v):
+            return _Attention.apply(q, k, v, qp, kp, opts)
+        return _flash.flash_attention(q, k, v, q_positions=qp,
+                                      kv_positions=kp, **opts)
     return ref.sdpa_ref(q, k, v, q_positions=q_positions,
                         kv_positions=kv_positions, return_lse=return_lse,
                         **opts)
@@ -243,7 +221,8 @@ def ssd(x, dt, a, b_mat, c_mat, *, chunk=256, h0=None, plain=False
     branch does, ``repro/models/ssm.py:216-227``) and ``y`` is cut back to
     S; padded steps have ``dt = 0``, so they leave the state unchanged.
     CUDA tensors go to the SSD kernel (``n_groups == 1``; anything else
-    raises; differentiable, by recompute of the plain version); CPU
+    raises; differentiable: where a gradient will flow, inside
+    :class:`_SSD`, whose backward launches the backward kernels); CPU
     tensors, and any tensor when ``plain`` is set, to :func:`ref.ssd_ref`.
     The padding is torch ops outside the kernel's Function, so gradients
     pass through it.
@@ -252,7 +231,11 @@ def ssd(x, dt, a, b_mat, c_mat, *, chunk=256, h0=None, plain=False
     pad = (-s) % chunk
     x, dt, b_mat, c_mat = (ref.pad_seq(t, pad) for t in (x, dt, b_mat, c_mat))
     if x.device.type == "cuda" and not plain:
-        y, final = _SSD.apply(x, dt, a, b_mat, c_mat, h0, chunk)
+        if _wants_grad(x, dt, a, b_mat, c_mat, h0):
+            y, final = _SSD.apply(x, dt, a, b_mat, c_mat, h0, chunk)
+        else:
+            y, final = _ssd.ssd_scan(x, dt, a, b_mat, c_mat, chunk=chunk,
+                                     h0=h0)
     else:
         y, final = ref.ssd_ref(x, dt, a, b_mat, c_mat, chunk=chunk, h0=h0)
     return y[:, :s], final

@@ -193,6 +193,48 @@ def sdpa_ref(q, k, v, *, q_positions, kv_positions, causal=True,
     return _sdpa_ref(q, k, v, mask, scale, logit_softcap, return_lse)
 
 
+def sdpa_bwd_ref(q, k, v, out, lse, dout, *, q_positions, kv_positions,
+                 causal=True, sliding_window=None, logit_softcap=0.0,
+                 scale=None):
+    """Plain version of the flash backward kernels: ``(dq, dk, dv)`` of
+    :func:`sdpa_ref` for the output gradient ``dout``, from the forward's
+    output and rows' log-sum-exp, with full ``[Sq, Skv]`` matrices in fp32.
+
+    The kernels' phases: ``D = rowsum(dout * out)``; ``P = exp(S - lse)``
+    on the visible keys (0 on hidden ones), ``S`` the scaled and capped
+    scores; ``dV = P^T dout``; ``dP = dout V^T``; ``dS = P (dP - D)``,
+    times ``1 - tanh^2`` under a softcap; ``dQ = dS K scale``, ``dK =
+    dS^T Q scale``.  Each gradient is rounded once to its input's dtype.
+    It equals the autograd gradient of :func:`sdpa_ref` on every query
+    row that sees at least one key; a row that sees none gets none.
+    """
+    b, sq, hq, dk = q.shape
+    skv, hkv, dv = k.shape[1], k.shape[2], v.shape[3]
+    g = hq // hkv
+    scale = scale if scale is not None else dk ** -0.5
+    mask = attn_mask(q_positions, kv_positions, causal, sliding_window)
+    qf = q.float().reshape(b, sq, hkv, g, dk)
+    kf, vf = k.float(), v.float()
+    do = dout.float().reshape(b, sq, hkv, g, dv)
+    delta = (do * out.float().reshape(b, sq, hkv, g, dv)).sum(-1)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf) * scale
+    if logit_softcap > 0:
+        t = torch.tanh(s / logit_softcap)
+        s = logit_softcap * t
+    rows = lse.float().reshape(b, sq, hkv, g).permute(0, 2, 3, 1)[..., None]
+    p = torch.where(mask[:, None, None], torch.exp(s - rows),
+                    torch.zeros((), device=q.device))
+    dv_ = torch.einsum("bhgqk,bqhgd->bkhd", p, do)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", do, vf)
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    if logit_softcap > 0:
+        ds = ds * (1 - t * t)
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf) * scale
+    dk_ = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf) * scale
+    return (dq.reshape(b, sq, hq, dk).to(q.dtype), dk_.to(k.dtype),
+            dv_.to(v.dtype))
+
+
 # --- SSD (twin of repro.models.ssm.segsum / ssd_chunked) ------------------------
 
 def segsum(log_a: torch.Tensor) -> torch.Tensor:
@@ -292,6 +334,80 @@ def ssd_ref(x, dt, a, b_mat, c_mat, *, chunk=256, h0=None
     """Plain version of the SSD kernel (``repro.kernels.ref.ssd_ref``)."""
     return ssd_chunked(x, dt, a, b_mat, c_mat, chunk, h0=h0,
                        return_final_state=True)
+
+
+def ssd_bwd_ref(x, dt, a, b_mat, c_mat, h0, dy, dfinal, *, chunk):
+    """Plain version of the SSD backward kernels: the gradients ``(dx,
+    ddt, da, db_mat, dc_mat, dh0)`` of :func:`ssd_ref` (``n_groups ==
+    1``) for ``dy [B, S, H, P]`` and ``dfinal [B, H, P, N]`` (None: zero),
+    in the kernels' three phases:
+
+    (i) the fp32 state entering each chunk (:func:`ssd_states`);
+    (ii) the reverse pass: ``dh`` entering chunk c is ``exp(sum of da over
+        c) * dh(c + 1) + sum_t exp(dacum_t) dy_t (x) C_t``, from
+        ``dfinal``; ``dh0`` is the last;
+    (iii) per chunk, the intra-chunk term's and the carried state's
+        gradients with full ``[L, L]`` matrices, the gradient of ``dacum``
+        summed back to ``da`` per step (``ddt += a d(da)``, ``da = sum dt
+        d(da)``).
+
+    ``db_mat``, ``dc_mat`` and ``da`` are summed over heads and sequence.
+    Each gradient is rounded once to its input's dtype (``dh0`` fp32).
+    """
+    bsz, s, h, p = x.shape
+    n = b_mat.shape[3]
+    nc = s // chunk
+    xr, dtr, be, da, cum = _chunks(x, dt, a, b_mat, chunk)
+    ce = c_mat.reshape(bsz, nc, chunk, 1, n).float().expand(-1, -1, -1, h, -1)
+    dyr = dy.reshape(bsz, nc, chunk, h, p).float()
+    # (i)
+    entering, _ = ssd_states(x, dt, a, b_mat, chunk, h0=h0)  # [B,nc,H,P,N]
+    # (ii)
+    own = torch.einsum("bclh,bclhp,bclhn->bchpn", torch.exp(cum), dyr, ce)
+    decay = torch.exp(cum[:, :, -1, :])                    # [B,nc,H]
+    carry = (torch.zeros((bsz, h, p, n), dtype=torch.float32,
+                         device=x.device)
+             if dfinal is None else dfinal.float())
+    leaving = [None] * nc            # dh of the state leaving chunk c
+    for c in reversed(range(nc)):
+        leaving[c] = carry
+        carry = carry * decay[:, c, :, None, None] + own[:, c]
+    dh0 = carry
+    g_out = torch.stack(leaving, dim=1)                    # [B,nc,H,P,N]
+    # (iii) the intra-chunk term: y_diag = (CB * M * dt_m) x
+    m_dec = torch.exp(segsum(da.movedim(-1, -2)))          # [B,nc,H,L,L]
+    cb = torch.einsum("bclhn,bcmhn->bchlm", ce, be)
+    dw = torch.einsum("bclhp,bcmhp->bchlm", dyr, xr)
+    dtm = dtr.movedim(-1, -2)[:, :, :, None, :]            # [B,nc,H,1,L]
+    cbm = cb * m_dec
+    dcb = dw * m_dec * dtm
+    dx = torch.einsum("bchlm,bclhp->bcmhp", cbm, dyr) * dtr[..., None]
+    dcm = torch.einsum("bchlm,bcmhn->bclhn", dcb, be)
+    dbm = torch.einsum("bchlm,bclhn->bcmhn", dcb, ce)
+    e_col = (dw * cbm).sum(-2).movedim(-1, -2)             # [B,nc,L,H]
+    dcum = (dcb * cb).sum(-1).movedim(-1, -2) - dtr * e_col
+    # the carried state's term: y_off = exp(dacum) C h_in
+    d_off = torch.einsum("bclhp,bchpn->bclhn", dyr, entering) \
+        * torch.exp(cum)[..., None]
+    dcm = dcm + d_off
+    dcum = dcum + (ce * d_off).sum(-1)
+    # the state leaving the chunk: exp(dacum_L) h_in + sum r dt x (x) B
+    r = torch.exp(cum[:, :, -1:, :] - cum)                 # [B,nc,L,H]
+    xg = torch.einsum("bcmhp,bchpn->bcmhn", xr, g_out)
+    bg = torch.einsum("bcmhn,bchpn->bcmhp", be, g_out)
+    dx = dx + (r * dtr)[..., None] * bg
+    dbm = dbm + (r * dtr)[..., None] * xg
+    f_dt = r * (be * xg).sum(-1)                           # [B,nc,L,H]
+    dcum = dcum - dtr * f_dt
+    last = (dtr * f_dt).sum(2) + decay * (entering * g_out).sum((-1, -2))
+    dcum[:, :, -1, :] += last
+    dda = torch.flip(torch.cumsum(torch.flip(dcum, (2,)), 2), (2,))
+    ddt = e_col + f_dt + a.float() * dda
+    da_grad = (dtr * dda).sum((0, 1, 2))
+    return (dx.reshape(x.shape).to(x.dtype), ddt.reshape(dt.shape).to(dt.dtype),
+            da_grad.to(a.dtype),
+            dbm.sum(3).reshape(bsz, s, 1, n).to(b_mat.dtype),
+            dcm.sum(3).reshape(bsz, s, 1, n).to(c_mat.dtype), dh0)
 
 
 def pad_seq(t: torch.Tensor, pad: int) -> torch.Tensor:

@@ -20,9 +20,19 @@ its twin here:
   per (batch, block of heads) sweeps the chunks on the fp32 CUDA cores,
   which keeps f32 within 2e-5 of max |y|.
 
+The backward (:func:`ssd_scan_backward`, ``csrc/ssd_backward.cuh``) has
+no Pallas counterpart: the reference differentiates its plain function.
+It computes that gradient for every shape either variant takes, on the
+fp32 CUDA cores, in three phases: the fp32 state entering each chunk; a
+reverse pass over the chunks carrying the state's gradient from the final
+state's; then per (b, chunk, head) the intra-chunk and carried terms'
+gradients, with B's, C's and A's sums over heads and sequence taken in a
+fixed order (no atomics: two calls give equal bits).
+
 The plain versions are :func:`repro_torch.kernels.ref.ssd_ref` and, per
 ``tc`` kernel, :func:`~repro_torch.kernels.ref.ssd_states` and
-:func:`~repro_torch.kernels.ref.ssd_outputs`.  Built by :mod:`.nvcc` at
+:func:`~repro_torch.kernels.ref.ssd_outputs`; the backward's is
+:func:`~repro_torch.kernels.ref.ssd_bwd_ref`.  Built by :mod:`.nvcc` at
 first use; nothing is built at import.
 """
 from __future__ import annotations
@@ -44,6 +54,7 @@ LIB = CudaLibrary("ssd_scan", {
         [_I] * 7 + [ctypes.POINTER(_LL)] * 2, _I),
     "ssd_tc_state_launch": ([_P] * 8 + [_I] * 5 + [_P], _I),
     "ssd_tc_chunk_launch": ([_P] * 6 + [_I] * 5 + [_P], _I),
+    "ssd_scan_backward_launch": ([_P] * 15 + [_LL] + [_I] * 7 + [_P], _I),
 })
 MAX_HEAD_DIM = 64
 MAX_STATE = 128
@@ -57,10 +68,12 @@ TC_MAX_CHUNK = 256
 
 # kernel launches since the counts were last reset (plain integers: the
 # wrappers add one where they launch, nowhere else): calls of ssd_scan in
-# all and by variant, and launches of each of tc's two kernels
+# all and by variant, launches of each of tc's two kernels, and calls of
+# the backward
 launches = 0
 variant_launches = {name: 0 for name in VARIANTS}
 phase_launches = {"ssd_state": 0, "ssd_chunk_scan": 0}
+backward_launches = 0
 
 
 def variant(dtype: torch.dtype, p: int, n: int, chunk: int) -> str:
@@ -102,6 +115,45 @@ def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def _shapes(fn: str, x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+            b_mat: torch.Tensor, c_mat: torch.Tensor, chunk: int,
+            **states: Optional[torch.Tensor]
+            ) -> Tuple[int, int, int, int, int]:
+    """Check the operands that :func:`ssd_scan` and its backward both take
+    (``states``: the ``[B, H, P, N]`` float32 ones, None allowed);
+    ``(B, S, H, P, N)``."""
+    dev = x.device
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if x.dim() != 4:
+        raise ValueError(f"x must be 4-D, got shape {tuple(x.shape)}")
+    bsz, s, h, p = x.shape
+    if b_mat.dim() != 4:
+        raise ValueError(f"b_mat must be 4-D, got shape "
+                         f"{tuple(b_mat.shape)}")
+    g, n = b_mat.shape[2], b_mat.shape[3]
+    if g != 1:
+        raise ValueError(f"{fn} takes n_groups == 1, got {g}")
+    _check("x", x, (bsz, s, h, p), dev, x.dtype)
+    _check("dt", dt, (bsz, s, h), dev, torch.float32)
+    _check("a", a, (h,), dev, torch.float32)
+    _check("b_mat", b_mat, (bsz, s, 1, n), dev, x.dtype)
+    _check("c_mat", c_mat, (bsz, s, 1, n), dev, x.dtype)
+    for name, t in states.items():
+        if t is not None:
+            _check(name, t, (bsz, h, p, n), dev, torch.float32)
+    if chunk < 1 or s % chunk:
+        raise ValueError(f"S = {s} is not a multiple of chunk = {chunk}")
+    if not (0 < p <= MAX_HEAD_DIM):
+        raise ValueError(f"head dim P = {p} outside 1..{MAX_HEAD_DIM}")
+    if not (0 < n <= MAX_STATE) or n % 4:
+        raise ValueError(f"state dim N = {n} must be a multiple of 4 in "
+                         f"4..{MAX_STATE}")
+    if bsz == 0 or s == 0 or h == 0:
+        raise ValueError(f"{fn} needs B, S and H >= 1")
+    return bsz, s, h, p, n
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
              b_mat: torch.Tensor, c_mat: torch.Tensor, *, chunk: int = 256,
              h0: Optional[torch.Tensor] = None
@@ -121,34 +173,10 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         raise ValueError("ssd_scan launches on CUDA tensors only; CPU "
                          "callers use ref.ssd_ref")
     dev = x.device
-    if x.dtype not in _DTYPES:
-        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
-    if x.dim() != 4:
-        raise ValueError(f"x must be 4-D, got shape {tuple(x.shape)}")
-    bsz, s, h, p = x.shape
-    if b_mat.dim() != 4:
-        raise ValueError(f"b_mat must be 4-D, got shape "
-                         f"{tuple(b_mat.shape)}")
-    g, n = b_mat.shape[2], b_mat.shape[3]
-    if g != 1:
-        raise ValueError(f"ssd_scan takes n_groups == 1, got {g}")
-    _check("x", x, (bsz, s, h, p), dev, x.dtype)
-    _check("dt", dt, (bsz, s, h), dev, torch.float32)
-    _check("a", a, (h,), dev, torch.float32)
-    _check("b_mat", b_mat, (bsz, s, 1, n), dev, x.dtype)
-    _check("c_mat", c_mat, (bsz, s, 1, n), dev, x.dtype)
+    bsz, s, h, p, n = _shapes("ssd_scan", x, dt, a, b_mat, c_mat, chunk,
+                              h0=h0)
     if h0 is None:
         h0 = torch.zeros((bsz, h, p, n), dtype=torch.float32, device=dev)
-    _check("h0", h0, (bsz, h, p, n), dev, torch.float32)
-    if chunk < 1 or s % chunk:
-        raise ValueError(f"S = {s} is not a multiple of chunk = {chunk}")
-    if not (0 < p <= MAX_HEAD_DIM):
-        raise ValueError(f"head dim P = {p} outside 1..{MAX_HEAD_DIM}")
-    if not (0 < n <= MAX_STATE) or n % 4:
-        raise ValueError(f"state dim N = {n} must be a multiple of 4 in "
-                         f"4..{MAX_STATE}")
-    if bsz == 0 or s == 0 or h == 0:
-        raise ValueError("ssd_scan needs B, S and H >= 1")
     name = variant(x.dtype, p, n, chunk)
     states = meta = None
     if name == "tc":
@@ -255,3 +283,54 @@ def tc_outputs(x: torch.Tensor, b_mat: torch.Tensor, c_mat: torch.Tensor,
     check_launch("ssd_chunk_scan", err)
     phase_launches["ssd_chunk_scan"] += 1
     return y
+
+
+def backward_scratch_floats(b: int, s: int, h: int, p: int, n: int,
+                            chunk: int) -> int:
+    """The backward's fp32 scratch: the entering states and the leaving
+    states' gradients ``[B, nc, H, P, N]``, two ``[B, nc, H]`` columns, and
+    dB's and dC's per-head partials ``[B, nc, H, L, N]``."""
+    bch = b * (s // chunk) * h
+    return bch * (2 * p * n + 2 + 2 * chunk * n)
+
+
+def ssd_scan_backward(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                      b_mat: torch.Tensor, c_mat: torch.Tensor,
+                      h0: Optional[torch.Tensor], dy: torch.Tensor,
+                      dfinal: Optional[torch.Tensor], *, chunk: int):
+    """Launch the backward kernels on CUDA tensors: the gradients ``(dx,
+    ddt, da, db_mat, dc_mat, dh0)`` of :func:`ssd_scan` for ``dy`` (x's
+    shape and dtype) and ``dfinal`` (``[B, H, P, N]`` float32, None:
+    zero).  Arguments as :func:`ssd_scan` takes them (``h0`` None: zeros);
+    each gradient in its input's dtype, ``dh0`` float32.  Plain version:
+    :func:`ref.ssd_bwd_ref`.  Raises on anything else, on a failed build
+    and on a refused launch.
+    """
+    global backward_launches
+    if x.device.type != "cuda":
+        raise ValueError("ssd_scan_backward launches on CUDA tensors only; "
+                         "CPU callers use ref.ssd_bwd_ref")
+    dev = x.device
+    bsz, s, h, p, n = _shapes("ssd_scan_backward", x, dt, a, b_mat, c_mat,
+                              chunk, h0=h0, dfinal=dfinal)
+    _check("dy", dy, (bsz, s, h, p), dev, x.dtype)
+    dx = torch.empty_like(x)
+    ddt = torch.empty_like(dt)
+    da = torch.empty_like(a)
+    db, dc = torch.empty_like(b_mat), torch.empty_like(c_mat)
+    dh0 = torch.empty((bsz, h, p, n), dtype=torch.float32, device=dev)
+    scratch = torch.empty(backward_scratch_floats(bsz, s, h, p, n, chunk),
+                          dtype=torch.float32, device=dev)
+    lib = LIB.load()
+    with torch.cuda.device(dev):
+        err = lib.ssd_scan_backward_launch(
+            x.data_ptr(), dt.data_ptr(), a.data_ptr(), b_mat.data_ptr(),
+            c_mat.data_ptr(), None if h0 is None else h0.data_ptr(),
+            dy.data_ptr(), None if dfinal is None else dfinal.data_ptr(),
+            dx.data_ptr(), ddt.data_ptr(), da.data_ptr(), db.data_ptr(),
+            dc.data_ptr(), dh0.data_ptr(), scratch.data_ptr(),
+            scratch.numel(), _DTYPES[x.dtype], bsz, s, h, p, n, chunk,
+            _stream(dev))
+    check_launch("ssd_scan_backward", err)
+    backward_launches += 1
+    return dx, ddt, da, db, dc, dh0

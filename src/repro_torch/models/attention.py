@@ -164,21 +164,29 @@ def _chunk_update(buf: torch.Tensor, new: torch.Tensor, index: Index,
     return buf
 
 
-def _seq_combine(ctx, out: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
-    """Merge the seq ranks' attention over their chunks: ``out [B, Sq, H,
-    D]`` and ``lse [B, Sq, H]`` travel in one all-gather, and rank ``r``'s
-    output is weighted by ``exp(lse_r - max_r lse_r)``.  A rank that saw no
-    key has weight 0; over one rank the weight is 1 and the output is
-    returned bit for bit."""
-    packed = torch.cat([out.float(), lse[..., None].float()], dim=-1)
-    every = comm.all_gather(packed[None], ctx.mesh, ctx.seq_axis, 0)
-    outs, lses = every[..., :-1], every[..., -1]
+def lse_merge(outs: torch.Tensor, lses: torch.Tensor) -> torch.Tensor:
+    """Merge attention over ``n`` key chunks, in fp32: ``outs [n, B, Sq,
+    H, D]`` and their rows' log-sum-exp ``lses [n, B, Sq, H]``; chunk
+    ``r``'s output is weighted by ``exp(lse_r - max_r lse_r)``.  A chunk
+    where a row saw no key (its lse at most ``NEG_INF / 2``: ``NEG_INF +
+    log`` of the hidden keys, or -inf) has weight 0 there, whatever its
+    output; a single chunk has weight 1 and its output comes back bit for
+    bit."""
+    outs, lses = outs.float(), lses.float()
     top = lses.max(dim=0).values
     top = torch.where(torch.isfinite(top), top, torch.zeros_like(top))
     w = torch.exp(lses - top)                             # [n, B, Sq, H]
-    merged = (w[..., None] * outs).sum(dim=0) / \
+    return (w[..., None] * outs).sum(dim=0) / \
         w.sum(dim=0)[..., None].clamp_min(torch.finfo(torch.float32).tiny)
-    return merged.to(out.dtype)
+
+
+def _seq_combine(ctx, out: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+    """Merge the seq ranks' attention over their chunks: ``out [B, Sq, H,
+    D]`` and ``lse [B, Sq, H]`` travel in one all-gather and merge by
+    :func:`lse_merge`."""
+    packed = torch.cat([out.float(), lse[..., None].float()], dim=-1)
+    every = comm.all_gather(packed[None], ctx.mesh, ctx.seq_axis, 0)
+    return lse_merge(every[..., :-1], every[..., -1]).to(out.dtype)
 
 
 def _ring_chunk(ctx, buf: torch.Tensor) -> Tuple[int, bool]:
@@ -397,7 +405,9 @@ def mla_attention(
 
     A multi-token pass expands the latent into per-head K and V and goes
     through :func:`sdpa` with ``scale = qk_dim ** -0.5`` (deepseek-v2: Dk
-    192, Dv 128, the flash kernel's ``simt`` variant on the card).  One
+    192, Dv 128, the flash kernel's ``prefill_tc`` variant in bf16 on the
+    card); over a seq-sharded cache each rank runs it on its chunk and the
+    chunks are merged by the rows' log-sum-exp, as the GQA path does.  One
     token against a cache scores in latent space (``w_k`` absorbed into
     the query) in fp32 einsums and never expands the cache.
 
@@ -495,9 +505,6 @@ def mla_attention(
         out = torch.einsum("bqhr,rhd->bqhd", ctx_lat,
                            w_v.float()).to(x.dtype)
     else:
-        if sharded:
-            raise NotImplementedError("MLA over a seq-sharded cache decodes "
-                                      "one token at a time")
         skv = c_use.shape[1]
         k_nope = torch.einsum("bkr,rhd->bkhd", c_use, w_k.to(c_use.dtype))
         v_full = torch.einsum("bkr,rhd->bkhd", c_use,
@@ -507,9 +514,14 @@ def mla_attention(
                                                   m.qk_rope_head_dim)],
             dim=-1)
         q_full = torch.cat([q_nope, q_pe], dim=-1)
-        out = sdpa(q_full, k_full, v_full, q_positions=q_pos,
-                   kv_positions=kv_pos, causal=cfg.causal,
-                   sliding_window=None, scale=scale, use_kernel=use_kernel)
+        mla_opts = dict(q_positions=q_pos, kv_positions=kv_pos,
+                        causal=cfg.causal, sliding_window=None, scale=scale,
+                        use_kernel=use_kernel)
+        if sharded:     # this rank's chunk, merged by the rows' lse
+            out = _seq_combine(ctx, *sdpa(q_full, k_full, v_full,
+                                          return_lse=True, **mla_opts))
+        else:
+            out = sdpa(q_full, k_full, v_full, **mla_opts)
     out = out.reshape(b, s, -1) @ wo
     return (comm.all_reduce(out, *tp) if head_par else out), new_cache
 

@@ -24,10 +24,11 @@ their own MLP; an encoder (hubert, ``causal=False``) runs ``forward``
 over ``embeds``.
 
 Training: :func:`forward` and :func:`loss_fn` are differentiable (on CUDA
-the kernels' backward recomputes their plain versions,
+the kernels' autograd Functions launch the backward kernels,
 :mod:`repro_torch.kernels.ops`); ``RunCtx.remat`` checkpoints each body
 group of ``plan.period`` layers, as the reference wraps its scanned group
-body.  :func:`prefill` and :func:`decode_step` run without autograd.
+body.  :func:`prefill`, :func:`decode_step` and :func:`multi_token_step`
+run without autograd.
 
 The mesh (``RunCtx.mesh``, a ``DeviceMesh``).  The entry points keep the
 reference's contract, global in and global out: :func:`forward`,
@@ -616,6 +617,29 @@ def decode_step(cfg: ModelConfig, ctx: RunCtx, params: Params, caches: Cache,
     if ctx.mesh is not None:
         logits = gather_rows(ctx, logits, b_global)
     return logits, new_caches
+
+
+@torch.no_grad()
+def multi_token_step(cfg: ModelConfig, ctx: RunCtx, params: Params,
+                     caches: Cache, tokens: torch.Tensor, pos: int
+                     ) -> Tuple[torch.Tensor, Cache]:
+    """One step of ``tokens [B, T]`` at positions ``pos ..`` into the
+    pre-allocated caches (the stack over the rings, as a chunked prefill
+    runs it); logits ``[B, T, V]``.  On a mesh ``tokens`` and the logits
+    are global, ``caches`` this rank's blocks."""
+    b_global, t = tokens.shape
+    local = shard_batch(ctx, {"tokens": tokens})
+    x = embed_in(cfg, params, local, ctx)
+    positions = (pos + torch.arange(t, dtype=torch.int32, device=x.device)
+                 )[None].expand(x.shape[0], t)
+    x, caches = stack_apply(
+        cfg, ctx, params, x, positions, caches=caches,
+        cache_index=torch.full((), pos, dtype=torch.int32, device=x.device),
+        return_cache=True)
+    logits = lm_logits(cfg, ctx, params, x)
+    if ctx.mesh is not None:
+        logits = gather_rows(ctx, logits, b_global)
+    return logits, caches
 
 
 class Decoder(nn.Module):

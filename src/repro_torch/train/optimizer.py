@@ -48,7 +48,9 @@ def init(params: Any) -> OptState:
 
 
 def _f32(x, device) -> torch.Tensor:
-    return torch.tensor(x, dtype=torch.float32, device=device)
+    """An fp32 scalar on ``device``, filled there (``torch.tensor`` would
+    copy it from the host and wait)."""
+    return torch.full((), x, dtype=torch.float32, device=device)
 
 
 def schedule_lr(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:

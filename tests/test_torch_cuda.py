@@ -1179,53 +1179,112 @@ def _grads_of(fn, inputs, weight):
                                              wanted)
 
 
+def _rel_err(got, want) -> float:
+    """max |got - want| over the largest |want|."""
+    return float((got.float() - want.float()).abs().max()) / max(
+        float(want.float().abs().max()), 1e-30)
+
+
+# (dtype, B, Sq, Skv, Hq, Hkv, Dk, Dv, causal, window, softcap, valid0):
+# f32 on simt, bf16 on prefill_tc, MLA's and hubert's head dims, a window
+# with a softcap over GQA groups of 4, (256, 256) on the smallest tiles, a
+# decode_split shape under grad, and queries over a longer cache whose
+# keys from valid0 on are padding (Dk != Dv in f32; bf16 GQA)
+GRAD_GRID = [
+    ("float32", 2, 96, 96, 4, 2, 64, 64, True, None, 0.0, None),
+    ("bfloat16", 2, 160, 160, 4, 2, 64, 64, True, None, 0.0, None),
+    ("bfloat16", 1, 256, 256, 4, 4, 192, 128, True, None, 0.0, None),
+    ("bfloat16", 1, 200, 200, 4, 4, 80, 80, False, None, 0.0, None),
+    ("bfloat16", 2, 130, 130, 8, 2, 128, 128, True, 48, 30.0, None),
+    ("float32", 1, 40, 40, 2, 1, 256, 256, True, None, 0.0, None),
+    ("float32", 2, 8, 64, 4, 4, 64, 64, True, None, 0.0, None),
+    ("float32", 1, 64, 160, 4, 2, 32, 48, True, None, 0.0, 120),
+    ("bfloat16", 2, 192, 256, 8, 2, 128, 128, True, None, 0.0, 200),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,sq", [("float32", 96), ("bfloat16", 160)])
-def test_cuda_attention_function_grads_match_plain(cuda_device, dtype, sq):
-    """ops.attention on the card is the flash kernel forward (``simt`` in
-    f32, ``prefill_tc`` in bf16) inside an autograd Function whose
-    backward recomputes ref.sdpa_ref: forward within the kernel's
-    tolerance, input gradients equal to the plain version's."""
-    q, k, v, qp, kp = _flash_inputs(3, 2, sq, sq, 4, 2, 64, 64, dtype,
-                                    cuda_device)
-    kw = dict(q_positions=qp, kv_positions=kp, causal=True)
-    w = torch.randn((2, sq, 4, 64), device=cuda_device)
-    before = dict(ops.backward_recomputes)
-    variant = fa.variant(q.dtype, sq, 4, 2, 64, 64)
+@pytest.mark.parametrize(
+    "dtype,b,sq,skv,hq,hkv,dk,dv,causal,window,cap,valid0", GRAD_GRID)
+def test_cuda_attention_function_grads_match_plain(cuda_device, dtype, b, sq,
+                                                   skv, hq, hkv, dk, dv,
+                                                   causal, window, cap,
+                                                   valid0):
+    """ops.attention on the card under grad: the flash forward (its lse
+    within 1e-4 of the plain one, its output's bits the same without the
+    lse) inside an autograd Function whose backward launches the flash
+    backward kernels once.  The gradients are within 2e-2 (bf16) or 2e-5
+    (f32) of each input's largest |gradient|, both against the plain
+    backward on the same output and lse and against autograd of the plain
+    forward; a second backward gives equal bits."""
+    q, k, v, qp, kp = _flash_inputs(3, b, sq, skv, hq, hkv, dk, dv, dtype,
+                                    cuda_device, valid0)
+    kw = dict(q_positions=qp, kv_positions=kp, causal=causal,
+              sliding_window=window, logit_softcap=cap)
+    w = torch.randn((b, sq, hq, dv), device=cuda_device)
+    with torch.no_grad():
+        out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+        bare = fa.flash_attention(q, k, v, **kw)
+        _, lse_p = ref.sdpa_ref(q, k, v, return_lse=True, **kw)
+    assert torch.equal(out, bare)
+    assert float((lse - lse_p).abs().max()) <= 1e-4
+    before = fa.backward_launches
     out_k, g_k = _grads_of(lambda q, k, v: ops.attention(q, k, v, **kw),
                            (q, k, v), w)
-    out_p, g_p = _grads_of(lambda q, k, v: ref.sdpa_ref(q, k, v, **kw),
-                           (q, k, v), w)
-    tol = {"float32": (2e-5, 2e-5), "bfloat16": (1e-3, 1.6e-2)}[dtype]
-    torch.testing.assert_close(out_k.float(), out_p.float(), atol=tol[0],
-                               rtol=tol[1])
-    for a, b in zip(g_k, g_p):
-        assert torch.equal(a, b)
-    assert ops.backward_recomputes[f"flash_attention.{variant}"] == \
-        before[f"flash_attention.{variant}"] + 1
+    _, g_a = _grads_of(lambda q, k, v: ref.sdpa_ref(q, k, v, **kw),
+                       (q, k, v), w)
+    assert fa.backward_launches == before + 1
+    assert torch.equal(out_k, out)
+    dout = w.to(out.dtype)
+    g_p = ref.sdpa_bwd_ref(q, k, v, out, lse, dout, **kw)
+    again = fa.flash_attention_backward(q, k, v, out, lse, dout, **kw)
+    tol = {"float32": 2e-5, "bfloat16": 2e-2}[dtype]
+    for got, plain, auto, rerun in zip(g_k, g_p, g_a, again):
+        assert got.dtype == plain.dtype and got.shape == plain.shape
+        assert _rel_err(got, plain) <= tol
+        assert _rel_err(got, auto) <= tol
+        assert torch.equal(got, rerun)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,p,n,chunk", [("float32", 16, 16, 32),
-                                             ("bfloat16", 64, 64, 64)])
+                                             ("bfloat16", 64, 64, 64),
+                                             ("bfloat16", 64, 128, 256),
+                                             ("float32", 64, 128, 256)])
 def test_cuda_ssd_function_grads_match_plain(cuda_device, dtype, p, n, chunk):
-    """ops.ssd on the card (``simt`` in f32, ``tc`` in bf16) inside an
-    autograd Function whose backward recomputes ref.ssd_ref, a ragged S
-    padded outside it: forward within the kernel's tolerance, the
-    gradients of x, dt, A, B, C and h0 equal to the plain version's."""
+    """ops.ssd on the card (``simt`` in f32, ``tc`` in bf16) under grad, a
+    ragged S padded outside the Function: its backward launches the SSD
+    backward kernels once, and the gradients of x, dt, A, B, C and h0 are
+    within 2e-2 (bf16) or 1e-4 (f32) of each input's largest |gradient|,
+    both against the plain backward and against autograd of the plain
+    forward; a second backward gives equal bits."""
     b, s, h = 2, 3 * chunk - 5, 4
     inputs = _ssd_inputs(4, b, s, h, p, n, dtype, cuda_device)
     w = torch.randn((b, s, h, p), device=cuda_device)
+    before = ss.backward_launches
     out_k, g_k = _grads_of(lambda *a: ops.ssd(*a[:5], chunk=chunk, h0=a[5]),
                            inputs, w)
-    out_p, g_p = _grads_of(
+    out_p, g_a = _grads_of(
         lambda *a: ops.ssd(*a[:5], chunk=chunk, h0=a[5], plain=True)[0]
         .to(a[0].dtype), inputs, w)
+    assert ss.backward_launches == before + 1
     rel = {"float32": 2e-5, "bfloat16": 1e-2}[dtype]
-    assert float((out_k.float() - out_p.float()).abs().max()) <= \
-        rel * float(out_p.float().abs().max())
-    for a, b_ in zip(g_k, g_p):
-        assert torch.equal(a, b_)
+    assert _rel_err(out_k, out_p) <= rel
+    pad = (-s) % chunk
+    x, dt, a, bm, cm, h0 = inputs
+    padded = [ref.pad_seq(t, pad) for t in (x, dt, bm, cm)]
+    dy = ref.pad_seq(w.to(x.dtype), pad)
+    args = (padded[0], padded[1], a, padded[2], padded[3], h0, dy, None)
+    g_p = ref.ssd_bwd_ref(*args, chunk=chunk)
+    again = ss.ssd_scan_backward(*args, chunk=chunk)
+    cut = lambda i, t: t[:, :s] if i in (0, 1, 3, 4) else t
+    tol = {"float32": 1e-4, "bfloat16": 2e-2}[dtype]
+    for i, (got, plain, auto, rerun) in enumerate(zip(g_k, g_p, g_a,
+                                                      again)):
+        assert got.dtype == auto.dtype and got.shape == auto.shape
+        assert _rel_err(got, cut(i, plain)) <= tol, i
+        assert _rel_err(got, auto) <= tol, i
+        assert torch.equal(got, cut(i, rerun)), i
 
 
 @pytest.mark.cuda
@@ -1233,7 +1292,7 @@ def test_cuda_train_step_reaches_every_leaf(cuda_device):
     """One train step of zamba2's smoke config in f32 with
     use_kernel="kernel" (every attention and SSD through the kernels'
     Functions): a finite loss, every gradient leaf finite and non-zero,
-    each Function's backward recomputed once per layer."""
+    each backward kernel launched once per layer."""
     import dataclasses
 
     from repro_torch.configs import get_smoke_config
@@ -1251,17 +1310,16 @@ def test_cuda_train_step_reaches_every_leaf(cuda_device):
                          device=cuda_device, dtype=torch.int32)
     batch = {"tokens": toks, "labels": torch.roll(toks, -1, dims=1)}
     ctx = decoder.RunCtx(cuda_device, use_kernel="kernel")
-    before = dict(ops.backward_recomputes)
+    before = (fa.backward_launches, ss.backward_launches)
     loss, _, grads = ts._grad_fn(cfg, ctx)(params, batch)
     assert bool(torch.isfinite(loss))
     for path, g in leaves_with_paths(grads):
         assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0, \
             path
     kinds = common.layer_plan(cfg).kinds
-    done = {k: ops.backward_recomputes[k] - before[k] for k in before}
-    assert sum(v for k, v in done.items() if k.startswith("flash")) == \
+    assert fa.backward_launches - before[0] == \
         sum(k.mixer == "shared_attn" for k in kinds)
-    assert sum(v for k, v in done.items() if k.startswith("ssd")) == \
+    assert ss.backward_launches - before[1] == \
         sum(k.mixer == "mamba" for k in kinds)
     step = ts.make_train_step(cfg, ctx, ts.TrainConfig())
     _, state, metrics = step(params, opt.init(params), batch)
@@ -1280,8 +1338,9 @@ LSE_GRID = [(4, 512, 32, 2, 128), (4, 512, 32, 16, 128),
 def test_cuda_decode_split_lse_matches_plain(cuda_device, b, skv, hq, hkv, d,
                                              dtype):
     """decode_split's log-sum-exp output against the plain version's (fp32,
-    2e-5), its attention output at the present tolerance, one launch; a
-    variant without the output refuses it."""
+    2e-5), its attention output at the present tolerance, one launch; simt
+    (at head dim 48) writes the rows' lse too, with its output's bits as
+    without it."""
     q, k, v, qp, kp = _flash_inputs(b + skv, b, 1, skv, hq, hkv, d, d, dtype,
                                     cuda_device)
     kw = dict(q_positions=qp, kv_positions=kp, causal=True)
@@ -1297,10 +1356,95 @@ def test_cuda_decode_split_lse_matches_plain(cuda_device, b, skv, hq, hkv, d,
     atol, rtol = (1e-3, 1.6e-2) if dtype == "bfloat16" else (2e-5, 2e-5)
     torch.testing.assert_close(out.float(), want.float(), atol=atol,
                                rtol=rtol)
-    # another variant (simt, at head dim 48) has no log-sum-exp to give
-    with pytest.raises(ValueError, match="decode_split alone"):
-        fa.flash_attention(*(t[..., :48].contiguous() for t in (q, k, v)),
-                           q_positions=qp, kv_positions=kp, return_lse=True)
+    # another variant (simt, at head dim 48) gives it too
+    narrow = [t[..., :48].contiguous() for t in (q, k, v)]
+    with torch.no_grad():
+        out48, lse48 = fa.flash_attention(*narrow, return_lse=True, **kw)
+        bare48 = fa.flash_attention(*narrow, **kw)
+    _, want48 = ref.sdpa_ref(*narrow, return_lse=True, **kw)
+    assert torch.equal(out48, bare48)
+    torch.testing.assert_close(lse48, want48, atol=2e-5, rtol=2e-5)
+
+
+# (dtype, Sq, Hq, Hkv, Dk, Dv, variant) of the rows that see no key
+NO_KEY_GRID = [
+    ("bfloat16", 96, 4, 4, 192, 128, "prefill_tc"),
+    ("bfloat16", 80, 8, 2, 128, 128, "prefill_tc"),
+    ("float32", 48, 4, 2, 64, 64, "simt"),
+    ("bfloat16", 40, 4, 4, 32, 32, "simt"),
+    ("float32", 1, 8, 2, 128, 128, "decode_split"),
+    ("bfloat16", 1, 4, 4, 64, 64, "decode_split"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,sq,hq,hkv,dk,dv,want_variant", NO_KEY_GRID)
+def test_cuda_rows_that_see_no_key_merge_and_get_no_gradient(
+        cuda_device, dtype, sq, hq, hkv, dk, dv, want_variant):
+    """Causal queries over three 64-key chunks of a seq-sharded cache:
+    every row sees a key of the first; in the second the rows before
+    position 64 see none (a decode row sees 9); in the third no row sees
+    one.  Per chunk the
+    kernel's lse is within 1e-4 of the plain one and its output at the
+    flash tolerance on the rows that see a key; on the others its lse,
+    like the plain version's, is at most NEG_INF / 2 (NEG_INF + log of
+    the keys it was handed, or -inf), so such a row weighs nothing in the
+    merge and its output is not defined; the output's bits are the same
+    without the lse.  The chunks merged (``attention.lse_merge``) match the plain
+    chunks merged at the flash tolerance.  The backward kernels on each
+    chunk match ref.sdpa_bwd_ref on the same lse within 2e-2 (bf16) or
+    2e-5 (f32) of the largest |gradient|, and give a row that saw no key
+    no dq (the third chunk no gradient at all)."""
+    from repro_torch.models.attention import lse_merge
+
+    b, n, width = 2, 3, 64
+    q, k, v, _, _ = _flash_inputs(sq + dk, b, sq, n * width, hq, hkv, dk,
+                                  dv, dtype, cuda_device)
+    assert fa.variant(q.dtype, sq, hq, hkv, dk, dv) == want_variant
+    qp = (width + 8 - sq // 2 + torch.arange(sq, dtype=torch.int32,
+                                             device=cuda_device)
+          ).expand(b, sq).contiguous()
+    dout = torch.randn((b, sq, hq, dv), device=cuda_device).to(q.dtype)
+    atol, rtol = (1e-3, 1.6e-2) if dtype == "bfloat16" else (2e-5, 2e-5)
+    tol = {"float32": 2e-5, "bfloat16": 2e-2}[dtype]
+    merged = {"kernel": ([], []), "plain": ([], [])}
+    for c in range(n):
+        kp = (c * width + torch.arange(width, dtype=torch.int32,
+                                       device=cuda_device)
+              ).expand(b, width).contiguous()
+        kc, vc = (t[:, c * width:(c + 1) * width].contiguous()
+                  for t in (k, v))
+        kw = dict(q_positions=qp, kv_positions=kp, causal=True)
+        with torch.no_grad():
+            out, lse = fa.flash_attention(q, kc, vc, return_lse=True, **kw)
+            bare = fa.flash_attention(q, kc, vc, **kw)
+        want, want_lse = ref.sdpa_ref(q, kc, vc, return_lse=True, **kw)
+        assert torch.equal(out, bare)
+        none = ~ref.attn_mask(qp, kp, True, None).any(dim=-1)
+        assert bool(none.all()) == (c == 2)
+        assert bool(none.any()) == (c == 2 or (c == 1 and sq > 1))
+        rows = none[:, :, None].expand(b, sq, hq)
+        assert bool((lse[rows] <= ref.NEG_INF / 2).all())
+        assert bool((want_lse[rows] <= ref.NEG_INF / 2).all())
+        if not bool(none.all()):
+            assert float((lse[~rows] - want_lse[~rows]).abs().max()) <= 1e-4
+            torch.testing.assert_close(out[~rows].float(),
+                                       want[~rows].float(), atol=atol,
+                                       rtol=rtol)
+        for name, o, l in (("kernel", out, lse), ("plain", want, want_lse)):
+            merged[name][0].append(o)
+            merged[name][1].append(l)
+        grads = fa.flash_attention_backward(q, kc, vc, out, lse, dout, **kw)
+        plain = ref.sdpa_bwd_ref(q, kc, vc, out, lse, dout, **kw)
+        assert not bool(grads[0][rows].any())
+        for got, p in zip(grads, plain):
+            if c == 2:
+                assert not bool(got.any()) and not bool(p.any())
+            else:
+                assert _rel_err(got, p) <= tol
+    got, want = (lse_merge(torch.stack(o), torch.stack(l))
+                 for o, l in merged.values())
+    torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
 
 
 @pytest.mark.cuda

@@ -1,0 +1,290 @@
+"""The plain versions of the backward kernels, held to autograd and to JAX.
+
+``ref.sdpa_bwd_ref`` and ``ref.ssd_bwd_ref`` mirror the phases of the
+flash and SSD backward kernels (``csrc/flash_backward.cuh``,
+``csrc/ssd_backward.cuh``).  Here, in f32 on the CPU, each is held to
+``torch.autograd`` of its plain forward (``ref.sdpa_ref``,
+``ref.ssd_ref``) and to ``jax.vjp`` of the reference's plain function
+(``repro.kernels.ref``), within 2e-5 (attention) or 1e-4 (SSD) of each
+input's largest |gradient|.  Inputs are made with numpy from a seed.  The
+kernels themselves run only on a card (``test_torch_cuda.py``).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro_torch.kernels import ops, ref
+
+ATTN_TOL = 2e-5
+SSD_TOL = 1e-4
+
+
+def _rel_err(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+# (B, Sq, Skv, Hq, Hkv, Dk, Dv, causal, window, softcap, scale, kv): kv is
+# "dense" (positions 0..Skv-1, queries at the end), "padded" (the last
+# quarter of the keys at 2^30, ring padding) or "ragged" (each batch row's
+# queries at its own offset)
+ATTN_GRID = [
+    (2, 24, 24, 4, 4, 16, 16, True, None, 0.0, None, "dense"),
+    (2, 24, 24, 4, 2, 16, 16, False, None, 0.0, None, "dense"),
+    (1, 32, 32, 4, 1, 16, 16, True, 8, 0.0, None, "dense"),
+    (2, 20, 20, 4, 2, 16, 16, True, None, 20.0, None, "dense"),
+    (2, 16, 40, 4, 2, 24, 16, True, None, 0.0, 0.3, "dense"),
+    (1, 28, 28, 8, 2, 24, 16, True, 12, 30.0, None, "dense"),
+    (2, 12, 48, 4, 4, 16, 16, True, None, 0.0, None, "padded"),
+    (2, 12, 48, 4, 2, 16, 8, False, None, 0.0, None, "padded"),
+    (3, 10, 30, 4, 2, 12, 20, True, None, 0.0, None, "ragged"),
+    (3, 10, 30, 2, 1, 16, 16, True, 6, 10.0, 0.2, "ragged"),
+]
+
+
+def _attn_inputs(seed, b, sq, skv, hq, hkv, dk, dv, kv):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, sq, hq, dk)).astype(np.float32)
+    k = rng.standard_normal((b, skv, hkv, dk)).astype(np.float32)
+    v = rng.standard_normal((b, skv, hkv, dv)).astype(np.float32)
+    dout = rng.standard_normal((b, sq, hq, dv)).astype(np.float32)
+    kp = np.broadcast_to(np.arange(skv, dtype=np.int32), (b, skv)).copy()
+    if kv == "ragged":
+        ends = rng.integers(sq, skv + 1, b)         # each row's depth
+        qp = (ends[:, None] - sq + np.arange(sq)[None]).astype(np.int32)
+    else:
+        visible = skv - skv // 4 if kv == "padded" else skv
+        qp = np.broadcast_to(np.arange(visible - sq, visible,
+                                       dtype=np.int32), (b, sq)).copy()
+        kp[:, visible:] = 2 ** 30
+    return q, k, v, dout, qp, kp
+
+
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,dk,dv,causal,window,cap,scale,kv",
+                         ATTN_GRID)
+def test_sdpa_bwd_ref_matches_autograd_and_jax(b, sq, skv, hq, hkv, dk, dv,
+                                               causal, window, cap, scale,
+                                               kv):
+    """dq, dk, dv of ref.sdpa_bwd_ref (from the forward's output and lse)
+    against autograd of ref.sdpa_ref and jax.vjp of the reference's
+    sdpa_ref: causal and bidirectional, a window, a softcap, an explicit
+    scale, GQA groups of 1, 2 and 4, Dk != Dv, padded kv positions and
+    per-row query offsets."""
+    q, k, v, dout, qp, kp = _attn_inputs(sq * skv + dk, b, sq, skv, hq, hkv,
+                                         dk, dv, kv)
+    kw = dict(causal=causal, sliding_window=window, logit_softcap=cap,
+              scale=scale)
+    t = torch.from_numpy
+    pos = dict(q_positions=t(qp), kv_positions=t(kp))
+    out, lse = ref.sdpa_ref(t(q), t(k), t(v), return_lse=True, **pos, **kw)
+    got = ref.sdpa_bwd_ref(t(q), t(k), t(v), out, lse, t(dout), **pos, **kw)
+
+    leaves = [t(a).requires_grad_(True) for a in (q, k, v)]
+    auto = torch.autograd.grad(ref.sdpa_ref(*leaves, **pos, **kw), leaves,
+                               t(dout))
+    _, vjp = jax.vjp(lambda q_, k_, v_: jref.sdpa_ref(
+        q_, k_, v_, q_positions=jnp.asarray(qp), kv_positions=jnp.asarray(kp),
+        **kw), *(jnp.asarray(a) for a in (q, k, v)))
+    want_jax = vjp(jnp.asarray(dout))
+    for name, g, a, j in zip("qkv", got, auto, want_jax):
+        assert g.dtype == torch.float32 and g.shape == a.shape, name
+        assert _rel_err(g, a) <= ATTN_TOL, name
+        assert _rel_err(g, j) <= ATTN_TOL, name
+
+
+def test_sdpa_bwd_ref_rounds_once_to_the_inputs_dtype():
+    """In bf16 the gradients come back in bf16, each the fp32 gradient
+    rounded once."""
+    q, k, v, dout, qp, kp = _attn_inputs(5, 2, 16, 16, 4, 2, 16, 16,
+                                         "dense")
+    t = lambda a: torch.from_numpy(a).to(torch.bfloat16)
+    pos = dict(q_positions=torch.from_numpy(qp),
+               kv_positions=torch.from_numpy(kp))
+    out, lse = ref.sdpa_ref(t(q), t(k), t(v), return_lse=True, **pos)
+    got = ref.sdpa_bwd_ref(t(q), t(k), t(v), out, lse, t(dout), **pos)
+    wide = ref.sdpa_bwd_ref(*(x.float() for x in (t(q), t(k), t(v), out)),
+                            lse, t(dout).float(), **pos)
+    for g, w in zip(got, wide):
+        assert g.dtype == torch.bfloat16
+        assert torch.equal(g, w.to(torch.bfloat16))
+
+
+def _hidden_rows(qp, kp, causal, window):
+    """[B, Sq] True where a query row sees no key."""
+    mask = ref.attn_mask(torch.from_numpy(qp), torch.from_numpy(kp), causal,
+                         window)
+    return ~mask.any(dim=-1)
+
+
+@pytest.mark.parametrize("hq,hkv,window", [(4, 2, None), (4, 4, 6)])
+def test_sdpa_bwd_ref_gives_rows_that_see_no_key_no_gradient(hq, hkv,
+                                                             window):
+    """Queries before every key (rows 0-7 see none): the plain forward
+    spreads such a row evenly over all Skv keys (lse NEG_INF + log Skv,
+    output the mean of V), so autograd sends dout / Skv of it into every
+    key's dV.  The kernels give such a row no weight in a merge (lse at
+    most NEG_INF / 2, output not defined), and ref.sdpa_bwd_ref, like the
+    backward kernels, no gradient: dq and dk equal autograd's, and dv
+    equals autograd's less that even share, exactly that and no more."""
+    b, sq, skv, d = 2, 16, 24, 16
+    rng = np.random.default_rng(7 + hq + hkv)
+    q, k, v, dout = (rng.standard_normal(shape).astype(np.float32)
+                     for shape in ((b, sq, hq, d), (b, skv, hkv, d),
+                                   (b, skv, hkv, d), (b, sq, hq, d)))
+    qp = np.broadcast_to(np.arange(sq, dtype=np.int32), (b, sq)).copy()
+    kp = np.broadcast_to(np.arange(8, 8 + skv, dtype=np.int32),
+                         (b, skv)).copy()
+    hidden = _hidden_rows(qp, kp, True, window)
+    assert hidden[:, :8].all() and not hidden[:, 8:].any()
+    t = torch.from_numpy
+    kw = dict(q_positions=t(qp), kv_positions=t(kp), causal=True,
+              sliding_window=window)
+    out, lse = ref.sdpa_ref(t(q), t(k), t(v), return_lse=True, **kw)
+    rows = hidden[:, :, None].expand(b, sq, hq)
+    assert bool((lse[rows] <= ref.NEG_INF / 2).all())
+    mean_v = t(v).mean(dim=1).repeat_interleave(hq // hkv, dim=1)
+    torch.testing.assert_close(out[hidden], mean_v[:, None].expand(
+        b, sq, hq, d)[hidden], atol=1e-6, rtol=1e-6)
+    got = ref.sdpa_bwd_ref(t(q), t(k), t(v), out, lse, t(dout), **kw)
+    leaves = [t(a).requires_grad_(True) for a in (q, k, v)]
+    auto = torch.autograd.grad(ref.sdpa_ref(*leaves, **kw), leaves, t(dout))
+    assert float(got[0][hidden].abs().max()) == 0.0
+    assert _rel_err(got[0], auto[0]) <= ATTN_TOL
+    assert _rel_err(got[1], auto[1]) <= ATTN_TOL
+    spread = (t(dout) * hidden[:, :, None, None]).sum(dim=1) / skv
+    spread = spread.reshape(b, hkv, hq // hkv, d).sum(dim=2)
+    assert _rel_err(got[2], auto[2]) > ATTN_TOL
+    assert _rel_err(got[2] + spread[:, None], auto[2]) <= ATTN_TOL
+
+
+@pytest.mark.parametrize("hq,hkv,window", [(4, 2, None), (4, 4, 12)])
+def test_lse_merge_over_key_chunks_equals_the_whole_call(hq, hkv, window):
+    """The seq-sharded merge (``attention.lse_merge``) of the plain version
+    over three key chunks, where rows 0-7 see no key of the second chunk
+    and no row sees one of the third, equals one call over all the keys
+    within 2e-5.  It does so as well with what the kernels write on such
+    rows (lse NEG_INF + log of the hidden keys a tile held, or -inf; any
+    output); one chunk comes back bit for bit."""
+    from repro_torch.models.attention import lse_merge
+
+    b, sq, skv, d = 2, 16, 48, 16
+    rng = np.random.default_rng(11 + hkv)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               for shape in ((b, sq, hq, d), (b, skv, hkv, d),
+                             (b, skv, hkv, d)))
+    qp = np.broadcast_to(np.arange(8, 8 + sq, dtype=np.int32), (b, sq)).copy()
+    kp = np.broadcast_to(np.arange(skv, dtype=np.int32), (b, skv)).copy()
+    kw = dict(causal=True, sliding_window=window)
+    want = ref.sdpa_ref(q, k, v, q_positions=torch.from_numpy(qp),
+                        kv_positions=torch.from_numpy(kp), **kw)
+    outs, lses, kernel_outs, kernel_lses = [], [], [], []
+    for c in range(3):
+        cut = slice(16 * c, 16 * (c + 1))
+        out, lse = ref.sdpa_ref(q, k[:, cut], v[:, cut], return_lse=True,
+                                q_positions=torch.from_numpy(qp),
+                                kv_positions=torch.from_numpy(kp[:, cut]),
+                                **kw)
+        hidden = _hidden_rows(qp, kp[:, cut], True, window)
+        assert bool(hidden.all()) == (c == 2)
+        assert bool(hidden[:, :8].all()) or c == 0
+        rows = hidden[:, :, None].expand(b, sq, hq)
+        outs.append(out)
+        lses.append(lse)
+        kernel_outs.append(torch.where(rows[..., None], 7.0, out))
+        kernel_lses.append(torch.where(
+            rows, -torch.inf if c == 2 else ref.NEG_INF + 1.6, lse))
+    for o, l in ((outs, lses), (kernel_outs, kernel_lses)):
+        merged = lse_merge(torch.stack(o), torch.stack(l))
+        torch.testing.assert_close(merged, want, atol=2e-5, rtol=2e-5)
+    assert torch.equal(lse_merge(outs[0][None], lses[0][None]), outs[0])
+
+
+# (B, S, H, P, N, chunk, h0, dfinal)
+SSD_GRID = [
+    (2, 64, 3, 8, 16, 16, True, True),
+    (2, 64, 3, 8, 16, 16, False, False),
+    (1, 96, 4, 16, 8, 32, True, False),
+    (2, 32, 2, 4, 12, 32, False, True),
+]
+
+
+def _ssd_inputs(seed, b, s, h, p, n):
+    rng = np.random.default_rng(seed)
+    f = lambda *shape: rng.standard_normal(shape).astype(np.float32)
+    return (f(b, s, h, p) * 0.5,
+            np.log1p(np.exp(f(b, s, h))).astype(np.float32),
+            (-np.exp(f(h) * 0.3)).astype(np.float32),
+            f(b, s, 1, n) * 0.4, f(b, s, 1, n) * 0.4, f(b, h, p, n) * 0.1,
+            f(b, s, h, p), f(b, h, p, n))
+
+
+def _jax_ssd_vjp(x, dt, a, bm, cm, h0, dy, dfinal, chunk, s):
+    """jax.vjp of the reference's ssd_ref, S zero-padded to the chunk
+    inside the function (as ops.ssd pads) and y cut back to S."""
+    pad = (-s) % chunk
+
+    def fn(x_, dt_, a_, b_, c_, *h):
+        padded = [jnp.pad(t, [(0, 0), (0, pad)] + [(0, 0)] * (t.ndim - 2))
+                  for t in (x_, dt_, b_, c_)]
+        y, final = jref.ssd_ref(padded[0], padded[1], a_, padded[2],
+                                padded[3], chunk=chunk,
+                                h0=h[0] if h else None)
+        return y[:, :s], final
+
+    args = [jnp.asarray(t) for t in (x, dt, a, bm, cm)]
+    if h0 is not None:
+        args.append(jnp.asarray(h0))
+    _, vjp = jax.vjp(fn, *args)
+    return vjp((jnp.asarray(dy), jnp.asarray(dfinal)))
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk,with_h0,with_dfinal", SSD_GRID)
+def test_ssd_bwd_ref_matches_autograd_and_jax(b, s, h, p, n, chunk, with_h0,
+                                              with_dfinal):
+    """dx, ddt, dA, dB, dC (and dh0) of ref.ssd_bwd_ref against autograd of
+    ref.ssd_ref and jax.vjp of the reference's ssd_ref, with and without
+    h0 and the final state's gradient."""
+    x, dt, a, bm, cm, h0, dy, dfinal = _ssd_inputs(s + h + n, b, s, h, p, n)
+    h0 = h0 if with_h0 else None
+    dfinal = dfinal if with_dfinal else np.zeros_like(dfinal)
+    t = torch.from_numpy
+    got = ref.ssd_bwd_ref(t(x), t(dt), t(a), t(bm), t(cm),
+                          None if h0 is None else t(h0), t(dy),
+                          t(dfinal) if with_dfinal else None, chunk=chunk)
+    ins = [t(v).requires_grad_(True) for v in (x, dt, a, bm, cm)
+           + (() if h0 is None else (h0,))]
+    y, final = ref.ssd_ref(*ins[:5], chunk=chunk,
+                           h0=ins[5] if h0 is not None else None)
+    auto = torch.autograd.grad([y, final], ins, [t(dy), t(dfinal)])
+    want_jax = _jax_ssd_vjp(x, dt, a, bm, cm, h0, dy, dfinal, chunk, s)
+    for name, g, au, j in zip(("x", "dt", "a", "b", "c", "h0"), got, auto,
+                              want_jax):
+        assert g.shape == au.shape, name
+        assert _rel_err(g, au) <= SSD_TOL, name
+        assert _rel_err(g, j) <= SSD_TOL, name
+
+
+def test_ssd_bwd_ref_through_ops_padding_matches_autograd_and_jax():
+    """A ragged S: ref.ssd_bwd_ref on ops.ssd's zero-padded inputs, cut
+    back to S, against autograd through ops.ssd (plain) and jax.vjp of
+    the padded reference."""
+    b, s, h, p, n, chunk = 2, 50, 3, 8, 16, 16
+    x, dt, a, bm, cm, h0, dy, dfinal = _ssd_inputs(9, b, s, h, p, n)
+    t = torch.from_numpy
+    pad = (-s) % chunk
+    padded = [ref.pad_seq(t(v), pad) for v in (x, dt, bm, cm, dy)]
+    got = ref.ssd_bwd_ref(padded[0], padded[1], t(a), padded[2], padded[3],
+                          t(h0), padded[4], t(dfinal), chunk=chunk)
+    got = [g[:, :s] if i in (0, 1, 3, 4) else g for i, g in enumerate(got)]
+    ins = [t(v).requires_grad_(True) for v in (x, dt, a, bm, cm, h0)]
+    y, final = ops.ssd(*ins[:5], chunk=chunk, h0=ins[5], plain=True)
+    auto = torch.autograd.grad([y, final], ins, [t(dy), t(dfinal)])
+    want_jax = _jax_ssd_vjp(x, dt, a, bm, cm, h0, dy, dfinal, chunk, s)
+    for name, g, au, j in zip(("x", "dt", "a", "b", "c", "h0"), got, auto,
+                              want_jax):
+        assert g.shape == au.shape, name
+        assert _rel_err(g, au) <= SSD_TOL, name
+        assert _rel_err(g, j) <= SSD_TOL, name

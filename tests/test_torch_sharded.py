@@ -293,16 +293,20 @@ def test_seq_sharded_decode_matches_single_device(runs, arch):
     """Two decode steps over rings cut into 4 seq chunks (glm4 on (1, 4, 2)
     with its kv heads over the model axis, deepseek-v2's MLA latent cache
     on (2, 4, 1)) equal the single-device steps within 2e-4; each rank's
-    ring holds 32 / 4 positions.  A prefill on the mesh leaves each rank
-    its block of the single-device prompt cache."""
+    ring holds 32 / 4 positions.  So does a step of three tokens after
+    them (MLA's expanded path merged by the chunks' lse).  A prefill on
+    the mesh leaves each rank its block of the single-device prompt
+    cache."""
     _, _, port8, _ = runs
     r0 = port8[0]
     assert r0[f"{arch}_ring"][1] == 8
     if arch == "glm4":
         assert r0[f"{arch}_ring"][2] == 1          # 2 kv heads / model 2
-    for step in ("got1", "got"):
+    for step, ref_key in (("got1", "ref1"), ("got", "ref"),
+                          ("multi", "multi_ref")):
         got = _same_on_every_rank(port8, f"{arch}_{step}")
-        want = r0[f"{arch}_{step.replace('got', 'ref')}"]
+        want = r0[f"{arch}_{ref_key}"]
+        assert got.shape == want.shape
         assert float(np.max(np.abs(got - want))) < 2e-4, step
     # a prefill of 4 x 8 tokens on the same mesh: the global logits, and
     # every rank's block of the prompt cache (seq chunks of 2, kv heads)

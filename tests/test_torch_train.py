@@ -184,28 +184,44 @@ def test_inference_entry_points_record_no_graph():
 
 @pytest.fixture
 def plain_launchers(monkeypatch):
-    """The Functions' kernel launches replaced by the plain versions (run
-    without autograd, as a kernel runs), so the Functions run here."""
+    """The Functions' kernel launches, forward and backward, replaced by
+    the plain versions (run without autograd, as a kernel runs), so the
+    Functions run here; each backward call is counted."""
+    calls = {"attention": 0, "ssd": 0}
+
     def attention(q, k, v, **kw):
         with torch.no_grad():
             return ref.sdpa_ref(q, k, v, **kw)
+
+    def attention_bwd(*args, **kw):
+        calls["attention"] += 1
+        with torch.no_grad():
+            return ref.sdpa_bwd_ref(*args, **kw)
 
     def ssd(x, dt, a, b_mat, c_mat, *, chunk, h0):
         with torch.no_grad():
             y, final = ref.ssd_ref(x, dt, a, b_mat, c_mat, chunk=chunk, h0=h0)
         return y.to(x.dtype), final
 
+    def ssd_bwd(*args, **kw):
+        calls["ssd"] += 1
+        with torch.no_grad():
+            return ref.ssd_bwd_ref(*args, **kw)
+
     monkeypatch.setattr(tflash, "flash_attention", attention)
+    monkeypatch.setattr(tflash, "flash_attention_backward", attention_bwd)
     monkeypatch.setattr(tssd, "ssd_scan", ssd)
-    for k in ops.backward_recomputes:
-        monkeypatch.setitem(ops.backward_recomputes, k, 0)
+    monkeypatch.setattr(tssd, "ssd_scan_backward", ssd_bwd)
+    return calls
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_attention_function_grads_are_the_plain_versions(plain_launchers,
                                                           dtype):
-    """ops._Attention's backward: the plain version's input gradients,
-    bit for bit, and one recompute counted per backward."""
+    """ops._Attention: the forward saves the output and the rows' lse, and
+    its backward is the plain backward (ref.sdpa_bwd_ref) on them, bit for
+    bit, one backward launch a backward; in f32 those gradients are
+    autograd's of ref.sdpa_ref within 2e-5 of each input's largest."""
     g = torch.Generator().manual_seed(0)
     b, s, hq, hkv, d = 2, 40, 4, 2, 16
     q, k, v = (torch.randn((b, s, h, d), generator=g).to(dtype)
@@ -223,20 +239,29 @@ def test_attention_function_grads_are_the_plain_versions(plain_launchers,
 
     got = run(lambda q_, k_, v_: ops._Attention.apply(q_, k_, v_, pos, pos,
                                                       opts))
-    want = run(lambda q_, k_, v_: ref.sdpa_ref(
+    auto = run(lambda q_, k_, v_: ref.sdpa_ref(
         q_, k_, v_, q_positions=pos, kv_positions=pos, **opts))
+    out, lse = ref.sdpa_ref(q, k, v, q_positions=pos, kv_positions=pos,
+                            return_lse=True, **opts)
+    want = [out] + list(ref.sdpa_bwd_ref(
+        q, k, v, out, lse, w.to(out.dtype), q_positions=pos,
+        kv_positions=pos, **opts))
     for a, b_ in zip(got, want):
         assert torch.equal(a, b_)
-    assert sum(ops.backward_recomputes.values()) == 1
-    name = tflash.variant(dtype, s, hq, hkv, d, d)
-    assert ops.backward_recomputes[f"flash_attention.{name}"] == 1
+    assert plain_launchers == {"attention": 1, "ssd": 0}
+    if dtype == torch.float32:
+        for a, b_ in zip(got[1:], auto[1:]):
+            assert float((a - b_).abs().max()) <= \
+                2e-5 * float(b_.abs().max())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_function_grads_are_the_plain_versions(plain_launchers, dtype):
-    """ops._SSD's backward, through ops.ssd's padding: the plain
-    version's input gradients (x, dt, A, B, C and h0), bit for bit, with
-    the final state's gradient taken too."""
+    """ops._SSD's backward, through ops.ssd's padding: the plain backward
+    (ref.ssd_bwd_ref) on the padded inputs, bit for bit, for x, dt, A, B,
+    C and h0 with the final state's gradient taken too, one backward
+    launch a backward; in f32 within 1e-4 of each input's largest
+    gradient of autograd through the plain version."""
     g = torch.Generator().manual_seed(1)
     b, s, h, p, n, chunk = 2, 40, 4, 8, 16, 16
     x = torch.randn((b, s, h, p), generator=g).to(dtype)
@@ -247,6 +272,7 @@ def test_ssd_function_grads_are_the_plain_versions(plain_launchers, dtype):
     h0 = torch.randn((b, h, p, n), generator=g)
     wy, wf = torch.randn((b, s, h, p), generator=g), torch.randn(h0.shape,
                                                                  generator=g)
+    pad = (-s) % chunk
 
     def run(fn):
         leaves_ = [t.clone().requires_grad_(True)
@@ -261,16 +287,26 @@ def test_ssd_function_grads_are_the_plain_versions(plain_launchers, dtype):
         return y.to(x_.dtype), final
 
     def function(x_, dt_, a_, b_, c_, h0_):
-        pad = (-s) % chunk
         xs = [ref.pad_seq(t, pad) for t in (x_, dt_, b_, c_)]
         y, final = ops._SSD.apply(xs[0], xs[1], a_, xs[2], xs[3], h0_, chunk)
         return y[:, :s], final
 
-    got, want = run(function), run(plain)
+    got, auto = run(function), run(plain)
+    padded = [ref.pad_seq(t, pad) for t in (x, dt, bm, cm)]
+    y, final = ref.ssd_ref(padded[0], padded[1], a, padded[2], padded[3],
+                           chunk=chunk, h0=h0)
+    dy = ref.pad_seq(wy.to(x.dtype), pad)
+    grads = ref.ssd_bwd_ref(padded[0], padded[1], a, padded[2], padded[3],
+                            h0, dy, wf, chunk=chunk)
+    want = [y.to(x.dtype)[:, :s], final] + [
+        t[:, :s] if i in (0, 1, 3, 4) else t for i, t in enumerate(grads)]
     for a_, b_ in zip(got, want):
         assert torch.equal(a_, b_)
-    name = tssd.variant(dtype, p, n, chunk)
-    assert ops.backward_recomputes[f"ssd_scan.{name}"] == 1
+    assert plain_launchers == {"attention": 0, "ssd": 1}
+    if dtype == torch.float32:
+        for a_, b_ in zip(got[2:], auto[2:]):
+            assert float((a_ - b_).abs().max()) <= \
+                1e-4 * float(b_.abs().max())
 
 
 # ---------------------------------------------------------------------------

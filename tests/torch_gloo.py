@@ -203,8 +203,8 @@ def _decode(cfg, ctx, params, caches, toks, pos):
 
 def _seq_decode_cases(rank: int) -> dict:
     """Two decode steps over seq-sharded rings against the single-device
-    step (the reference's test_seq_sharded_decode_matches_unsharded), and
-    a prefill on the same mesh."""
+    step (the reference's test_seq_sharded_decode_matches_unsharded), a
+    step of three tokens after them, and a prefill on the same mesh."""
     from repro_torch.dist import sharding as shd
     from repro_torch.models import common, decoder
 
@@ -232,6 +232,14 @@ def _seq_decode_cases(rank: int) -> dict:
                            ref.argmax(-1).to(torch.int32), 1)
         ring = next(layer["attn"] for layer in c8 if "attn" in layer)
         out[f"{tag}_got"], out[f"{tag}_ref"] = got2.numpy(), ref2.numpy()
+        # three tokens at positions 2-4 over the same rings: each rank
+        # attends its chunk and the chunks merge by their lse
+        multi = (torch.arange(12, dtype=torch.int32).reshape(4, 3) * 7
+                 % cfg.vocab_size)
+        got3, c8 = decoder.multi_token_step(cfg, ctx8, blocks, c8, multi, 2)
+        ref3, c1 = decoder.multi_token_step(cfg, ctx1, params, c1, multi, 2)
+        out[f"{tag}_multi"], out[f"{tag}_multi_ref"] = got3.numpy(), \
+            ref3.numpy()
         # a prefill on the mesh: the global logits, and each rank's block
         # of the prompt cache is its block of the single-device one
         batch = {"tokens": torch.arange(32, dtype=torch.int32).reshape(4, 8)
