@@ -247,23 +247,30 @@ Runtime analysis (``repro_torch.analysis``) on the card:
 
 Single-device training (``repro_torch.train``, ``launch.train``):
 
-21. kernel_grad — the backward kernels (``flash_backward.cuh``,
-            ``ssd_backward.cuh``) through the autograd Functions at the
-            training shapes: attention at zamba2's (B 2, S 2048, H 32, D
-            64, causal, bf16), glm4's (128, 128) over GQA groups of 16,
-            hubert's (80, 80) bidirectional, deepseek-v2's MLA (192,
-            128), a window of 512 with a softcap of 50, and zamba2's in
-            f32 (``simt``); the SSD at zamba2's (H 64, N 64) and
-            mamba2's (H 48, N 128), bf16, with h0 and the final state's
-            gradient.  Each: one backward launch a backward and no plain
-            version called; the gradients within 2e-2 (bf16) or 2e-5 /
-            1e-4 (f32, attention / SSD) of each input's largest, against
-            the plain backward (``ref.sdpa_bwd_ref`` / ``ssd_bwd_ref``) and
+21. kernel_grad — the backward kernels through the autograd Functions
+            at the training shapes, each case's backward variant as
+            ``backward_variant()`` names it: attention at zamba2's (B 2,
+            S 2048, H 32, D 64, causal, bf16), glm4's (128, 128) over GQA
+            groups of 16 (the group split over ``dkdv_tc`` blocks),
+            hubert's (80, 80) bidirectional and a window of 512 with a
+            softcap of 50 on ``tc`` (``flash_backward_tc.cuh``);
+            deepseek-v2's MLA (192, 128) and zamba2's in f32 on ``simt``
+            (``flash_backward.cuh``); the SSD at zamba2's (H 64, N 64) and
+            mamba2's (H 48, N 128), bf16, on ``tc``
+            (``ssd_backward_tc.cuh``) and zamba2's in f32 on ``simt``, with
+            h0 and the final state's gradient.  Each: one backward launch
+            of its variant and no plain version called; the gradients
+            within 2e-2 (bf16) or 2e-5 / 1e-4 (f32, attention / SSD) of
+            each input's largest, against the fp32 plain backward
+            (``ref.sdpa_bwd_ref`` / ``ssd_bwd_ref``), against ``tc``'s
+            plain twin (``ref.sdpa_bwd_tc_ref`` / ``ssd_bwd_tc_ref``) and
             against autograd of the plain forward; two calls equal bits;
             attention's lse within 1e-4 of the plain one and the output's
             bits equal without it (both timed).  The backward's ms and
-            device ms and its bound; at zamba2's shapes also the plain
-            backward's, forward + backward against the old recompute
+            device ms and its bound; beside a ``tc`` case the ``simt``
+            kernels at the same shape (asked for by name); at zamba2's
+            shapes also the plain backward's and the twin's, forward +
+            backward against the old recompute
             (autograd of the plain forward) and, for attention,
             ``scaled_dot_product_attention``'s backward and forward +
             backward (a yardstick the port never calls).
@@ -273,8 +280,9 @@ Single-device training (``repro_torch.train``, ``launch.train``):
             before; once with remat none and once with ``--remat full``.
             Every loss finite; per step 6 ``prefill_tc`` and 32 ``tc``
             launches (under full remat the 36 body layers' forwards run
-            again in the backward: 12 and 62) and 6 and 32 backward kernel
-            launches, no plain version called; step wall after the first,
+            again in the backward: 12 and 62) and 6 flash and 32 SSD
+            backward launches, every one ``tc``, no plain version called;
+            step wall after the first,
             tokens/s, peak memory.
     train_profile — one more step under ``torch.profiler``: device busy,
             idle share, the largest device ops, the share of busy time in
@@ -423,8 +431,10 @@ train phases and phases 25, 26b for the SSD (26b's counts summed over its
 four ranks); phases 28-29 add
 ``anchor_*`` and ``examples_*`` paths to every kernel that counts by path,
 zeros included; ``decode_split`` also ``lse_launches`` and the ``lse``
-cases of phase 26; one entry per backward kernel, timed at phase 21's
-zamba2 case, its launches by training path: train, train_remat_full,
+cases of phase 26; one entry per backward kernel and variant
+(``flash_attention.backward.tc`` / ``.simt``, ``ssd_scan.backward.tc`` /
+``.simt``), both timed at phase 21's zamba2 case (``simt`` asked for by
+name there), its launches by training path: train, train_remat_full,
 train_held, mesh_train and examples_train_100m), and ``{"ok": true,
 "device": {...}}``.
 """
@@ -1566,41 +1576,57 @@ def ssd_records(cases: list, paths: dict) -> list:
 
 
 BACKWARD_SOURCES = {
-    "flash_attention.backward": (
-        "src/repro_torch/kernels/csrc/flash_backward.cuh",
-        "src/repro/kernels/flash_attention.py:90"),
-    "ssd_scan.backward": ("src/repro_torch/kernels/csrc/ssd_backward.cuh",
-                          "src/repro/kernels/ssd_scan.py:76"),
+    "flash_attention": ("src/repro/kernels/flash_attention.py:90", {
+        "tc": "src/repro_torch/kernels/csrc/flash_backward_tc.cuh",
+        "simt": "src/repro_torch/kernels/csrc/flash_backward.cuh"}),
+    "ssd_scan": ("src/repro/kernels/ssd_scan.py:76", {
+        "tc": "src/repro_torch/kernels/csrc/ssd_backward_tc.cuh",
+        "simt": "src/repro_torch/kernels/csrc/ssd_backward.cuh"}),
 }
 
 
 def backward_records(grad_cases: dict, paths: dict) -> list:
-    """One entry per backward kernel, timed at its first case (zamba2's
-    training shape), the largest error over its cases; ``launches`` sums
-    the training paths' counts, by path beside it.  ``replaces`` names the
-    TPU kernel whose function's gradient it computes: the reference has
-    no backward kernel and differentiates its plain version."""
+    """One entry per backward kernel and variant, both timed at the first
+    case (zamba2's training shape, which takes ``tc``): ``tc`` as it runs
+    there beside its plain twin, ``simt`` asked for by name at the same
+    shape beside the fp32 plain backward; the largest error over the cases
+    that took the variant; ``launches`` sums the training paths' counts,
+    by path beside it.  ``replaces`` names the TPU kernel whose function's
+    gradient it computes: the reference has no backward kernel and
+    differentiates its plain version."""
     out = []
-    for name, cases in grad_cases.items():
+    for kernel, cases in grad_cases.items():
         head = cases[0]
-        source, replaces = BACKWARD_SOURCES[name]
-        by_path = {path: counts.get(name, 0) for path, counts in paths.items()}
-        out.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": sum(by_path.values()),
-            "max_abs_err": max(c["max_abs_err"] for c in cases),
-            "ms": head["bwd_ms"], "graph_ms": head["bwd_graph_ms"],
-            "plain_ms": head["plain_bwd_ms"], "bound_ms": head["bwd_bound_ms"],
-            "bound_by": head["bwd_bound_by"],
-            "library_ms": head["library_bwd_ms"], "case": head["case"],
-            "launches_by_path": by_path,
-            "max_rel_err": max(max(c["rel_err_vs_plain"]) for c in cases),
-            **{k: head[k] for k in ("fwd_bwd_ms", "plain_fwd_bwd_ms",
-                                    "library_fwd_bwd_ms",
-                                    "fwd_bwd_bound_ms")},
-            "cases": {c["case"]: {k: c[k] for k in (
-                "bwd_ms", "bwd_graph_ms", "bwd_bound_ms", "max_abs_err")}
-                for c in cases}})
+        check(head["backward_variant"] == "tc",
+              f"{kernel}: the timed case took {head['backward_variant']}")
+        replaces, sources = BACKWARD_SOURCES[kernel]
+        for variant, source in sources.items():
+            name = f"{kernel}.backward.{variant}"
+            mine = [c for c in cases if c["backward_variant"] == variant]
+            check(bool(mine), f"no kernel_grad case took {name}")
+            by_path = {path: counts.get(name, 0)
+                       for path, counts in paths.items()}
+            tc = variant == "tc"
+            out.append({
+                "name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": sum(by_path.values()),
+                "max_abs_err": max(c["max_abs_err"] for c in mine),
+                "ms": head["bwd_ms"] if tc else head["simt_bwd_ms"],
+                "graph_ms": head["bwd_graph_ms"] if tc else None,
+                "plain_ms": head["twin_bwd_ms"] if tc
+                else head["plain_bwd_ms"],
+                "bound_ms": head["bwd_bound_ms"],
+                "bound_by": head["bwd_bound_by"],
+                "library_ms": head["library_bwd_ms"], "case": head["case"],
+                "launches_by_path": by_path,
+                "max_rel_err": max(max(c["rel_err_vs_plain"]) for c in mine),
+                **({k: head[k] for k in ("fwd_bwd_ms", "plain_fwd_bwd_ms",
+                                         "library_fwd_bwd_ms",
+                                         "fwd_bwd_bound_ms",
+                                         "speedup_vs_simt")} if tc else {}),
+                "cases": {c["case"]: {k: c.get(k) for k in (
+                    "bwd_ms", "bwd_graph_ms", "simt_bwd_ms", "bwd_bound_ms",
+                    "max_abs_err")} for c in mine}})
     return out
 
 
@@ -3066,7 +3092,8 @@ GRAD_TOL = {"attention": {"float32": 2e-5, "bfloat16": 2e-2},
             "ssd": {"float32": 1e-4, "bfloat16": 2e-2}}
 GRAD_LSE_TOL = 1e-4
 # the plain versions a kernel's path must not call on the card
-PLAIN_FNS = ("sdpa_ref", "ssd_ref", "sdpa_bwd_ref", "ssd_bwd_ref")
+PLAIN_FNS = ("sdpa_ref", "ssd_ref", "sdpa_bwd_ref", "ssd_bwd_ref",
+             "sdpa_bwd_tc_ref", "ssd_bwd_tc_ref")
 
 
 @contextlib.contextmanager
@@ -3117,27 +3144,30 @@ def _rel_errs(got, want) -> list:
 
 
 def _grad_checks(name: str, kind: str, dtype: str, g_k, g_p, g_a,
-                 again) -> dict:
-    """The kernel's gradients against the plain backward and autograd of
-    the plain forward (GRAD_TOL of each input's largest |gradient|), and
-    a second call's bits."""
+                 again, g_t=None) -> dict:
+    """The kernel's gradients against the fp32 plain backward, the ``tc``
+    variant's plain twin (``g_t``, its bf16 roundings) where given, and
+    autograd of the plain forward (GRAD_TOL of each input's largest
+    |gradient|), and a second call's bits."""
     import torch
 
     tol = GRAD_TOL[kind][dtype]
     vs_plain, vs_auto = _rel_errs(g_k, g_p), _rel_errs(g_k, g_a)
+    vs_twin = _rel_errs(g_k, g_t) if g_t is not None else None
     same = [bool(torch.equal(a, b)) for a, b in zip(g_k, again)]
     abs_err = max(float((a.float() - b.float()).abs().max())
-                  for a, b in zip(g_k, g_p))
-    check(max(vs_plain) <= tol and max(vs_auto) <= tol,
+                  for a, b in zip(g_k, g_t if g_t is not None else g_p))
+    check(max(vs_plain) <= tol and max(vs_auto) <= tol
+          and (vs_twin is None or max(vs_twin) <= tol),
           f"{name}: backward kernel gradients off by {vs_plain} (plain "
-          f"backward) / {vs_auto} (autograd of the plain forward), limit "
-          f"{tol}")
+          f"backward) / {vs_twin} (its plain twin) / {vs_auto} (autograd of "
+          f"the plain forward), limit {tol}")
     check(all(same), f"{name}: two backward calls differ ({same})")
     check(all(bool(torch.isfinite(g).all()) and bool(g.abs().max() > 0)
               for g in g_k), f"{name}: a zero or non-finite gradient")
     return dict(grad_tol=tol, rel_err_vs_plain=vs_plain,
-                rel_err_vs_autograd=vs_auto, max_abs_err=abs_err,
-                deterministic=all(same))
+                rel_err_vs_twin=vs_twin, rel_err_vs_autograd=vs_auto,
+                max_abs_err=abs_err, deterministic=all(same))
 
 
 def attention_grad_case(name: str, b, s, hq, hkv, dk, dv, *, causal=True,
@@ -3168,6 +3198,7 @@ def attention_grad_case(name: str, b, s, hq, hkv, dk, dv, *, causal=True,
     kw = dict(q_positions=pos, kv_positions=pos, causal=causal,
               sliding_window=window, logit_softcap=cap)
     variant = fa.variant(td, s, hq, hkv, dk, dv)
+    bwd_variant = fa.backward_variant(td, s, hq, hkv, dk, dv)
     weight = torch.randn((b, s, hq, dv), generator=gen, device=dev)
     dout = weight.to(td)
     with torch.no_grad():
@@ -3180,19 +3211,22 @@ def attention_grad_case(name: str, b, s, hq, hkv, dk, dv, *, causal=True,
     check(lse_err <= GRAD_LSE_TOL, f"{name}: lse off by {lse_err}")
     del lse_p
 
-    before = fa.backward_launches
+    before = dict(fa.backward_variant_launches)
     with plain_calls() as plain_n:
         _, g_k = _grads(lambda q, k, v: ops.attention(q, k, v, **kw),
                         (q, k, v), (weight,))
-    check(fa.backward_launches == before + 1 and not plain_n,
-          f"{name}: {fa.backward_launches - before} backward launches, "
+    ran = {k_: n - before[k_] for k_, n in fa.backward_variant_launches.items()}
+    check(ran == {k_: int(k_ == bwd_variant) for k_ in ran} and not plain_n,
+          f"{name}: backward launches {ran}, expected one {bwd_variant}; "
           f"plain calls {dict(plain_n)}")
     g_p = ref.sdpa_bwd_ref(q, k, v, out, lse, dout, **kw)
+    g_t = (ref.sdpa_bwd_tc_ref(q, k, v, out, lse, dout, **kw)
+           if bwd_variant == "tc" else None)
     _, g_a = _grads(lambda q, k, v: ref.sdpa_ref(q, k, v, **kw), (q, k, v),
                     (weight,))
     again = fa.flash_attention_backward(q, k, v, out, lse, dout, **kw)
-    grads = _grad_checks(name, "attention", dtype, g_k, g_p, g_a, again)
-    del g_p, g_a, again
+    grads = _grad_checks(name, "attention", dtype, g_k, g_p, g_a, again, g_t)
+    del g_p, g_t, g_a, again
 
     fwd_ms, fwd_g_ms, _ = timings(lambda: fa.flash_attention(q, k, v, **kw))
     lse_ms, lse_g_ms, _ = timings(
@@ -3210,7 +3244,8 @@ def attention_grad_case(name: str, b, s, hq, hkv, dk, dv, *, causal=True,
     rate = BF16_FLOPS_PER_S if dtype == "bfloat16" else SCALAR_OPS_PER_S
     bms, by = op_bound(2.0 * pairs * (3 * dk + 2 * dv), n_bytes, rate)
     fbms, fby = op_bound(2.0 * pairs * (4 * dk + 3 * dv), n_bytes, rate)
-    rec = dict(case=name, kind="attention", variant=variant, dtype=dtype,
+    rec = dict(case=name, kind="attention", variant=variant,
+               backward_variant=bwd_variant, dtype=dtype,
                shape=[b, s, hq, hkv, dk, dv], causal=causal, window=window,
                softcap=cap, lse_max_abs_err=lse_err, lse_tol=GRAD_LSE_TOL,
                out_bits_equal_without_lse=True, fwd_ms=fwd_ms,
@@ -3218,6 +3253,13 @@ def attention_grad_case(name: str, b, s, hq, hkv, dk, dv, *, causal=True,
                fwd_lse_graph_ms=lse_g_ms, bwd_ms=bwd_ms,
                bwd_graph_ms=bwd_g_ms, bwd_bound_ms=bms, bwd_bound_by=by,
                fwd_bwd_bound_ms=fbms, fwd_bwd_bound_by=fby, **grads)
+    if bwd_variant == "tc":
+        # the CUDA-core kernels at the same shape, asked for by name
+        rec["simt_bwd_ms"] = time_ms(
+            lambda: fa.flash_attention_backward(q, k, v, out, lse, dout,
+                                                variant="simt", **kw),
+            2, warmup=1)
+        rec["speedup_vs_simt"] = rec["simt_bwd_ms"] / bwd_ms
     if timed:
         no_grad = (q, k, v)
 
@@ -3236,6 +3278,10 @@ def attention_grad_case(name: str, b, s, hq, hkv, dk, dv, *, causal=True,
         rec["plain_bwd_ms"] = time_ms(
             lambda: ref.sdpa_bwd_ref(q, k, v, out, lse, dout, **kw), n,
             warmup=2)
+        if bwd_variant == "tc":
+            rec["twin_bwd_ms"] = time_ms(
+                lambda: ref.sdpa_bwd_tc_ref(q, k, v, out, lse, dout, **kw),
+                n, warmup=2)
         rec["fwd_bwd_ms"] = time_ms(
             fwd_bwd(lambda q, k, v: ops.attention(q, k, v, **kw)), n,
             warmup=2)
@@ -3278,6 +3324,7 @@ def ssd_grad_case(name: str, b, s, h, p, n, chunk, *, dtype="bfloat16",
     wf = torch.randn((b, h, p, n), generator=gen, device=dev)
     dy = wy.to(x.dtype)
     variant = ss.variant(x.dtype, p, n, chunk)
+    bwd_variant = ss.backward_variant(x.dtype, p, n, chunk)
 
     def kernel(*t):
         return ops.ssd(*t[:5], chunk=chunk, h0=t[5])
@@ -3286,18 +3333,21 @@ def ssd_grad_case(name: str, b, s, h, p, n, chunk, *, dtype="bfloat16",
         y, final = ops.ssd(*t[:5], chunk=chunk, h0=t[5], plain=True)
         return y.to(t[0].dtype), final
 
-    before = ss.backward_launches
+    before = dict(ss.backward_variant_launches)
     with plain_calls() as plain_n:
         _, g_k = _grads(kernel, inputs, (wy, wf))
-    check(ss.backward_launches == before + 1 and not plain_n,
-          f"{name}: {ss.backward_launches - before} backward launches, "
+    ran = {k: c - before[k] for k, c in ss.backward_variant_launches.items()}
+    check(ran == {k: int(k == bwd_variant) for k in ran} and not plain_n,
+          f"{name}: backward launches {ran}, expected one {bwd_variant}; "
           f"plain calls {dict(plain_n)}")
     args = (x, dt, a, bm, cm, h0, dy, wf)
     g_p = ref.ssd_bwd_ref(*args, chunk=chunk)
+    g_t = (ref.ssd_bwd_tc_ref(*args, chunk=chunk) if bwd_variant == "tc"
+           else None)
     _, g_a = _grads(plain, inputs, (wy, wf))
     again = ss.ssd_scan_backward(*args, chunk=chunk)
-    grads = _grad_checks(name, "ssd", dtype, g_k, g_p, g_a, again)
-    del g_p, g_a, again
+    grads = _grad_checks(name, "ssd", dtype, g_k, g_p, g_a, again, g_t)
+    del g_p, g_t, g_a, again
 
     bwd_ms, bwd_g_ms, iters = timings(
         lambda: ss.ssd_scan_backward(*args, chunk=chunk))
@@ -3317,11 +3367,17 @@ def ssd_grad_case(name: str, b, s, h, p, n, chunk, *, dtype="bfloat16",
     fbms, fby = op_bound(3.0 * fwd_flops, 2 * (2 * x.numel() + bm.numel()
                                                + cm.numel()) * el
                          + 2 * 4 * (dt.numel() + a.numel()), rate)
-    rec = dict(case=name, kind="ssd", variant=variant, dtype=dtype,
+    rec = dict(case=name, kind="ssd", variant=variant,
+               backward_variant=bwd_variant, dtype=dtype,
                shape=[b, s, h, p, n, chunk], with_h0=True, with_dfinal=True,
                bwd_ms=bwd_ms, bwd_graph_ms=bwd_g_ms, bwd_bound_ms=bms,
                bwd_bound_by=by, fwd_bwd_bound_ms=fbms, fwd_bwd_bound_by=fby,
                **grads)
+    if bwd_variant == "tc":
+        rec["simt_bwd_ms"] = time_ms(
+            lambda: ss.ssd_scan_backward(*args, chunk=chunk, variant="simt"),
+            3, warmup=1)
+        rec["speedup_vs_simt"] = rec["simt_bwd_ms"] / bwd_ms
     if timed:
         def fwd_bwd(fn):
             def run():
@@ -3333,6 +3389,10 @@ def ssd_grad_case(name: str, b, s, h, p, n, chunk, *, dtype="bfloat16",
         n_it = max(3, iters // 4)
         rec["plain_bwd_ms"] = time_ms(
             lambda: ref.ssd_bwd_ref(*args, chunk=chunk), n_it, warmup=2)
+        if bwd_variant == "tc":
+            rec["twin_bwd_ms"] = time_ms(
+                lambda: ref.ssd_bwd_tc_ref(*args, chunk=chunk), n_it,
+                warmup=2)
         rec["fwd_bwd_ms"] = time_ms(fwd_bwd(kernel), n_it, warmup=2)
         rec["plain_fwd_bwd_ms"] = time_ms(fwd_bwd(plain), n_it, warmup=2)
         rec["library_fwd_bwd_ms"] = rec["library_bwd_ms"] = None
@@ -3345,12 +3405,13 @@ def ssd_grad_case(name: str, b, s, h, p, n, chunk, *, dtype="bfloat16",
 
 def kernel_grad_phase() -> dict:
     """21. The backward kernels at the model paths' training shapes, each
-    against its plain backward and autograd of the plain forward: zamba2's
-    attention (timed in full) and glm4's (128, 128) GQA, hubert's (80, 80)
-    bidirectional, deepseek-v2's MLA (192, 128), a window with a softcap,
-    an f32 case on ``simt``; the SSD at zamba2's N 64 (timed in full) and
-    mamba2's N 128.  Returns the cases by backward kernel, the timed case
-    first."""
+    against its plain backward, ``tc``'s plain twin and autograd of the
+    plain forward: zamba2's attention (timed in full) and glm4's (128, 128)
+    GQA, hubert's (80, 80) bidirectional, a window with a softcap (all
+    ``tc``), deepseek-v2's MLA (192, 128) and an f32 case (``simt``); the
+    SSD at zamba2's N 64 (timed in full) and mamba2's N 128 (``tc``) and
+    zamba2's in f32 (``simt``).  Returns the cases by kernel, the timed
+    case first."""
     flash = [
         attention_grad_case("zamba2_attention", 2, 2048, 32, 32, 64, 64,
                             timed=True),
@@ -3366,8 +3427,10 @@ def kernel_grad_phase() -> dict:
     ssd = [
         ssd_grad_case("zamba2_ssd", 2, 2048, 64, 64, 64, 256, timed=True),
         ssd_grad_case("mamba2_ssd", 2, 2048, 48, 64, 128, 256),
+        ssd_grad_case("zamba2_ssd_f32", 1, 1024, 64, 64, 64, 256,
+                      dtype="float32"),
     ]
-    return {"flash_attention.backward": flash, "ssd_scan.backward": ssd}
+    return {"flash_attention": flash, "ssd_scan": ssd}
 
 
 def reset_model_counts() -> None:
@@ -3376,21 +3439,33 @@ def reset_model_counts() -> None:
 
     fa.launches = ss.launches = fa.lse_launches = 0
     fa.backward_launches = ss.backward_launches = 0
-    for counts in (fa.variant_launches, ss.variant_launches):
+    for counts in (fa.variant_launches, ss.variant_launches,
+                   fa.backward_variant_launches,
+                   ss.backward_variant_launches):
         for k in counts:
             counts[k] = 0
 
 
 def model_counts() -> dict:
-    """Forward launches by variant, and the backward kernels' launches
-    under ``backward``."""
+    """Forward launches by variant, and the backward kernels' launches by
+    variant under ``backward``."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ss
 
     return dict(**fa.variant_launches,
                 **{f"ssd_{k}": c for k, c in ss.variant_launches.items()},
-                backward={"flash_attention.backward": fa.backward_launches,
-                          "ssd_scan.backward": ss.backward_launches})
+                backward={
+                    **{f"flash_attention.backward.{k}": c
+                       for k, c in fa.backward_variant_launches.items()},
+                    **{f"ssd_scan.backward.{k}": c
+                       for k, c in ss.backward_variant_launches.items()}})
+
+
+def want_backward(flash_tc: int, ssd_tc: int) -> dict:
+    """Backward launches a training path should show: every one ``tc``."""
+    return {"flash_attention.backward.tc": flash_tc,
+            "flash_attention.backward.simt": 0,
+            "ssd_scan.backward.tc": ssd_tc, "ssd_scan.backward.simt": 0}
 
 
 def _train_setup(cfg, device, seed: int = 0):
@@ -3446,8 +3521,7 @@ def train_phase(remat: str) -> dict:
                                             for k in body)),
         decode_split=0, simt=0, ssd_simt=0)
     got = {k: counts[k] for k in want}
-    want_bwd = {"flash_attention.backward": steps * sites,
-                "ssd_scan.backward": steps * mamba}
+    want_bwd = want_backward(steps * sites, steps * mamba)
     check(steps == 4 and all(np.isfinite(res["losses"])),
           f"train {remat}: losses {res['losses']}")
     check(got == want, f"train {remat}: kernel launches {got}, expected "
@@ -3584,8 +3658,7 @@ def train_held_phase() -> dict:
             (a.cpu() - b).norm() / b.norm().clamp(min=1e-30))
     worst = max(errs, key=errs.get)
     check(counts["prefill_tc"] == 1 and counts["ssd_tc"] == 5
-          and counts["backward"] == {"flash_attention.backward": 1,
-                                     "ssd_scan.backward": 5}
+          and counts["backward"] == want_backward(1, 5)
           and not plain_n,
           f"train_held: kernel launches {counts}, plain calls "
           f"{dict(plain_n)}")
@@ -3953,8 +4026,7 @@ def mesh_train_phase(train: dict) -> dict:
     check(steps == 2 and rel <= MESH_TRAIN_LOSS_TOL,
           f"mesh_train: losses {res['losses']}, single-device {base}")
     check(got == want, f"mesh_train: kernel launches {got}, expected {want}")
-    want_bwd = {"flash_attention.backward": want["prefill_tc"],
-                "ssd_scan.backward": want["ssd_tc"]}
+    want_bwd = want_backward(want["prefill_tc"], want["ssd_tc"])
     check(counts["backward"] == want_bwd and not plain_n,
           f"mesh_train: backward launches {counts['backward']}, expected "
           f"{want_bwd}; plain calls {dict(plain_n)}")
@@ -5052,7 +5124,8 @@ from repro_torch.kernels import lease_validate as lv
 from repro_torch.kernels import ssd_scan as ss
 fa.launches = ss.launches = lv.launches = 0
 fa.backward_launches = ss.backward_launches = 0
-for counts in (fa.variant_launches, ss.variant_launches, lv.variant_launches):
+for counts in (fa.variant_launches, ss.variant_launches, lv.variant_launches,
+               fa.backward_variant_launches, ss.backward_variant_launches):
     for k in counts:
         counts[k] = 0
 sys.argv = sys.argv[1:]
@@ -5060,8 +5133,10 @@ runpy.run_path(sys.argv[0], run_name="__main__")
 print("kernel_counts " + json.dumps(dict(
     **fa.variant_launches, **{"ssd_" + k: v for k, v in ss.variant_launches.items()},
     **{"lease_" + k: v for k, v in lv.variant_launches.items()},
-    **{"flash_attention.backward": fa.backward_launches,
-       "ssd_scan.backward": ss.backward_launches})), flush=True)
+    **{"flash_attention.backward." + k: v
+       for k, v in fa.backward_variant_launches.items()},
+    **{"ssd_scan.backward." + k: v
+       for k, v in ss.backward_variant_launches.items()})), flush=True)
 """
 
 EXAMPLES = ("quickstart", "serve_migration", "train_100m", "failover_recovery")

@@ -82,17 +82,46 @@
 // or -inf where every tile was skipped: no weight in a merge.  The seq-sharded paths merge their ranks'
 // chunks by it, and the backward recomputes P from it.
 //
-// The backward (flash_backward.cuh, its own entry point below): the input
-// gradients of the same function from q, k, v, the output, its lse and the
-// output's gradient, in three kernels on the fp32 CUDA cores (a rowsum
-// pre-pass, dK/dV per key tile, dQ per q tile), for every dtype, head dims
-// and option the forward takes; deterministic, no atomics.
+// The backward (its own entry point below): the input gradients of the same
+// function from q, k, v, the output, its lse and the output's gradient,
+// deterministic (no atomics), in one of two variants chosen from the dtype
+// and the shapes alone (choose_backward_variant; backward_variant() in
+// Python is its twin).  Both start with the pre-pass D = rowsum(dO O).
+//
+// tc (flash_backward_tc.cuh): bf16, (Dk, Dv) in {(64, 64), (80, 80), (128,
+//   128)}, more than 64 query rows per kv head: FlashAttention-2's backward
+//   on wgmma.  Bound by operations (S, dP, dV, dK, dQ on the visible pairs:
+//   2 (3 Dk + 2 Dv) flops a pair at 989 TFLOP/s).  dkdv_tc takes one block
+//   per (64 keys, b, kv head, share of the GQA group): a producer warp loads
+//   K and V once and rings Q, dO and the rows' lse, D and positions by TMA
+//   over the share's q tiles, skipping the tiles whose positions hide every
+//   key from every row and flagging those that need the per-element mask;
+//   one consumer warpgroup computes S^T = K Q^T and dP^T = V dO^T (SS
+//   wgmma, m64n64), forms P^T and dS^T in fp32 on the fragment, rounds each
+//   once to bf16 as a register operand and accumulates dV += P^T dO and dK
+//   += dS^T Q (RS wgmma) in fp32 registers.  At glm4's GQA (Hkv 2, B 1, S
+//   2048) B x Hkv x key tiles is 64 blocks for 132 SMs, so when it falls
+//   short of two waves the group's q heads are split over blocks (4 shares
+//   of 4 heads there): each writes fp32 partials and reduce_tc sums them in
+//   order and rounds once.  dq_tc takes one block per (64 rows, b, q head),
+//   longest causal tiles first: Q and dO once, a 2-stage ring of 64-key K/V
+//   tiles, S and dP (SS wgmma), dS rounded once, dQ += dS K (RS wgmma).
+//   One warpgroup holds dK and dV (Dk / 2 + Dv / 2 fp32 registers a thread,
+//   64 + 64 at (128, 128)) beside S and dP (32 + 32): (192, 128) would need
+//   96 + 64 for dK and dV and stays on simt.  P and dS are single bf16
+//   roundings (the forward's P_hi + P_lo split is not needed: a gradient's
+//   limit is 2e-2 of its largest element).
+// simt (flash_backward.cuh): everything else -- f32, (192, 128) and other
+//   head dims, and 64 rows or fewer per kv head (decode_split's shapes under
+//   grad).  Three kernels on the fp32 CUDA cores (the pre-pass, dK/dV per
+//   key tile, dQ per q tile).
 //
 // The kernels allocate nothing and do not synchronise: decode_split's
 // partials live in a scratch the caller allocates.  The launcher returns
 // cudaGetLastError() so a refused launch is reported at once.
 
 #include "flash_backward.cuh"
+#include "flash_backward_tc.cuh"
 #include "flash_common.cuh"
 #include "flash_decode_split.cuh"
 #include "flash_prefill_tc.cuh"
@@ -111,6 +140,28 @@ int choose_variant(int dtype, int Sq, int Hq, int Hkv, int Dk, int Dv) {
   if (square && few_rows) return kDecodeSplit;
   if (prefill_dims && !few_rows && dtype == 1) return kPrefillTc;
   return kSimt;
+}
+
+enum BackwardVariant { kBwdSimt = 0, kBwdTc = 1 };
+
+int choose_backward_variant(int dtype, int Sq, int Hq, int Hkv, int Dk,
+                            int Dv) {
+  const bool dims = (Dk == 64 && Dv == 64) || (Dk == 80 && Dv == 80) ||
+                    (Dk == 128 && Dv == 128);
+  const long long rows = (long long)Sq * (Hq / Hkv);
+  return dtype == 1 && dims && rows > flash::decode_split::kMaxRows
+             ? kBwdTc
+             : kBwdSimt;
+}
+
+// the backward's fp32 scratch: D for every row (rounded up to 16 bytes),
+// then tc's dK / dV partials where it splits the GQA group
+long long backward_scratch_floats(int var, int B, int Sq, int Skv, int Hq,
+                                  int Hkv, int Dk, int Dv) {
+  const long long rows = ((long long)B * Sq * Hq + 3) / 4 * 4;
+  return rows + (var == kBwdTc ? flash::backward_tc::partial_floats(
+                                     B, Skv, Hq, Hkv, Dk, Dv)
+                               : 0);
 }
 
 bool aligned16(const void* p) {
@@ -212,24 +263,63 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                                  window, s);
 }
 
+// The backward variant for these arguments (0 simt, 1 tc) and the fp32
+// scratch it needs.
+extern "C" int flash_attention_backward_variant(int dtype, int B, int Sq,
+                                                int Skv, int Hq, int Hkv,
+                                                int Dk, int Dv,
+                                                long long* scratch_floats) {
+  const int var = choose_backward_variant(dtype, Sq, Hq, Hkv, Dk, Dv);
+  *scratch_floats =
+      backward_scratch_floats(var, B, Sq, Skv, Hq, Hkv, Dk, Dv);
+  return var;
+}
+
 // The input gradients dq, dk, dv (the inputs' shapes and dtype) of the
 // forward above for the output gradient dout, from the forward's out and
-// lse (fp32 [B, Sq, Hq]).  delta: fp32 scratch of B * Sq * Hq floats.
-// Arguments as the forward's otherwise.
+// lse (fp32 [B, Sq, Hq]).  scratch: fp32, at least
+// flash_attention_backward_variant's scratch_floats, 16-byte aligned.
+// Arguments as the forward's otherwise.  want: -1 the launcher's choice, 0
+// simt at any shape (to time it beside tc), 1 tc (refused where the shapes
+// do not take it); *chosen receives the variant launched.
 extern "C" int flash_attention_backward_launch(
     const void* q, const void* k, const void* v, const void* out,
     const void* dout, const void* lse, const void* qpos, const void* kpos,
-    void* dq, void* dk, void* dv, void* delta, long long delta_floats,
+    void* dq, void* dk, void* dv, void* scratch, long long scratch_floats,
     int dtype, int B, int Sq, int Skv, int Hq, int Hkv, int Dk, int Dv,
-    float scale, float softcap, int causal, int window, void* stream) {
+    float scale, float softcap, int causal, int window, int want, int* chosen,
+    void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Dk <= 0 ||
       Dk > 256 || Dv <= 0 || Dv > 256 || (dtype != 0 && dtype != 1) ||
-      lse == nullptr || delta == nullptr ||
-      delta_floats < (long long)B * Sq * Hq)
+      lse == nullptr || scratch == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const int var =
+      want == 0 ? 0 : choose_backward_variant(dtype, Sq, Hq, Hkv, Dk, Dv);
+  *chosen = var;
+  if (want > 0 && want != var) return (int)cudaErrorInvalidValue;
+  if (scratch_floats <
+      backward_scratch_floats(var, B, Sq, Skv, Hq, Hkv, Dk, Dv))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
-  float* d = static_cast<float*>(delta);
+  float* d = static_cast<float*>(scratch);
+  if (var == kBwdTc) {
+    if (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout) &&
+          aligned16(scratch)))
+      return (int)cudaErrorMisalignedAddress;
+    float* part = d + ((long long)B * Sq * Hq + 3) / 4 * 4;
+    if (Dk == 64)
+      return flash::backward_tc::launch<64, 64>(
+          q, k, v, out, dout, l, qpos, kpos, dq, dk, dv, d, part, B, Sq, Skv,
+          Hq, Hkv, scale, softcap, causal, window, s);
+    if (Dk == 80)
+      return flash::backward_tc::launch<80, 80>(
+          q, k, v, out, dout, l, qpos, kpos, dq, dk, dv, d, part, B, Sq, Skv,
+          Hq, Hkv, scale, softcap, causal, window, s);
+    return flash::backward_tc::launch<128, 128>(
+        q, k, v, out, dout, l, qpos, kpos, dq, dk, dv, d, part, B, Sq, Skv,
+        Hq, Hkv, scale, softcap, causal, window, s);
+  }
   if (dtype == 0)
     return flash::backward::launch<float>(q, k, v, out, dout, l, qpos, kpos,
                                           dq, dk, dv, d, B, Sq, Skv, Hq, Hkv,

@@ -1,7 +1,9 @@
 // Hand-written PTX for Hopper (sm_90a) shared by the port's tensor-core
-// kernels (flash_prefill_tc.cuh, ssd_tc.cuh): mbarriers, TMA and bulk
-// copies, proxy fences, shared-memory matrix descriptors, wgmma, and the
-// host-side tensor-map builder.  No CuTe: every instruction is spelled out.
+// kernels (flash_prefill_tc.cuh, ssd_tc.cuh, flash_backward_tc.cuh,
+// ssd_backward_tc.cuh): mbarriers, TMA and bulk copies, proxy fences,
+// shared-memory matrix descriptors, wgmma, products of 64-row tiles, and
+// the host-side tensor-map builder.  No CuTe: every instruction is spelled
+// out.
 #pragma once
 
 #include <cuda.h>   // CUtensorMap and its enums: types only, no libcuda link
@@ -218,6 +220,54 @@ __device__ __forceinline__ void wgmma_rs(float* o, const uint32_t* a,
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// -- 64-row tiles stored as [64][64] swizzled boxes of 8 KB ----------------------
+
+constexpr uint32_t kBox64 = 64 * 128;
+
+// acc[64][64] (+)= A[64][K] . B[64][K]^T, both K-major over their boxes,
+// ceil(K / 16) k-steps (the columns past K in the last box are not read)
+template <int K>
+__device__ __forceinline__ void kmajor_64x64(float* acc, uint32_t a,
+                                             uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < (K + 15) / 16; ++kk) {
+    const uint32_t off = (kk / 4) * kBox64 + (kk % 4) * 32;
+    wgmma_ss_m64n64k16(acc, smem_desc(a + off, 16, 1024),
+                       smem_desc(b + off, 16, 1024), kk > 0);
+  }
+}
+
+// acc[64][N] += A . T[64][N]: A a 64 x 64 bf16 fragment in registers (four
+// k-steps), T MN-major in N / 64 boxes (its rows are the k dimension); N
+// a multiple of 64, in products of N 128 and a last of N 64 (columns 128 c
+// onward are accumulator elements 64 c onward)
+template <int N>
+__device__ __forceinline__ void rs_64xN(float* acc, const uint32_t* a,
+                                        uint32_t t) {
+  static_assert(N % 64 == 0, "whole boxes");
+#pragma unroll
+  for (int c = 0; c < N / 128; ++c)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<128>(acc + 64 * c, a + 4 * kk,
+                    smem_desc(t + 2 * c * kBox64 + kk * 16 * 128, kBox64,
+                              1024));
+  if constexpr (N % 128 != 0) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<64>(acc + N / 2 - 32, a + 4 * kk,
+                   smem_desc(t + (N / 64 - 1) * kBox64 + kk * 16 * 128,
+                             kBox64, 1024));
+  }
+}
+
+// a 64 x 64 fp32 accumulator fragment as bf16 A operands: k-step t (columns
+// 16t..16t+15) takes elements 8t..8t+7, two a register
+__device__ __forceinline__ void pack_frag(const float* f, uint32_t* a) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) a[i] = pack_bf16(f[2 * i], f[2 * i + 1]);
 }
 
 // -- host side ------------------------------------------------------------------

@@ -65,8 +65,9 @@ __host__ __device__ constexpr size_t own_floats(int L, int P, int N) {
          (size_t)P * stride_of(N);
 }
 
-// MODE 0: out = sum_m r[m] dt[m] x[m] (x) B[m], and declog = dacum[L-1];
-// MODE 1: out = sum_l exp(dacum[l]) dy[l] (x) C[l].  out [B, nc, H, P, N].
+// MODE 0: out = sum_m r[m] dt[m] x[m] (x) B[m]; MODE 1: out = sum_l
+// exp(dacum[l]) dy[l] (x) C[l].  out [B, nc, H, P, N]; declog (unless null)
+// = dacum[L-1].
 template <typename T, int MODE>
 __global__ void __launch_bounds__(kThreads)
 own_kernel(const T* __restrict__ xs_in, const float* __restrict__ dt,
@@ -122,7 +123,7 @@ own_kernel(const T* __restrict__ xs_in, const float* __restrict__ dt,
     const int p = idx / N, n = idx - p * N;
     dst[idx] = acc[p * ns + n];
   }
-  if (MODE == 0 && threadIdx.x == 0)
+  if (declog != nullptr && threadIdx.x == 0)
     declog[((int64_t)b * nchunks + c) * H + h] = last;
 }
 

@@ -59,11 +59,35 @@
 //   64 x 64 tiles on the fp32 CUDA cores, a sequential fp32 dacum.  It
 //   keeps f32 within 2e-5 of max |y|, which the tensor cores cannot.
 //
-// The backward (ssd_backward.cuh, its own entry point below): the
-// gradients of the same scan (x, dt, A, B, C and h0) for dy and the final
-// state's gradient, for every shape either variant takes, on the fp32 CUDA
-// cores: the entering states, a reverse pass over the chunks, then every
-// chunk's own gradients in parallel; no atomics.
+// The backward (its own entry point below): the gradients of the same scan
+// (x, dt, A, B, C and h0) for dy and the final state's gradient, in three
+// phases -- the entering states, a reverse pass over the chunks carrying
+// the state's gradient, then every chunk's own gradients in parallel -- and
+// fixed-order sums over heads and (b, chunk) (no atomics: two calls give
+// equal bits).  Two variants, chosen as the forward's (the same shapes take
+// tc; backward_variant() in Python is the twin):
+//
+// tc (ssd_backward_tc.cuh): the forward tc's shapes.  (i) is the forward's
+//   ssd_state kernel itself (bf16 entering states, fp32 dacum and dt). (ii)
+//   stays on the CUDA cores (own_kernel, scan_kernel), the largest part of tc's
+//   time that is left.  (iii) chunk_tc, one warpgroup per (b, chunk, 2 heads at
+//   N 64, 1 at N 128), puts every product on wgmma as 64 x 64 bf16 tiles with
+//   fp32 accumulators, fed by TMA (a 2-stage ring, 97 KB of shared memory, two
+//   blocks an SM).  Pass A walks row tiles I against column tiles J <= I: C_I
+//   B_J^T once for the block's heads, per head dW = dY_I X_J^T, dCB = dW * M *
+//   dt in fp32 on the fragment (the decay M from fp32 dacum by the SFU's ex2),
+//   its rows' sums against CB for d(dacum), then dC_I += bf16(dCB) B_J
+//   (register-A wgmma); the carried state's term dY_I h_in (SS wgmma) scaled by
+//   exp(dacum) in fp32.  Pass B walks column tiles J against I >= J in the
+//   transposed orientation: B_J C_I^T once, per head X_J dY_I^T, then dx_J +=
+//   bf16(CB^T * M^T) dY_I and dB_J += bf16(dCB^T) C_I (register-A wgmma), and
+//   the leaving state's terms B_J G^T and X_J G (G, its gradient, rounded to
+//   bf16 in shared memory).  Each tile is rounded once, after its decay; the
+//   d(dacum) sums stay fp32 products of the fp32 accumulators.  dB and dC leave
+//   as fp32 partials per head group (half simt's per-head ones at N 64) and
+//   reduce_kernel sums them in order.  Bound by bytes, as the forward.
+// simt (ssd_backward.cuh): everything else (f32, other shapes): every
+//   phase on the fp32 CUDA cores.
 //
 // The kernels allocate nothing and do not synchronise: tc's entering
 // states and dacum / dt, and the backward's fp32 partials, live in scratch
@@ -72,6 +96,7 @@
 // once; a tc-shaped call never falls back to simt.
 
 #include "ssd_backward.cuh"
+#include "ssd_backward_tc.cuh"
 #include "ssd_simt.cuh"
 #include "ssd_tc.cuh"
 
@@ -83,6 +108,14 @@ int choose_variant(int dtype, int P, int N, int L) {
   const bool tc = dtype == 1 && P == ssd::tc::kP && (N == 64 || N == 128) &&
                   L % ssd::tc::kT == 0 && L <= ssd::tc::kMaxL;
   return tc ? kTc : kSimt;
+}
+
+// the backward takes tc where the forward does
+long long backward_scratch_floats(int var, int B, int S, int H, int P, int N,
+                                  int L) {
+  return var == kTc
+             ? ssd::backward_tc::scratch_layout(B, S, H, N, L).total
+             : ssd::backward::scratch_floats(B, S, H, P, N, L);
 }
 
 bool aligned16(const void* p) {
@@ -213,24 +246,55 @@ extern "C" int ssd_tc_chunk_launch(const void* x, const void* bm,
                   static_cast<cudaStream_t>(stream));
 }
 
+// The backward variant for these arguments (0 simt, 1 tc) and the fp32
+// scratch it needs.
+extern "C" int ssd_scan_backward_variant(int dtype, int B, int S, int H,
+                                         int P, int N, int L,
+                                         long long* scratch_floats) {
+  const int var = choose_variant(dtype, P, N, L);
+  *scratch_floats = valid_shape(B, S, H, P, N, L)
+                        ? backward_scratch_floats(var, B, S, H, P, N, L)
+                        : 0;
+  return var;
+}
+
 // The gradients dx (x's type), ddt (f32 [B, S, H]), da (f32 [H]), db and dc
 // (x's type, [B, S, 1, N]) and dh0 (f32 [B, H, P, N]) of ssd_scan_launch's
 // scan for dy (x's type) and dfinal (f32 [B, H, P, N], or null: zero).  h0
-// null: zeros.  scratch: fp32, at least ssd::backward::scratch_floats.
-// P <= 64; N <= 128 and a multiple of 4; S a multiple of L.
+// null: zeros.  scratch: fp32, at least ssd_scan_backward_variant's
+// scratch_floats, 16-byte aligned.  P <= 64; N <= 128 and a multiple of 4;
+// S a multiple of L.  want: -1 the launcher's choice, 0 simt at any shape
+// (to time it beside tc), 1 tc (refused where the shapes do not take it);
+// *chosen receives the variant launched.
 extern "C" int ssd_scan_backward_launch(
     const void* x, const void* dt, const void* a, const void* bm,
     const void* cm, const void* h0, const void* dy, const void* dfinal,
     void* dx, void* ddt, void* da, void* db, void* dc, void* dh0,
     void* scratch, long long scratch_floats, int dtype, int B, int S, int H,
-    int P, int N, int L, void* stream) {
+    int P, int N, int L, int want, int* chosen, void* stream) {
   if (!valid_shape(B, S, H, P, N, L) || (dtype != 0 && dtype != 1) ||
       P > ssd::backward::kPMax || N > ssd::backward::kNMax || N % 4 != 0 ||
-      scratch == nullptr || dh0 == nullptr ||
-      scratch_floats < ssd::backward::scratch_floats(B, S, H, P, N, L))
+      scratch == nullptr || dh0 == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const int var = want == 0 ? 0 : choose_variant(dtype, P, N, L);
+  *chosen = var;
+  if (want > 0 && want != var) return (int)cudaErrorInvalidValue;
+  if (scratch_floats < backward_scratch_floats(var, B, S, H, P, N, L))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* sc = static_cast<float*>(scratch);
+  if (var == kTc) {
+    if (!(aligned16(x) && aligned16(bm) && aligned16(cm) && aligned16(dy) &&
+          aligned16(scratch) && (h0 == nullptr || aligned16(h0))))
+      return (int)cudaErrorMisalignedAddress;
+    if (N == 64)
+      return ssd::backward_tc::launch<64>(x, dt, a, bm, cm, h0, dy, dfinal,
+                                          dx, ddt, da, db, dc, dh0, sc, B, S,
+                                          H, L, s);
+    return ssd::backward_tc::launch<128>(x, dt, a, bm, cm, h0, dy, dfinal, dx,
+                                         ddt, da, db, dc, dh0, sc, B, S, H, L,
+                                         s);
+  }
   if (dtype == 0)
     return ssd::backward::launch<float>(x, dt, a, bm, cm, h0, dy, dfinal, dx,
                                         ddt, da, db, dc, dh0, sc, B, S, H, P,

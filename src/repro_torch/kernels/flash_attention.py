@@ -32,14 +32,31 @@ log-sum-exp ``[B, Sq, Hq]``, with the output's bits unchanged: a
 seq-sharded decode's ranks exchange it to combine their chunks
 (``models.attention``), and the backward recomputes P from it.
 
-The backward (:func:`flash_attention_backward`, ``csrc/flash_backward.cuh``)
-has no Pallas counterpart: the reference differentiates its plain
-function.  It computes that gradient from the forward's output and lse
-in three kernels on the fp32 CUDA cores (``D = rowsum(dO O)``; dK and dV
-per (b, kv head, key tile) over the group's q tiles; dQ per (b, q head, q
-tile)), for every dtype, (Dk, Dv) and option the forward takes, with no
-atomics (two calls give equal bits).  Its plain version is
-:func:`repro_torch.kernels.ref.sdpa_bwd_ref`.
+The backward (:func:`flash_attention_backward`) has no Pallas
+counterpart: the reference differentiates its plain function.  It
+computes that gradient from the forward's output and lse, after a
+``D = rowsum(dO O)`` pre-pass, with no atomics (two calls give equal
+bits), in one of two variants the launcher picks from the dtype and the
+shapes alone (:func:`backward_variant` is its twin):
+
+- ``tc`` (``csrc/flash_backward_tc.cuh``) — bf16, (Dk, Dv) in
+  :data:`BACKWARD_TC_DIMS` ((64, 64), (80, 80), (128, 128)), more than 64
+  query rows per kv head.  FlashAttention-2's backward on ``wgmma``: dK
+  and dV per (64 keys, b, kv head) over a TMA ring of Q and dO tiles, P
+  and dS formed in fp32 and each rounded once to bf16 as a register
+  operand, dK and dV in fp32 registers; when B x Hkv x key tiles falls
+  short of two waves of the card the GQA group's q heads are split over
+  blocks (:func:`backward_splits`) whose fp32 partials one pass sums in
+  order; dQ per (64 rows, b, q head) over a ring of K/V tiles.  Plain
+  twin: :func:`repro_torch.kernels.ref.sdpa_bwd_tc_ref`.
+- ``simt`` (``csrc/flash_backward.cuh``) — everything else (f32, MLA's
+  (192, 128), whose dK and dV with S and dP do not fit one warpgroup's
+  registers, other head dims, and 64 rows or fewer per kv head): dK/dV
+  per (b, kv head, key tile) and dQ per (b, q head, q tile) on the fp32
+  CUDA cores.  ``variant="simt"`` runs it at any shape, to time it beside
+  ``tc``.
+
+Their plain version is :func:`repro_torch.kernels.ref.sdpa_bwd_ref`.
 
 Semantics follow the Pallas kernel in every variant: masking by position
 (causal, sliding window, kv positions >= 2^29 are padding), the finite
@@ -70,9 +87,13 @@ LIB = CudaLibrary("flash_attention", {
     "flash_attention_variant": (
         [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_longlong)],
         ctypes.c_int),
+    "flash_attention_backward_variant": (
+        [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_longlong)],
+        ctypes.c_int),
     "flash_attention_backward_launch": (
         [ctypes.c_void_p] * 12 + [ctypes.c_longlong] + [ctypes.c_int] * 8
-        + [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+        + [ctypes.c_float] * 2 + [ctypes.c_int] * 3
+        + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p],
         ctypes.c_int),
 })
 MAX_HEAD_DIM = 256
@@ -82,16 +103,22 @@ VARIANTS = ("simt", "prefill_tc", "decode_split")
 DECODE_MAX_ROWS = 64        # Sq x group served by decode_split
 DECODE_SPLIT_DIMS = ((64, 64), (128, 128))
 PREFILL_TC_DIMS = DECODE_SPLIT_DIMS + ((80, 80), (192, 128))
-_TARGET_BLOCKS = 264        # decode_split: two waves of 132 SMs
+_TARGET_BLOCKS = 264        # decode_split, dkdv_tc: two waves of 132 SMs
 _MIN_SPLIT_KEYS = 64
+# the backward launcher's variant codes, in order, and tc's (Dk, Dv) pairs
+BACKWARD_VARIANTS = ("simt", "tc")
+BACKWARD_TC_DIMS = ((64, 64), (80, 80), (128, 128))
+_BWD_TILE = 64              # keys of a dkdv_tc block
 
 # kernel launches since the count was last reset (plain integers: the
 # wrappers add one where they launch, nowhere else): forward calls in all,
 # by variant, and those that wrote the log-sum-exp output; backward calls
+# in all and by variant
 launches = 0
 variant_launches = {name: 0 for name in VARIANTS}
 lse_launches = 0
 backward_launches = 0
+backward_variant_launches = {name: 0 for name in BACKWARD_VARIANTS}
 
 
 def variant(dtype: torch.dtype, sq: int, hq: int, hkv: int, dk: int,
@@ -105,6 +132,42 @@ def variant(dtype: torch.dtype, sq: int, hq: int, hkv: int, dk: int,
     if not few_rows and dtype == torch.bfloat16:
         return "prefill_tc"
     return "simt"
+
+
+def backward_variant(dtype: torch.dtype, sq: int, hq: int, hkv: int,
+                     dk: int, dv: int) -> str:
+    """The backward variant the launcher takes for these shapes (its
+    twin): ``tc`` for bf16 at :data:`BACKWARD_TC_DIMS` with more than
+    :data:`DECODE_MAX_ROWS` query rows per kv head, ``simt`` otherwise
+    (f32; MLA's (192, 128), whose dK and dV accumulators with S and dP do
+    not fit one warpgroup's registers; other head dims; decode_split's
+    few-row shapes under grad)."""
+    if (dtype == torch.bfloat16 and (dk, dv) in BACKWARD_TC_DIMS
+            and sq * (hq // hkv) > DECODE_MAX_ROWS):
+        return "tc"
+    return "simt"
+
+
+def backward_splits(b: int, hkv: int, skv: int, group: int
+                    ) -> tuple:
+    """``tc``'s shares of a GQA group's q heads over ``dkdv_tc`` blocks,
+    from the shapes alone: one while B x Hkv x 64-key tiles fills two
+    waves of the card, else enough to; ``(shares, heads a share)``."""
+    tiles = b * hkv * -(-skv // _BWD_TILE)
+    want = 1 if tiles >= _TARGET_BLOCKS else -(-_TARGET_BLOCKS // tiles)
+    per = -(-group // min(want, group))
+    return -(-group // per), per
+
+
+def backward_scratch_floats(name: str, b: int, sq: int, skv: int, hq: int,
+                            hkv: int, dk: int, dv: int) -> int:
+    """The backward's fp32 scratch: D for every row (padded to 16 bytes),
+    then, where ``tc`` splits the group, the shares' dK and dV partials."""
+    rows = -(-b * sq * hq // 4) * 4
+    if name != "tc":
+        return rows
+    shares, _ = backward_splits(b, hkv, skv, hq // hkv)
+    return rows + (0 if shares == 1 else shares * b * skv * hkv * (dk + dv))
 
 
 def decode_splits(b: int, hkv: int, skv: int) -> int:
@@ -236,10 +299,13 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
                              kv_positions: torch.Tensor, causal: bool = True,
                              sliding_window: Optional[int] = None,
                              logit_softcap: float = 0.0,
-                             scale: Optional[float] = None):
+                             scale: Optional[float] = None,
+                             variant: Optional[str] = None):
     """Launch the backward kernels on CUDA tensors: ``(dq, dk, dv)`` of
     :func:`flash_attention` for the output gradient ``dout``, from the
-    forward's ``out`` and ``lse`` (``return_lse=True``).
+    forward's ``out`` and ``lse`` (``return_lse=True``).  The variant is
+    :func:`backward_variant`'s; ``variant="simt"`` runs the CUDA-core
+    kernels at any shape instead (to time them beside ``tc``).
 
     ``out`` and ``dout`` are ``[B, Sq, Hq, Dv]`` in q's dtype, ``lse``
     ``[B, Sq, Hq]`` fp32; the rest as :func:`flash_attention` takes it,
@@ -261,9 +327,20 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     _check("lse", lse, 3, dev, torch.float32)
     if tuple(lse.shape) != (b, sq, hq):
         raise ValueError(f"lse {tuple(lse.shape)} != {(b, sq, hq)}")
+    name = backward_variant(q.dtype, sq, hq, hkv, dk, dv)
+    if variant not in (None, "simt", name):
+        raise ValueError(f"backward variant {variant!r} does not take these "
+                         f"shapes (backward_variant() says {name!r})")
+    name = variant or name
+    if name == "tc" and any(t.data_ptr() % 16 for t in (q, k, v, dout)):
+        raise ValueError("the tc backward needs q, k, v and dout 16-byte "
+                         "aligned")
     dq, dk_, dv_ = (torch.empty_like(t) for t in (q, k, v))
-    delta = torch.empty((b, sq, hq), dtype=torch.float32, device=dev)
+    scratch = torch.empty(backward_scratch_floats(name, b, sq, skv, hq, hkv,
+                                                  dk, dv),
+                          dtype=torch.float32, device=dev)
     scale = float(scale) if scale is not None else dk ** -0.5
+    chosen = ctypes.c_int(-1)
     lib = LIB.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -271,9 +348,16 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), q_positions.data_ptr(),
             kv_positions.data_ptr(), dq.data_ptr(), dk_.data_ptr(),
-            dv_.data_ptr(), delta.data_ptr(), delta.numel(), _DTYPES[q.dtype],
-            b, sq, skv, hq, hkv, dk, dv, scale, float(logit_softcap),
-            int(causal), int(sliding_window or 0), stream)
+            dv_.data_ptr(), scratch.data_ptr(), scratch.numel(),
+            _DTYPES[q.dtype], b, sq, skv, hq, hkv, dk, dv, scale,
+            float(logit_softcap), int(causal), int(sliding_window or 0),
+            -1 if variant is None else BACKWARD_VARIANTS.index(name),
+            ctypes.byref(chosen), stream)
     check_launch("flash_attention_backward", err)
+    if BACKWARD_VARIANTS[chosen.value] != name:
+        raise RuntimeError(f"flash_attention_backward: the launcher took "
+                           f"{BACKWARD_VARIANTS[chosen.value]}, "
+                           f"backward_variant() says {name}")
     backward_launches += 1
+    backward_variant_launches[name] += 1
     return dq, dk_, dv_

@@ -20,10 +20,12 @@ from CUDA tensors, :func:`attention` and :func:`ssd` run the forward kernel
 inside a ``torch.autograd.Function`` whose backward launches the
 hand-written backward kernels (``flash_attention.flash_attention_backward``
 from the saved output and rows' log-sum-exp; ``ssd_scan.ssd_scan_backward``
-from the saved inputs): the gradients of the plain version, computed in
-fp32 and rounded once, with no plain version and no recompute on the
-card.  Their plain versions, ``ref.sdpa_bwd_ref`` and ``ref.ssd_bwd_ref``,
-serve the tests.  On the CPU the plain forward runs, and autograd
+from the saved inputs; each on the tensor cores (``tc``) at bf16's model
+shapes, else on the CUDA cores): the gradients of the plain version,
+accumulated in fp32 and rounded once, with no plain version and no
+recompute on the card.  Their plain versions, ``ref.sdpa_bwd_ref`` and
+``ref.ssd_bwd_ref`` (``tc``'s roundings: ``ref.sdpa_bwd_tc_ref``,
+``ref.ssd_bwd_tc_ref``), serve the tests.  On the CPU the plain forward runs, and autograd
 differentiates it natively.
 """
 from __future__ import annotations

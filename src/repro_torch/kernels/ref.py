@@ -235,6 +235,54 @@ def sdpa_bwd_ref(q, k, v, out, lse, dout, *, q_positions, kv_positions,
             dv_.to(v.dtype))
 
 
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bf16 and back to fp32, as a kernel rounds a tile
+    before a tensor-core product."""
+    return t.to(torch.bfloat16).float()
+
+
+def sdpa_bwd_tc_ref(q, k, v, out, lse, dout, *, q_positions, kv_positions,
+                    causal=True, sliding_window=None, logit_softcap=0.0,
+                    scale=None):
+    """Plain version of the ``tc`` flash backward
+    (``csrc/flash_backward_tc.cuh``): :func:`sdpa_bwd_ref`'s phases with
+    the kernel's roundings.  ``P`` and ``dS`` are formed in fp32 and each
+    rounded once to bf16 before its products (``dV = P^T dO``, ``dK =
+    dS^T Q``, ``dQ = dS K``), which sum in fp32: over each q head's rows,
+    then over the heads of a GQA group in order.  bf16 inputs; each
+    gradient rounded once to bf16.
+    """
+    b, sq, hq, dk = q.shape
+    skv, hkv, dv = k.shape[1], k.shape[2], v.shape[3]
+    g = hq // hkv
+    scale = scale if scale is not None else dk ** -0.5
+    mask = attn_mask(q_positions, kv_positions, causal, sliding_window)
+    qf = q.float().reshape(b, sq, hkv, g, dk)
+    kf, vf = k.float(), v.float()
+    do = dout.float().reshape(b, sq, hkv, g, dv)
+    delta = (do * out.float().reshape(b, sq, hkv, g, dv)).sum(-1)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf) * scale
+    if logit_softcap > 0:
+        t = torch.tanh(s / logit_softcap)
+        s = logit_softcap * t
+    rows = lse.float().reshape(b, sq, hkv, g).permute(0, 2, 3, 1)[..., None]
+    p = torch.where(mask[:, None, None], torch.exp(s - rows),
+                    torch.zeros((), device=q.device))
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", do, vf)
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    if logit_softcap > 0:
+        ds = ds * (1 - t * t)
+    p, ds = _bf16(p), _bf16(ds)
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf) * scale
+    dk_ = torch.zeros((b, skv, hkv, dk), device=q.device)
+    dv_ = torch.zeros((b, skv, hkv, dv), device=q.device)
+    for j in range(g):
+        dv_ += torch.einsum("bhqk,bqhd->bkhd", p[:, :, j], do[:, :, :, j])
+        dk_ += torch.einsum("bhqk,bqhd->bkhd", ds[:, :, j], qf[:, :, :, j])
+    return (dq.reshape(b, sq, hq, dk).to(q.dtype), (dk_ * scale).to(k.dtype),
+            dv_.to(v.dtype))
+
+
 # --- SSD (twin of repro.models.ssm.segsum / ssd_chunked) ------------------------
 
 def segsum(log_a: torch.Tensor) -> torch.Tensor:
@@ -398,6 +446,72 @@ def ssd_bwd_ref(x, dt, a, b_mat, c_mat, h0, dy, dfinal, *, chunk):
     dx = dx + (r * dtr)[..., None] * bg
     dbm = dbm + (r * dtr)[..., None] * xg
     f_dt = r * (be * xg).sum(-1)                           # [B,nc,L,H]
+    dcum = dcum - dtr * f_dt
+    last = (dtr * f_dt).sum(2) + decay * (entering * g_out).sum((-1, -2))
+    dcum[:, :, -1, :] += last
+    dda = torch.flip(torch.cumsum(torch.flip(dcum, (2,)), 2), (2,))
+    ddt = e_col + f_dt + a.float() * dda
+    da_grad = (dtr * dda).sum((0, 1, 2))
+    return (dx.reshape(x.shape).to(x.dtype), ddt.reshape(dt.shape).to(dt.dtype),
+            da_grad.to(a.dtype),
+            dbm.sum(3).reshape(bsz, s, 1, n).to(b_mat.dtype),
+            dcm.sum(3).reshape(bsz, s, 1, n).to(c_mat.dtype), dh0)
+
+
+def ssd_bwd_tc_ref(x, dt, a, b_mat, c_mat, h0, dy, dfinal, *, chunk):
+    """Plain version of the ``tc`` SSD backward
+    (``csrc/ssd_backward_tc.cuh``): :func:`ssd_bwd_ref`'s phases with the
+    kernel's roundings.  The entering states are rounded once to bf16 (as
+    the forward's ``ssd_state`` writes them) and the leaving states'
+    gradient ``G`` is rounded to bf16 for its products (its fp32 value for
+    ``h_in . G``); the tiles ``CB * M`` (for dx) and ``dCB = dW * M * dt``
+    (for dB and dC, per head) are each formed in fp32 and rounded once to
+    bf16; the products sum in fp32.  The sums behind d(dacum) (rows of
+    ``dCB * CB``, columns of ``dW * CB * M``, ``C . d_off``, ``X . BG``)
+    take the fp32 values.  bf16 inputs; dx, dB and dC rounded once to bf16.
+    """
+    bsz, s, h, p = x.shape
+    n = b_mat.shape[3]
+    nc = s // chunk
+    xr, dtr, be, da, cum = _chunks(x, dt, a, b_mat, chunk)
+    ce = c_mat.reshape(bsz, nc, chunk, 1, n).float().expand(-1, -1, -1, h, -1)
+    dyr = dy.reshape(bsz, nc, chunk, h, p).float()
+    entering, _ = ssd_states(x, dt, a, b_mat, chunk, h0=h0)
+    entering = _bf16(entering)
+    own = torch.einsum("bclh,bclhp,bclhn->bchpn", torch.exp(cum), dyr, ce)
+    decay = torch.exp(cum[:, :, -1, :])
+    carry = (torch.zeros((bsz, h, p, n), dtype=torch.float32,
+                         device=x.device)
+             if dfinal is None else dfinal.float())
+    leaving = [None] * nc
+    for c in reversed(range(nc)):
+        leaving[c] = carry
+        carry = carry * decay[:, c, :, None, None] + own[:, c]
+    dh0 = carry
+    g_out = torch.stack(leaving, dim=1)
+    g_b = _bf16(g_out)
+    m_dec = torch.exp(segsum(da.movedim(-1, -2)))
+    cb = torch.einsum("bclhn,bcmhn->bchlm", ce, be)
+    dw = torch.einsum("bclhp,bcmhp->bchlm", dyr, xr)
+    dtm = dtr.movedim(-1, -2)[:, :, :, None, :]
+    cbm = cb * m_dec
+    dcb = dw * m_dec * dtm
+    dx = torch.einsum("bchlm,bclhp->bcmhp", _bf16(cbm), dyr) \
+        * dtr[..., None]
+    dcm = torch.einsum("bchlm,bcmhn->bclhn", _bf16(dcb), be)
+    dbm = torch.einsum("bchlm,bclhn->bcmhn", _bf16(dcb), ce)
+    e_col = (dw * cbm).sum(-2).movedim(-1, -2)
+    dcum = (dcb * cb).sum(-1).movedim(-1, -2) - dtr * e_col
+    d_off = torch.einsum("bclhp,bchpn->bclhn", dyr, entering) \
+        * torch.exp(cum)[..., None]
+    dcm = dcm + d_off
+    dcum = dcum + (ce * d_off).sum(-1)
+    r = torch.exp(cum[:, :, -1:, :] - cum)
+    xg = torch.einsum("bcmhp,bchpn->bcmhn", xr, g_b)
+    bg = torch.einsum("bcmhn,bchpn->bcmhp", be, g_b)
+    dx = dx + (r * dtr)[..., None] * bg
+    dbm = dbm + (r * dtr)[..., None] * xg
+    f_dt = r * (xr * bg).sum(-1)
     dcum = dcum - dtr * f_dt
     last = (dtr * f_dt).sum(2) + decay * (entering * g_out).sum((-1, -2))
     dcum[:, :, -1, :] += last

@@ -20,14 +20,26 @@ its twin here:
   per (batch, block of heads) sweeps the chunks on the fp32 CUDA cores,
   which keeps f32 within 2e-5 of max |y|.
 
-The backward (:func:`ssd_scan_backward`, ``csrc/ssd_backward.cuh``) has
-no Pallas counterpart: the reference differentiates its plain function.
-It computes that gradient for every shape either variant takes, on the
-fp32 CUDA cores, in three phases: the fp32 state entering each chunk; a
-reverse pass over the chunks carrying the state's gradient from the final
-state's; then per (b, chunk, head) the intra-chunk and carried terms'
-gradients, with B's, C's and A's sums over heads and sequence taken in a
-fixed order (no atomics: two calls give equal bits).
+The backward (:func:`ssd_scan_backward`) has no Pallas counterpart: the
+reference differentiates its plain function.  It computes that gradient
+in three phases: the state entering each chunk; a reverse pass over the
+chunks carrying the state's gradient from the final state's; then per
+chunk the intra-chunk and carried terms' gradients, with B's, C's and A's
+sums over heads and sequence taken in a fixed order (no atomics: two
+calls give equal bits).  Its variant is the forward's
+(:func:`backward_variant`):
+
+- ``tc`` (``csrc/ssd_backward_tc.cuh``) — the forward ``tc``'s shapes.
+  The entering states come from the forward's ``ssd_state`` kernel (bf16,
+  with each chunk's dacum and dt); the third phase puts every product on
+  ``wgmma`` as 64 x 64 bf16 tiles with fp32 accumulators, one block per
+  (b, chunk, 2 heads at N 64 / 1 at N 128) computing C B^T once for its
+  heads, the decays applied in fp32 before each tile's one bf16
+  rounding; dB and dC leave as per-head-group partials.  Plain twin:
+  :func:`~repro_torch.kernels.ref.ssd_bwd_tc_ref`.
+- ``simt`` (``csrc/ssd_backward.cuh``) — everything else, every phase on
+  the fp32 CUDA cores.  ``variant="simt"`` runs it at any shape, to time
+  it beside ``tc``.
 
 The plain versions are :func:`repro_torch.kernels.ref.ssd_ref` and, per
 ``tc`` kernel, :func:`~repro_torch.kernels.ref.ssd_states` and
@@ -54,7 +66,10 @@ LIB = CudaLibrary("ssd_scan", {
         [_I] * 7 + [ctypes.POINTER(_LL)] * 2, _I),
     "ssd_tc_state_launch": ([_P] * 8 + [_I] * 5 + [_P], _I),
     "ssd_tc_chunk_launch": ([_P] * 6 + [_I] * 5 + [_P], _I),
-    "ssd_scan_backward_launch": ([_P] * 15 + [_LL] + [_I] * 7 + [_P], _I),
+    "ssd_scan_backward_variant": (
+        [_I] * 7 + [ctypes.POINTER(_LL)], _I),
+    "ssd_scan_backward_launch": (
+        [_P] * 15 + [_LL] + [_I] * 8 + [ctypes.POINTER(_I), _P], _I),
 })
 MAX_HEAD_DIM = 64
 MAX_STATE = 128
@@ -69,11 +84,12 @@ TC_MAX_CHUNK = 256
 # kernel launches since the counts were last reset (plain integers: the
 # wrappers add one where they launch, nowhere else): calls of ssd_scan in
 # all and by variant, launches of each of tc's two kernels, and calls of
-# the backward
+# the backward in all and by variant
 launches = 0
 variant_launches = {name: 0 for name in VARIANTS}
 phase_launches = {"ssd_state": 0, "ssd_chunk_scan": 0}
 backward_launches = 0
+backward_variant_launches = {name: 0 for name in VARIANTS}
 
 
 def variant(dtype: torch.dtype, p: int, n: int, chunk: int) -> str:
@@ -285,26 +301,50 @@ def tc_outputs(x: torch.Tensor, b_mat: torch.Tensor, c_mat: torch.Tensor,
     return y
 
 
-def backward_scratch_floats(b: int, s: int, h: int, p: int, n: int,
-                            chunk: int) -> int:
-    """The backward's fp32 scratch: the entering states and the leaving
-    states' gradients ``[B, nc, H, P, N]``, two ``[B, nc, H]`` columns, and
-    dB's and dC's per-head partials ``[B, nc, H, L, N]``."""
+def backward_variant(dtype: torch.dtype, p: int, n: int, chunk: int) -> str:
+    """The backward variant the launcher takes for these shapes (its twin):
+    ``tc`` where the forward takes it, ``simt`` otherwise."""
+    return variant(dtype, p, n, chunk)
+
+
+def backward_heads_per_block(n: int, h: int) -> int:
+    """Heads of one ``tc`` backward ``chunk_tc`` block: two at N 64 when H
+    is even, else one; dB's and dC's partials are per such group."""
+    return 2 if n == 64 and h % 2 == 0 else 1
+
+
+def backward_scratch_floats(name: str, b: int, s: int, h: int, p: int,
+                            n: int, chunk: int) -> int:
+    """The backward's fp32 scratch.  ``simt``: the entering states and the
+    leaving states' gradients ``[B, nc, H, P, N]``, two ``[B, nc, H]``
+    columns, and dB's and dC's per-head partials ``[B, nc, H, L, N]``.
+    ``tc``: the entering states (bf16) and each chunk's dacum and dt, the
+    forward kernel's final state and a zero h0 ``[B, H, P, N]``, the
+    leaving states' gradients, two ``[B, nc, H]`` columns (padded to 16
+    bytes), and dB's and dC's partials per head group."""
     bch = b * (s // chunk) * h
-    return bch * (2 * p * n + 2 + 2 * chunk * n)
+    if name != "tc":
+        return bch * (2 * p * n + 2 + 2 * chunk * n)
+    col = -(-bch // 4) * 4
+    parts = bch // backward_heads_per_block(n, h) * chunk * n
+    return (bch * p * n // 2 + bch * 2 * chunk + 2 * b * h * p * n
+            + bch * p * n + 2 * col + 2 * parts)
 
 
 def ssd_scan_backward(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                       b_mat: torch.Tensor, c_mat: torch.Tensor,
                       h0: Optional[torch.Tensor], dy: torch.Tensor,
-                      dfinal: Optional[torch.Tensor], *, chunk: int):
+                      dfinal: Optional[torch.Tensor], *, chunk: int,
+                      variant: Optional[str] = None):
     """Launch the backward kernels on CUDA tensors: the gradients ``(dx,
     ddt, da, db_mat, dc_mat, dh0)`` of :func:`ssd_scan` for ``dy`` (x's
     shape and dtype) and ``dfinal`` (``[B, H, P, N]`` float32, None:
     zero).  Arguments as :func:`ssd_scan` takes them (``h0`` None: zeros);
     each gradient in its input's dtype, ``dh0`` float32.  Plain version:
-    :func:`ref.ssd_bwd_ref`.  Raises on anything else, on a failed build
-    and on a refused launch.
+    :func:`ref.ssd_bwd_ref` (``tc``'s roundings: :func:`ref.ssd_bwd_tc_ref`).
+    The variant is :func:`backward_variant`'s; ``variant="simt"`` runs the
+    CUDA-core kernels at any shape instead (to time them beside ``tc``).
+    Raises on anything else, on a failed build and on a refused launch.
     """
     global backward_launches
     if x.device.type != "cuda":
@@ -314,13 +354,23 @@ def ssd_scan_backward(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     bsz, s, h, p, n = _shapes("ssd_scan_backward", x, dt, a, b_mat, c_mat,
                               chunk, h0=h0, dfinal=dfinal)
     _check("dy", dy, (bsz, s, h, p), dev, x.dtype)
+    name = backward_variant(x.dtype, p, n, chunk)
+    if variant not in (None, "simt", name):
+        raise ValueError(f"backward variant {variant!r} does not take these "
+                         f"shapes (backward_variant() says {name!r})")
+    name = variant or name
+    if name == "tc":
+        _aligned("the tc backward", x, b_mat, c_mat, dy,
+                 *(() if h0 is None else (h0,)))
     dx = torch.empty_like(x)
     ddt = torch.empty_like(dt)
     da = torch.empty_like(a)
     db, dc = torch.empty_like(b_mat), torch.empty_like(c_mat)
     dh0 = torch.empty((bsz, h, p, n), dtype=torch.float32, device=dev)
-    scratch = torch.empty(backward_scratch_floats(bsz, s, h, p, n, chunk),
+    scratch = torch.empty(backward_scratch_floats(name, bsz, s, h, p, n,
+                                                  chunk),
                           dtype=torch.float32, device=dev)
+    chosen = ctypes.c_int(-1)
     lib = LIB.load()
     with torch.cuda.device(dev):
         err = lib.ssd_scan_backward_launch(
@@ -330,7 +380,13 @@ def ssd_scan_backward(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
             dx.data_ptr(), ddt.data_ptr(), da.data_ptr(), db.data_ptr(),
             dc.data_ptr(), dh0.data_ptr(), scratch.data_ptr(),
             scratch.numel(), _DTYPES[x.dtype], bsz, s, h, p, n, chunk,
-            _stream(dev))
+            -1 if variant is None else VARIANTS.index(name),
+            ctypes.byref(chosen), _stream(dev))
     check_launch("ssd_scan_backward", err)
+    if VARIANTS[chosen.value] != name:
+        raise RuntimeError(f"ssd_scan_backward: the launcher took "
+                           f"{VARIANTS[chosen.value]}, backward_variant() "
+                           f"says {name}")
     backward_launches += 1
+    backward_variant_launches[name] += 1
     return dx, ddt, da, db, dc, dh0

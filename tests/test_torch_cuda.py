@@ -661,6 +661,47 @@ def test_cuda_flash_launcher_routes_like_variant(cuda_device):
 
 
 @pytest.mark.cuda
+def test_cuda_flash_backward_launcher_routes_like_backward_variant(
+        cuda_device):
+    """The backward launcher's choice and scratch agree with the wrapper's
+    backward_variant() and backward_scratch_floats() on the forward's
+    edges and on GQA shapes whose tc dK/dV grid splits the group."""
+    import ctypes
+
+    lib = fa.LIB.load()
+    edges = VARIANT_EDGES + [(torch.bfloat16, 1, 2048, 2048, 32, 2, 128, 128),
+                             (torch.bfloat16, 1, 160, 160, 32, 2, 128, 128),
+                             (torch.bfloat16, 2, 2048, 2048, 32, 32, 64, 64)]
+    for dtype, b, sq, skv, hq, hkv, dk, dv in edges:
+        floats = ctypes.c_longlong(-1)
+        code = lib.flash_attention_backward_variant(
+            fa._DTYPES[dtype], b, sq, skv, hq, hkv, dk, dv,
+            ctypes.byref(floats))
+        name = fa.backward_variant(dtype, sq, hq, hkv, dk, dv)
+        assert fa.BACKWARD_VARIANTS[code] == name
+        assert floats.value == fa.backward_scratch_floats(
+            name, b, sq, skv, hq, hkv, dk, dv)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_backward_launcher_routes_like_backward_variant(
+        cuda_device):
+    """The SSD backward launcher's choice and scratch agree with the
+    wrapper's backward_variant() and backward_scratch_floats()."""
+    import ctypes
+
+    lib = ss.LIB.load()
+    for dtype, b, s, h, p, n, chunk in SSD_VARIANT_EDGES:
+        floats = ctypes.c_longlong(-1)
+        code = lib.ssd_scan_backward_variant(ss._DTYPES[dtype], b, s, h, p,
+                                             n, chunk, ctypes.byref(floats))
+        name = ss.backward_variant(dtype, p, n, chunk)
+        assert ss.VARIANTS[code] == name
+        assert floats.value == ss.backward_scratch_floats(name, b, s, h, p,
+                                                          n, chunk)
+
+
+@pytest.mark.cuda
 def test_cuda_flash_fast_variants_refuse_misaligned_tensors(cuda_device):
     q, k, v, qp, kp = _flash_inputs(5, 1, 256, 256, 4, 2, 128, 128,
                                     "bfloat16", cuda_device)
@@ -1186,10 +1227,13 @@ def _rel_err(got, want) -> float:
 
 
 # (dtype, B, Sq, Skv, Hq, Hkv, Dk, Dv, causal, window, softcap, valid0):
-# f32 on simt, bf16 on prefill_tc, MLA's and hubert's head dims, a window
-# with a softcap over GQA groups of 4, (256, 256) on the smallest tiles, a
-# decode_split shape under grad, and queries over a longer cache whose
-# keys from valid0 on are padding (Dk != Dv in f32; bf16 GQA)
+# f32 on simt; bf16 on the tc backward at each of its instantiations
+# ((64, 64), hubert's (80, 80), (128, 128) with a window and a softcap over
+# GQA groups of 4, and a GQA group of 16 at 160 q rows, which splits the
+# group over dkdv_tc blocks); MLA's (192, 128) and a decode_split shape in
+# bf16 under grad on simt; (256, 256) on simt's smallest tiles; queries
+# over a longer cache whose keys from valid0 on are padding (Dk != Dv in
+# f32; bf16 GQA on tc)
 GRAD_GRID = [
     ("float32", 2, 96, 96, 4, 2, 64, 64, True, None, 0.0, None),
     ("bfloat16", 2, 160, 160, 4, 2, 64, 64, True, None, 0.0, None),
@@ -1200,6 +1244,8 @@ GRAD_GRID = [
     ("float32", 2, 8, 64, 4, 4, 64, 64, True, None, 0.0, None),
     ("float32", 1, 64, 160, 4, 2, 32, 48, True, None, 0.0, 120),
     ("bfloat16", 2, 192, 256, 8, 2, 128, 128, True, None, 0.0, 200),
+    ("bfloat16", 1, 160, 160, 32, 2, 128, 128, True, None, 0.0, None),
+    ("bfloat16", 2, 4, 96, 16, 1, 64, 64, True, None, 0.0, None),
 ]
 
 
@@ -1213,10 +1259,11 @@ def test_cuda_attention_function_grads_match_plain(cuda_device, dtype, b, sq,
     """ops.attention on the card under grad: the flash forward (its lse
     within 1e-4 of the plain one, its output's bits the same without the
     lse) inside an autograd Function whose backward launches the flash
-    backward kernels once.  The gradients are within 2e-2 (bf16) or 2e-5
-    (f32) of each input's largest |gradient|, both against the plain
-    backward on the same output and lse and against autograd of the plain
-    forward; a second backward gives equal bits."""
+    backward once, as backward_variant() names it.  The gradients are
+    within 2e-2 (bf16) or 2e-5 (f32) of each input's largest |gradient|,
+    against the plain backward on the same output and lse (and, for tc,
+    its plain twin with the bf16 P and dS) and against autograd of the
+    plain forward; a second backward gives equal bits."""
     q, k, v, qp, kp = _flash_inputs(3, b, sq, skv, hq, hkv, dk, dv, dtype,
                                     cuda_device, valid0)
     kw = dict(q_positions=qp, kv_positions=kp, causal=causal,
@@ -1228,39 +1275,57 @@ def test_cuda_attention_function_grads_match_plain(cuda_device, dtype, b, sq,
         _, lse_p = ref.sdpa_ref(q, k, v, return_lse=True, **kw)
     assert torch.equal(out, bare)
     assert float((lse - lse_p).abs().max()) <= 1e-4
+    name = fa.backward_variant(q.dtype, sq, hq, hkv, dk, dv)
+    assert name == ("tc" if dtype == "bfloat16" and (dk, dv) != (192, 128)
+                    and sq * hq // hkv > 64 else "simt")
     before = fa.backward_launches
+    by_variant = dict(fa.backward_variant_launches)
     out_k, g_k = _grads_of(lambda q, k, v: ops.attention(q, k, v, **kw),
                            (q, k, v), w)
     _, g_a = _grads_of(lambda q, k, v: ref.sdpa_ref(q, k, v, **kw),
                        (q, k, v), w)
     assert fa.backward_launches == before + 1
+    assert fa.backward_variant_launches == {
+        k_: n + (k_ == name) for k_, n in by_variant.items()}
     assert torch.equal(out_k, out)
     dout = w.to(out.dtype)
     g_p = ref.sdpa_bwd_ref(q, k, v, out, lse, dout, **kw)
+    g_t = (ref.sdpa_bwd_tc_ref(q, k, v, out, lse, dout, **kw)
+           if name == "tc" else g_p)
     again = fa.flash_attention_backward(q, k, v, out, lse, dout, **kw)
     tol = {"float32": 2e-5, "bfloat16": 2e-2}[dtype]
-    for got, plain, auto, rerun in zip(g_k, g_p, g_a, again):
+    for got, plain, twin, auto, rerun in zip(g_k, g_p, g_t, g_a, again):
         assert got.dtype == plain.dtype and got.shape == plain.shape
         assert _rel_err(got, plain) <= tol
+        assert _rel_err(got, twin) <= tol
         assert _rel_err(got, auto) <= tol
         assert torch.equal(got, rerun)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,p,n,chunk", [("float32", 16, 16, 32),
-                                             ("bfloat16", 64, 64, 64),
-                                             ("bfloat16", 64, 128, 256),
-                                             ("float32", 64, 128, 256)])
-def test_cuda_ssd_function_grads_match_plain(cuda_device, dtype, p, n, chunk):
-    """ops.ssd on the card (``simt`` in f32, ``tc`` in bf16) under grad, a
-    ragged S padded outside the Function: its backward launches the SSD
-    backward kernels once, and the gradients of x, dt, A, B, C and h0 are
-    within 2e-2 (bf16) or 1e-4 (f32) of each input's largest |gradient|,
-    both against the plain backward and against autograd of the plain
+@pytest.mark.parametrize("dtype,p,n,chunk,h", [("float32", 16, 16, 32, 4),
+                                               ("bfloat16", 64, 64, 64, 4),
+                                               ("bfloat16", 64, 128, 256, 4),
+                                               ("float32", 64, 128, 256, 4),
+                                               ("bfloat16", 64, 64, 128, 3),
+                                               ("bfloat16", 32, 64, 64, 4)])
+def test_cuda_ssd_function_grads_match_plain(cuda_device, dtype, p, n, chunk,
+                                             h):
+    """ops.ssd on the card under grad, a ragged S padded outside the
+    Function: its backward launches the SSD backward once, as
+    backward_variant() names it (``tc`` in bf16 at the forward tc's shapes,
+    two heads a chunk_tc block at N 64 with H even and one otherwise;
+    ``simt`` in f32 and at bf16's other shapes).  The gradients of x, dt,
+    A, B, C and h0 are within 2e-2 (bf16) or 1e-4 (f32) of each input's
+    largest |gradient|, against the plain backward (and, for tc, its plain
+    twin with the kernel's bf16 tiles) and against autograd of the plain
     forward; a second backward gives equal bits."""
-    b, s, h = 2, 3 * chunk - 5, 4
+    b, s = 2, 3 * chunk - 5
     inputs = _ssd_inputs(4, b, s, h, p, n, dtype, cuda_device)
     w = torch.randn((b, s, h, p), device=cuda_device)
+    name = ss.backward_variant(inputs[0].dtype, p, n, chunk)
+    assert name == ("tc" if dtype == "bfloat16" and p == 64 else "simt")
+    by_variant = dict(ss.backward_variant_launches)
     before = ss.backward_launches
     out_k, g_k = _grads_of(lambda *a: ops.ssd(*a[:5], chunk=chunk, h0=a[5]),
                            inputs, w)
@@ -1268,6 +1333,8 @@ def test_cuda_ssd_function_grads_match_plain(cuda_device, dtype, p, n, chunk):
         lambda *a: ops.ssd(*a[:5], chunk=chunk, h0=a[5], plain=True)[0]
         .to(a[0].dtype), inputs, w)
     assert ss.backward_launches == before + 1
+    assert ss.backward_variant_launches == {
+        k: c + (k == name) for k, c in by_variant.items()}
     rel = {"float32": 2e-5, "bfloat16": 1e-2}[dtype]
     assert _rel_err(out_k, out_p) <= rel
     pad = (-s) % chunk
@@ -1276,13 +1343,15 @@ def test_cuda_ssd_function_grads_match_plain(cuda_device, dtype, p, n, chunk):
     dy = ref.pad_seq(w.to(x.dtype), pad)
     args = (padded[0], padded[1], a, padded[2], padded[3], h0, dy, None)
     g_p = ref.ssd_bwd_ref(*args, chunk=chunk)
+    g_t = ref.ssd_bwd_tc_ref(*args, chunk=chunk) if name == "tc" else g_p
     again = ss.ssd_scan_backward(*args, chunk=chunk)
     cut = lambda i, t: t[:, :s] if i in (0, 1, 3, 4) else t
     tol = {"float32": 1e-4, "bfloat16": 2e-2}[dtype]
-    for i, (got, plain, auto, rerun) in enumerate(zip(g_k, g_p, g_a,
-                                                      again)):
+    for i, (got, plain, twin, auto, rerun) in enumerate(zip(g_k, g_p, g_t,
+                                                            g_a, again)):
         assert got.dtype == auto.dtype and got.shape == auto.shape
         assert _rel_err(got, cut(i, plain)) <= tol, i
+        assert _rel_err(got, cut(i, twin)) <= tol, i
         assert _rel_err(got, auto) <= tol, i
         assert torch.equal(got, cut(i, rerun)), i
 

@@ -288,3 +288,226 @@ def test_ssd_bwd_ref_through_ops_padding_matches_autograd_and_jax():
         assert g.shape == au.shape, name
         assert _rel_err(g, au) <= SSD_TOL, name
         assert _rel_err(g, j) <= SSD_TOL, name
+
+
+# -- the tensor-core backwards' plain twins ------------------------------------
+#
+# ref.sdpa_bwd_tc_ref and ref.ssd_bwd_tc_ref repeat the tc kernels' roundings
+# (csrc/flash_backward_tc.cuh, csrc/ssd_backward_tc.cuh): P and dS, or the
+# CB * M and dCB tiles, each rounded once to bf16 before its product.  On
+# bf16 inputs each is held, within 2e-2 of each input's largest |gradient|
+# (the card's bf16 limit), to the fp32 plain backward on the same inputs and
+# to jax.vjp of the reference's plain function on those inputs widened to
+# f32.
+
+TC_TOL = 2e-2
+
+
+def _bf16_np(a):
+    """``a`` rounded to bf16, as float32 numpy (the inputs both sides see)."""
+    return torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+
+
+# (B, S, Hq, Hkv, D (Dk = Dv), window, softcap, q offset): each (Dk, Dv)
+# of the tc set, GQA groups of 1, 4 and 16, a window with a softcap, and
+# queries placed before every key (rows 0-7 see none)
+TC_ATTN_GRID = [
+    (2, 80, 4, 4, 64, None, 0.0, 0),
+    (1, 72, 4, 1, 80, None, 0.0, 0),
+    (1, 80, 8, 2, 128, None, 0.0, 0),
+    (1, 96, 16, 1, 64, None, 0.0, 0),
+    (1, 80, 4, 2, 128, 24, 30.0, 0),
+    (2, 72, 4, 2, 64, None, 0.0, -8),
+]
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,d,window,cap,offset", TC_ATTN_GRID)
+def test_sdpa_bwd_tc_ref_matches_plain_and_jax(b, s, hq, hkv, d, window, cap,
+                                               offset):
+    """dq, dk, dv of the tc twin (bf16 P and dS) against the fp32 plain
+    backward and jax.vjp of the reference's sdpa_ref, within 2e-2.  Rows
+    that see no key get no gradient from either backward; jax spreads dout
+    / Skv of each such row into every key's dV, which the comparison adds
+    back (as test_sdpa_bwd_ref_gives_rows_that_see_no_key_no_gradient)."""
+    rng = np.random.default_rng(b * s + hq + d)
+    q, k, v, dout = (_bf16_np(rng.standard_normal(shape).astype(np.float32))
+                     for shape in ((b, s, hq, d), (b, s, hkv, d),
+                                   (b, s, hkv, d), (b, s, hq, d)))
+    kp = np.broadcast_to(np.arange(s, dtype=np.int32), (b, s)).copy()
+    qp = kp + offset
+    kw = dict(causal=True, sliding_window=window, logit_softcap=cap)
+    t = lambda a: torch.from_numpy(a).to(torch.bfloat16)
+    pos = dict(q_positions=torch.from_numpy(qp),
+               kv_positions=torch.from_numpy(kp))
+    out, lse = ref.sdpa_ref(t(q), t(k), t(v), return_lse=True, **pos, **kw)
+    got = ref.sdpa_bwd_tc_ref(t(q), t(k), t(v), out, lse, t(dout), **pos,
+                              **kw)
+    plain = ref.sdpa_bwd_ref(*(torch.from_numpy(a) for a in (q, k, v)),
+                             out.float(), lse, torch.from_numpy(dout), **pos,
+                             **kw)
+    _, vjp = jax.vjp(lambda q_, k_, v_: jref.sdpa_ref(
+        q_, k_, v_, q_positions=jnp.asarray(qp), kv_positions=jnp.asarray(kp),
+        **kw), *(jnp.asarray(a) for a in (q, k, v)))
+    want_jax = [np.asarray(g) for g in vjp(jnp.asarray(dout))]
+    hidden = _hidden_rows(qp, kp, True, window)
+    assert bool(hidden.any()) == (offset < 0)
+    spread = (torch.from_numpy(dout) * hidden[:, :, None, None]).sum(1) / s
+    spread = spread.reshape(b, hkv, hq // hkv, d).sum(2)[:, None].numpy()
+    for i, (g, p, j) in enumerate(zip(got, plain, want_jax)):
+        assert g.dtype == torch.bfloat16 and g.shape == p.shape
+        assert _rel_err(g.float(), p) <= TC_TOL, i
+        if i == 2:
+            j = j - spread
+        assert _rel_err(g.float(), j) <= TC_TOL, i
+
+
+def test_sdpa_bwd_tc_ref_rounds_p_and_ds_to_bf16():
+    """The twin differs from the fp32 plain backward by the bf16 rounding
+    of P and dS alone: with P and dS exact in bf16 (every key visible to
+    every row at a uniform score, dO = 1 and V = 0 except one column) the
+    two agree to fp32 rounding."""
+    b, s, h, d = 1, 64, 2, 64
+    q = torch.zeros((b, s, h, d), dtype=torch.bfloat16)
+    k = torch.zeros((b, s, h, d), dtype=torch.bfloat16)
+    v = torch.zeros((b, s, h, d), dtype=torch.bfloat16)
+    v[..., 0] = 1.0
+    dout = torch.ones((b, s, h, d), dtype=torch.bfloat16)
+    pos = torch.arange(s, dtype=torch.int32)[None]
+    kw = dict(q_positions=pos, kv_positions=pos, causal=False)
+    out, lse = ref.sdpa_ref(q, k, v, return_lse=True, **kw)
+    got = ref.sdpa_bwd_tc_ref(q, k, v, out, lse, dout, **kw)
+    plain = ref.sdpa_bwd_ref(q, k, v, out, lse, dout, **kw)
+    for g, p in zip(got, plain):
+        torch.testing.assert_close(g.float(), p.float(), atol=1e-6, rtol=0)
+
+
+# (B, S, H, N, chunk, h0, dfinal): N 64 (two heads a chunk_tc block) and
+# 128, with and without h0 and the final state's gradient; P = 64
+TC_SSD_GRID = [
+    (2, 128, 2, 64, 64, True, True),
+    (1, 128, 3, 64, 64, False, True),
+    (1, 256, 2, 128, 128, True, True),
+    (2, 128, 1, 128, 64, True, False),
+]
+
+
+@pytest.mark.parametrize("b,s,h,n,chunk,with_h0,with_dfinal", TC_SSD_GRID)
+def test_ssd_bwd_tc_ref_matches_plain_and_jax(b, s, h, n, chunk, with_h0,
+                                              with_dfinal):
+    """dx, ddt, dA, dB, dC and dh0 of the tc twin (bf16 entering states, G,
+    CB * M and dCB tiles) against the fp32 plain backward and jax.vjp of
+    the reference's ssd_ref, within 2e-2."""
+    x, dt, a, bm, cm, h0, dy, dfinal = _ssd_inputs(s + h + n, b, s, h, 64, n)
+    x, bm, cm, dy = (_bf16_np(t) for t in (x, bm, cm, dy))
+    h0 = h0 if with_h0 else None
+    dfinal = dfinal if with_dfinal else np.zeros_like(dfinal)
+    t = torch.from_numpy
+    bf = lambda a_: t(a_).to(torch.bfloat16)
+    args = (None if h0 is None else t(h0), bf(dy),
+            t(dfinal) if with_dfinal else None)
+    got = ref.ssd_bwd_tc_ref(bf(x), t(dt), t(a), bf(bm), bf(cm), *args,
+                             chunk=chunk)
+    plain = ref.ssd_bwd_ref(t(x), t(dt), t(a), t(bm), t(cm), args[0], t(dy),
+                            args[2], chunk=chunk)
+    want_jax = _jax_ssd_vjp(x, dt, a, bm, cm, h0, dy, dfinal, chunk, s)
+    for name, g, p, j in zip(("x", "dt", "a", "b", "c", "h0"), got, plain,
+                             want_jax):
+        assert g.shape == p.shape, name
+        assert _rel_err(g.float(), p) <= TC_TOL, name
+        assert _rel_err(g.float(), j) <= TC_TOL, name
+
+
+def _launcher_body(source: str, fn: str) -> str:
+    """The body of C function ``fn`` in ``csrc/<source>``."""
+    from repro_torch.kernels.nvcc import CSRC
+
+    text = (CSRC / source).read_text()
+    start = text.index("{", text.index(f" {fn}("))
+    depth, i = 0, start
+    while True:
+        depth += {"{": 1, "}": -1}.get(text[i], 0)
+        if depth == 0:
+            return text[start:i]
+        i += 1
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_backward_variant_follows_the_launcher_rule(dtype):
+    """flash_attention.backward_variant() on a grid of shapes against the
+    launcher's rule (choose_backward_variant in csrc/flash_attention.cu,
+    whose (Dk, Dv) pairs are read from the source): tc for bf16 at those
+    pairs with more than 64 q rows per kv head, simt elsewhere; every tc
+    shape's forward is prefill_tc, so the saved lse comes from it."""
+    import re
+
+    from repro_torch.kernels import flash_attention as fa
+
+    body = _launcher_body("flash_attention.cu", "choose_backward_variant")
+    pairs = {(int(a), int(b)) for a, b in
+             re.findall(r"Dk == (\d+) && Dv == (\d+)", body)}
+    assert pairs == set(fa.BACKWARD_TC_DIMS)
+    assert "decode_split::kMaxRows" in body and fa.DECODE_MAX_ROWS == 64
+    dims = [(64, 64), (80, 80), (128, 128), (192, 128), (32, 48), (256, 256)]
+    seen = set()
+    for (dk, dv) in dims:
+        for sq, hq, hkv in ((1, 32, 2), (4, 16, 1), (5, 16, 1), (64, 4, 4),
+                            (65, 4, 4), (2048, 32, 32), (2048, 32, 2)):
+            got = fa.backward_variant(dtype, sq, hq, hkv, dk, dv)
+            want = ("tc" if dtype == torch.bfloat16 and (dk, dv) in pairs
+                    and sq * (hq // hkv) > 64 else "simt")
+            assert got == want, (dk, dv, sq, hq, hkv)
+            if got == "tc":
+                assert fa.variant(dtype, sq, hq, hkv, dk, dv) == "prefill_tc"
+            seen.add(got)
+    assert seen == ({"tc", "simt"} if dtype == torch.bfloat16 else {"simt"})
+
+
+@pytest.mark.parametrize("b,hkv,skv,group,want", [
+    (2, 32, 2048, 1, (1, 1)),      # zamba2: 2048 blocks, no split
+    (1, 2, 2048, 16, (4, 4)),      # glm4's GQA: 64 blocks -> 4 shares of 4
+    (1, 8, 2048, 2, (2, 1)),       # a window case: 256 blocks -> 2 shares
+    (1, 2, 160, 16, (16, 1)),      # a small GQA call: one head a share
+    (1, 4, 4096, 8, (2, 4)),
+])
+def test_flash_backward_splits_cover_the_group(b, hkv, skv, group, want):
+    """dkdv_tc's shares of a GQA group (backward_splits, the twin of the
+    launcher's splits_for): one while B x Hkv x 64-key tiles fills two
+    waves of 132 SMs; every head in exactly one share; the tc scratch
+    holds the shares' fp32 partials only when there are several."""
+    from repro_torch.kernels import flash_attention as fa
+
+    shares, per = fa.backward_splits(b, hkv, skv, group)
+    assert (shares, per) == want
+    assert (shares - 1) * per < group <= shares * per
+    rows = b * skv * hkv * group
+    extra = fa.backward_scratch_floats("tc", b, skv, skv, hkv * group, hkv,
+                                       128, 128) - (-(-rows // 4) * 4)
+    assert extra == (0 if shares == 1 else shares * b * skv * hkv * 256)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ssd_backward_variant_follows_the_forward(dtype):
+    """ssd_scan.backward_variant() equals the forward's variant() on a grid
+    of shapes (the launcher takes choose_variant for both), and the tc
+    scratch plan's dB / dC partials are per chunk_tc head group (two heads
+    at N 64 when H is even)."""
+    from repro_torch.kernels import ssd_scan as ss
+
+    body = _launcher_body("ssd_scan.cu", "ssd_scan_backward_launch")
+    assert "choose_variant(dtype, P, N, L)" in body
+    for p in (16, 64):
+        for n in (32, 64, 128):
+            for chunk in (32, 64, 128, 192, 256, 512):
+                got = ss.backward_variant(dtype, p, n, chunk)
+                assert got == ss.variant(dtype, p, n, chunk)
+                assert got == ("tc" if dtype == torch.bfloat16 and p == 64
+                               and n in (64, 128) and chunk % 64 == 0
+                               and chunk <= 256 else "simt")
+    assert [ss.backward_heads_per_block(n, h) for n, h in
+            ((64, 64), (64, 3), (128, 48), (128, 1))] == [2, 1, 1, 1]
+    b, s, h, n, chunk = 2, 512, 6, 64, 256
+    bch = b * (s // chunk) * h
+    parts = ss.backward_scratch_floats("tc", b, s, h, 64, n, chunk) \
+        - (bch * 64 * n // 2 + bch * 2 * chunk + 2 * b * h * 64 * n
+           + bch * 64 * n + 2 * (-(-bch // 4) * 4))
+    assert parts == 2 * (bch // 2) * chunk * n

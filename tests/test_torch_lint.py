@@ -518,7 +518,9 @@ def test_ctypes_sig_reads_the_three_libraries():
              for name, sig in ctypes_sig.c_signatures(cu.read_text()).items()}
     assert arity == {
         "flash_attention_variant": 9, "flash_attention_launch": 23,
-        "flash_attention_backward_launch": 26, "ssd_scan_backward_launch": 24,
+        "flash_attention_backward_variant": 9,
+        "flash_attention_backward_launch": 28,
+        "ssd_scan_backward_variant": 8, "ssd_scan_backward_launch": 26,
         "lease_validate_launch": 11, "lease_staging_alloc": 3,
         "lease_staging_free": 1, "lease_drain_launch": 8,
         "lease_drain_empty": 1, "ssd_scan_variant": 9,
