@@ -13,7 +13,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             kernel's nvcc seconds and ptxas report (registers, shared
             memory, spills); then ``build_prefill_tc``: the registers and
             spills of each ``prefill_tc`` instantiation, (Dk, Dv) in
-            (64, 64), (80, 80), (128, 128), (192, 128).
+            (64, 64), (80, 80), (128, 128), (192, 128); and
+            ``build_backward_tc``: those of the tc backward's ``dkdv_tc``
+            (``dkdv_tc2`` at (192, 128)) and ``dq_tc`` at the same pairs,
+            none spilling.
 3. kernel — the kernel against its plain PyTorch version, bitwise, at the
             simulator's shapes (1,140,088 items, B in {8, 16}, R = 32,
             W = 16, plus a lock-free W = 1 case) and at a wide shape
@@ -252,10 +255,14 @@ Single-device training (``repro_torch.train``, ``launch.train``):
             ``backward_variant()`` names it: attention at zamba2's (B 2,
             S 2048, H 32, D 64, causal, bf16), glm4's (128, 128) over GQA
             groups of 16 (the group split over ``dkdv_tc`` blocks),
-            hubert's (80, 80) bidirectional and a window of 512 with a
-            softcap of 50 on ``tc`` (``flash_backward_tc.cuh``);
-            deepseek-v2's MLA (192, 128) and zamba2's in f32 on ``simt``
-            (``flash_backward.cuh``); the SSD at zamba2's (H 64, N 64) and
+            hubert's (80, 80) bidirectional, deepseek-v2's MLA (192, 128)
+            at 1 x 1024 and at train_mla's 2 x 2048, 128 heads (its dK and
+            dV from ``dkdv_tc2``'s two warpgroups; beside SDPA's backward,
+            the backend it takes named, and the registers and spills of
+            ``dkdv_tc2`` and ``dq_tc`` there) and a window of 512 with a
+            softcap of 50 on ``tc`` (``flash_backward_tc.cuh``); zamba2's
+            in f32 on ``simt`` (``flash_backward.cuh``); the SSD at
+            zamba2's (H 64, N 64) and
             mamba2's (H 48, N 128), bf16, on ``tc``
             (``ssd_backward_tc.cuh``) and zamba2's in f32 on ``simt``, with
             h0 and the final state's gradient.  Each: one backward launch
@@ -297,6 +304,19 @@ Single-device training (``repro_torch.train``, ``launch.train``):
             same fp32 masters; loss within 1e-2 relative, every gradient
             leaf's relative L2 error within 5e-2; on the card one backward
             launch a Function and no plain version called.
+23b. train_mla — deepseek-v2-236b at full width cut to its first layer
+            (MLA and the 12288-wide dense MLP: 1.39 B parameters, fp32
+            masters), 4 steps of 2 x 2048 tokens through
+            ``train_step.make_train_step`` (``launch.train`` has no depth
+            flag): every loss finite; per step one ``prefill_tc<192,128>``
+            with the lse and one ``flash_attention.backward.tc``, no other
+            flash or SSD launch, no plain version called; step wall after
+            the first, tokens/s, peak memory; one more step profiled:
+            device busy, idle share, the MLA backward's device ms and its
+            share of busy.
+23c. train_mla_held — the same config at 1 x 512 tokens: loss and every
+            gradient leaf on the card against the CPU, from the same
+            masters and batch, as train_held holds zamba2's.
 
 The mesh (``repro_torch.dist``, ``launch.mesh``; on one card a world of
 one NCCL rank, whose collectives still run):
@@ -435,7 +455,8 @@ cases of phase 26; one entry per backward kernel and variant
 (``flash_attention.backward.tc`` / ``.simt``, ``ssd_scan.backward.tc`` /
 ``.simt``), both timed at phase 21's zamba2 case (``simt`` asked for by
 name there), its launches by training path: train, train_remat_full,
-train_held, mesh_train and examples_train_100m), and ``{"ok": true,
+train_held, train_mla, train_mla_held, mesh_train and
+examples_train_100m), and ``{"ok": true,
 "device": {...}}``.
 """
 from __future__ import annotations
@@ -1626,7 +1647,8 @@ def backward_records(grad_cases: dict, paths: dict) -> list:
                                          "speedup_vs_simt")} if tc else {}),
                 "cases": {c["case"]: {k: c.get(k) for k in (
                     "bwd_ms", "bwd_graph_ms", "simt_bwd_ms", "bwd_bound_ms",
-                    "max_abs_err")} for c in mine}})
+                    "library_bwd_ms", "library_backend", "max_abs_err")}
+                    for c in mine}})
     return out
 
 
@@ -3170,9 +3192,28 @@ def _grad_checks(name: str, kind: str, dtype: str, g_k, g_p, g_a,
                 max_abs_err=abs_err, deterministic=all(same))
 
 
+def sdpa_backend(out) -> str:
+    """The backend ``scaled_dot_product_attention`` took for ``out``, read
+    from its autograd graph: ``flash``, ``efficient``, ``cudnn``, or
+    ``math`` where no fused node is in it."""
+    seen, todo = set(), [out.grad_fn]
+    while todo:
+        fn = todo.pop()
+        if fn is None or fn in seen:
+            continue
+        seen.add(fn)
+        for key, backend in (("Flash", "flash"), ("Efficient", "efficient"),
+                             ("Cudnn", "cudnn")):
+            if f"ScaledDotProduct{key}" in fn.name():
+                return backend
+        todo.extend(f for f, _ in fn.next_functions)
+    return "math"
+
+
 def attention_grad_case(name: str, b, s, hq, hkv, dk, dv, *, causal=True,
                         window=None, cap=0.0, dtype="bfloat16",
-                        timed=False, seed=21) -> dict:
+                        timed=False, library=False, registers=None,
+                        seed=21) -> dict:
     """The flash forward's lse and the flash backward kernels at one
     training shape (self-attention, positions 0..S-1): the lse within
     GRAD_LSE_TOL of the plain one, the output's bits equal with and
@@ -3180,7 +3221,10 @@ def attention_grad_case(name: str, b, s, hq, hkv, dk, dv, *, causal=True,
     backward once, its gradients held by :func:`_grad_checks`; the
     backward's time a call and its device time, its bound.  ``timed``
     adds the plain backward's, the Function's forward + backward, the old
-    recompute's (autograd of the plain forward) and SDPA's."""
+    recompute's (autograd of the plain forward) and SDPA's; ``library``
+    SDPA's backward alone.  Both name the backend SDPA takes.
+    ``registers`` (the backward kernels' ptxas report at this pair) joins
+    the record."""
     import torch
     import torch.nn.functional as F
 
@@ -3253,6 +3297,11 @@ def attention_grad_case(name: str, b, s, hq, hkv, dk, dv, *, causal=True,
                fwd_lse_graph_ms=lse_g_ms, bwd_ms=bwd_ms,
                bwd_graph_ms=bwd_g_ms, bwd_bound_ms=bms, bwd_bound_by=by,
                fwd_bwd_bound_ms=fbms, fwd_bwd_bound_by=fby, **grads)
+    def library(q, k, v):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=causal, enable_gqa=hkv != hq).transpose(1, 2)
+
     if bwd_variant == "tc":
         # the CUDA-core kernels at the same shape, asked for by name
         rec["simt_bwd_ms"] = time_ms(
@@ -3269,11 +3318,6 @@ def attention_grad_case(name: str, b, s, hq, hkv, dk, dv, *, causal=True,
                 torch.autograd.grad(fn(*ls), ls, dout)
             return run
 
-        def library(q, k, v):
-            return F.scaled_dot_product_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                is_causal=causal, enable_gqa=hkv != hq).transpose(1, 2)
-
         n = max(3, iters // 4)
         rec["plain_bwd_ms"] = time_ms(
             lambda: ref.sdpa_bwd_ref(q, k, v, out, lse, dout, **kw), n,
@@ -3289,12 +3333,17 @@ def attention_grad_case(name: str, b, s, hq, hkv, dk, dv, *, causal=True,
             fwd_bwd(lambda q, k, v: ref.sdpa_ref(q, k, v, **kw)), n,
             warmup=2)
         rec["library_fwd_bwd_ms"] = time_ms(fwd_bwd(library), n, warmup=2)
-        ls = [t.detach().requires_grad_(True) for t in no_grad]
+    if timed or library:
+        ls = [t.detach().requires_grad_(True) for t in (q, k, v)]
         lib_out = library(*ls)
+        rec["library_backend"] = sdpa_backend(lib_out)
         rec["library_bwd_ms"] = time_ms(
             lambda: torch.autograd.grad(lib_out, ls, dout,
-                                        retain_graph=True), n, warmup=2)
+                                        retain_graph=True),
+            max(3, iters // 4), warmup=2)
         del lib_out, ls
+    if registers is not None:
+        rec["registers"] = registers
     rec["wall_s"] = time.perf_counter() - t_start
     emit("kernel_grad", **rec)
     del q, k, v, out, lse, g_k
@@ -3403,22 +3452,28 @@ def ssd_grad_case(name: str, b, s, h, p, n, chunk, *, dtype="bfloat16",
     return rec
 
 
-def kernel_grad_phase() -> dict:
+def kernel_grad_phase(mla_registers: list) -> dict:
     """21. The backward kernels at the model paths' training shapes, each
     against its plain backward, ``tc``'s plain twin and autograd of the
     plain forward: zamba2's attention (timed in full) and glm4's (128, 128)
-    GQA, hubert's (80, 80) bidirectional, a window with a softcap (all
-    ``tc``), deepseek-v2's MLA (192, 128) and an f32 case (``simt``); the
-    SSD at zamba2's N 64 (timed in full) and mamba2's N 128 (``tc``) and
+    GQA, hubert's (80, 80) bidirectional, deepseek-v2's MLA (192, 128) at
+    1 x 1024 and at train_mla's 2 x 2048 (each beside SDPA's backward,
+    with ``mla_registers``, the registers and spills of its kernels), a
+    window with a softcap (all ``tc``) and an f32 case (``simt``); the SSD
+    at zamba2's N 64 (timed in full) and mamba2's N 128 (``tc``) and
     zamba2's in f32 (``simt``).  Returns the cases by kernel, the timed
     case first."""
+    mla = dict(library=True, registers=mla_registers)
     flash = [
         attention_grad_case("zamba2_attention", 2, 2048, 32, 32, 64, 64,
                             timed=True),
         attention_grad_case("glm4_attention", 1, 2048, 32, 2, 128, 128),
         attention_grad_case("hubert_attention", 2, 1024, 16, 16, 80, 80,
                             causal=False),
-        attention_grad_case("mla_attention", 1, 1024, 128, 128, 192, 128),
+        attention_grad_case("mla_attention", 1, 1024, 128, 128, 192, 128,
+                            **mla),
+        attention_grad_case("mla_attention_train", 2, 2048, 128, 128, 192,
+                            128, **mla),
         attention_grad_case("window_softcap", 1, 2048, 16, 8, 128, 128,
                             window=512, cap=50.0),
         attention_grad_case("zamba2_attention_f32", 1, 1024, 32, 32, 64, 64,
@@ -3676,6 +3731,175 @@ def train_held_phase() -> dict:
     emit("train_held", **out)
     del params, g_c
     torch.cuda.empty_cache()
+    return out
+
+
+MLA_TRAIN_ARCH = "deepseek-v2-236b"
+MLA_TRAIN_LAYERS = 1           # the dense first layer: MLA + the 12288 MLP
+MLA_TRAIN_STEPS = 4            # of 2 x 2048 tokens
+MLA_HELD_TOKENS = 512          # 1 x 512: 512 rows a kv head, so tc
+
+
+def mla_train_config():
+    """deepseek-v2-236b at full width cut to its first (dense) layer:
+    1.39 B parameters, 25 GB with fp32 masters, AdamW's moments and fp32
+    gradients."""
+    from repro_torch.launch import train as launch_train
+
+    return dataclasses.replace(
+        launch_train.scaled_config(MLA_TRAIN_ARCH, "full"),
+        n_layers=MLA_TRAIN_LAYERS)
+
+
+def train_mla_phase() -> dict:
+    """23b. deepseek-v2-236b at full width, depth 1, seeded fp32 masters:
+    4 train steps (``make_train_step``, as ``launch.train`` runs it) of 2 x
+    2048 tokens of ``SyntheticLM``, counts reset just before.  Every loss
+    finite; per step one ``prefill_tc`` launch (MLA's (192, 128), with the
+    lse) and one ``flash_attention.backward.tc``, no other flash or SSD
+    launch and no plain version called; step wall after the first,
+    tokens/s, peak memory.  Then one more step under ``torch.profiler``:
+    device busy, idle share, the MLA backward's device ms (under
+    ``_AttentionBackward``) and its share of busy time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import decoder
+    from repro_torch.train import train_step as ts
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = mla_train_config()
+    params, state = _train_setup(cfg, dev)
+    step_fn = ts.make_train_step(cfg, decoder.RunCtx(dev), ts.TrainConfig())
+    batches = [_train_batch(cfg, 2, 2048, dev, step=i)
+               for i in range(MLA_TRAIN_STEPS + 1)]
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_model_counts()
+    losses, stamps = [], []
+    with plain_calls() as plain_n:
+        for batch in batches[:MLA_TRAIN_STEPS]:
+            params, state, m = step_fn(params, state, batch)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize(dev)
+            stamps.append(time.perf_counter())
+    counts = model_counts()
+    lse_launches = fa.lse_launches
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    step_s = float(np.mean(np.diff(stamps)))
+    steps = len(losses)
+    want = dict(prefill_tc=steps, decode_split=0, simt=0, ssd_tc=0,
+                ssd_simt=0)
+    got = {k: counts[k] for k in want}
+    check(steps == MLA_TRAIN_STEPS and all(np.isfinite(losses)),
+          f"train_mla: losses {losses}")
+    check(got == want and lse_launches == steps,
+          f"train_mla: kernel launches {got} ({lse_launches} with the lse), "
+          f"expected {want}")
+    check(counts["backward"] == want_backward(steps, 0),
+          f"train_mla: backward launches {counts['backward']}")
+    check(not plain_n, f"train_mla: plain versions called {dict(plain_n)}")
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        params, state, m = step_fn(params, state, batches[-1])
+        torch.cuda.synchronize(dev)
+        wall = (time.perf_counter() - t1) * 1e3
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA), key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    attn_bwd = sum(e.device_time_total / 1e3 for e in prof.events()
+                   if e.name == "autograd::engine::evaluate_function: "
+                                "_AttentionBackward")
+    ours = {n[:60]: ms for n, ms, _ in rows if "flash::" in n}
+    check(busy > 0 and attn_bwd > 0,
+          f"train_mla: the trace holds {busy} ms of device time, {attn_bwd} "
+          f"ms under _AttentionBackward")
+    tokens = 2 * 2048
+    out = dict(arch=MLA_TRAIN_ARCH, layers=MLA_TRAIN_LAYERS,
+               params=cfg.param_count(), steps=steps, losses=losses,
+               step_s=step_s, tokens_per_s=tokens / step_s, peak_mem_gb=peak,
+               launches=got, launches_per_step={k: v / steps
+                                                for k, v in got.items()},
+               lse_launches=lse_launches,
+               backward_launches=counts["backward"],
+               plain_calls=sum(plain_n.values()), profiled_wall_ms=wall,
+               device_busy_ms=busy, idle_share=max(0.0, 1 - busy / wall),
+               attention_backward_ms=attn_bwd,
+               attention_backward_share=attn_bwd / busy,
+               repo_kernels_ms=ours, top=[dict(name=n[:90], ms=ms, calls=c)
+                    for n, ms, c in rows[:8]],
+               wall_s=time.perf_counter() - t0)
+    emit("train_mla", **out)
+    del params, state, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_mla_held_phase() -> dict:
+    """23c. The train_mla config at 1 x 512 tokens (512 rows a kv head, so
+    ``tc``): the train step's loss and gradients on the card (kernels) and
+    on the CPU (plain versions) from the same fp32 masters and batch; loss
+    within 1e-2 relative, each leaf's relative L2 error within 5e-2 (bf16
+    compute); on the card one ``prefill_tc`` and one ``tc`` backward
+    launch and no plain version called."""
+    import torch
+
+    from repro_torch.models import decoder
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.tree import leaves_with_paths, tree_map
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = mla_train_config()
+    params, _ = _train_setup(cfg, dev, seed=3)
+    batch = _train_batch(cfg, 1, MLA_HELD_TOKENS, dev, step=3)
+    reset_model_counts()
+    with plain_calls() as plain_n:
+        loss_c, _, g_c = ts._grad_fn(cfg, decoder.RunCtx(dev))(params, batch)
+    counts = model_counts()
+    g_c = tree_map(lambda t: t.cpu(), g_c)
+    t_card = time.perf_counter() - t0
+    cpu_params = tree_map(lambda t: t.to("cpu"), params)
+    del params
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    loss_h, _, g_h = ts._grad_fn(cfg, decoder.RunCtx("cpu"))(
+        cpu_params, {k: v.cpu() for k, v in batch.items()})
+    t_cpu = time.perf_counter() - t1
+    rel_loss = abs(float(loss_c) - float(loss_h)) / abs(float(loss_h))
+    errs = {".".join(map(str, path)): float(
+                (a - b).norm() / b.norm().clamp(min=1e-30))
+            for (path, a), (_, b) in zip(leaves_with_paths(g_c),
+                                         leaves_with_paths(g_h))}
+    worst = max(errs, key=errs.get)
+    want = dict(prefill_tc=1, decode_split=0, simt=0, ssd_tc=0, ssd_simt=0)
+    check({k: counts[k] for k in want} == want
+          and counts["backward"] == want_backward(1, 0) and not plain_n,
+          f"train_mla_held: kernel launches {counts}, plain calls "
+          f"{dict(plain_n)}")
+    check(rel_loss <= HELD_TRAIN_LOSS_TOL,
+          f"train_mla_held: loss {float(loss_c)} on cuda, {float(loss_h)} "
+          f"on cpu")
+    check(errs[worst] <= HELD_TRAIN_GRAD_TOL,
+          f"train_mla_held: gradient {worst} off by {errs[worst]} "
+          f"(relative L2)")
+    out = dict(arch=MLA_TRAIN_ARCH, layers=MLA_TRAIN_LAYERS,
+               tokens=MLA_HELD_TOKENS, loss_cuda=float(loss_c),
+               loss_cpu=float(loss_h), loss_rel_err=rel_loss,
+               grad_leaves=len(errs), worst_leaf=worst,
+               worst_rel_l2=errs[worst],
+               median_rel_l2=float(np.median(list(errs.values()))),
+               attention_rel_l2={k: v for k, v in errs.items()
+                                 if ".attn." in f".{k}."},
+               launches=counts, card_s=t_card, cpu_s=t_cpu,
+               wall_s=time.perf_counter() - t0)
+    emit("train_mla_held", **out)
+    del g_c, g_h, cpu_params
     return out
 
 
@@ -5323,6 +5547,22 @@ def main() -> int:
         tuple(k["dims"]) for k in tc_builds) == sorted(fa.PREFILL_TC_DIMS),
           f"ptxas reported prefill_tc {tc_builds}, expected "
           f"{fa.PREFILL_TC_DIMS}")
+    # the tc backward's kernels: dkdv_tc, or dkdv_tc2 where one warpgroup
+    # cannot hold dK and dV, and dq_tc, at every pair; none spills
+    bwd_builds = {kind: ptxas_kernels(fa.LIB.info, f"{kind}_kernel")
+                  for kind in ("dkdv_tc", "dkdv_tc2", "dq_tc")}
+    emit("build_backward_tc", **bwd_builds)
+    pairs = sorted(fa.BACKWARD_TC_DIMS)
+    check(fa.LIB.info.get("cached") or (
+        sorted(tuple(k["dims"]) for k in bwd_builds["dkdv_tc"]
+               + bwd_builds["dkdv_tc2"]) == pairs
+        and sorted(tuple(k["dims"]) for k in bwd_builds["dq_tc"]) == pairs
+        and not any(k["spill_stores"] or k["spill_loads"]
+                    for ks in bwd_builds.values() for k in ks)),
+          f"ptxas reported the tc backward {bwd_builds}, expected {pairs} "
+          f"without a spill")
+    mla_registers = [dict(kernel=kind, **k) for kind, ks in bwd_builds.items()
+                     for k in ks if k["dims"] == [192, 128]]
 
     # 3. kernel vs plain version
     rng = np.random.default_rng(0)
@@ -5492,10 +5732,11 @@ def main() -> int:
     emit("mutants_done", wall_s=time.perf_counter() - t0)
 
     # 21-23. single-device training: each kernel's autograd Function at
-    # zamba2's training shapes, the trainer at full width and depth (remat
-    # none and full), one step profiled, the train step held to the CPU
+    # the training shapes, the trainer at zamba2's full width and depth
+    # (remat none and full), one step profiled, the train step held to the
+    # CPU; deepseek-v2's first layer at full width trained and held
     t0 = time.perf_counter()
-    grad_cases = kernel_grad_phase()
+    grad_cases = kernel_grad_phase(mla_registers)
     emit("kernel_grad_done", wall_s=time.perf_counter() - t0)
     t0 = time.perf_counter()
     train = {remat: train_phase(remat) for remat in ("none", "full")}
@@ -5506,11 +5747,21 @@ def main() -> int:
     t0 = time.perf_counter()
     train_held = train_held_phase()
     emit("train_held_done", wall_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    train_mla = train_mla_phase()
+    emit("train_mla_done", wall_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    train_mla_held = train_mla_held_phase()
+    emit("train_mla_held_done", wall_s=time.perf_counter() - t0)
     train_paths = {"train": train["none"]["launches"],
-                   "train_remat_full": train["full"]["launches"]}
+                   "train_remat_full": train["full"]["launches"],
+                   "train_mla": train_mla["launches"]}
     backward_paths = {"train": train["none"]["backward_launches"],
                       "train_remat_full": train["full"]["backward_launches"],
-                      "train_held": train_held["launches"]["backward"]}
+                      "train_held": train_held["launches"]["backward"],
+                      "train_mla": train_mla["backward_launches"],
+                      "train_mla_held":
+                          train_mla_held["launches"]["backward"]}
 
     # 24-26. the mesh on a world of one NCCL rank: the sharded MoE paths,
     # data-parallel training, seq-sharded decode through decode_split's

@@ -89,30 +89,41 @@
 // Python is its twin).  Both start with the pre-pass D = rowsum(dO O).
 //
 // tc (flash_backward_tc.cuh): bf16, (Dk, Dv) in {(64, 64), (80, 80), (128,
-//   128)}, more than 64 query rows per kv head: FlashAttention-2's backward
-//   on wgmma.  Bound by operations (S, dP, dV, dK, dQ on the visible pairs:
-//   2 (3 Dk + 2 Dv) flops a pair at 989 TFLOP/s).  dkdv_tc takes one block
-//   per (64 keys, b, kv head, share of the GQA group): a producer warp loads
-//   K and V once and rings Q, dO and the rows' lse, D and positions by TMA
-//   over the share's q tiles, skipping the tiles whose positions hide every
-//   key from every row and flagging those that need the per-element mask;
-//   one consumer warpgroup computes S^T = K Q^T and dP^T = V dO^T (SS
-//   wgmma, m64n64), forms P^T and dS^T in fp32 on the fragment, rounds each
-//   once to bf16 as a register operand and accumulates dV += P^T dO and dK
-//   += dS^T Q (RS wgmma) in fp32 registers.  At glm4's GQA (Hkv 2, B 1, S
-//   2048) B x Hkv x key tiles is 64 blocks for 132 SMs, so when it falls
-//   short of two waves the group's q heads are split over blocks (4 shares
-//   of 4 heads there): each writes fp32 partials and reduce_tc sums them in
-//   order and rounds once.  dq_tc takes one block per (64 rows, b, q head),
-//   longest causal tiles first: Q and dO once, a 2-stage ring of 64-key K/V
-//   tiles, S and dP (SS wgmma), dS rounded once, dQ += dS K (RS wgmma).
+//   128), (192, 128)}, more than 64 query rows per kv head:
+//   FlashAttention-2's backward on wgmma.  Bound by operations (S, dP, dV,
+//   dK, dQ on the visible pairs: 2 (3 Dk + 2 Dv) flops a pair at 989
+//   TFLOP/s).  dkdv_tc takes one block per (64 keys, b, kv head, share of
+//   the GQA group): a producer warp loads K and V once and rings Q, dO and
+//   the rows' lse, D and positions by TMA over the share's q tiles,
+//   skipping the tiles whose positions hide every key from every row and
+//   flagging those that need the per-element mask; one consumer warpgroup
+//   computes S^T = K Q^T and dP^T = V dO^T (SS wgmma, m64n64), forms P^T
+//   and dS^T in fp32 on the fragment, rounds each once to bf16 as a
+//   register operand and accumulates dV += P^T dO and dK += dS^T Q (RS
+//   wgmma) in fp32 registers.  At glm4's GQA (Hkv 2, B 1, S 2048) B x Hkv x
+//   key tiles is 64 blocks for 132 SMs, so when it falls short of two waves
+//   the group's q heads are split over blocks (4 shares of 4 heads there):
+//   each writes fp32 partials and reduce_tc sums them in order and rounds
+//   once.  dq_tc takes one block per (64 rows, b, q head), longest causal
+//   tiles first: Q and dO once, a 2-stage ring of 64-key K/V tiles, S and
+//   dP (SS wgmma), dS rounded once, dQ += dS K (RS wgmma).  P and dS are
+//   single bf16 roundings (the forward's P_hi + P_lo split is not needed: a
+//   gradient's limit is 2e-2 of its largest element).
 //   One warpgroup holds dK and dV (Dk / 2 + Dv / 2 fp32 registers a thread,
-//   64 + 64 at (128, 128)) beside S and dP (32 + 32): (192, 128) would need
-//   96 + 64 for dK and dV and stays on simt.  P and dS are single bf16
-//   roundings (the forward's P_hi + P_lo split is not needed: a gradient's
-//   limit is 2e-2 of its largest element).
-// simt (flash_backward.cuh): everything else -- f32, (192, 128) and other
-//   head dims, and 64 rows or fewer per kv head (decode_split's shapes under
+//   64 + 64 at (128, 128)) beside S and dP (32 + 32).  At MLA's (192, 128)
+//   that is 96 + 64 + 64: 255 registers and a spill, so its dK and dV come
+//   from dkdv_tc2, two consumer warpgroups and the producer (288 threads,
+//   224 registers a thread at most).  A owns S, P and dV (32 + 64 fp32), B
+//   dP, dS and dK (32 + 96), 64 x 64 x 320 of products a tile each; A hands
+//   B each tile's P^T (times 1 - tanh^2 under a softcap) through two fp32
+//   64 x 64 buffers in shared memory, as both fragments map a thread index
+//   to the same elements, and a 3-stage Q/dO ring keeps A up to two tiles
+//   ahead (40 + 32 + 3 x 41 KB of shared memory).  The other way to fit,
+//   dK in two 96-column halves over separate blocks that each recompute S
+//   and dP, costs 38% more operations and reads Q and dO twice.
+//   dq_tc<192, 128> fits one warpgroup (S, dP and dQ: 32 + 32 + 96).
+// simt (flash_backward.cuh): everything else -- f32, other head dims and
+//   pairs, and 64 rows or fewer per kv head (decode_split's shapes under
 //   grad).  Three kernels on the fp32 CUDA cores (the pre-pass, dK/dV per
 //   key tile, dQ per q tile).
 //
@@ -147,7 +158,7 @@ enum BackwardVariant { kBwdSimt = 0, kBwdTc = 1 };
 int choose_backward_variant(int dtype, int Sq, int Hq, int Hkv, int Dk,
                             int Dv) {
   const bool dims = (Dk == 64 && Dv == 64) || (Dk == 80 && Dv == 80) ||
-                    (Dk == 128 && Dv == 128);
+                    (Dk == 128 && Dv == 128) || (Dk == 192 && Dv == 128);
   const long long rows = (long long)Sq * (Hq / Hkv);
   return dtype == 1 && dims && rows > flash::decode_split::kMaxRows
              ? kBwdTc
@@ -316,7 +327,11 @@ extern "C" int flash_attention_backward_launch(
       return flash::backward_tc::launch<80, 80>(
           q, k, v, out, dout, l, qpos, kpos, dq, dk, dv, d, part, B, Sq, Skv,
           Hq, Hkv, scale, softcap, causal, window, s);
-    return flash::backward_tc::launch<128, 128>(
+    if (Dk == 128)
+      return flash::backward_tc::launch<128, 128>(
+          q, k, v, out, dout, l, qpos, kpos, dq, dk, dv, d, part, B, Sq, Skv,
+          Hq, Hkv, scale, softcap, causal, window, s);
+    return flash::backward_tc::launch<192, 128>(
         q, k, v, out, dout, l, qpos, kpos, dq, dk, dv, d, part, B, Sq, Skv,
         Hq, Hkv, scale, softcap, causal, window, s);
   }

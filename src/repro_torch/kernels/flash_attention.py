@@ -40,20 +40,22 @@ bits), in one of two variants the launcher picks from the dtype and the
 shapes alone (:func:`backward_variant` is its twin):
 
 - ``tc`` (``csrc/flash_backward_tc.cuh``) — bf16, (Dk, Dv) in
-  :data:`BACKWARD_TC_DIMS` ((64, 64), (80, 80), (128, 128)), more than 64
-  query rows per kv head.  FlashAttention-2's backward on ``wgmma``: dK
-  and dV per (64 keys, b, kv head) over a TMA ring of Q and dO tiles, P
-  and dS formed in fp32 and each rounded once to bf16 as a register
-  operand, dK and dV in fp32 registers; when B x Hkv x key tiles falls
-  short of two waves of the card the GQA group's q heads are split over
-  blocks (:func:`backward_splits`) whose fp32 partials one pass sums in
-  order; dQ per (64 rows, b, q head) over a ring of K/V tiles.  Plain
-  twin: :func:`repro_torch.kernels.ref.sdpa_bwd_tc_ref`.
-- ``simt`` (``csrc/flash_backward.cuh``) — everything else (f32, MLA's
-  (192, 128), whose dK and dV with S and dP do not fit one warpgroup's
-  registers, other head dims, and 64 rows or fewer per kv head): dK/dV
-  per (b, kv head, key tile) and dQ per (b, q head, q tile) on the fp32
-  CUDA cores.  ``variant="simt"`` runs it at any shape, to time it beside
+  :data:`BACKWARD_TC_DIMS` ((64, 64), (80, 80), (128, 128) and MLA's
+  (192, 128)), more than 64 query rows per kv head.  FlashAttention-2's
+  backward on ``wgmma``: dK and dV per (64 keys, b, kv head) over a TMA
+  ring of Q and dO tiles, P and dS formed in fp32 and each rounded once to
+  bf16 as a register operand, dK and dV in fp32 registers; when B x Hkv x
+  key tiles falls short of two waves of the card the GQA group's q heads
+  are split over blocks (:func:`backward_splits`) whose fp32 partials one
+  pass sums in order; dQ per (64 rows, b, q head) over a ring of K/V
+  tiles.  At (192, 128) dK and dV do not fit one warpgroup's registers
+  beside S and dP, so two warpgroups share each tile (S, P and dV; dP, dS
+  and dK), P handed over in shared memory.  Plain twin:
+  :func:`repro_torch.kernels.ref.sdpa_bwd_tc_ref`.
+- ``simt`` (``csrc/flash_backward.cuh``) — everything else (f32, other
+  head dims and pairs, and 64 rows or fewer per kv head): dK/dV per (b,
+  kv head, key tile) and dQ per (b, q head, q tile) on the fp32 CUDA
+  cores.  ``variant="simt"`` runs it at any shape, to time it beside
   ``tc``.
 
 Their plain version is :func:`repro_torch.kernels.ref.sdpa_bwd_ref`.
@@ -107,7 +109,7 @@ _TARGET_BLOCKS = 264        # decode_split, dkdv_tc: two waves of 132 SMs
 _MIN_SPLIT_KEYS = 64
 # the backward launcher's variant codes, in order, and tc's (Dk, Dv) pairs
 BACKWARD_VARIANTS = ("simt", "tc")
-BACKWARD_TC_DIMS = ((64, 64), (80, 80), (128, 128))
+BACKWARD_TC_DIMS = ((64, 64), (80, 80), (128, 128), (192, 128))
 _BWD_TILE = 64              # keys of a dkdv_tc block
 
 # kernel launches since the count was last reset (plain integers: the
@@ -139,9 +141,7 @@ def backward_variant(dtype: torch.dtype, sq: int, hq: int, hkv: int,
     """The backward variant the launcher takes for these shapes (its
     twin): ``tc`` for bf16 at :data:`BACKWARD_TC_DIMS` with more than
     :data:`DECODE_MAX_ROWS` query rows per kv head, ``simt`` otherwise
-    (f32; MLA's (192, 128), whose dK and dV accumulators with S and dP do
-    not fit one warpgroup's registers; other head dims; decode_split's
-    few-row shapes under grad)."""
+    (f32; other head dims; decode_split's few-row shapes under grad)."""
     if (dtype == torch.bfloat16 and (dk, dv) in BACKWARD_TC_DIMS
             and sq * (hq // hkv) > DECODE_MAX_ROWS):
         return "tc"

@@ -665,13 +665,19 @@ def test_cuda_flash_backward_launcher_routes_like_backward_variant(
         cuda_device):
     """The backward launcher's choice and scratch agree with the wrapper's
     backward_variant() and backward_scratch_floats() on the forward's
-    edges and on GQA shapes whose tc dK/dV grid splits the group."""
+    edges (MLA's (192, 128) among them), on GQA shapes whose tc dK/dV grid
+    splits the group, and on MLA's training shapes."""
     import ctypes
 
     lib = fa.LIB.load()
     edges = VARIANT_EDGES + [(torch.bfloat16, 1, 2048, 2048, 32, 2, 128, 128),
                              (torch.bfloat16, 1, 160, 160, 32, 2, 128, 128),
-                             (torch.bfloat16, 2, 2048, 2048, 32, 32, 64, 64)]
+                             (torch.bfloat16, 2, 2048, 2048, 32, 32, 64, 64),
+                             (torch.bfloat16, 1, 1024, 1024, 128, 128, 192,
+                              128),
+                             (torch.bfloat16, 1, 256, 256, 8, 2, 192, 128),
+                             (torch.bfloat16, 1, 512, 512, 128, 128, 192,
+                              128)]
     for dtype, b, sq, skv, hq, hkv, dk, dv in edges:
         floats = ctypes.c_longlong(-1)
         code = lib.flash_attention_backward_variant(
@@ -1229,11 +1235,13 @@ def _rel_err(got, want) -> float:
 # (dtype, B, Sq, Skv, Hq, Hkv, Dk, Dv, causal, window, softcap, valid0):
 # f32 on simt; bf16 on the tc backward at each of its instantiations
 # ((64, 64), hubert's (80, 80), (128, 128) with a window and a softcap over
-# GQA groups of 4, and a GQA group of 16 at 160 q rows, which splits the
-# group over dkdv_tc blocks); MLA's (192, 128) and a decode_split shape in
-# bf16 under grad on simt; (256, 256) on simt's smallest tiles; queries
-# over a longer cache whose keys from valid0 on are padding (Dk != Dv in
-# f32; bf16 GQA on tc)
+# GQA groups of 4, a GQA group of 16 at 160 q rows, which splits the group
+# over dkdv_tc blocks, and MLA's (192, 128) on the two-warpgroup dkdv_tc2:
+# MHA, a GQA group of 4 split over blocks, a window with a softcap, and
+# queries over a padded longer cache); a decode_split shape in bf16 under
+# grad on simt; (256, 256) on simt's smallest tiles; queries over a longer
+# cache whose keys from valid0 on are padding (Dk != Dv in f32; bf16 GQA
+# and MLA on tc)
 GRAD_GRID = [
     ("float32", 2, 96, 96, 4, 2, 64, 64, True, None, 0.0, None),
     ("bfloat16", 2, 160, 160, 4, 2, 64, 64, True, None, 0.0, None),
@@ -1246,6 +1254,9 @@ GRAD_GRID = [
     ("bfloat16", 2, 192, 256, 8, 2, 128, 128, True, None, 0.0, 200),
     ("bfloat16", 1, 160, 160, 32, 2, 128, 128, True, None, 0.0, None),
     ("bfloat16", 2, 4, 96, 16, 1, 64, 64, True, None, 0.0, None),
+    ("bfloat16", 1, 256, 256, 8, 2, 192, 128, True, None, 0.0, None),
+    ("bfloat16", 1, 200, 200, 4, 2, 192, 128, True, 48, 30.0, None),
+    ("bfloat16", 2, 192, 256, 8, 8, 192, 128, True, None, 0.0, 200),
 ]
 
 
@@ -1276,8 +1287,8 @@ def test_cuda_attention_function_grads_match_plain(cuda_device, dtype, b, sq,
     assert torch.equal(out, bare)
     assert float((lse - lse_p).abs().max()) <= 1e-4
     name = fa.backward_variant(q.dtype, sq, hq, hkv, dk, dv)
-    assert name == ("tc" if dtype == "bfloat16" and (dk, dv) != (192, 128)
-                    and sq * hq // hkv > 64 else "simt")
+    assert name == ("tc" if dtype == "bfloat16" and sq * hq // hkv > 64
+                    else "simt")
     before = fa.backward_launches
     by_variant = dict(fa.backward_variant_launches)
     out_k, g_k = _grads_of(lambda q, k, v: ops.attention(q, k, v, **kw),

@@ -8,6 +8,7 @@ card: they pin the choice for glm4-9b's shapes, for every row of the card
 tests' ``FLASH_GRID`` and at the edges of each variant.
 """
 import importlib.util
+import re
 from pathlib import Path
 
 import pytest
@@ -178,3 +179,24 @@ def test_sass_compare_splits_functions_and_judges_each():
                    "_Z6kernelILi128EEvv": ("only_other_tree", 1)}
     changed = dict(other, _Z6kernelILi64EEvv=["/*0000*/ EXIT ;"])
     assert sass.compare(mine, changed, "ILi64")[0]["verdict"] == "differs"
+
+
+def test_sass_compare_covers_every_tc_kernel():
+    """``tools/sass_compare.py`` judges every ``__global__`` function of
+    the tc headers (the prefill_tc forward and each backward kernel), so
+    its plain command shows every instantiation an edit may touch."""
+    root = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location(
+        "sass_compare", root / "tools" / "sass_compare.py")
+    sass = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sass)
+    csrc = root / "src" / "repro_torch" / "kernels" / "csrc"
+    names = set()
+    for header in ("flash_prefill_tc.cuh", "flash_backward_tc.cuh"):
+        text = (csrc / header).read_text()
+        names |= set(re.findall(r"__global__[^\n]*\n(\w+)\(", text))
+    assert names == {"prefill_tc_kernel", "dkdv_tc_kernel", "dkdv_tc2_kernel",
+                     "dq_tc_kernel", "reduce_tc_kernel"}
+    for name in names:
+        hits = [m for m in sass.MARKERS if m in f"_ZN5flash{name}ILi64E"]
+        assert hits == [name], (name, hits)

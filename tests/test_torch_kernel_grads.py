@@ -308,31 +308,35 @@ def _bf16_np(a):
     return torch.from_numpy(a).to(torch.bfloat16).float().numpy()
 
 
-# (B, S, Hq, Hkv, D (Dk = Dv), window, softcap, q offset): each (Dk, Dv)
-# of the tc set, GQA groups of 1, 4 and 16, a window with a softcap, and
-# queries placed before every key (rows 0-7 see none)
+# (B, S, Hq, Hkv, Dk, Dv, window, softcap, q offset): each (Dk, Dv) of the
+# tc set, GQA groups of 1, 4 and 16, a window with a softcap, and queries
+# placed before every key (rows 0-7 see none); MLA's (192, 128) over MHA, a
+# GQA group of 4 and queries before every key
 TC_ATTN_GRID = [
-    (2, 80, 4, 4, 64, None, 0.0, 0),
-    (1, 72, 4, 1, 80, None, 0.0, 0),
-    (1, 80, 8, 2, 128, None, 0.0, 0),
-    (1, 96, 16, 1, 64, None, 0.0, 0),
-    (1, 80, 4, 2, 128, 24, 30.0, 0),
-    (2, 72, 4, 2, 64, None, 0.0, -8),
+    (2, 80, 4, 4, 64, 64, None, 0.0, 0),
+    (1, 72, 4, 1, 80, 80, None, 0.0, 0),
+    (1, 80, 8, 2, 128, 128, None, 0.0, 0),
+    (1, 96, 16, 1, 64, 64, None, 0.0, 0),
+    (1, 80, 4, 2, 128, 128, 24, 30.0, 0),
+    (2, 72, 4, 2, 64, 64, None, 0.0, -8),
+    (1, 72, 4, 4, 192, 128, None, 0.0, 0),
+    (1, 80, 8, 2, 192, 128, None, 0.0, 0),
+    (2, 72, 4, 4, 192, 128, None, 0.0, -8),
 ]
 
 
-@pytest.mark.parametrize("b,s,hq,hkv,d,window,cap,offset", TC_ATTN_GRID)
-def test_sdpa_bwd_tc_ref_matches_plain_and_jax(b, s, hq, hkv, d, window, cap,
-                                               offset):
+@pytest.mark.parametrize("b,s,hq,hkv,dk,dv,window,cap,offset", TC_ATTN_GRID)
+def test_sdpa_bwd_tc_ref_matches_plain_and_jax(b, s, hq, hkv, dk, dv, window,
+                                               cap, offset):
     """dq, dk, dv of the tc twin (bf16 P and dS) against the fp32 plain
     backward and jax.vjp of the reference's sdpa_ref, within 2e-2.  Rows
     that see no key get no gradient from either backward; jax spreads dout
     / Skv of each such row into every key's dV, which the comparison adds
     back (as test_sdpa_bwd_ref_gives_rows_that_see_no_key_no_gradient)."""
-    rng = np.random.default_rng(b * s + hq + d)
+    rng = np.random.default_rng(b * s + hq + dk)
     q, k, v, dout = (_bf16_np(rng.standard_normal(shape).astype(np.float32))
-                     for shape in ((b, s, hq, d), (b, s, hkv, d),
-                                   (b, s, hkv, d), (b, s, hq, d)))
+                     for shape in ((b, s, hq, dk), (b, s, hkv, dk),
+                                   (b, s, hkv, dv), (b, s, hq, dv)))
     kp = np.broadcast_to(np.arange(s, dtype=np.int32), (b, s)).copy()
     qp = kp + offset
     kw = dict(causal=True, sliding_window=window, logit_softcap=cap)
@@ -352,7 +356,7 @@ def test_sdpa_bwd_tc_ref_matches_plain_and_jax(b, s, hq, hkv, d, window, cap,
     hidden = _hidden_rows(qp, kp, True, window)
     assert bool(hidden.any()) == (offset < 0)
     spread = (torch.from_numpy(dout) * hidden[:, :, None, None]).sum(1) / s
-    spread = spread.reshape(b, hkv, hq // hkv, d).sum(2)[:, None].numpy()
+    spread = spread.reshape(b, hkv, hq // hkv, dv).sum(2)[:, None].numpy()
     for i, (g, p, j) in enumerate(zip(got, plain, want_jax)):
         assert g.dtype == torch.bfloat16 and g.shape == p.shape
         assert _rel_err(g.float(), p) <= TC_TOL, i
@@ -460,6 +464,35 @@ def test_flash_backward_variant_follows_the_launcher_rule(dtype):
                 assert fa.variant(dtype, sq, hq, hkv, dk, dv) == "prefill_tc"
             seen.add(got)
     assert seen == ({"tc", "simt"} if dtype == torch.bfloat16 else {"simt"})
+
+
+def test_deepseek_depth_one_trains_its_mla_on_the_tc_backward():
+    """deepseek-v2-236b at full width cut to one layer (the train_mla cell
+    of chip_smoke) is one dense MLA layer: attention at Dk 192, Dv 128 with
+    as many kv heads as q heads, and its 12288-wide MLP.  In bf16 its
+    attention takes prefill_tc forward and the tc backward, both at 2 x
+    2048 tokens and at train_mla_held's 1 x 512; in f32 both are simt."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.common import layer_plan
+
+    cfg = dataclasses.replace(configs.get_config("deepseek-v2-236b"),
+                              n_layers=1)
+    plan = layer_plan(cfg)
+    assert [(k.mixer, k.ffn) for k in plan.kinds] == [("attn", "dense")]
+    assert plan.prefix == 1 and plan.n_groups == 0
+    assert cfg.moe.d_first_dense == 12288
+    m = cfg.mla
+    dk, dv = m.qk_nope_head_dim + m.qk_rope_head_dim, m.v_head_dim
+    assert (dk, dv) == (192, 128) and (dk, dv) in fa.BACKWARD_TC_DIMS
+    h = cfg.n_heads
+    for s in (2048, 512):
+        assert fa.variant(torch.bfloat16, s, h, h, dk, dv) == "prefill_tc"
+        assert fa.backward_variant(torch.bfloat16, s, h, h, dk, dv) == "tc"
+        assert fa.backward_variant(torch.float32, s, h, h, dk, dv) == "simt"
+    assert 1.3e9 < cfg.param_count() < 1.45e9
 
 
 @pytest.mark.parametrize("b,hkv,skv,group,want", [

@@ -1,11 +1,12 @@
 """Registers and spills of the tc flash backward kernels at any (Dk, Dv).
 
 The launcher instantiates ``csrc/flash_backward_tc.cuh`` at (64, 64),
-(80, 80) and (128, 128) only.  This compiles the two kernels at the pairs
-given (default: those three and MLA's (192, 128), which stays on the simt
-backward) in a file of their own, with the port's ``nvcc`` flags, and
-prints what ``ptxas -v`` says of each: whether a pair's dK and dV
-accumulators fit one warpgroup's registers beside S and dP.  Needs
+(80, 80), (128, 128) and MLA's (192, 128).  This compiles, in a file of
+its own with the port's ``nvcc`` flags, the kernels the launcher runs at
+each pair given (``launch<Dk, Dv>``: ``dkdv_tc`` or, where one warpgroup
+cannot hold dK and dV beside S and dP, ``dkdv_tc2``, then ``dq_tc``) and
+the one-warpgroup ``dkdv_tc`` at every pair, and prints what ``ptxas -v``
+says of each: whether a pair's accumulators fit without a spill.  Needs
 ``nvcc`` (the card's machine)::
 
     python3 tools/flash_bwd_tc_registers.py 192x128
@@ -22,12 +23,13 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 from repro_torch.kernels import nvcc  # noqa: E402
 
 PAIRS = ((64, 64), (80, 80), (128, 128), (192, 128))
+KERNELS = ("dkdv_tc2", "dkdv_tc", "dq_tc")
 
 
 def probe(pairs) -> list:
     refs = "\n".join(
-        f"  (void*)flash::backward_tc::dkdv_tc_kernel<{dk}, {dv}>,\n"
-        f"  (void*)flash::backward_tc::dq_tc_kernel<{dk}, {dv}>,"
+        f"  (void*)&flash::backward_tc::launch<{dk}, {dv}>,\n"
+        f"  (void*)flash::backward_tc::dkdv_tc_kernel<{dk}, {dv}>,"
         for dk, dv in pairs)
     source = ('#include "flash_backward_tc.cuh"\n'
               f"extern \"C\" void* kernels[] = {{\n{refs}\n}};\n")
@@ -52,9 +54,9 @@ def probe(pairs) -> list:
         if m and name:
             spills = (int(m.group(1)), int(m.group(2)))
         m = re.search(r"Used (\d+) registers", line)
-        if m and name and ("dkdv_tc_kernel" in name
-                           or "dq_tc_kernel" in name):
-            kind = "dkdv_tc" if "dkdv" in name else "dq_tc"
+        kind = next((k for k in KERNELS if name and f"{k}_kernel" in name),
+                    None)
+        if m and kind:
             dims = re.search(r"ILi(\d+)ELi(\d+)E", name).groups()
             out.append(dict(kernel=kind, dk=int(dims[0]), dv=int(dims[1]),
                             registers=int(m.group(1)),

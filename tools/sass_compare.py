@@ -1,4 +1,4 @@
-"""Compare ``prefill_tc``'s compiled SASS between two source trees.
+"""Compare the flash kernels' compiled SASS between two source trees.
 
     PYTHONPATH=src python tools/sass_compare.py OTHER_CSRC
 
@@ -6,11 +6,12 @@ Builds ``csrc/flash_attention.cu`` of this tree and of ``OTHER_CSRC``
 (another checkout's ``src/repro_torch/kernels/csrc``) with
 ``repro_torch.kernels.nvcc.NVCC_FLAGS`` into a temporary directory,
 disassembles both with ``cuobjdump -sass`` and prints one JSON line per
-entry function whose mangled name holds ``prefill_tc_kernel``: ``same``
-(instruction for instruction), ``differs``, or the one tree it is in.
-Exits 1 when a function of both trees differs.  It shows whether an edit
-of a template left its other instantiations as they were; it needs
-``nvcc`` and ``cuobjdump`` (the CUDA toolkit).
+entry function whose mangled name holds one of ``MARKERS`` (the
+``prefill_tc`` forward and every kernel of ``flash_backward_tc.cuh``):
+``same`` (instruction for instruction), ``differs``, or the one tree it
+is in.  Exits 1 when a function of both trees differs.  It shows whether
+an edit of a template left its other instantiations as they were; it
+needs ``nvcc`` and ``cuobjdump`` (the CUDA toolkit).
 """
 from __future__ import annotations
 
@@ -28,7 +29,8 @@ from typing import Dict, List
 from repro_torch.kernels.nvcc import CSRC, NVCC_FLAGS, _nvcc
 
 LIBRARY = "flash_attention"
-MARKER = "prefill_tc_kernel"
+MARKERS = ("prefill_tc_kernel", "dkdv_tc_kernel", "dkdv_tc2_kernel",
+           "dq_tc_kernel", "reduce_tc_kernel")
 
 
 def functions(sass: str) -> Dict[str, List[str]]:
@@ -84,7 +86,8 @@ def main(argv=None) -> int:
             workdir = Path(tmp) / name
             workdir.mkdir()
             trees[name] = functions(disassemble(csrc, workdir))
-    records = compare(trees["mine"], trees["other"], MARKER)
+    records = [rec for marker in MARKERS
+               for rec in compare(trees["mine"], trees["other"], marker)]
     for rec in records:
         print(json.dumps(rec), flush=True)
     return 1 if any(r["verdict"] == "differs" for r in records) else 0
