@@ -16,7 +16,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             (64, 64), (80, 80), (128, 128), (192, 128); and
             ``build_backward_tc``: those of the tc backward's ``dkdv_tc``
             (``dkdv_tc2`` at (192, 128)) and ``dq_tc`` at the same pairs,
-            none spilling.
+            none spilling; ``build_simt``: those of the simt forward's 8
+            and the simt backward's 3 + 5 instantiations (split-TF32
+            ``mma.sync``), none spilling.
 3. kernel — the kernel against its plain PyTorch version, bitwise, at the
             simulator's shapes (1,140,088 items, B in {8, 16}, R = 32,
             W = 16, plus a lock-free W = 1 case) and at a wide shape
@@ -68,8 +70,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             deepseek-v2's MLA prefill (B = 2, S = 2048, Hq = Hkv =
             128, Dk = 192, Dv = 128, causal, bf16: ``prefill_tc``) and
             prefill_tc's edges at those dims (a ragged Sq, kv padding, a
-            window, softcap, GQA 2, no causal mask), and ``simt`` at MLA's
-            shape in f32 (``simt_mla_f32``, simt's record); hubert-xlarge's
+            window, softcap, GQA 2, no causal mask), MLA's multi-token
+            serving step (B = 2, 3 rows over 2048 keys, bf16, the lse on:
+            ``simt``'s one-warp tile, ``mla_multi_step``), and ``simt`` at
+            MLA's shape in f32 (``simt_mla_f32``, simt's record); hubert-xlarge's
             encoder shape (B = 4, S = 2048, Hq = Hkv = 16, Dk = Dv = 80,
             bidirectional, bf16: ``prefill_tc<80,80>``, its 64-column
             panels padded to 128 with zeros) and its edges at D 80 (causal,
@@ -82,8 +86,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             once, prefill_tc with P.V on bf16 hi + lo parts of P).  Per
             case: ``ms`` (CUDA events), ``graph_ms`` (CUDA-graph replay),
             ``plain_ms``, ``bound_ms``/``bound_by`` (FLOPs of the visible
-            pairs at 989 TFLOP/s bf16 or 67 TFLOP/s fp32; bytes of q, the
-            output and the keys some row sees, at 3.35 TB/s), for
+            pairs at 989 TFLOP/s bf16, or in f32 as split-TF32, three TF32
+            products at 495 TFLOP/s each, with ``bound_fp32_ms`` beside at
+            the fp32 CUDA cores' 67 TFLOP/s; bytes of q, the output and the
+            keys some row sees, at 3.35 TB/s), an f32 case SDPA's backend
+            by name (``library_backend``), for
             ``prefill_tc`` ``floor_ms`` (its P.V on P's two bf16 parts:
             the FLOPs of (Dk + 2 Dv) per visible pair, Dk in k-steps of 16
             and Dv in 64-column panels: 80 + 2 x 128 at D 80) and
@@ -261,7 +268,9 @@ Single-device training (``repro_torch.train``, ``launch.train``):
             the backend it takes named, and the registers and spills of
             ``dkdv_tc2`` and ``dq_tc`` there) and a window of 512 with a
             softcap of 50 on ``tc`` (``flash_backward_tc.cuh``); zamba2's
-            in f32 on ``simt`` (``flash_backward.cuh``); the SSD at
+            in f32 on ``simt`` (``flash_backward.cuh``, split-TF32; beside
+            SDPA's backward and its backend, its bound split-TF32's with
+            ``bwd_bound_fp32_ms``, the fp32 CUDA cores', beside); the SSD at
             zamba2's (H 64, N 64) and
             mamba2's (H 48, N 128), bf16, on ``tc``
             (``ssd_backward_tc.cuh``) and zamba2's in f32 on ``simt``, with
@@ -479,6 +488,11 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
 SCALAR_OPS_PER_S = 67e12       # H100 SXM non-tensor-core fp32 rate
 BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core rate
+TF32_FLOPS_PER_S = 495e12      # H100 SXM dense TF32 tensor-core rate
+# f32 work the least time it could take on the card: split-TF32, three
+# TF32 products for each fp32 one (~22 of fp32's 24 bits, as the simt
+# kernels and PyTorch's memory-efficient SDPA for float take it)
+SPLIT_TF32_FLOPS_PER_S = TF32_FLOPS_PER_S / 3
 VALID_POS_LIMIT = 2 ** 29      # kv positions at or above it are padding
 MODEL_TOL = 0.06               # auto vs ref logits, share of max |logit|
 # flash kernel against ref.sdpa_ref: f32 at the reference's 2e-5; bf16 at
@@ -504,14 +518,18 @@ TPCC_SPEC = dict(n_customers=30000, n_stock=100000, n_catalog=100000)
 def ptxas_kernels(info: dict, marker: str) -> list:
     """Registers and spill bytes of each entry function whose mangled
     name holds ``marker``, from a library's ``ptxas -v`` lines; ``dims``
-    are the integer template arguments."""
+    are the integer template arguments, ``dtype`` a leading element type
+    (float or bf16) where the template has one."""
     out, cur = [], None
     for ln in info.get("ptxas", []):
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            args = re.search(rf"{marker}I((?:Li\d+E)+)E", m.group(1))
+            args = re.search(rf"{marker}I(f|13__nv_bfloat16)?((?:Li\d+E)+)E",
+                             m.group(1))
             cur = None if args is None else dict(
-                dims=[int(x) for x in re.findall(r"Li(\d+)E", args[1])])
+                dims=[int(x) for x in re.findall(r"Li(\d+)E", args[2])])
+            if cur is not None and args[1]:
+                cur["dtype"] = "float32" if args[1] == "f" else "bfloat16"
             if cur is not None:
                 out.append(cur)
             continue
@@ -1193,13 +1211,17 @@ def op_bound(flops: float, n_bytes: float, flops_per_s: float) -> tuple:
 
 def flash_case(name: str, b, sq, skv, hq, hkv, dk, dv, *, causal=True,
                window=None, cap=0.0, dtype="bfloat16", decode=False,
-               valid0=None, copies=1, seed=0) -> dict:
+               valid0=None, copies=1, lse=False, seed=0) -> dict:
     """One shape through ``ops.attention`` on the card, held to
     ``ref.sdpa_ref``.  ``valid0``: in a decode case row 0's valid length,
     in a prefill case the first padding key.  ``copies`` > 1 times the
     calls over that many distinct q/k/v sets in rotation, so L2 (50 MB) is
     cold as it is for a model's layers; the first set is also timed alone
-    (``*_warm``)."""
+    (``*_warm``).  ``lse`` asks for the rows' log-sum-exp too (held within
+    GRAD_LSE_TOL of the plain one; the output's bits as without it).  An f32
+    case's bound is split-TF32's (``bound_fp32_ms`` beside it: the fp32
+    CUDA cores'), and it names the backend SDPA takes (read from the
+    autograd graph of an output that needs a gradient)."""
     import torch
     import torch.nn.functional as F
 
@@ -1233,12 +1255,23 @@ def flash_case(name: str, b, sq, skv, hq, hkv, dk, dv, *, causal=True,
               sliding_window=window, logit_softcap=cap)
     variant = fa.variant(td, sq, hq, hkv, dk, dv)
     before, by_variant = fa.launches, dict(fa.variant_launches)
-    out = ops.attention(q, k, v, **kw)
+    out = ops.attention(q, k, v, return_lse=lse, **kw)
     torch.cuda.synchronize()
     by_variant[variant] += 1
     check(fa.launches == before + 1 and fa.variant_launches == by_variant,
           f"{name}: flash kernel variant {variant} did not launch")
-    want = ref.sdpa_ref(q, k, v, **kw)
+    lse_fields = {}
+    if lse:
+        out, out_lse = out
+        want, want_lse = ref.sdpa_ref(q, k, v, return_lse=True, **kw)
+        lse_err = float((out_lse - want_lse).abs().max())
+        check(lse_err <= GRAD_LSE_TOL and bool(torch.equal(
+            out, ops.attention(q, k, v, **kw))),
+              f"{name}: lse off by {lse_err}, or the output changes with it")
+        lse_fields = dict(lse=True, max_abs_err_lse=lse_err,
+                          lse_tol=GRAD_LSE_TOL)
+    else:
+        want = ref.sdpa_ref(q, k, v, **kw)
     err = float((out.float() - want.float()).abs().max())
     atol, rtol = FLASH_TOL[dtype]
     check(bool(torch.isfinite(out).all()), f"{name}: non-finite output")
@@ -1250,8 +1283,8 @@ def flash_case(name: str, b, sq, skv, hq, hkv, dk, dv, *, causal=True,
         turn = iter(range(1 << 62))
         return lambda: fn(*sets[next(turn) % copies])
 
-    kernel = lambda q, k, v: ops.attention(q, k, v, **kw)
-    plain = lambda q, k, v: ref.sdpa_ref(q, k, v, **kw)
+    kernel = lambda q, k, v: ops.attention(q, k, v, return_lse=lse, **kw)
+    plain = lambda q, k, v: ref.sdpa_ref(q, k, v, return_lse=lse, **kw)
     ms, g_ms, n = timings(rotating(kernel))
     plain_ms, plain_g_ms, _ = timings(rotating(plain))
     visible = ref.attn_mask(qp, kp, causal, window) \
@@ -1263,8 +1296,11 @@ def flash_case(name: str, b, sq, skv, hq, hkv, dk, dv, *, causal=True,
         * q.element_size() + 4 * (qp.numel() + kp.numel())
     bms, by = op_bound(2.0 * pairs * (dk + dv), n_bytes,
                        BF16_FLOPS_PER_S if dtype == "bfloat16"
-                       else SCALAR_OPS_PER_S)
+                       else SPLIT_TF32_FLOPS_PER_S)
     floor = {}
+    if dtype == "float32":
+        floor = dict(bound_fp32_ms=op_bound(2.0 * pairs * (dk + dv), n_bytes,
+                                            SCALAR_OPS_PER_S)[0])
     if variant == "prefill_tc":
         # S's k-steps cover Dk in 16s; P.V runs on P_hi and on P_lo, at Dv
         # rounded up to the 64-column panels (80 -> 128)
@@ -1285,6 +1321,11 @@ def flash_case(name: str, b, sq, skv, hq, hkv, dk, dv, *, causal=True,
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 attn_mask=amask, scale=dk ** -0.5, enable_gqa=True)
         lib_ms = time_ms(rotating(lib), n, warmup=2)
+        if dtype == "float32":
+            with torch.enable_grad():
+                ls = [t.detach().requires_grad_(True) for t in (q, k, v)]
+                floor["library_backend"] = sdpa_backend(lib(*ls))
+                del ls
     warm = {}
     if copies > 1:
         warm = dict(ms_warm=time_ms(lambda: kernel(q, k, v), n, warmup=2),
@@ -1297,7 +1338,8 @@ def flash_case(name: str, b, sq, skv, hq, hkv, dk, dv, *, causal=True,
                max_abs_want=float(want.float().abs().max()), atol=atol,
                rtol=rtol, ms=ms, graph_ms=g_ms, **warm, plain_ms=plain_ms,
                plain_graph_ms=plain_g_ms, bound_ms=bms, bound_by=by, **floor,
-               library_ms=lib_ms, wall_s=time.perf_counter() - t_start)
+               library_ms=lib_ms, **lse_fields,
+               wall_s=time.perf_counter() - t_start)
     emit("kernel_flash", **out)
     return out
 
@@ -1353,6 +1395,10 @@ def kernel_flash_phase() -> list:
         flash_case("mla_gqa2", 1, 256, 256, 8, 4, 192, 128, seed=32),
         flash_case("mla_noncausal", 1, 256, 256, 4, 4, 192, 128,
                    causal=False, seed=33),
+        # MLA's multi-token serving step (mla_multi's second step: 3
+        # tokens over the 2048-key cache, lse on): simt's one-warp tile
+        flash_case("mla_multi_step", 2, 3, 2048, 128, 128, 192, 128,
+                   lse=True, seed=34),
         # prefill_tc at hubert's head dim 80: its encoder's shape, then
         # edges; the same shape in f32 stays on simt
         flash_case("hubert_prefill", 4, 2048, 2048, 16, 16, 80, 80,
@@ -1647,7 +1693,8 @@ def backward_records(grad_cases: dict, paths: dict) -> list:
                                          "speedup_vs_simt")} if tc else {}),
                 "cases": {c["case"]: {k: c.get(k) for k in (
                     "bwd_ms", "bwd_graph_ms", "simt_bwd_ms", "bwd_bound_ms",
-                    "library_bwd_ms", "library_backend", "max_abs_err")}
+                    "bwd_bound_fp32_ms", "library_bwd_ms", "library_backend",
+                    "max_abs_err")}
                     for c in mine}})
     return out
 
@@ -3285,9 +3332,13 @@ def attention_grad_case(name: str, b, s, hq, hkv, dk, dv, *, causal=True,
     el = q.element_size()
     n_bytes = (2 * (q.numel() + k.numel() + v.numel()) + 2 * out.numel()) \
         * el + 4 * lse.numel()
-    rate = BF16_FLOPS_PER_S if dtype == "bfloat16" else SCALAR_OPS_PER_S
+    rate = BF16_FLOPS_PER_S if dtype == "bfloat16" \
+        else SPLIT_TF32_FLOPS_PER_S
     bms, by = op_bound(2.0 * pairs * (3 * dk + 2 * dv), n_bytes, rate)
     fbms, fby = op_bound(2.0 * pairs * (4 * dk + 3 * dv), n_bytes, rate)
+    if dtype == "float32":   # the fp32 CUDA cores' bound beside split-TF32's
+        grads["bwd_bound_fp32_ms"] = op_bound(
+            2.0 * pairs * (3 * dk + 2 * dv), n_bytes, SCALAR_OPS_PER_S)[0]
     rec = dict(case=name, kind="attention", variant=variant,
                backward_variant=bwd_variant, dtype=dtype,
                shape=[b, s, hq, hkv, dk, dv], causal=causal, window=window,
@@ -3477,7 +3528,7 @@ def kernel_grad_phase(mla_registers: list) -> dict:
         attention_grad_case("window_softcap", 1, 2048, 16, 8, 128, 128,
                             window=512, cap=50.0),
         attention_grad_case("zamba2_attention_f32", 1, 1024, 32, 32, 64, 64,
-                            dtype="float32"),
+                            dtype="float32", library=True),
     ]
     ssd = [
         ssd_grad_case("zamba2_ssd", 2, 2048, 64, 64, 64, 256, timed=True),
@@ -5563,6 +5614,20 @@ def main() -> int:
           f"without a spill")
     mla_registers = [dict(kernel=kind, **k) for kind, ks in bwd_builds.items()
                      for k in ks if k["dims"] == [192, 128]]
+    # the simt kernels (split-TF32 mma.sync): each instantiation of the
+    # forward (warps, m-tiles, Dv n-tiles) and of the backward's dkdv
+    # (pairs, q rows) and dq (warps, keys, Dk n-tiles), none spilling
+    simt_builds = {kind: ptxas_kernels(fa.LIB.info, marker)
+                   for kind, marker in (("forward", "4simt12flash_kernel"),
+                                        ("dkdv", "8backward11dkdv_kernel"),
+                                        ("dq", "8backward9dq_kernel"))}
+    emit("build_simt", **simt_builds)
+    check(fa.LIB.info.get("cached") or (
+        [len(simt_builds[k]) for k in ("forward", "dkdv", "dq")] == [8, 3, 5]
+        and not any(k["spill_stores"] or k["spill_loads"]
+                    for ks in simt_builds.values() for k in ks)),
+          f"ptxas reported the simt kernels {simt_builds}, expected 8 "
+          f"forward, 3 dkdv and 5 dq instantiations without a spill")
 
     # 3. kernel vs plain version
     rng = np.random.default_rng(0)

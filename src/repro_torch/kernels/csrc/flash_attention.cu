@@ -73,8 +73,14 @@
 //
 // simt (flash_simt.cuh): everything else -- f32 prefill, other head dims
 //   and (Dk, Dv) pairs, and (80, 80) and (192, 128) at 64 rows or fewer.
-//   One block per (b, q head, q tile) on the fp32 CUDA cores.  No model
-//   path the port runs at full width reaches it.
+//   The name is historical (it first ran on the fp32 CUDA cores): one
+//   block per (b, q head, 128 or 16 q rows), S = Q K^T and P V on the
+//   tensor cores as split-TF32 mma.sync (each fp32 operand in two TF32
+//   parts, three products for each; bf16 operands exact), K/V tiles of 32
+//   keys by cp.async in a ring of two stages, split once for the block's
+//   warps.  Bound by operations (three TF32 products at 495 TFLOP/s for
+//   each fp32 one).  No model path the port runs at full width reaches it
+//   but MLA's multi-token steps (bf16, few rows).
 //
 // On request every variant also writes each row's fp32 log-sum-exp [B, Sq,
 // Hq] (m + log l) and leaves the output's bits as they are without it.  A
@@ -124,8 +130,9 @@
 //   dq_tc<192, 128> fits one warpgroup (S, dP and dQ: 32 + 32 + 96).
 // simt (flash_backward.cuh): everything else -- f32, other head dims and
 //   pairs, and 64 rows or fewer per kv head (decode_split's shapes under
-//   grad).  Three kernels on the fp32 CUDA cores (the pre-pass, dK/dV per
-//   key tile, dQ per q tile).
+//   grad).  Three kernels (the pre-pass, dK/dV per key tile with a pair of
+//   warps per 16 keys, dQ per q tile), the products split-TF32 mma.sync as
+//   the forward simt's; the name is historical, as there.
 //
 // The kernels allocate nothing and do not synchronise: decode_split's
 // partials live in a scratch the caller allocates.  The launcher returns

@@ -1,9 +1,10 @@
 // Hand-written PTX for Hopper (sm_90a) shared by the port's tensor-core
 // kernels (flash_prefill_tc.cuh, ssd_tc.cuh, flash_backward_tc.cuh,
-// ssd_backward_tc.cuh): mbarriers, TMA and bulk copies, proxy fences,
-// shared-memory matrix descriptors, wgmma, products of 64-row tiles, and
-// the host-side tensor-map builder.  No CuTe: every instruction is spelled
-// out.
+// ssd_backward_tc.cuh, and through flash_mma.cuh the flash simt pair):
+// mbarriers, TMA and bulk copies, proxy fences, shared-memory matrix
+// descriptors, wgmma, products of 64-row tiles, mma.sync on TF32 and
+// cp.async, and the host-side tensor-map builder.  No CuTe: every
+// instruction is spelled out.
 #pragma once
 
 #include <cuda.h>   // CUtensorMap and its enums: types only, no libcuda link
@@ -268,6 +269,62 @@ __device__ __forceinline__ void rs_64xN(float* acc, const uint32_t* a,
 __device__ __forceinline__ void pack_frag(const float* f, uint32_t* a) {
 #pragma unroll
   for (int i = 0; i < 16; ++i) a[i] = pack_bf16(f[2 * i], f[2 * i + 1]);
+}
+
+// -- mma.sync on TF32, cp.async (the f32 flash kernels' split-TF32 products) ----
+
+// x rounded to TF32 (10 explicit mantissa bits) to nearest with ties away
+// from zero, the rounding of cvt.rna.tf32.f32, as two integer operations:
+// half a TF32 ulp added to the magnitude's bits and the 13 bits below the
+// TF32 mantissa cleared (the split subtracts the rounded value from x as
+// an fp32 number, so those bits must be zero: here they are by
+// construction; ref.tf32_split is the same on the host)
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// D[16 x 8] += A[16 x 8] B[8 x 8] on TF32 operands, fp32 accumulators.
+// Fragments (g = lane / 4, t = lane % 4): a0 (g, t), a1 (g + 8, t), a2 (g,
+// t + 4), a3 (g + 8, t + 4); b0 (k t, n g), b1 (k t + 4, n g); d0, d1 (g,
+// 2t and 2t + 1), d2, d3 (g + 8, the same columns).
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// BYTES (4, 8 or 16; both addresses aligned to it) from global into shared
+// memory in this thread's cp.async group; `fill` false writes zeros and
+// reads nothing
+template <int BYTES>
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src,
+                                         bool fill) {
+  const int n = fill ? BYTES : 0;
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(n)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst),
+                 "l"(src), "n"(BYTES), "r"(n)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's cp.async groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// arrive at barrier `id` (1..15) of `count` threads without waiting
+__device__ __forceinline__ void named_bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // -- host side ------------------------------------------------------------------

@@ -1,5 +1,5 @@
-// Tile products on the fp32 CUDA cores, shared by the backward kernels
-// (flash_backward.cuh, ssd_backward.cuh).  Operands are staged in shared
+// Tile products on the fp32 CUDA cores, for the SSD backward
+// (ssd_backward.cuh).  Operands are staged in shared
 // memory as fp32 rows; a thread computes 4 x 4 output elements at a time.
 #pragma once
 

@@ -25,7 +25,12 @@ shapes alone, and :func:`variant` is its twin here:
   merges them.
 - ``simt`` — everything else (f32 prefill, other head dims, other Dk !=
   Dv pairs, (80, 80) and (192, 128) at 64 rows or fewer): one block per
-  (batch, q head, q tile) on the fp32 CUDA cores.
+  (batch, q head, 128 or 16 query rows).  The name is historical (it first
+  ran on the fp32 CUDA cores): ``Q K^T`` and ``P V`` run on the tensor
+  cores as split-TF32 ``mma.sync`` products (each fp32 operand in two TF32
+  parts, three products for each, ~22 of fp32's 24 bits; bf16 operands are
+  exact), K/V tiles arriving by ``cp.async``.  Plain twin of that
+  arithmetic: :func:`repro_torch.kernels.ref.sdpa_x3_ref`.
 
 On request (``return_lse``) every variant also writes each row's fp32
 log-sum-exp ``[B, Sq, Hq]``, with the output's bits unchanged: a
@@ -54,9 +59,10 @@ shapes alone (:func:`backward_variant` is its twin):
   :func:`repro_torch.kernels.ref.sdpa_bwd_tc_ref`.
 - ``simt`` (``csrc/flash_backward.cuh``) — everything else (f32, other
   head dims and pairs, and 64 rows or fewer per kv head): dK/dV per (b,
-  kv head, key tile) and dQ per (b, q head, q tile) on the fp32 CUDA
-  cores.  ``variant="simt"`` runs it at any shape, to time it beside
-  ``tc``.
+  kv head, key tile) and dQ per (b, q head, q tile), every product as the
+  forward ``simt``'s split-TF32 ``mma.sync`` (P and dS split like any
+  fp32 operand; plain twin :func:`repro_torch.kernels.ref.sdpa_bwd_x3_ref`).
+  ``variant="simt"`` runs it at any shape, to time it beside ``tc``.
 
 Their plain version is :func:`repro_torch.kernels.ref.sdpa_bwd_ref`.
 

@@ -9,7 +9,11 @@ certification drain composed as the reference's cluster composes it
 twins of the model stack's float
 oracles: :func:`sdpa_ref` (``repro.models.attention.attn_mask`` /
 ``_sdpa_ref``) and :func:`ssd_ref` (``repro.models.ssm.ssd_chunked``); and
-:func:`moe_combine_ref` (``repro.kernels.ref.moe_combine_ref``).
+:func:`moe_combine_ref` (``repro.kernels.ref.moe_combine_ref``).  Beside the
+plain versions, twins of the kernels' own arithmetic: the ``tc`` backwards'
+bf16 roundings (:func:`sdpa_bwd_tc_ref`, :func:`ssd_bwd_tc_ref`) and the
+flash ``simt`` kernels' split-TF32 products (:func:`tf32_split`,
+:func:`sdpa_x3_ref`, :func:`sdpa_bwd_x3_ref`).
 """
 from __future__ import annotations
 
@@ -231,6 +235,103 @@ def sdpa_bwd_ref(q, k, v, out, lse, dout, *, q_positions, kv_positions,
         ds = ds * (1 - t * t)
     dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf) * scale
     dk_ = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf) * scale
+    return (dq.reshape(b, sq, hq, dk).to(q.dtype), dk_.to(k.dtype),
+            dv_.to(v.dtype))
+
+
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """fp32 ``x`` rounded to TF32 (10 explicit mantissa bits), to nearest
+    with ties away from zero: half a TF32 ulp added to the bits, the 13
+    below the TF32 mantissa cleared (``hopper::tf32_rna``)."""
+    bits = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    bits = (bits + 0x1000) & 0xFFFFE000
+    bits = torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits)
+    return bits.to(torch.int32).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``x`` in fp32 as its two TF32 parts ``(big, small)``, as the
+    split-TF32 kernels take an fp32 operand (``csrc/flash_mma.cuh``):
+    ``big`` is ``x`` rounded as ``cvt.rna.tf32.f32`` rounds (to nearest,
+    ties away from zero), ``small`` the same rounding of ``x - big``; ``big
+    + small`` keeps ~22 of fp32's 24 bits.  A bf16 value is exact in TF32:
+    its ``small`` is 0."""
+    x = x.float()
+    big = _tf32_rna(x)
+    return big, _tf32_rna(x - big)
+
+
+def _x3(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``einsum(eq, a, b)`` of fp32 operands as the split-TF32 kernels take
+    it: the three products of the parts, the two small terms first, summed
+    in fp32 (the small-by-small term dropped)."""
+    a_big, a_small = tf32_split(a)
+    b_big, b_small = tf32_split(b)
+    return (torch.einsum(eq, a_big, b_small) + torch.einsum(eq, a_small, b_big)
+            + torch.einsum(eq, a_big, b_big))
+
+
+def sdpa_x3_ref(q, k, v, *, q_positions, kv_positions, causal=True,
+                sliding_window=None, logit_softcap=0.0, scale=None,
+                return_lse=False):
+    """Plain version of the ``simt`` flash forward's arithmetic
+    (``csrc/flash_simt.cuh``): :func:`sdpa_ref` with ``S = Q K^T`` and ``P
+    V`` each taken as split-TF32 products (:func:`tf32_split`), ``P`` the
+    unnormalised ``exp(S - max)`` in fp32, the sum divided once at the end;
+    with ``return_lse`` each row's fp32 log-sum-exp too."""
+    b, sq, hq, dk = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    scale = scale if scale is not None else dk ** -0.5
+    mask = attn_mask(q_positions, kv_positions, causal, sliding_window)
+    qg = q.float().reshape(b, sq, hkv, g, dk)
+    s = _x3("bqhgd,bkhd->bhgqk", qg, k.float()) * scale
+    if logit_softcap > 0:
+        s = logit_softcap * torch.tanh(s / logit_softcap)
+    s = torch.where(mask[:, None, None, :, :], s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)                         # [b, h, g, q, 1]
+    out = _x3("bhgqk,bkhd->bqhgd", p, v.float()) / l.permute(0, 3, 1, 2, 4)
+    out = out.reshape(b, sq, hq, v.shape[-1]).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = (m + torch.log(l))[..., 0]                        # [b, h, g, q]
+    return out, lse.permute(0, 3, 1, 2).reshape(b, sq, hq)
+
+
+def sdpa_bwd_x3_ref(q, k, v, out, lse, dout, *, q_positions, kv_positions,
+                    causal=True, sliding_window=None, logit_softcap=0.0,
+                    scale=None):
+    """Plain version of the ``simt`` flash backward's arithmetic
+    (``csrc/flash_backward.cuh``): :func:`sdpa_bwd_ref`'s phases with every
+    product (``S``, ``dP``, ``dV = P^T dO``, ``dQ = dS K``, ``dK = dS^T
+    Q``) taken as split-TF32 products of fp32 operands, ``P`` and ``dS``
+    included (:func:`tf32_split`); ``D = rowsum(dO O)`` plain.  Each
+    gradient rounded once to its input's dtype."""
+    b, sq, hq, dk = q.shape
+    skv, hkv, dv = k.shape[1], k.shape[2], v.shape[3]
+    g = hq // hkv
+    scale = scale if scale is not None else dk ** -0.5
+    mask = attn_mask(q_positions, kv_positions, causal, sliding_window)
+    qf = q.float().reshape(b, sq, hkv, g, dk)
+    kf, vf = k.float(), v.float()
+    do = dout.float().reshape(b, sq, hkv, g, dv)
+    delta = (do * out.float().reshape(b, sq, hkv, g, dv)).sum(-1)
+    s = _x3("bqhgd,bkhd->bhgqk", qf, kf) * scale
+    if logit_softcap > 0:
+        t = torch.tanh(s / logit_softcap)
+        s = logit_softcap * t
+    rows = lse.float().reshape(b, sq, hkv, g).permute(0, 2, 3, 1)[..., None]
+    p = torch.where(mask[:, None, None], torch.exp(s - rows),
+                    torch.zeros((), device=q.device))
+    dv_ = _x3("bhgqk,bqhgd->bkhd", p, do)
+    dp = _x3("bqhgd,bkhd->bhgqk", do, vf)
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    if logit_softcap > 0:
+        ds = ds * (1 - t * t)
+    dq = _x3("bhgqk,bkhd->bqhgd", ds, kf) * scale
+    dk_ = _x3("bhgqk,bqhgd->bkhd", ds, qf) * scale
     return (dq.reshape(b, sq, hq, dk).to(q.dtype), dk_.to(k.dtype),
             dv_.to(v.dtype))
 

@@ -1527,6 +1527,124 @@ def test_cuda_rows_that_see_no_key_merge_and_get_no_gradient(
     torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
 
 
+# The simt kernels take every product as split-TF32 (csrc/flash_mma.cuh:
+# each fp32 operand as two TF32 parts, three products for each); their
+# twins ref.sdpa_x3_ref / ref.sdpa_bwd_x3_ref take the same parts in fp32,
+# so a kernel and its twin differ by the order of their fp32 sums only
+# (tile by tile, inside the tensor cores, and in the online softmax's
+# rescaling), not by the split's rounding: half the plain limits, X3_TOL
+# (f32 output, atol and rtol; the lse absolute) and X3_GRAD_TOL (f32, of
+# each input's largest |gradient|).  A bf16 result is the fp32 one rounded
+# once on both sides: one bf16 ulp apart, 2^-7 of the value (of the
+# largest gradient), plus, for an output near zero, where the fp32 sums'
+# differences (~1e-6 at outputs of magnitude ~1) move it across more than
+# one ulp, 1e-5 absolute.
+X3_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-5, 2.0 ** -7)}
+X3_LSE_TOL = 1e-5
+X3_GRAD_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
+
+# FLASH_GRID's simt rows, then each simt instantiation and copy width:
+# MLA's 3-token serving step (heads cut to 16), f32 at (256, 256) and
+# (256, 64) on one-warp blocks (eight warps' staging does not fit), a few
+# f32 rows at head dim 16 (serve_migration's decode), Dv > 128 in bf16
+# with a softcap, odd head dims (bf16: element copies; f32: 4-byte
+# cp.async) and hubert's (80, 80) in f32 over padded keys
+SIMT_FLASH_GRID = [
+    row for row in FLASH_GRID
+    if fa.variant(getattr(torch, row[10]), row[1], row[3], row[4], row[5],
+                  row[6]) == "simt"] + [
+    (2, 3, 2048, 16, 16, 192, 128, True, None, 0.0, "bfloat16", None),
+    (1, 40, 40, 2, 1, 256, 256, True, None, 0.0, "float32", None),
+    (1, 40, 40, 2, 1, 256, 64, True, None, 0.0, "float32", None),
+    (1, 4, 96, 16, 1, 16, 16, True, None, 0.0, "float32", None),
+    (1, 130, 130, 2, 2, 256, 200, True, None, 20.0, "bfloat16", None),
+    (2, 100, 100, 4, 2, 17, 9, True, None, 0.0, "bfloat16", None),
+    (2, 100, 100, 4, 2, 17, 9, True, None, 0.0, "float32", None),
+    (1, 300, 300, 4, 4, 80, 80, True, None, 0.0, "float32", 250),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,sq,skv,hq,hkv,dk,dv,causal,window,cap,dtype,valid", SIMT_FLASH_GRID)
+def test_cuda_simt_forward_matches_its_split_twin(cuda_device, b, sq, skv,
+                                                  hq, hkv, dk, dv, causal,
+                                                  window, cap, dtype, valid):
+    """The simt forward with the lse: within the flash tolerance (lse
+    1e-4) of the plain version, within X3_TOL of its split-TF32 twin, and
+    two calls give equal bits."""
+    q, k, v, qp, kp = _flash_inputs(sq + skv + 1, b, sq, skv, hq, hkv, dk,
+                                    dv, dtype, cuda_device, valid)
+    kw = dict(q_positions=qp, kv_positions=kp, causal=causal,
+              sliding_window=window, logit_softcap=cap)
+    assert fa.variant(q.dtype, sq, hq, hkv, dk, dv) == "simt"
+    before = fa.variant_launches["simt"]
+    with torch.no_grad():
+        out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+        again, lse_again = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert fa.variant_launches["simt"] == before + 2
+    assert torch.equal(out, again) and torch.equal(lse, lse_again)
+    plain, plain_lse = ref.sdpa_ref(q, k, v, return_lse=True, **kw)
+    twin, twin_lse = ref.sdpa_x3_ref(q, k, v, return_lse=True, **kw)
+    atol, rtol = (1e-3, 1.6e-2) if dtype == "bfloat16" else (2e-5, 2e-5)
+    torch.testing.assert_close(out.float(), plain.float(), atol=atol,
+                               rtol=rtol)
+    assert float((lse - plain_lse).abs().max()) <= 1e-4
+    atol, rtol = X3_TOL[dtype]
+    torch.testing.assert_close(out.float(), twin.float(), atol=atol,
+                               rtol=rtol)
+    assert float((lse - twin_lse).abs().max()) <= X3_LSE_TOL
+
+
+# GRAD_GRID's simt rows, then MLA's (192, 128) in f32 with a window and a
+# softcap, odd head dims in f32, and bf16 at tc shapes asked for by name
+SIMT_GRAD_GRID = [
+    row for row in GRAD_GRID
+    if fa.backward_variant(getattr(torch, row[0]), row[2], row[4], row[5],
+                           row[6], row[7]) == "simt"] + [
+    ("float32", 1, 200, 200, 4, 2, 192, 128, True, 48, 30.0, None),
+    ("float32", 2, 100, 100, 4, 2, 17, 9, True, None, 0.0, None),
+    ("bfloat16", 2, 160, 160, 4, 2, 64, 64, True, None, 0.0, None),
+    ("bfloat16", 1, 256, 256, 4, 4, 192, 128, True, None, 0.0, None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "dtype,b,sq,skv,hq,hkv,dk,dv,causal,window,cap,valid0", SIMT_GRAD_GRID)
+def test_cuda_simt_backward_matches_its_split_twin(cuda_device, dtype, b, sq,
+                                                   skv, hq, hkv, dk, dv,
+                                                   causal, window, cap,
+                                                   valid0):
+    """The simt backward (asked for by name) from the forward's output and
+    lse: within 2e-5 (f32) or 2e-2 (bf16) of each input's largest
+    |gradient| of the plain backward, within X3_GRAD_TOL of its
+    split-TF32 twin, and two calls give equal bits."""
+    q, k, v, qp, kp = _flash_inputs(sq + skv + 2, b, sq, skv, hq, hkv, dk,
+                                    dv, dtype, cuda_device, valid0)
+    kw = dict(q_positions=qp, kv_positions=kp, causal=causal,
+              sliding_window=window, logit_softcap=cap)
+    with torch.no_grad():
+        out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    dout = torch.randn((b, sq, hq, dv), device=cuda_device).to(q.dtype)
+    before = fa.backward_variant_launches["simt"]
+    got = fa.flash_attention_backward(q, k, v, out, lse, dout, variant="simt",
+                                      **kw)
+    again = fa.flash_attention_backward(q, k, v, out, lse, dout,
+                                        variant="simt", **kw)
+    torch.cuda.synchronize()
+    assert fa.backward_variant_launches["simt"] == before + 2
+    plain = ref.sdpa_bwd_ref(q, k, v, out, lse, dout, **kw)
+    twin = ref.sdpa_bwd_x3_ref(q, k, v, out, lse, dout, **kw)
+    tol = {"float32": 2e-5, "bfloat16": 2e-2}[dtype]
+    for g, r, p, w in zip(got, again, plain, twin):
+        assert g.dtype == p.dtype and g.shape == p.shape
+        assert torch.equal(g, r)
+        assert _rel_err(g, p) <= tol
+        assert _rel_err(g, w) <= X3_GRAD_TOL[dtype]
+
+
 @pytest.mark.cuda
 def test_cuda_seq_mesh_of_one_decodes_bitwise(cuda_device):
     """glm4's smoke decode on a world-of-one NCCL mesh with a seq axis (the

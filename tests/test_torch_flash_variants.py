@@ -6,15 +6,26 @@ its choice and the wrapper checks the two agree on the card;
 ``tests/test_torch_cuda.py`` holds the C side to it).  These tests need no
 card: they pin the choice for glm4-9b's shapes, for every row of the card
 tests' ``FLASH_GRID`` and at the edges of each variant.
+
+Also the split-TF32 arithmetic of the ``simt`` forward: ``ref.tf32_split``
+(the kernels' rounding of an fp32 operand into two TF32 parts) and
+``ref.sdpa_x3_ref`` (the forward with every product taken as the three
+split products), held here to the plain fp32 version and to the
+reference's ``repro.kernels.ref.sdpa_ref`` at the f32 limits: before any
+run on a card, whether split-TF32 products can meet them.
 """
 import importlib.util
 import re
 from pathlib import Path
 
+import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
+from repro.kernels import ref as jref
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ref
 from test_torch_cuda import FLASH_GRID
 
 BF16, F32 = torch.bfloat16, torch.float32
@@ -200,3 +211,110 @@ def test_sass_compare_covers_every_tc_kernel():
     for name in names:
         hits = [m for m in sass.MARKERS if m in f"_ZN5flash{name}ILi64E"]
         assert hits == [name], (name, hits)
+
+
+# -- split-TF32: the simt kernels' arithmetic, on the CPU -----------------------
+
+FLASH_TOL = 2e-5     # f32 output, atol and rtol (test_torch_cuda.py)
+LSE_TOL = 1e-4       # the rows' log-sum-exp, absolute
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """fp32 bit patterns as non-negative int64."""
+    return t.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+
+
+def _normals(n: int, seed: int) -> torch.Tensor:
+    """fp32 values of both signs over exponents 2^-100..2^100."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(n) * np.exp2(rng.integers(-100, 100, n))
+    return torch.from_numpy(x.astype(np.float32))
+
+
+def test_tf32_split_parts_have_no_bit_below_the_tenth_mantissa_bit():
+    x = torch.cat([_normals(4096, 0), torch.tensor(
+        [0.0, -0.0, 1.0, -1.0, 3e38, -3e38, 1e-40, -1e-40])])
+    big, small = ref.tf32_split(x)
+    assert not bool((_bits(big) & 0x1FFF).any())
+    assert not bool((_bits(small) & 0x1FFF).any())
+
+
+@pytest.mark.parametrize("low,up", [(0x1000, True), (0x0FFF, False),
+                                    (0x1001, True), (0x0000, False),
+                                    (0x1FFF, True), (0x0001, False)])
+def test_tf32_split_rounds_to_nearest_ties_away_from_zero(low, up):
+    """The 13 bits below the TF32 mantissa at a tie (half an ulp), just
+    under and just over it: big's magnitude rounds up at and above the
+    tie, down below it, for either sign (cvt.rna's rule)."""
+    rng = np.random.default_rng(low)
+    sign = rng.integers(0, 2, 512).astype(np.int64) << 31
+    head = (rng.integers(1, 254, 512).astype(np.int64) << 23) \
+        | (rng.integers(0, 1 << 10, 512).astype(np.int64) << 13)
+    bits = sign | head | low
+    x = torch.from_numpy(np.where(bits >= 1 << 31, bits - (1 << 32), bits)
+                         .astype(np.int32)).view(torch.float32)
+    big, _ = ref.tf32_split(x)
+    want = torch.from_numpy(sign | (head + (int(up) << 13)))
+    assert torch.equal(_bits(big), want)
+
+
+def test_tf32_split_parts_sum_to_the_value_within_2_to_the_minus_22():
+    x = _normals(4096, 1)
+    big, small = ref.tf32_split(x)
+    err = ((big.double() + small.double()) - x.double()).abs()
+    assert bool((err <= 2.0 ** -22 * x.double().abs()).all())
+    assert float((err / x.double().abs()).max()) > 0   # small is rounded
+
+
+def test_tf32_split_of_a_bf16_value_has_no_small_part():
+    x = _normals(4096, 2).to(torch.bfloat16).float()
+    big, small = ref.tf32_split(x)
+    assert torch.equal(big, x)
+    assert not bool(small.any())
+
+
+# (B, Sq, Skv, Hq, Hkv, Dk, Dv, causal, window, softcap): the reference's
+# f32 grid (chip_smoke.py's kernel_flash grid, its f32 rows), then
+# deepseek-v2's MLA dims (Dk 192, Dv 128) at a small depth, with a window
+# and a softcap
+X3_GRID = [
+    (2, 128, 128, 4, 2, 32, 32, True, None, 0.0),
+    (1, 100, 100, 4, 4, 16, 16, True, None, 0.0),
+    (2, 128, 128, 4, 2, 32, 32, True, 40, 0.0),
+    (2, 64, 192, 4, 2, 32, 32, True, None, 0.0),
+    (2, 128, 128, 4, 4, 32, 32, False, None, 0.0),
+    (1, 256, 256, 2, 2, 192, 128, True, None, 0.0),
+    (1, 72, 72, 2, 1, 24, 24, True, 16, 0.0),
+    (2, 96, 96, 4, 4, 192, 128, True, None, 0.0),
+    (1, 96, 160, 4, 4, 192, 128, True, 48, 30.0),
+]
+
+
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,dk,dv,causal,window,cap", X3_GRID)
+def test_sdpa_x3_ref_meets_the_f32_limits(b, sq, skv, hq, hkv, dk, dv,
+                                          causal, window, cap):
+    """Split-TF32 products against the plain fp32 version and the
+    reference's JAX function: the output within FLASH_TOL, the rows'
+    log-sum-exp within LSE_TOL of the plain one."""
+    rng = np.random.default_rng(sq * skv + dk + dv)
+    q, k, v = (rng.standard_normal(shape).astype(np.float32)
+               for shape in ((b, sq, hq, dk), (b, skv, hkv, dk),
+                             (b, skv, hkv, dv)))
+    qp = np.broadcast_to(np.arange(skv - sq, skv, dtype=np.int32),
+                         (b, sq)).copy()
+    kp = np.broadcast_to(np.arange(skv, dtype=np.int32), (b, skv)).copy()
+    kw = dict(causal=causal, sliding_window=window, logit_softcap=cap)
+    t = torch.from_numpy
+    pos = dict(q_positions=t(qp), kv_positions=t(kp))
+    got, got_lse = ref.sdpa_x3_ref(t(q), t(k), t(v), return_lse=True, **pos,
+                                   **kw)
+    plain, plain_lse = ref.sdpa_ref(t(q), t(k), t(v), return_lse=True, **pos,
+                                    **kw)
+    want = np.array(jref.sdpa_ref(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        q_positions=jnp.asarray(qp), kv_positions=jnp.asarray(kp), **kw))
+    assert got.dtype == torch.float32 and got.shape == (b, sq, hq, dv)
+    torch.testing.assert_close(got, plain, atol=FLASH_TOL, rtol=FLASH_TOL)
+    torch.testing.assert_close(got, t(want), atol=FLASH_TOL, rtol=FLASH_TOL)
+    assert float((got_lse - plain_lse).abs().max()) <= LSE_TOL
+    assert not torch.equal(got, plain)     # the split is not a no-op

@@ -290,6 +290,47 @@ def test_ssd_bwd_ref_through_ops_padding_matches_autograd_and_jax():
         assert _rel_err(g, j) <= SSD_TOL, name
 
 
+# -- the simt backward's split-TF32 twin ---------------------------------------
+#
+# ref.sdpa_bwd_x3_ref repeats the simt backward's arithmetic
+# (csrc/flash_backward.cuh): every product, P and dS included, taken as the
+# three split-TF32 products of fp32 operands.  In f32 it is held to the plain
+# backward and to jax.vjp of the reference's plain function within ATTN_TOL
+# of each input's largest |gradient|, on ATTN_GRID and at MLA's (192, 128)
+# at a small depth: whether split-TF32 meets the f32 limit, before a card.
+
+X3_ATTN_GRID = ATTN_GRID + [
+    (1, 48, 48, 4, 4, 192, 128, True, None, 0.0, None, "dense"),
+    (2, 24, 40, 4, 2, 192, 128, True, 16, 30.0, None, "padded"),
+]
+
+
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,dk,dv,causal,window,cap,scale,kv",
+                         X3_ATTN_GRID)
+def test_sdpa_bwd_x3_ref_meets_the_f32_limit(b, sq, skv, hq, hkv, dk, dv,
+                                             causal, window, cap, scale, kv):
+    q, k, v, dout, qp, kp = _attn_inputs(sq * skv + dk + 1, b, sq, skv, hq,
+                                         hkv, dk, dv, kv)
+    kw = dict(causal=causal, sliding_window=window, logit_softcap=cap,
+              scale=scale)
+    t = torch.from_numpy
+    pos = dict(q_positions=t(qp), kv_positions=t(kp))
+    out, lse = ref.sdpa_ref(t(q), t(k), t(v), return_lse=True, **pos, **kw)
+    got = ref.sdpa_bwd_x3_ref(t(q), t(k), t(v), out, lse, t(dout), **pos,
+                              **kw)
+    plain = ref.sdpa_bwd_ref(t(q), t(k), t(v), out, lse, t(dout), **pos,
+                             **kw)
+    _, vjp = jax.vjp(lambda q_, k_, v_: jref.sdpa_ref(
+        q_, k_, v_, q_positions=jnp.asarray(qp), kv_positions=jnp.asarray(kp),
+        **kw), *(jnp.asarray(a) for a in (q, k, v)))
+    want_jax = vjp(jnp.asarray(dout))
+    for name, g, p, j in zip("qkv", got, plain, want_jax):
+        assert g.dtype == torch.float32 and g.shape == p.shape, name
+        assert _rel_err(g, p) <= ATTN_TOL, name
+        assert _rel_err(g, j) <= ATTN_TOL, name
+    assert not all(torch.equal(g, p) for g, p in zip(got, plain))
+
+
 # -- the tensor-core backwards' plain twins ------------------------------------
 #
 # ref.sdpa_bwd_tc_ref and ref.ssd_bwd_tc_ref repeat the tc kernels' roundings

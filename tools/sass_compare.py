@@ -1,17 +1,19 @@
-"""Compare the flash kernels' compiled SASS between two source trees.
+"""Compare the kernels' compiled SASS between two source trees.
 
     PYTHONPATH=src python tools/sass_compare.py OTHER_CSRC
 
-Builds ``csrc/flash_attention.cu`` of this tree and of ``OTHER_CSRC``
-(another checkout's ``src/repro_torch/kernels/csrc``) with
-``repro_torch.kernels.nvcc.NVCC_FLAGS`` into a temporary directory,
+Builds each library of ``LIBRARIES`` (``csrc/<name>.cu``) of this tree and
+of ``OTHER_CSRC`` (another checkout's ``src/repro_torch/kernels/csrc``)
+with ``repro_torch.kernels.nvcc.NVCC_FLAGS`` into a temporary directory,
 disassembles both with ``cuobjdump -sass`` and prints one JSON line per
-entry function whose mangled name holds one of ``MARKERS`` (the
-``prefill_tc`` forward and every kernel of ``flash_backward_tc.cuh``):
-``same`` (instruction for instruction), ``differs``, or the one tree it
-is in.  Exits 1 when a function of both trees differs.  It shows whether
-an edit of a template left its other instantiations as they were; it
-needs ``nvcc`` and ``cuobjdump`` (the CUDA toolkit).
+entry function whose mangled name holds one of the library's markers (in
+``flash_attention``: the ``prefill_tc`` forward, ``decode_split``'s two
+kernels, the backward's pre-pass and every kernel of
+``flash_backward_tc.cuh``; in ``ssd_scan``: every function): ``same``
+(instruction for instruction), ``differs``, or the one tree it is in.
+Exits 1 when a function of both trees differs.  It shows whether an edit
+of a header left the other kernels as they were; it needs ``nvcc`` and
+``cuobjdump`` (the CUDA toolkit).
 """
 from __future__ import annotations
 
@@ -28,9 +30,14 @@ from typing import Dict, List
 
 from repro_torch.kernels.nvcc import CSRC, NVCC_FLAGS, _nvcc
 
-LIBRARY = "flash_attention"
 MARKERS = ("prefill_tc_kernel", "dkdv_tc_kernel", "dkdv_tc2_kernel",
            "dq_tc_kernel", "reduce_tc_kernel")
+# library: the markers of the functions compared ("" holds every one)
+LIBRARIES = {
+    "flash_attention": MARKERS + ("12split_kernel", "14combine_kernel",
+                                  "12delta_kernel"),
+    "ssd_scan": ("",),
+}
 
 
 def functions(sass: str) -> Dict[str, List[str]]:
@@ -47,10 +54,10 @@ def functions(sass: str) -> Dict[str, List[str]]:
     return out
 
 
-def disassemble(csrc: Path, workdir: Path) -> str:
-    lib = workdir / f"lib{LIBRARY}.so"
+def disassemble(csrc: Path, workdir: Path, library: str) -> str:
+    lib = workdir / f"lib{library}.so"
     subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(lib),
-                    str(csrc / f"{LIBRARY}.cu")], check=True,
+                    str(csrc / f"{library}.cu")], check=True,
                    capture_output=True, text=True)
     tool = shutil.which("cuobjdump") or os.path.join(
         os.path.dirname(_nvcc()), "cuobjdump")
@@ -80,14 +87,20 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("other_csrc", type=Path)
     args = ap.parse_args(argv)
-    trees = {}
+    records = []
     with tempfile.TemporaryDirectory() as tmp:
-        for name, csrc in (("mine", CSRC), ("other", args.other_csrc)):
-            workdir = Path(tmp) / name
-            workdir.mkdir()
-            trees[name] = functions(disassemble(csrc, workdir))
-    records = [rec for marker in MARKERS
-               for rec in compare(trees["mine"], trees["other"], marker)]
+        for library, markers in LIBRARIES.items():
+            trees = {}
+            for name, csrc in (("mine", CSRC), ("other", args.other_csrc)):
+                workdir = Path(tmp) / library / name
+                workdir.mkdir(parents=True)
+                trees[name] = functions(disassemble(csrc, workdir, library))
+            seen = set()
+            for marker in markers:
+                for rec in compare(trees["mine"], trees["other"], marker):
+                    if rec["function"] not in seen:
+                        seen.add(rec["function"])
+                        records.append(dict(library=library, **rec))
     for rec in records:
         print(json.dumps(rec), flush=True)
     return 1 if any(r["verdict"] == "differs" for r in records) else 0
