@@ -18,7 +18,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             (``dkdv_tc2`` at (192, 128)) and ``dq_tc`` at the same pairs,
             none spilling; ``build_simt``: those of the simt forward's 8
             and the simt backward's 3 + 5 instantiations (split-TF32
-            ``mma.sync``), none spilling.
+            ``mma.sync``), none spilling; ``build_ssd_simt``: those of the
+            SSD simt forward's state and chunk kernels and its backward's
+            own and chunk kernels (2 + 2 + 4 + 4), none spilling.
 3. kernel — the kernel against its plain PyTorch version, bitwise, at the
             simulator's shapes (1,140,088 items, B in {8, 16}, R = 32,
             W = 16, plus a lock-free W = 1 case) and at a wide shape
@@ -26,8 +28,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             per call as a caller sees it (CUDA events around many calls,
             host launch cost included), ``graph_ms`` the device time per
             call (many calls replayed from one CUDA graph); the bound is
-            the bytes at 3.35 TB/s; ``launches`` counts the kernel calls
-            the case made (check, timing and graph capture).
+            the bytes at 3.35 TB/s; ``floor_ms`` / ``floor_graph_ms`` the
+            same two times of an empty kernel through the same ctypes
+            launch (the design's floor); ``launches`` counts the kernel
+            calls the case made (check, timing and graph capture).
    kernel_drain — the ``drain`` variant (one launch: flush the dirty
             pairs, class-owner write check, certify) against
             ``ref.lease_drain_ref``, bitwise on ok and on the flushed table,
@@ -103,7 +107,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             launcher picks from the dtype and shapes): mamba2-780m's
             prefill shape (B = 4, S = 2048, H = 48, P = 64, N = 128,
             chunk = 256, bf16, nonzero h0), zamba2-1.2b's (H = 64, N =
-            64, the same otherwise), the reference's grid and an
+            64, the same otherwise), both again in f32 (``simt`` at a
+            model's full width; its record's head case, an f32 case's
+            bound split-TF32's with ``bound_fp32_ms``, the fp32 CUDA
+            cores', beside it), the reference's grid and an
             odd head count (H = 5, P = 32, chunk 32) in f32 and bf16
             (``simt``), and tc's edges in bf16 (H 5, no h0, a ragged S,
             chunks 64 and 128, N 64, B x H below 132); y within 2e-5 of
@@ -273,14 +280,19 @@ Single-device training (``repro_torch.train``, ``launch.train``):
             ``bwd_bound_fp32_ms``, the fp32 CUDA cores', beside); the SSD at
             zamba2's (H 64, N 64) and
             mamba2's (H 48, N 128), bf16, on ``tc``
-            (``ssd_backward_tc.cuh``) and zamba2's in f32 on ``simt``, with
-            h0 and the final state's gradient.  Each: one backward launch
-            of its variant and no plain version called; the gradients
-            within 2e-2 (bf16) or 2e-5 / 1e-4 (f32, attention / SSD) of
-            each input's largest, against the fp32 plain backward
-            (``ref.sdpa_bwd_ref`` / ``ssd_bwd_ref``), against ``tc``'s
-            plain twin (``ref.sdpa_bwd_tc_ref`` / ``ssd_bwd_tc_ref``) and
-            against autograd of the plain forward; two calls equal bits;
+            (``ssd_backward_tc.cuh``) and zamba2's in f32 on ``simt``
+            (``ssd_backward.cuh``, split-TF32; its bound split-TF32's with
+            the fp32 cores' beside), with h0 and the final state's
+            gradient.  Each: one backward launch of its variant and no
+            plain version called; the gradients within 2e-2 (bf16) or 2e-5
+            / 1e-4 (f32, attention / SSD) of each input's largest, against
+            the fp32 plain backward (``ref.sdpa_bwd_ref`` /
+            ``ssd_bwd_ref``), against ``tc``'s plain twin
+            (``ref.sdpa_bwd_tc_ref`` / ``ssd_bwd_tc_ref``) and against
+            autograd of the plain forward (the f32 SSD: the kernel and both
+            plain sides each against an fp64 evaluation of
+            ``ssd_bwd_ref``, as dA's f32 evaluations differ from each
+            other by up to the limit); two calls equal bits;
             attention's lse within 1e-4 of the plain one and the output's
             bits equal without it (both timed).  The backward's ms and
             device ms and its bound; beside a ``tc`` case the ``simt``
@@ -524,7 +536,7 @@ def ptxas_kernels(info: dict, marker: str) -> list:
     for ln in info.get("ptxas", []):
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            args = re.search(rf"{marker}I(f|13__nv_bfloat16)?((?:Li\d+E)+)E",
+            args = re.search(rf"{marker}I(f|13__nv_bfloat16)?((?:Li\d+E)*)E",
                              m.group(1))
             cur = None if args is None else dict(
                 dims=[int(x) for x in re.findall(r"Li(\d+)E", args[2])])
@@ -544,6 +556,11 @@ def ptxas_kernels(info: dict, marker: str) -> list:
         if m:
             cur["registers"] = int(m.group(1))
     return out
+
+
+# the SSD simt kernels (split-TF32 mma.sync): marker -> instantiations
+SSD_SIMT_KERNELS = {"4simt12state_kernel": 2, "4simt12chunk_kernel": 2,
+                    "8backward10own_kernel": 4, "8backward12chunk_kernel": 4}
 
 
 def emit(phase: str, **kw) -> None:
@@ -660,10 +677,13 @@ def kernel_case(name: str, rng, n, b, r, w, iters: int, **kw) -> dict:
     plain = lambda: ref.lease_validate_ref(store, items, vers, locks_bool,
                                            witems)
     bms, by = bound_ms(host[1], host[4])
+    # the design's floor: an empty kernel through the same ctypes launch
+    empty = lambda: lv.empty_validate(store.device)
     out = dict(case=name, n_items=n, B=b, R=r, W=int(witems.shape[1]),
                passing=int(ok.sum()), max_abs_err=err,
                ms=time_ms(kernel, iters), plain_ms=time_ms(plain, iters),
                graph_ms=graph_ms(kernel), plain_graph_ms=graph_ms(plain),
+               floor_ms=time_ms(empty, iters), floor_graph_ms=graph_ms(empty),
                bound_ms=bms, bound_by=by,
                launches=lv.launches - launches_before)
     emit("kernel", **out)
@@ -1491,8 +1511,11 @@ def ssd_case(name: str, b, s, h, p, n, chunk, *, dtype="float32",
     n_bytes = (2 * x.numel() + bm.numel() + cm.numel()) * el \
         + 4 * (dt.numel() + a.numel() + (2 if with_h0 else 1) * b * h * p * n)
     bms, by = op_bound(flops, n_bytes, BF16_FLOPS_PER_S
-                       if dtype == "bfloat16" else SCALAR_OPS_PER_S)
+                       if dtype == "bfloat16" else SPLIT_TF32_FLOPS_PER_S)
     floor = {}
+    if dtype == "float32":   # the fp32 CUDA cores' bound beside split-TF32's
+        floor["bound_fp32_ms"] = op_bound(flops, n_bytes,
+                                          SCALAR_OPS_PER_S)[0]
     if variant == "tc":
         # this design's own work: ssd_state reads x and B and writes the
         # entering states and dacum / dt; ssd_chunk_scan reads them with
@@ -1558,7 +1581,13 @@ def kernel_ssd_phase() -> list:
                       dtype="bfloat16"),
              # zamba2-1.2b's Mamba layers: d_inner 4096 in 64 heads, N 64
              ssd_case("zamba2_prefill", 4, 2048, 64, 64, 64, 256,
-                      dtype="bfloat16", seed=27)]
+                      dtype="bfloat16", seed=27),
+             # the same two prefills in f32 (a config's dtype="float32"):
+             # simt at a model's full width
+             ssd_case("mamba2_prefill_f32", 4, 2048, 48, 64, 128, 256,
+                      seed=28),
+             ssd_case("zamba2_prefill_f32", 4, 2048, 64, 64, 64, 256,
+                      seed=29)]
     grid = [   # the reference's test grid (tests/test_kernels.py)
         (2, 256, 8, 16, 32, 64), (1, 128, 16, 64, 128, 32),
         (2, 512, 48, 64, 128, 256), (1, 64, 4, 32, 16, 64),
@@ -1623,9 +1652,9 @@ def flash_records(cases: list, paths: dict) -> list:
 def ssd_records(cases: list, paths: dict) -> list:
     """One entry per SSD variant, timed at its case on the main path
     (mamba2-780m prefill; simt, which the main path does not reach, at
-    the reference grid's first case, f32); ``launches`` sums the model
-    paths' counts, by path beside it."""
-    heads = {"tc": "mamba2_prefill", "simt": "grid0"}
+    the same prefill in f32); ``launches`` sums the model paths' counts,
+    by path beside it."""
+    heads = {"tc": "mamba2_prefill", "simt": "mamba2_prefill_f32"}
     out = []
     for variant, head in heads.items():
         mine = [c for c in cases if c["variant"] == variant]
@@ -3213,11 +3242,13 @@ def _rel_errs(got, want) -> list:
 
 
 def _grad_checks(name: str, kind: str, dtype: str, g_k, g_p, g_a,
-                 again, g_t=None) -> dict:
+                 again, g_t=None, truth=None) -> dict:
     """The kernel's gradients against the fp32 plain backward, the ``tc``
     variant's plain twin (``g_t``, its bf16 roundings) where given, and
     autograd of the plain forward (GRAD_TOL of each input's largest
-    |gradient|), and a second call's bits."""
+    |gradient|), and a second call's bits.  With ``truth`` (an fp64
+    evaluation of the plain backward) the kernel and both plain sides are
+    each held to it instead, their errors against each other reported."""
     import torch
 
     tol = GRAD_TOL[kind][dtype]
@@ -3226,17 +3257,26 @@ def _grad_checks(name: str, kind: str, dtype: str, g_k, g_p, g_a,
     same = [bool(torch.equal(a, b)) for a, b in zip(g_k, again)]
     abs_err = max(float((a.float() - b.float()).abs().max())
                   for a, b in zip(g_k, g_t if g_t is not None else g_p))
-    check(max(vs_plain) <= tol and max(vs_auto) <= tol
-          and (vs_twin is None or max(vs_twin) <= tol),
-          f"{name}: backward kernel gradients off by {vs_plain} (plain "
-          f"backward) / {vs_twin} (its plain twin) / {vs_auto} (autograd of "
-          f"the plain forward), limit {tol}")
+    fp64 = {}
+    if truth is not None:
+        fp64 = {f"rel_err_{side}_vs_fp64": _rel_errs(g, truth)
+                for side, g in (("kernel", g_k), ("plain", g_p),
+                                ("autograd", g_a))}
+        check(max(max(v) for v in fp64.values()) <= tol,
+              f"{name}: gradients off the fp64 plain backward by {fp64}, "
+              f"limit {tol}")
+    else:
+        check(max(vs_plain) <= tol and max(vs_auto) <= tol
+              and (vs_twin is None or max(vs_twin) <= tol),
+              f"{name}: backward kernel gradients off by {vs_plain} (plain "
+              f"backward) / {vs_twin} (its plain twin) / {vs_auto} (autograd "
+              f"of the plain forward), limit {tol}")
     check(all(same), f"{name}: two backward calls differ ({same})")
     check(all(bool(torch.isfinite(g).all()) and bool(g.abs().max() > 0)
               for g in g_k), f"{name}: a zero or non-finite gradient")
     return dict(grad_tol=tol, rel_err_vs_plain=vs_plain,
                 rel_err_vs_twin=vs_twin, rel_err_vs_autograd=vs_auto,
-                max_abs_err=abs_err, deterministic=all(same))
+                max_abs_err=abs_err, deterministic=all(same), **fp64)
 
 
 def sdpa_backend(out) -> str:
@@ -3446,8 +3486,13 @@ def ssd_grad_case(name: str, b, s, h, p, n, chunk, *, dtype="bfloat16",
            else None)
     _, g_a = _grads(plain, inputs, (wy, wf))
     again = ss.ssd_scan_backward(*args, chunk=chunk)
-    grads = _grad_checks(name, "ssd", dtype, g_k, g_p, g_a, again, g_t)
-    del g_p, g_t, g_a, again
+    # f32: dA's f32 evaluations (kernel, plain) differ from each other by up
+    # to the limit (tools/ssd_grad_digests.py), so each is held to fp64
+    truth = (ref.ssd_bwd_ref(*(t.double() for t in args), chunk=chunk)
+             if dtype == "float32" else None)
+    grads = _grad_checks(name, "ssd", dtype, g_k, g_p, g_a, again, g_t,
+                         truth)
+    del g_p, g_t, g_a, again, truth
 
     bwd_ms, bwd_g_ms, iters = timings(
         lambda: ss.ssd_scan_backward(*args, chunk=chunk))
@@ -3460,13 +3505,17 @@ def ssd_grad_case(name: str, b, s, h, p, n, chunk, *, dtype="bfloat16",
     el = x.element_size()
     n_bytes = (3 * x.numel() + 2 * (bm.numel() + cm.numel())) * el \
         + 4 * (2 * dt.numel() + 2 * a.numel() + 3 * h0.numel())
-    rate = BF16_FLOPS_PER_S if dtype == "bfloat16" else SCALAR_OPS_PER_S
+    rate = BF16_FLOPS_PER_S if dtype == "bfloat16" \
+        else SPLIT_TF32_FLOPS_PER_S
     bms, by = op_bound(2.0 * fwd_flops, n_bytes, rate)
     # forward + backward: x, B, C and dt, A read once, their gradients
     # and y written once
     fbms, fby = op_bound(3.0 * fwd_flops, 2 * (2 * x.numel() + bm.numel()
                                                + cm.numel()) * el
                          + 2 * 4 * (dt.numel() + a.numel()), rate)
+    if dtype == "float32":   # the fp32 CUDA cores' bound beside split-TF32's
+        grads["bwd_bound_fp32_ms"] = op_bound(2.0 * fwd_flops, n_bytes,
+                                              SCALAR_OPS_PER_S)[0]
     rec = dict(case=name, kind="ssd", variant=variant,
                backward_variant=bwd_variant, dtype=dtype,
                shape=[b, s, h, p, n, chunk], with_h0=True, with_dfinal=True,
@@ -5629,6 +5678,18 @@ def main() -> int:
           f"ptxas reported the simt kernels {simt_builds}, expected 8 "
           f"forward, 3 dkdv and 5 dq instantiations without a spill")
 
+    # the SSD simt kernels: forward state and chunk kernels, the backward's
+    # own and chunk kernels, each instantiation's registers; none spills
+    ssd_builds = {marker: ptxas_kernels(ss.LIB.info, marker)
+                  for marker in SSD_SIMT_KERNELS}
+    emit("build_ssd_simt", **ssd_builds)
+    check(ss.LIB.info.get("cached") or (
+        {m: len(ks) for m, ks in ssd_builds.items()} == SSD_SIMT_KERNELS
+        and not any(k.get("spill_stores") or k.get("spill_loads")
+                    for ks in ssd_builds.values() for k in ks)),
+          f"ptxas reported the SSD simt kernels {ssd_builds}, expected "
+          f"{SSD_SIMT_KERNELS} instantiations without a spill")
+
     # 3. kernel vs plain version
     rng = np.random.default_rng(0)
     n_main = 1_140_088
@@ -5904,9 +5965,12 @@ def main() -> int:
     print(smi_line, flush=True)
     print(json.dumps({"kernels": [
         # main_cases[1]: B = 16, R = 32, W = 16; drain_cases[1] the same
-        kernel_record("lease_validate.gather", lease, lease_tpu,
-                      main_launches["gather"],
-                      [dict(main_cases[1], library_ms=None), *main_cases]),
+        dict(kernel_record("lease_validate.gather", lease, lease_tpu,
+                           main_launches["gather"],
+                           [dict(main_cases[1], library_ms=None),
+                            *main_cases]),
+             floor_ms=main_cases[1]["floor_ms"],
+             floor_graph_ms=main_cases[1]["floor_graph_ms"]),
         dict(kernel_record("lease_validate.drain", lease, lease_tpu,
                            sum(drain_paths.values()),
                            [drain_cases[1], *drain_cases, *serve_cases]),

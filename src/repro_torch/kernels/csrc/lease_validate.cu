@@ -400,3 +400,11 @@ extern "C" int lease_drain_empty(void* stream) {
   if (err == cudaSuccess) err = cudaStreamSynchronize(s);
   return static_cast<int>(err);
 }
+
+// gather's floor: an empty kernel through the same call (gather does not
+// wait).
+extern "C" int lease_validate_empty(void* stream) {
+  drain::empty_kernel<<<1, drain::kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}

@@ -672,16 +672,14 @@ int launch(const void* x, const void* dt, const void* a, const void* bm,
                                      scratch + sc.hout, B, S, H, L, s);
   if (err) return err;
   // (ii) the gradient of the state leaving each chunk, and dh0
-  const size_t own_smem = sizeof(float) * sb::own_floats(L, kP, N);
-  if ((err = sb::opt_in(sb::own_kernel<T, 1>, own_smem))) return err;
   const long long scan_blocks = (bhpn + sb::kThreads - 1) / sb::kThreads;
   const long long red_blocks =
       ((long long)B * S * N + sb::kThreads - 1) / sb::kThreads;
   if (scan_blocks > 0x7fffffffLL || red_blocks > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  sb::own_kernel<T, 1><<<dim3(H, nchunks, B), sb::kThreads, own_smem, s>>>(
-      static_cast<const T*>(dy), static_cast<const float*>(dt), a_,
-      static_cast<const T*>(cm), gout, declog, S, H, kP, N, L);
+  if ((err = sb::launch_own<T, 1>(dy, cm, nullptr, nullptr, meta, gout,
+                                  declog, B, S, H, kP, N, L, s)))
+    return err;
   sb::scan_kernel<<<(unsigned)scan_blocks, sb::kThreads, 0, s>>>(
       gout, declog, static_cast<const float*>(dfinal),
       static_cast<float*>(dh0), B, nchunks, H, kP * N, 1);

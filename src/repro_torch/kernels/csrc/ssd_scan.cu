@@ -53,11 +53,17 @@
 //   bf16 (y's limit is 1e-2 of max |y|); the state itself stays fp32.
 //
 // simt (ssd_simt.cuh): everything else -- f32, P != 64, other N, chunk
-//   32 or not a multiple of 64.  PR 12's kernel: one block of 256 threads
-//   per (batch, block of 2 heads; 1 when H is odd) sweeps the chunks in a
-//   loop with the fp32 state in shared memory, the intra-chunk term in
-//   64 x 64 tiles on the fp32 CUDA cores, a sequential fp32 dacum.  It
-//   keeps f32 within 2e-5 of max |y|, which the tensor cores cannot.
+//   32 or not a multiple of 64.  The name is historical (PR 12's kernel ran
+//   on the fp32 CUDA cores): tc's two-kernel plan on split-TF32 mma.sync.
+//   state_kernel carries the fp32 state of one (64 columns of N, head, b)
+//   through the chunks in its accumulators and writes the state entering
+//   each chunk (fp32) and the chunk's dacum / dt (a serial fp32 sum) to
+//   scratch; chunk_kernel computes y per (b, chunk, 64-row strip, 2 heads)
+//   in parallel, C B^T once for its heads.  Each fp32 operand is taken as
+//   two TF32 parts and each product as three (~22 of fp32's 24 bits), x,
+//   B and C arrive by cp.async in rings of two stages; f32 stays within
+//   2e-5 of max |y|.  Bound by operations at f32's full widths (split-TF32
+//   at a third of the TF32 rate); by bytes at launch-sized shapes.
 //
 // The backward (its own entry point below): the gradients of the same scan
 // (x, dt, A, B, C and h0) for dy and the final state's gradient, in three
@@ -84,14 +90,16 @@
 //   the leaving state's terms B_J G^T and X_J G (G, its gradient, rounded to
 //   bf16 in shared memory).  Each tile is rounded once, after its decay; the
 //   d(dacum) sums stay fp32 products of the fp32 accumulators.  dB and dC leave
-//   as fp32 partials per head group (half simt's per-head ones at N 64) and
-//   reduce_kernel sums them in order.  Bound by bytes, as the forward.
-// simt (ssd_backward.cuh): everything else (f32, other shapes): every
-//   phase on the fp32 CUDA cores.
+//   as fp32 partials per head group and reduce_kernel sums them in order.
+//   Bound by bytes, as the forward.
+// simt (ssd_backward.cuh): everything else (f32, other shapes): the same
+//   three phases with every product on split-TF32 mma.sync, as the forward
+//   simt: (i) each chunk's own state in parallel (fp32) and a scan, (ii)
+//   as tc's, (iii) per (b, chunk, 2 heads in bf16 at N <= 64, else 1).
 //
-// The kernels allocate nothing and do not synchronise: tc's entering
-// states and dacum / dt, and the backward's fp32 partials, live in scratch
-// the caller allocates.  The
+// The kernels allocate nothing and do not synchronise: the entering states
+// and dacum / dt, and the backward's fp32 partials, live in scratch the
+// caller allocates.  The
 // launcher returns cudaGetLastError() so a refused launch is reported at
 // once; a tc-shaped call never falls back to simt.
 
@@ -111,11 +119,12 @@ int choose_variant(int dtype, int P, int N, int L) {
 }
 
 // the backward takes tc where the forward does
-long long backward_scratch_floats(int var, int B, int S, int H, int P, int N,
-                                  int L) {
+long long backward_scratch_floats(int var, int dtype, int B, int S, int H,
+                                  int P, int N, int L) {
   return var == kTc
              ? ssd::backward_tc::scratch_layout(B, S, H, N, L).total
-             : ssd::backward::scratch_floats(B, S, H, P, N, L);
+             : ssd::backward::scratch_floats(B, S, H, P, N, L,
+                                             dtype == 1 ? 2 : 4);
 }
 
 bool aligned16(const void* p) {
@@ -126,9 +135,14 @@ bool valid_shape(int B, int S, int H, int P, int N, int L) {
   return B > 0 && S > 0 && L > 0 && S % L == 0 && H > 0 && P > 0 && N > 0;
 }
 
-// tc's scratch: entering states (bf16 elements) and dacum / dt (floats)
-void tc_scratch(int B, int S, int H, int N, int L, long long* state_elems,
-                long long* meta_floats) {
+// The forward's scratch: entering states (bf16 elements for tc, floats for
+// simt) and dacum / dt (floats)
+void fwd_scratch(int var, int B, int S, int H, int P, int N, int L,
+                 long long* state_elems, long long* meta_floats) {
+  if (var == kSimt) {
+    ssd::simt::scratch_floats(B, S, H, P, N, L, state_elems, meta_floats);
+    return;
+  }
   const long long bch = (long long)B * (S / L) * H;
   *state_elems = bch * ssd::tc::kP * N;
   *meta_floats = bch * 2 * L;
@@ -164,28 +178,28 @@ bool tc_args_ok(const void* x, const void* bm, const void* cm,
 }  // namespace
 
 // The variant the launcher takes for these arguments (0 simt, 1 tc), and
-// tc's scratch: entering states in bf16 elements, dacum / dt in floats (0
-// for simt).
+// its scratch: entering states in elements (tc bf16, simt fp32), dacum /
+// dt in floats.
 extern "C" int ssd_scan_variant(int dtype, int B, int S, int H, int P, int N,
                                 int L, long long* state_elems,
                                 long long* meta_floats) {
   const int var = choose_variant(dtype, P, N, L);
   *state_elems = *meta_floats = 0;
-  if (var == kTc && valid_shape(B, S, H, P, N, L))
-    tc_scratch(B, S, H, N, L, state_elems, meta_floats);
+  if (valid_shape(B, S, H, P, N, L))
+    fwd_scratch(var, B, S, H, P, N, L, state_elems, meta_floats);
   return var;
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (x, B, C and y share it); dt, a, h0 and
-// the final state are float32; S is a multiple of L.  simt: hb (heads per
-// block) is 1 or 2 and divides H; P <= 64; N <= 128 and a multiple of 4.
-// tc: states / meta hold at least ssd_scan_variant's scratch; x, B, C and
-// the scratch 16-byte aligned.  *chosen receives the variant launched.
+// the final state are float32; S is a multiple of L.  states / meta hold
+// at least ssd_scan_variant's scratch (tc: bf16 states; simt: fp32),
+// 16-byte aligned.  simt: P <= 64; N <= 128 and a multiple of 4.  tc: x, B
+// and C 16-byte aligned.  *chosen receives the variant launched.
 extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* a,
                                const void* bm, const void* cm, const void* h0,
                                void* y, void* hout, void* states, void* meta,
                                int dtype, int B, int S, int H, int P, int N,
-                               int L, int hb, long long state_elems,
+                               int L, long long state_elems,
                                long long meta_floats, int* chosen,
                                void* stream) {
   if (!valid_shape(B, S, H, P, N, L) || (dtype != 0 && dtype != 1))
@@ -193,11 +207,11 @@ extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* a,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int var = choose_variant(dtype, P, N, L);
   *chosen = var;
+  long long need_states, need_meta;
+  fwd_scratch(var, B, S, H, P, N, L, &need_states, &need_meta);
+  if (state_elems < need_states || meta_floats < need_meta)
+    return (int)cudaErrorInvalidValue;
   if (var == kTc) {
-    long long need_states, need_meta;
-    tc_scratch(B, S, H, N, L, &need_states, &need_meta);
-    if (state_elems < need_states || meta_floats < need_meta)
-      return (int)cudaErrorInvalidValue;
     if (!tc_args_ok(x, bm, cm, states, meta))
       return (int)cudaErrorMisalignedAddress;
     const int err =
@@ -205,14 +219,18 @@ extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* a,
     if (err) return err;
     return tc_chunk(x, bm, cm, states, meta, y, B, S, H, N, L, s);
   }
-  if (hb <= 0 || H % hb != 0 || P > ssd::simt::kPMax ||
-      N > ssd::simt::kNMax || N % 4 != 0)
+  if (P > ssd::simt::kPMax || N > ssd::simt::kNMax || N % 4 != 0)
     return (int)cudaErrorInvalidValue;
+  if (states == nullptr || meta == nullptr || !aligned16(states) ||
+      !aligned16(meta))
+    return (int)cudaErrorMisalignedAddress;
+  float* st = static_cast<float*>(states);
+  float* mt = static_cast<float*>(meta);
   if (dtype == 0)
-    return ssd::simt::dispatch_hb<float>(x, dt, a, bm, cm, h0, y, hout, B, S,
-                                         H, P, N, L, hb, s);
-  return ssd::simt::dispatch_hb<__nv_bfloat16>(x, dt, a, bm, cm, h0, y, hout,
-                                               B, S, H, P, N, L, hb, s);
+    return ssd::simt::launch<float>(x, dt, a, bm, cm, h0, y, hout, st, mt, B,
+                                    S, H, P, N, L, s);
+  return ssd::simt::launch<__nv_bfloat16>(x, dt, a, bm, cm, h0, y, hout, st,
+                                          mt, B, S, H, P, N, L, s);
 }
 
 // tc's first kernel alone (ssd_state): entering states, dacum / dt and the
@@ -253,7 +271,7 @@ extern "C" int ssd_scan_backward_variant(int dtype, int B, int S, int H,
                                          long long* scratch_floats) {
   const int var = choose_variant(dtype, P, N, L);
   *scratch_floats = valid_shape(B, S, H, P, N, L)
-                        ? backward_scratch_floats(var, B, S, H, P, N, L)
+                        ? backward_scratch_floats(var, dtype, B, S, H, P, N, L)
                         : 0;
   return var;
 }
@@ -279,7 +297,7 @@ extern "C" int ssd_scan_backward_launch(
   const int var = want == 0 ? 0 : choose_variant(dtype, P, N, L);
   *chosen = var;
   if (want > 0 && want != var) return (int)cudaErrorInvalidValue;
-  if (scratch_floats < backward_scratch_floats(var, B, S, H, P, N, L))
+  if (scratch_floats < backward_scratch_floats(var, dtype, B, S, H, P, N, L))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* sc = static_cast<float*>(scratch);

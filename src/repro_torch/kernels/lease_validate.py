@@ -50,6 +50,7 @@ LIB = CudaLibrary("lease_validate", {
          ctypes.c_void_p],
         ctypes.c_int),
     "lease_drain_empty": ([ctypes.c_void_p], ctypes.c_int),
+    "lease_validate_empty": ([ctypes.c_void_p], ctypes.c_int),
     "lease_staging_alloc": (
         [ctypes.c_longlong, ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)],
         ctypes.c_int),
@@ -319,6 +320,16 @@ def empty_drain(device: torch.device) -> None:
     with _on(device):
         err = lib.lease_drain_empty(_raw_stream(device))
     check_launch("lease_drain_empty", err)
+
+
+def empty_validate(device: torch.device) -> None:
+    """``gather``'s floor: an empty kernel through the same ctypes launch
+    on the current stream, no wait (a measurement; counts no launch)."""
+    lib = LIB.load()
+    with torch.cuda.device(device):
+        err = lib.lease_validate_empty(
+            torch.cuda.current_stream(device).cuda_stream)
+    check_launch("lease_validate_empty", err)
 
 
 def _raw_stream(device: torch.device) -> int:

@@ -396,19 +396,27 @@ def segsum(log_a: torch.Tensor) -> torch.Tensor:
     return torch.where(mask, diff, float("-inf"))
 
 
+def _wd(ref: torch.Tensor) -> torch.dtype:
+    """The SSD plain versions' working type: fp32, or fp64 for fp64
+    inputs (an fp64 evaluation, the truth the fp32 ones are held to)."""
+    return torch.float64 if ref.dtype == torch.float64 else torch.float32
+
+
 def _chunks(x, dt, a, mat, chunk: int):
-    """Per-chunk fp32 views: x ``[B,nc,L,H,P]``, dt ``[B,nc,L,H]``, the
-    group matrix repeated to every head ``[B,nc,L,H,N]``, and the log decay
-    per step and its cumsum over the chunk ``[B,nc,L,H]``."""
+    """Per-chunk views in the working type (:func:`_wd`): x
+    ``[B,nc,L,H,P]``, dt ``[B,nc,L,H]``, the group matrix repeated to every
+    head ``[B,nc,L,H,N]``, and the log decay per step and its cumsum over
+    the chunk ``[B,nc,L,H]``."""
     bsz, s, h, p = x.shape
     g, n = mat.shape[2], mat.shape[3]
     assert s % chunk == 0, f"seq {s} not a multiple of chunk {chunk}"
     nc = s // chunk
-    xr = x.reshape(bsz, nc, chunk, h, p).float()
-    dtr = dt.reshape(bsz, nc, chunk, h).float()
-    me = mat.reshape(bsz, nc, chunk, g, n).float().repeat_interleave(
+    wd = _wd(x)
+    xr = x.reshape(bsz, nc, chunk, h, p).to(wd)
+    dtr = dt.reshape(bsz, nc, chunk, h).to(wd)
+    me = mat.reshape(bsz, nc, chunk, g, n).to(wd).repeat_interleave(
         h // g, dim=3)
-    da = dtr * a.float()[None, None, None, :]              # log decay per step
+    da = dtr * a.to(wd)[None, None, None, :]               # log decay per step
     return xr, dtr, me, da, torch.cumsum(da, dim=2)
 
 
@@ -430,9 +438,8 @@ def ssd_states(x, dt, a, b_mat, chunk: int, h0=None):
 
     # inter-chunk recurrence over the nc chunk states
     chunk_decay = torch.exp(da_cum[:, :, -1, :])           # [B,nc,H]
-    carry = (torch.zeros((bsz, h, p, n), dtype=torch.float32,
-                         device=x.device)
-             if h0 is None else h0.float())
+    carry = (torch.zeros((bsz, h, p, n), dtype=xr.dtype, device=x.device)
+             if h0 is None else h0.to(xr.dtype))
     prevs = []
     for c in range(xr.shape[1]):
         prevs.append(carry)                 # state *entering* chunk c
@@ -447,7 +454,7 @@ def ssd_outputs(x, dt, a, b_mat, c_mat, chunk: int, prev_states):
     bsz, s, h, p = x.shape
     xr, dtr, be, da, da_cum = _chunks(x, dt, a, b_mat, chunk)
     ce = c_mat.reshape(be.shape[:3] + (c_mat.shape[2], c_mat.shape[3])) \
-        .float().repeat_interleave(h // c_mat.shape[2], dim=3)
+        .to(xr.dtype).repeat_interleave(h // c_mat.shape[2], dim=3)
     seg = segsum(da.movedim(-1, -2))                       # [B,nc,H,L,L]
 
     # intra-chunk (diagonal) term: masked decay-weighted attention
@@ -457,7 +464,7 @@ def ssd_outputs(x, dt, a, b_mat, c_mat, chunk: int, prev_states):
 
     # off-diagonal contribution from the carried state
     state_decay = torch.exp(da_cum)                        # from chunk start
-    y_off = torch.einsum("bnlhs,bnhps->bnlhp", ce, prev_states.float()) \
+    y_off = torch.einsum("bnlhs,bnhps->bnlhp", ce, prev_states.to(xr.dtype)) \
         * state_decay[..., None]
     return (y_diag + y_off).reshape(bsz, s, h, p)
 
@@ -507,16 +514,16 @@ def ssd_bwd_ref(x, dt, a, b_mat, c_mat, h0, dy, dfinal, *, chunk):
     n = b_mat.shape[3]
     nc = s // chunk
     xr, dtr, be, da, cum = _chunks(x, dt, a, b_mat, chunk)
-    ce = c_mat.reshape(bsz, nc, chunk, 1, n).float().expand(-1, -1, -1, h, -1)
-    dyr = dy.reshape(bsz, nc, chunk, h, p).float()
+    ce = c_mat.reshape(bsz, nc, chunk, 1, n).to(xr.dtype) \
+        .expand(-1, -1, -1, h, -1)
+    dyr = dy.reshape(bsz, nc, chunk, h, p).to(xr.dtype)
     # (i)
     entering, _ = ssd_states(x, dt, a, b_mat, chunk, h0=h0)  # [B,nc,H,P,N]
     # (ii)
     own = torch.einsum("bclh,bclhp,bclhn->bchpn", torch.exp(cum), dyr, ce)
     decay = torch.exp(cum[:, :, -1, :])                    # [B,nc,H]
-    carry = (torch.zeros((bsz, h, p, n), dtype=torch.float32,
-                         device=x.device)
-             if dfinal is None else dfinal.float())
+    carry = (torch.zeros((bsz, h, p, n), dtype=xr.dtype, device=x.device)
+             if dfinal is None else dfinal.to(xr.dtype))
     leaving = [None] * nc            # dh of the state leaving chunk c
     for c in reversed(range(nc)):
         leaving[c] = carry
@@ -551,7 +558,7 @@ def ssd_bwd_ref(x, dt, a, b_mat, c_mat, h0, dy, dfinal, *, chunk):
     last = (dtr * f_dt).sum(2) + decay * (entering * g_out).sum((-1, -2))
     dcum[:, :, -1, :] += last
     dda = torch.flip(torch.cumsum(torch.flip(dcum, (2,)), 2), (2,))
-    ddt = e_col + f_dt + a.float() * dda
+    ddt = e_col + f_dt + a.to(xr.dtype) * dda
     da_grad = (dtr * dda).sum((0, 1, 2))
     return (dx.reshape(x.shape).to(x.dtype), ddt.reshape(dt.shape).to(dt.dtype),
             da_grad.to(a.dtype),
@@ -575,15 +582,15 @@ def ssd_bwd_tc_ref(x, dt, a, b_mat, c_mat, h0, dy, dfinal, *, chunk):
     n = b_mat.shape[3]
     nc = s // chunk
     xr, dtr, be, da, cum = _chunks(x, dt, a, b_mat, chunk)
-    ce = c_mat.reshape(bsz, nc, chunk, 1, n).float().expand(-1, -1, -1, h, -1)
-    dyr = dy.reshape(bsz, nc, chunk, h, p).float()
+    ce = c_mat.reshape(bsz, nc, chunk, 1, n).to(xr.dtype) \
+        .expand(-1, -1, -1, h, -1)
+    dyr = dy.reshape(bsz, nc, chunk, h, p).to(xr.dtype)
     entering, _ = ssd_states(x, dt, a, b_mat, chunk, h0=h0)
     entering = _bf16(entering)
     own = torch.einsum("bclh,bclhp,bclhn->bchpn", torch.exp(cum), dyr, ce)
     decay = torch.exp(cum[:, :, -1, :])
-    carry = (torch.zeros((bsz, h, p, n), dtype=torch.float32,
-                         device=x.device)
-             if dfinal is None else dfinal.float())
+    carry = (torch.zeros((bsz, h, p, n), dtype=xr.dtype, device=x.device)
+             if dfinal is None else dfinal.to(xr.dtype))
     leaving = [None] * nc
     for c in reversed(range(nc)):
         leaving[c] = carry
@@ -612,6 +619,130 @@ def ssd_bwd_tc_ref(x, dt, a, b_mat, c_mat, h0, dy, dfinal, *, chunk):
     bg = torch.einsum("bcmhn,bchpn->bcmhp", be, g_b)
     dx = dx + (r * dtr)[..., None] * bg
     dbm = dbm + (r * dtr)[..., None] * xg
+    f_dt = r * (xr * bg).sum(-1)
+    dcum = dcum - dtr * f_dt
+    last = (dtr * f_dt).sum(2) + decay * (entering * g_out).sum((-1, -2))
+    dcum[:, :, -1, :] += last
+    dda = torch.flip(torch.cumsum(torch.flip(dcum, (2,)), 2), (2,))
+    ddt = e_col + f_dt + a.to(xr.dtype) * dda
+    da_grad = (dtr * dda).sum((0, 1, 2))
+    return (dx.reshape(x.shape).to(x.dtype), ddt.reshape(dt.shape).to(dt.dtype),
+            da_grad.to(a.dtype),
+            dbm.sum(3).reshape(bsz, s, 1, n).to(b_mat.dtype),
+            dcm.sum(3).reshape(bsz, s, 1, n).to(c_mat.dtype), dh0)
+
+
+def _cum_serial(dtr: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """dacum over each chunk as the ``simt`` kernels take it: one serial
+    fp32 sum a (b, chunk, head), each step ``cum + dt * a`` rounded once
+    (a fused multiply-add; the product is exact in fp64)."""
+    step = dtr.double() * a.double()[None, None, None, :]
+    run = torch.zeros_like(dtr[:, :, 0])
+    out = []
+    for i in range(dtr.shape[2]):
+        run = (run.double() + step[:, :, i]).float()
+        out.append(run)
+    return torch.stack(out, dim=2)
+
+
+def _seg(cum: torch.Tensor) -> torch.Tensor:
+    """``dacum[i] - dacum[j]`` over a chunk ``[B, nc, H, L, L]`` from
+    ``cum [B, nc, L, H]``, -inf above the diagonal (:func:`segsum` of
+    given sums)."""
+    c = cum.movedim(-1, -2)
+    l = c.shape[-1]
+    mask = torch.tril(torch.ones((l, l), dtype=torch.bool, device=c.device))
+    return torch.where(mask, c[..., :, None] - c[..., None, :], float("-inf"))
+
+
+def _ssd_states_x3(xr, dtr, be, cum, h0):
+    """The ``simt`` ``state_kernel``'s arithmetic: per chunk ``state =
+    exp(dacum[L-1]) state + (w x)^T B`` with ``w = exp(dacum[L-1] - dacum)
+    dt`` and the product split-TF32; the states entering each chunk ``[B,
+    nc, H, P, N]`` and the final state."""
+    wx = (torch.exp(cum[:, :, -1:, :] - cum) * dtr)[..., None] * xr
+    own = _x3("bnlhs,bnlhp->bnhps", be, wx)
+    decay = torch.exp(cum[:, :, -1, :])
+    carry = (torch.zeros(own.shape[:1] + own.shape[2:], dtype=torch.float32,
+                         device=xr.device)
+             if h0 is None else h0.float())
+    prevs = []
+    for c in range(xr.shape[1]):
+        prevs.append(carry)
+        carry = carry * decay[:, c, :, None, None] + own[:, c]
+    return torch.stack(prevs, dim=1), carry
+
+
+def ssd_x3_ref(x, dt, a, b_mat, c_mat, *, chunk=256, h0=None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the ``simt`` SSD forward's arithmetic
+    (``csrc/ssd_simt.cuh``): :func:`ssd_ref` (``n_groups == 1``) with every
+    product taken as the three split-TF32 products (:func:`tf32_split`):
+    the state product, ``C B^T``, ``W x`` (``W = C B^T * exp(dacum_i -
+    dacum_j) * dt_j``, masked to ``j <= i``) and ``C . state^T`` (times
+    ``exp(dacum_i)``), summed in fp32.  Returns fp32 ``y`` and the final
+    state."""
+    bsz, s, h, p = x.shape
+    n = b_mat.shape[3]
+    xr, dtr, be, _, _ = _chunks(x, dt, a, b_mat, chunk)
+    cum = _cum_serial(dtr, a)
+    ce = c_mat.reshape(bsz, s // chunk, chunk, 1, n).float() \
+        .expand(-1, -1, -1, h, -1)
+    entering, final = _ssd_states_x3(xr, dtr, be, cum, h0)
+    cb = _x3("bnlhs,bnmhs->bnhlm", ce, be)
+    w = cb * torch.exp(_seg(cum)) * dtr.movedim(-1, -2)[:, :, :, None, :]
+    y = _x3("bnlhs,bnhps->bnlhp", ce, entering) * torch.exp(cum)[..., None] \
+        + _x3("bnhlm,bnmhp->bnlhp", w, xr)
+    return y.reshape(bsz, s, h, p), final
+
+
+def ssd_bwd_x3_ref(x, dt, a, b_mat, c_mat, h0, dy, dfinal, *, chunk):
+    """Plain version of the ``simt`` SSD backward's arithmetic
+    (``csrc/ssd_backward.cuh``): :func:`ssd_bwd_ref`'s phases with the
+    entering states of :func:`ssd_x3_ref`'s state product and every
+    product taken as the three split-TF32 products, a row scale folded
+    into its operand as the kernels fold it (``exp(dacum) dy`` for the
+    leaving states' gradient and ``dC``'s carried term, ``r dt x`` for
+    ``dB``'s).  The sums behind d(dacum) take the fp32 values.  Each
+    gradient rounded once to its input's dtype (``dh0`` fp32)."""
+    bsz, s, h, p = x.shape
+    n = b_mat.shape[3]
+    nc = s // chunk
+    xr, dtr, be, _, _ = _chunks(x, dt, a, b_mat, chunk)
+    cum = _cum_serial(dtr, a)
+    ce = c_mat.reshape(bsz, nc, chunk, 1, n).float().expand(-1, -1, -1, h, -1)
+    dyr = dy.reshape(bsz, nc, chunk, h, p).float()
+    entering, _ = _ssd_states_x3(xr, dtr, be, cum, h0)
+    e_dy = torch.exp(cum)[..., None] * dyr                 # exp(dacum) dy
+    own = _x3("bclhp,bclhn->bchpn", e_dy, ce)
+    decay = torch.exp(cum[:, :, -1, :])
+    carry = (torch.zeros((bsz, h, p, n), dtype=torch.float32,
+                         device=x.device)
+             if dfinal is None else dfinal.float())
+    leaving = [None] * nc
+    for c in reversed(range(nc)):
+        leaving[c] = carry
+        carry = carry * decay[:, c, :, None, None] + own[:, c]
+    dh0 = carry
+    g_out = torch.stack(leaving, dim=1)
+    m_dec = torch.exp(_seg(cum))
+    cb = _x3("bclhn,bcmhn->bchlm", ce, be)
+    dw = _x3("bclhp,bcmhp->bchlm", dyr, xr)
+    dtm = dtr.movedim(-1, -2)[:, :, :, None, :]
+    cbm = cb * m_dec
+    dcb = dw * m_dec * dtm
+    dx = _x3("bchlm,bclhp->bcmhp", cbm, dyr)
+    dcm = _x3("bchlm,bcmhn->bclhn", dcb, be) \
+        + _x3("bclhp,bchpn->bclhn", e_dy, entering)
+    dbm = _x3("bchlm,bclhn->bcmhn", dcb, ce)
+    e_col = (dw * m_dec * cb).sum(-2).movedim(-1, -2)
+    t1 = _x3("bclhn,bchpn->bclhp", ce, entering)           # C h_in^T
+    dcum = (dcb * cb).sum(-1).movedim(-1, -2) - dtr * e_col \
+        + torch.exp(cum) * (dyr * t1).sum(-1)
+    r = torch.exp(cum[:, :, -1:, :] - cum)
+    bg = _x3("bcmhn,bchpn->bcmhp", be, g_out)               # B G^T
+    dx = (dx + r[..., None] * bg) * dtr[..., None]
+    dbm = dbm + _x3("bcmhp,bchpn->bcmhn", (r * dtr)[..., None] * xr, g_out)
     f_dt = r * (xr * bg).sum(-1)
     dcum = dcum - dtr * f_dt
     last = (dtr * f_dt).sum(2) + decay * (entering * g_out).sum((-1, -2))

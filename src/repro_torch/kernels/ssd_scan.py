@@ -16,9 +16,13 @@ its twin here:
   heads) in parallel from those.  The state product takes the weighted x
   as bf16 hi + lo parts (a single bf16 rounding misses the state's atol
   2e-3).
-- ``simt`` — everything else (f32, chunk 32, P != 64, other N): one block
-  per (batch, block of heads) sweeps the chunks on the fp32 CUDA cores,
-  which keeps f32 within 2e-5 of max |y|.
+- ``simt`` — everything else (f32, chunk 32, P != 64, other N).  The name
+  is historical: ``tc``'s two-kernel plan on split-TF32 ``mma.sync`` (each
+  fp32 operand as two TF32 parts, three products for one; bf16 exact),
+  with fp32 entering states in scratch, which keeps f32 within 2e-5 of
+  max |y|: ``state_kernel`` per (64 state columns, head, b) carries the
+  state through the chunks, ``chunk_kernel`` per (b, chunk, 64-row
+  strip, 2 heads) computes y, every chunk in parallel.
 
 The backward (:func:`ssd_scan_backward`) has no Pallas counterpart: the
 reference differentiates its plain function.  It computes that gradient
@@ -37,11 +41,17 @@ calls give equal bits).  Its variant is the forward's
   heads, the decays applied in fp32 before each tile's one bf16
   rounding; dB and dC leave as per-head-group partials.  Plain twin:
   :func:`~repro_torch.kernels.ref.ssd_bwd_tc_ref`.
-- ``simt`` (``csrc/ssd_backward.cuh``) — everything else, every phase on
-  the fp32 CUDA cores.  ``variant="simt"`` runs it at any shape, to time
-  it beside ``tc``.
+- ``simt`` (``csrc/ssd_backward.cuh``) — everything else: the same
+  phases with every product on split-TF32 ``mma.sync`` as the forward
+  ``simt``: each chunk's own state in parallel and a scan for the (fp32)
+  entering states, the reverse pass as ``tc``'s, and one block per (b,
+  chunk, head group: :func:`simt_backward_heads`) in the third phase.
+  Plain twin:
+  :func:`~repro_torch.kernels.ref.ssd_bwd_x3_ref`.  ``variant="simt"``
+  runs it at any shape, to time it beside ``tc``.
 
-The plain versions are :func:`repro_torch.kernels.ref.ssd_ref` and, per
+The plain versions are :func:`repro_torch.kernels.ref.ssd_ref` (``simt``'s
+split products: :func:`~repro_torch.kernels.ref.ssd_x3_ref`) and, per
 ``tc`` kernel, :func:`~repro_torch.kernels.ref.ssd_states` and
 :func:`~repro_torch.kernels.ref.ssd_outputs`; the backward's is
 :func:`~repro_torch.kernels.ref.ssd_bwd_ref`.  Built by :mod:`.nvcc` at
@@ -61,7 +71,7 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 LIB = CudaLibrary("ssd_scan", {
     "ssd_scan_launch": (
-        [_P] * 10 + [_I] * 8 + [_LL, _LL, ctypes.POINTER(_I), _P], _I),
+        [_P] * 10 + [_I] * 7 + [_LL, _LL, ctypes.POINTER(_I), _P], _I),
     "ssd_scan_variant": (
         [_I] * 7 + [ctypes.POINTER(_LL)] * 2, _I),
     "ssd_tc_state_launch": ([_P] * 8 + [_I] * 5 + [_P], _I),
@@ -106,6 +116,23 @@ def tc_scratch(b: int, s: int, h: int, n: int, chunk: int
     N]``) and each chunk's dacum and dt (floats, ``[B, nc, H, 2, L]``)."""
     bch = b * (s // chunk) * h
     return bch * TC_HEAD_DIM * n, bch * 2 * chunk
+
+
+def simt_scratch(b: int, s: int, h: int, p: int, n: int, chunk: int
+                 ) -> Tuple[int, int]:
+    """``simt``'s scratch: the entering states (floats, ``[B, nc, H, P,
+    N]``) and each chunk's dacum and dt (floats, ``[B, nc, H, 2, L]``)."""
+    bch = b * (s // chunk) * h
+    return bch * p * n, bch * 2 * chunk
+
+
+def scratch(name: str, b: int, s: int, h: int, p: int, n: int, chunk: int
+            ) -> Tuple[int, int]:
+    """The forward's scratch for variant ``name``, as the launcher's
+    ``ssd_scan_variant`` reports it (entering states in elements: bf16 for
+    ``tc``, fp32 for ``simt``; dacum / dt in floats)."""
+    return (tc_scratch(b, s, h, n, chunk) if name == "tc"
+            else simt_scratch(b, s, h, p, n, chunk))
 
 
 def _check(name: str, t: torch.Tensor, shape: Tuple[int, ...],
@@ -194,13 +221,12 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     if h0 is None:
         h0 = torch.zeros((bsz, h, p, n), dtype=torch.float32, device=dev)
     name = variant(x.dtype, p, n, chunk)
-    states = meta = None
     if name == "tc":
         _aligned(name, x, b_mat, c_mat, h0)
-        n_states, n_meta = tc_scratch(bsz, s, h, n, chunk)
-        states = torch.empty(n_states, dtype=torch.bfloat16, device=dev)
-        meta = torch.empty(n_meta, dtype=torch.float32, device=dev)
-    hb = 2 if h % 2 == 0 else 1
+    n_states, n_meta = scratch(name, bsz, s, h, p, n, chunk)
+    states = torch.empty(n_states, device=dev, dtype=torch.bfloat16
+                         if name == "tc" else torch.float32)
+    meta = torch.empty(n_meta, dtype=torch.float32, device=dev)
     y = torch.empty_like(x)
     final = torch.empty((bsz, h, p, n), dtype=torch.float32, device=dev)
     chosen = ctypes.c_int(-1)
@@ -209,11 +235,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         err = lib.ssd_scan_launch(
             x.data_ptr(), dt.data_ptr(), a.data_ptr(), b_mat.data_ptr(),
             c_mat.data_ptr(), h0.data_ptr(), y.data_ptr(), final.data_ptr(),
-            None if states is None else states.data_ptr(),
-            None if meta is None else meta.data_ptr(),
-            _DTYPES[x.dtype], bsz, s, h, p, n, chunk, hb,
-            0 if states is None else states.numel(),
-            0 if meta is None else meta.numel(), ctypes.byref(chosen),
+            states.data_ptr(), meta.data_ptr(), _DTYPES[x.dtype], bsz, s, h,
+            p, n, chunk, states.numel(), meta.numel(), ctypes.byref(chosen),
             _stream(dev))
     check_launch("ssd_scan", err)
     if VARIANTS[chosen.value] != name:
@@ -313,19 +336,31 @@ def backward_heads_per_block(n: int, h: int) -> int:
     return 2 if n == 64 and h % 2 == 0 else 1
 
 
+def simt_backward_heads(n: int, dtype: torch.dtype) -> int:
+    """Heads of one ``simt`` backward ``chunk_kernel`` block: two in bf16 at
+    N <= 64, else one (H need not divide: the last group may hold fewer);
+    dB's and dC's partials are per such group."""
+    return 2 if dtype == torch.bfloat16 and n <= 64 else 1
+
+
 def backward_scratch_floats(name: str, b: int, s: int, h: int, p: int,
-                            n: int, chunk: int) -> int:
-    """The backward's fp32 scratch.  ``simt``: the entering states and the
-    leaving states' gradients ``[B, nc, H, P, N]``, two ``[B, nc, H]``
-    columns, and dB's and dC's per-head partials ``[B, nc, H, L, N]``.
+                            n: int, chunk: int, dtype: torch.dtype) -> int:
+    """The backward's fp32 scratch for x's ``dtype``.  ``simt``: the
+    entering states and the leaving states' gradients ``[B, nc, H, P, N]``,
+    each chunk's dacum and dt ``[B, nc, H, 2, L]``, two ``[B, nc, H]``
+    columns (each part padded to 16 bytes), and dB's and dC's partials per
+    head group (:func:`simt_backward_heads`).
     ``tc``: the entering states (bf16) and each chunk's dacum and dt, the
     forward kernel's final state and a zero h0 ``[B, H, P, N]``, the
     leaving states' gradients, two ``[B, nc, H]`` columns (padded to 16
     bytes), and dB's and dC's partials per head group."""
     bch = b * (s // chunk) * h
-    if name != "tc":
-        return bch * (2 * p * n + 2 + 2 * chunk * n)
     col = -(-bch // 4) * 4
+    if name != "tc":
+        groups = -(-h // simt_backward_heads(n, dtype))
+        parts = b * (s // chunk) * groups * chunk * n
+        return (2 * bch * p * n + -(-bch * 2 * chunk // 4) * 4 + 2 * col
+                + 2 * parts)
     parts = bch // backward_heads_per_block(n, h) * chunk * n
     return (bch * p * n // 2 + bch * 2 * chunk + 2 * b * h * p * n
             + bch * p * n + 2 * col + 2 * parts)
@@ -368,7 +403,7 @@ def ssd_scan_backward(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     db, dc = torch.empty_like(b_mat), torch.empty_like(c_mat)
     dh0 = torch.empty((bsz, h, p, n), dtype=torch.float32, device=dev)
     scratch = torch.empty(backward_scratch_floats(name, bsz, s, h, p, n,
-                                                  chunk),
+                                                  chunk, x.dtype),
                           dtype=torch.float32, device=dev)
     chosen = ctypes.c_int(-1)
     lib = LIB.load()

@@ -331,6 +331,45 @@ def test_sdpa_bwd_x3_ref_meets_the_f32_limit(b, sq, skv, hq, hkv, dk, dv,
     assert not all(torch.equal(g, p) for g, p in zip(got, plain))
 
 
+# ref.ssd_bwd_x3_ref repeats the SSD simt backward's arithmetic
+# (csrc/ssd_backward.cuh): every product split-TF32, dacum the kernels'
+# serial fused sum.  In f32 its gradients are held to the plain backward and
+# to jax.vjp of the reference's plain function within SSD_TOL of each
+# input's largest, on SSD_GRID and at full per-head widths (P 64, N 64 and
+# 128, chunk 256); dA, a sum with heavy cancellation whose f32 evaluations
+# (plain or twin) differ from each other and from its fp64 value by up to
+# about SSD_TOL, is held to an fp64 evaluation of ref.ssd_bwd_ref instead.
+
+X3_SSD_GRID = SSD_GRID + [(1, 512, 3, 64, 64, 256, True, True),
+                          (1, 512, 3, 64, 128, 256, True, True)]
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk,with_h0,with_dfinal", X3_SSD_GRID)
+def test_ssd_bwd_x3_ref_meets_the_f32_limit(b, s, h, p, n, chunk, with_h0,
+                                            with_dfinal):
+    x, dt, a, bm, cm, h0, dy, dfinal = _ssd_inputs(s + h + n + 1, b, s, h,
+                                                   p, n)
+    h0 = h0 if with_h0 else None
+    dfinal = dfinal if with_dfinal else np.zeros_like(dfinal)
+    t = lambda v: None if v is None else torch.from_numpy(v)
+    args = (t(x), t(dt), t(a), t(bm), t(cm), t(h0), t(dy),
+            t(dfinal) if with_dfinal else None)
+    got = ref.ssd_bwd_x3_ref(*args, chunk=chunk)
+    plain = ref.ssd_bwd_ref(*args, chunk=chunk)
+    truth = ref.ssd_bwd_ref(*(None if v is None else v.double()
+                              for v in args), chunk=chunk)
+    want_jax = _jax_ssd_vjp(x, dt, a, bm, cm, h0, dy, dfinal, chunk, s)
+    for name, g, pl, tr, j in zip(("x", "dt", "a", "b", "c", "h0"), got,
+                                  plain, truth, want_jax):
+        assert g.dtype == pl.dtype and g.shape == pl.shape, name
+        if name == "a":
+            assert _rel_err(g, tr) <= SSD_TOL
+            continue
+        assert _rel_err(g, pl) <= SSD_TOL, name
+        assert _rel_err(g, j) <= SSD_TOL, name
+    assert not all(torch.equal(g, p) for g, p in zip(got, plain))
+
+
 # -- the tensor-core backwards' plain twins ------------------------------------
 #
 # ref.sdpa_bwd_tc_ref and ref.ssd_bwd_tc_ref repeat the tc kernels' roundings
@@ -564,7 +603,8 @@ def test_ssd_backward_variant_follows_the_forward(dtype):
     """ssd_scan.backward_variant() equals the forward's variant() on a grid
     of shapes (the launcher takes choose_variant for both), and the tc
     scratch plan's dB / dC partials are per chunk_tc head group (two heads
-    at N 64 when H is even)."""
+    at N 64 when H is even); simt's groups are two heads in bf16 at N <=
+    64, one otherwise."""
     from repro_torch.kernels import ssd_scan as ss
 
     body = _launcher_body("ssd_scan.cu", "ssd_scan_backward_launch")
@@ -579,9 +619,13 @@ def test_ssd_backward_variant_follows_the_forward(dtype):
                                and chunk <= 256 else "simt")
     assert [ss.backward_heads_per_block(n, h) for n, h in
             ((64, 64), (64, 3), (128, 48), (128, 1))] == [2, 1, 1, 1]
+    assert [ss.simt_backward_heads(n, d) for n, d in
+            ((64, torch.bfloat16), (32, torch.bfloat16),
+             (128, torch.bfloat16), (64, torch.float32))] == [2, 2, 1, 1]
     b, s, h, n, chunk = 2, 512, 6, 64, 256
     bch = b * (s // chunk) * h
-    parts = ss.backward_scratch_floats("tc", b, s, h, 64, n, chunk) \
+    parts = ss.backward_scratch_floats("tc", b, s, h, 64, n, chunk,
+                                       torch.bfloat16) \
         - (bch * 64 * n // 2 + bch * 2 * chunk + 2 * b * h * 64 * n
            + bch * 64 * n + 2 * (-(-bch // 4) * 4))
     assert parts == 2 * (bch // 2) * chunk * n

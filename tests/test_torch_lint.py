@@ -523,8 +523,9 @@ def test_ctypes_sig_reads_the_three_libraries():
         "ssd_scan_backward_variant": 8, "ssd_scan_backward_launch": 26,
         "lease_validate_launch": 11, "lease_staging_alloc": 3,
         "lease_staging_free": 1, "lease_drain_launch": 8,
-        "lease_drain_empty": 1, "ssd_scan_variant": 9,
-        "ssd_scan_launch": 22, "ssd_tc_state_launch": 14,
+        "lease_drain_empty": 1, "lease_validate_empty": 1,
+        "ssd_scan_variant": 9, "ssd_scan_launch": 21,
+        "ssd_tc_state_launch": 14,
         "ssd_tc_chunk_launch": 12}
     for name in ("flash_attention", "lease_validate", "ssd_scan"):
         path = PORT_SRC / f"kernels/{name}.py"

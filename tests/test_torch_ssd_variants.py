@@ -83,6 +83,16 @@ def test_tc_scratch_size(b, s, h, n, chunk, want):
     assert ss.tc_scratch(b, s, h, n, chunk) == want
 
 
+@pytest.mark.parametrize("b,s,h,p,n,chunk,want", [
+    # mamba2-780m in f32: 4 x 8 chunks x 48 heads, fp32 64 x 128 states
+    (4, 2048, 48, 64, 128, 256, (1536 * 64 * 128, 1536 * 512)),
+    (1, 96, 3, 17, 20, 32, (9 * 17 * 20, 9 * 64)),
+])
+def test_simt_scratch_size(b, s, h, p, n, chunk, want):
+    assert ss.simt_scratch(b, s, h, p, n, chunk) == want
+    assert ss.scratch("simt", b, s, h, p, n, chunk) == want
+
+
 def _ssd_inputs(seed, b, s, h, p, n):
     rng = np.random.default_rng(seed)
     x = (rng.standard_normal((b, s, h, p)) * 0.5).astype(np.float32)
@@ -202,3 +212,35 @@ def test_tc_entry_points_refuse_cpu_tensors():
         ss.tc_states(x.to(BF16), dt, a, bm.to(BF16), chunk=64, h0=h0)
     with pytest.raises(ValueError, match="CUDA"):
         ss.tc_outputs(x.to(BF16), bm.to(BF16), cm.to(BF16), x, x, chunk=64)
+
+
+# -- simt's split-TF32 twin ------------------------------------------------------
+#
+# ref.ssd_x3_ref repeats the simt forward's arithmetic (csrc/ssd_simt.cuh):
+# every product taken as the three split-TF32 products of fp32 operands and
+# dacum as the kernels' serial fused sum.  In f32 it is held to the plain
+# forward and to the reference's ssd_ref at the f32 limits, on the
+# reference's grid and at full per-head widths (P 64, N 64 and 128, chunk
+# 256): whether split-TF32 meets them, before a card.
+
+X3_GRID = [row[:6] for row in JAX_GRID] + [(1, 512, 3, 64, 64, 256),
+                                           (1, 512, 3, 64, 128, 256)]
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", X3_GRID)
+def test_ssd_x3_ref_meets_the_f32_limits(b, s, h, p, n, chunk):
+    """y within 2e-5 of max|y| and the final state at atol 2e-3 / rtol 1e-4
+    against ref.ssd_ref and repro's ssd_ref; not their bits."""
+    arrays = _ssd_inputs(s + h + 1, b, s, h, p, n)
+    x, dt, a, bm, cm, h0 = (torch.from_numpy(t) for t in arrays)
+    y, final = ref.ssd_x3_ref(x, dt, a, bm, cm, chunk=chunk, h0=h0)
+    assert y.dtype == torch.float32 and y.shape == (b, s, h, p)
+    y_p, f_p = ref.ssd_ref(x, dt, a, bm, cm, chunk=chunk, h0=h0)
+    y_j, f_j = jref.ssd_ref(*(jnp.asarray(t) for t in arrays[:5]),
+                            chunk=chunk, h0=jnp.asarray(arrays[5]))
+    for want_y, want_f in ((y_p, f_p), (torch.from_numpy(np.array(y_j)),
+                                        torch.from_numpy(np.array(f_j)))):
+        scale = float(want_y.abs().max()) + 1e-9
+        assert float((y - want_y).abs().max()) / scale < 2e-5
+        torch.testing.assert_close(final, want_f, atol=2e-3, rtol=1e-4)
+    assert not torch.equal(y, y_p)

@@ -8,8 +8,9 @@ with ``repro_torch.kernels.nvcc.NVCC_FLAGS`` into a temporary directory,
 disassembles both with ``cuobjdump -sass`` and prints one JSON line per
 entry function whose mangled name holds one of the library's markers (in
 ``flash_attention``: the ``prefill_tc`` forward, ``decode_split``'s two
-kernels, the backward's pre-pass and every kernel of
-``flash_backward_tc.cuh``; in ``ssd_scan``: every function): ``same``
+kernels, the ``simt`` forward, the backward's pre-pass, the ``simt``
+backward's two kernels and every kernel of ``flash_backward_tc.cuh``: every
+function; in ``ssd_scan``: every function): ``same``
 (instruction for instruction), ``differs``, or the one tree it is in.
 Exits 1 when a function of both trees differs.  It shows whether an edit
 of a header left the other kernels as they were; it needs ``nvcc`` and
@@ -35,7 +36,9 @@ MARKERS = ("prefill_tc_kernel", "dkdv_tc_kernel", "dkdv_tc2_kernel",
 # library: the markers of the functions compared ("" holds every one)
 LIBRARIES = {
     "flash_attention": MARKERS + ("12split_kernel", "14combine_kernel",
-                                  "12delta_kernel"),
+                                  "12delta_kernel", "4simt12flash_kernel",
+                                  "8backward11dkdv_kernel",
+                                  "8backward9dq_kernel"),
     "ssd_scan": ("",),
 }
 
