@@ -815,11 +815,22 @@ def drain_case(name: str, rng, n, b, r, w, item_cc, n_classes,
     return out
 
 
+def device_ops(prof) -> list:
+    """The averaged device operations of a ``torch.profiler`` run: kernels,
+    copies and fills.  The device-side copy of each host range (a
+    ``gpu_user_annotation``, such as the model path's ``repro.*`` ranges)
+    is left out: its time is the span of the kernels under it, which are
+    counted themselves."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+
+
 def device_ops_per_call(fn, calls: int = 20) -> dict:
     """Device operations (kernels, copies, fills) per call of ``fn`` under
     ``torch.profiler``, by name, and their device time per call."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -830,7 +841,7 @@ def device_ops_per_call(fn, calls: int = 20) -> dict:
             fn()
         torch.cuda.synchronize()
     rows = [(e.key, e.count, e.self_device_time_total)
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+            for e in device_ops(prof)]
     return dict(ops_per_call=sum(c for _, c, _ in rows) / calls,
                 device_us_per_call=sum(t for _, _, t in rows) / calls,
                 ops={k[:70]: c / calls for k, c, _ in rows})
@@ -1836,7 +1847,6 @@ def device_profile(fn) -> dict:
     the device ms of this repo's kernels (names in the ``flash``,
     ``ssd`` and ``lease`` namespaces or files), whatever their rank."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1847,8 +1857,7 @@ def device_profile(fn) -> dict:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA), key=lambda r: -r[1])
+                   for e in device_ops(prof)), key=lambda r: -r[1])
     busy = sum(r[1] for r in rows) if rows else None
     ours = [dict(name=n[:90], ms=ms, calls=c) for n, ms, c in rows
             if any(k in n for k in ("flash::", "ssd::", "lease"))]
@@ -3709,7 +3718,6 @@ def train_profile_phase() -> dict:
     Functions (the shared block's attention weights and every Mamba
     layer's ``w_in`` among them)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch import train as launch_train
@@ -3733,8 +3741,7 @@ def train_profile_phase() -> dict:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t1) * 1e3
     rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA), key=lambda r: -r[1])
+                   for e in device_ops(prof)), key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     backward = {}
     for e in prof.events():
@@ -3862,7 +3869,6 @@ def train_mla_phase() -> dict:
     device busy, idle share, the MLA backward's device ms (under
     ``_AttentionBackward``) and its share of busy time."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import flash_attention as fa
@@ -3909,8 +3915,7 @@ def train_mla_phase() -> dict:
         torch.cuda.synchronize(dev)
         wall = (time.perf_counter() - t1) * 1e3
     rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA), key=lambda r: -r[1])
+                   for e in device_ops(prof)), key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     attn_bwd = sum(e.device_time_total / 1e3 for e in prof.events()
                    if e.name == "autograd::engine::evaluate_function: "

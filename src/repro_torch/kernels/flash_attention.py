@@ -83,6 +83,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.obs.regions import region
+
 from .nvcc import CudaLibrary, check_launch
 
 LIB = CudaLibrary("flash_attention", {
@@ -278,7 +280,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = float(scale) if scale is not None else dk ** -0.5
     chosen = ctypes.c_int(-1)
     lib = LIB.load()
-    with torch.cuda.device(dev):
+    with region("repro.launch.flash"), torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), q_positions.data_ptr(),
@@ -348,7 +350,7 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     scale = float(scale) if scale is not None else dk ** -0.5
     chosen = ctypes.c_int(-1)
     lib = LIB.load()
-    with torch.cuda.device(dev):
+    with region("repro.launch.flash_bwd"), torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.flash_attention_backward_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

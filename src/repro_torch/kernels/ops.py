@@ -35,6 +35,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.obs.regions import region
+
 from . import flash_attention as _flash
 from . import ref
 from . import ssd_scan as _ssd
@@ -60,10 +62,11 @@ class _Attention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out):
-        q, k, v, out, lse, qp, kp = ctx.saved_tensors
-        dq, dk, dv = _flash.flash_attention_backward(
-            q, k, v, out, lse, grad_out.contiguous(), q_positions=qp,
-            kv_positions=kp, **ctx.opts)
+        with region("repro.attention.bwd"):
+            q, k, v, out, lse, qp, kp = ctx.saved_tensors
+            dq, dk, dv = _flash.flash_attention_backward(
+                q, k, v, out, lse, grad_out.contiguous(), q_positions=qp,
+                kv_positions=kp, **ctx.opts)
         return dq, dk, dv, None, None, None
 
 
@@ -80,12 +83,13 @@ class _SSD(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_y, grad_final):
-        x, dt, a, b_mat, c_mat, h0 = ctx.saved_tensors
-        dy = (torch.zeros_like(x) if grad_y is None
-              else grad_y.contiguous())
-        dfinal = None if grad_final is None else grad_final.contiguous()
-        dx, ddt, da, db, dc, dh0 = _ssd.ssd_scan_backward(
-            x, dt, a, b_mat, c_mat, h0, dy, dfinal, chunk=ctx.chunk)
+        with region("repro.ssd.bwd"):
+            x, dt, a, b_mat, c_mat, h0 = ctx.saved_tensors
+            dy = (torch.zeros_like(x) if grad_y is None
+                  else grad_y.contiguous())
+            dfinal = None if grad_final is None else grad_final.contiguous()
+            dx, ddt, da, db, dc, dh0 = _ssd.ssd_scan_backward(
+                x, dt, a, b_mat, c_mat, h0, dy, dfinal, chunk=ctx.chunk)
         return dx, ddt, da, db, dc, None if h0 is None else dh0, None
 
 
@@ -180,39 +184,40 @@ def attention(q, k, v, *, q_positions, kv_positions, causal=True,
     variant.  It is a forward: on CUDA it raises where a gradient would
     flow (the lse output has no backward).
     """
-    opts = dict(causal=causal, sliding_window=sliding_window,
-                logit_softcap=logit_softcap, scale=scale)
-    if return_lse and q.device.type == "cuda" and not plain:
-        if _wants_grad(q, k, v):
-            raise NotImplementedError("the log-sum-exp output has no "
-                                      "backward; call it under no_grad")
-        wide = torch.promote_types(torch.promote_types(q.dtype, k.dtype),
-                                   v.dtype)
-        out, lse = _flash.flash_attention(
-            q.to(wide), k.to(wide), v.to(wide),
-            q_positions=q_positions.to(torch.int32).contiguous(),
-            kv_positions=kv_positions.to(torch.int32).contiguous(),
-            return_lse=True, **opts)
-        return out.to(q.dtype), lse
-    if q.device.type == "cuda" and not plain:
-        if not q.dtype == k.dtype == v.dtype:
+    with region("repro.attention"):
+        opts = dict(causal=causal, sliding_window=sliding_window,
+                    logit_softcap=logit_softcap, scale=scale)
+        if return_lse and q.device.type == "cuda" and not plain:
+            if _wants_grad(q, k, v):
+                raise NotImplementedError("the log-sum-exp output has no "
+                                          "backward; call it under no_grad")
             wide = torch.promote_types(torch.promote_types(q.dtype, k.dtype),
                                        v.dtype)
-            return attention(q.to(wide), k.to(wide), v.to(wide),
-                             q_positions=q_positions,
-                             kv_positions=kv_positions, causal=causal,
-                             sliding_window=sliding_window,
-                             logit_softcap=logit_softcap,
-                             scale=scale).to(q.dtype)
-        qp = q_positions.to(torch.int32).contiguous()
-        kp = kv_positions.to(torch.int32).contiguous()
-        if _wants_grad(q, k, v):
-            return _Attention.apply(q, k, v, qp, kp, opts)
-        return _flash.flash_attention(q, k, v, q_positions=qp,
-                                      kv_positions=kp, **opts)
-    return ref.sdpa_ref(q, k, v, q_positions=q_positions,
-                        kv_positions=kv_positions, return_lse=return_lse,
-                        **opts)
+            out, lse = _flash.flash_attention(
+                q.to(wide), k.to(wide), v.to(wide),
+                q_positions=q_positions.to(torch.int32).contiguous(),
+                kv_positions=kv_positions.to(torch.int32).contiguous(),
+                return_lse=True, **opts)
+            return out.to(q.dtype), lse
+        if q.device.type == "cuda" and not plain:
+            if not q.dtype == k.dtype == v.dtype:
+                wide = torch.promote_types(
+                    torch.promote_types(q.dtype, k.dtype), v.dtype)
+                return attention(q.to(wide), k.to(wide), v.to(wide),
+                                 q_positions=q_positions,
+                                 kv_positions=kv_positions, causal=causal,
+                                 sliding_window=sliding_window,
+                                 logit_softcap=logit_softcap,
+                                 scale=scale).to(q.dtype)
+            qp = q_positions.to(torch.int32).contiguous()
+            kp = kv_positions.to(torch.int32).contiguous()
+            if _wants_grad(q, k, v):
+                return _Attention.apply(q, k, v, qp, kp, opts)
+            return _flash.flash_attention(q, k, v, q_positions=qp,
+                                          kv_positions=kp, **opts)
+        return ref.sdpa_ref(q, k, v, q_positions=q_positions,
+                            kv_positions=kv_positions,
+                            return_lse=return_lse, **opts)
 
 
 def ssd(x, dt, a, b_mat, c_mat, *, chunk=256, h0=None, plain=False
@@ -229,15 +234,17 @@ def ssd(x, dt, a, b_mat, c_mat, *, chunk=256, h0=None, plain=False
     The padding is torch ops outside the kernel's Function, so gradients
     pass through it.
     """
-    s = x.shape[1]
-    pad = (-s) % chunk
-    x, dt, b_mat, c_mat = (ref.pad_seq(t, pad) for t in (x, dt, b_mat, c_mat))
-    if x.device.type == "cuda" and not plain:
-        if _wants_grad(x, dt, a, b_mat, c_mat, h0):
-            y, final = _SSD.apply(x, dt, a, b_mat, c_mat, h0, chunk)
+    with region("repro.ssd"):
+        s = x.shape[1]
+        pad = (-s) % chunk
+        x, dt, b_mat, c_mat = (ref.pad_seq(t, pad)
+                               for t in (x, dt, b_mat, c_mat))
+        if x.device.type == "cuda" and not plain:
+            if _wants_grad(x, dt, a, b_mat, c_mat, h0):
+                y, final = _SSD.apply(x, dt, a, b_mat, c_mat, h0, chunk)
+            else:
+                y, final = _ssd.ssd_scan(x, dt, a, b_mat, c_mat, chunk=chunk,
+                                         h0=h0)
         else:
-            y, final = _ssd.ssd_scan(x, dt, a, b_mat, c_mat, chunk=chunk,
-                                     h0=h0)
-    else:
-        y, final = ref.ssd_ref(x, dt, a, b_mat, c_mat, chunk=chunk, h0=h0)
-    return y[:, :s], final
+            y, final = ref.ssd_ref(x, dt, a, b_mat, c_mat, chunk=chunk, h0=h0)
+        return y[:, :s], final

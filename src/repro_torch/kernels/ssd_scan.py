@@ -64,6 +64,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.obs.regions import region
+
 from .nvcc import CudaLibrary, check_launch
 
 _P = ctypes.c_void_p
@@ -231,7 +233,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     final = torch.empty((bsz, h, p, n), dtype=torch.float32, device=dev)
     chosen = ctypes.c_int(-1)
     lib = LIB.load()
-    with torch.cuda.device(dev):
+    with region("repro.launch.ssd"), torch.cuda.device(dev):
         err = lib.ssd_scan_launch(
             x.data_ptr(), dt.data_ptr(), a.data_ptr(), b_mat.data_ptr(),
             c_mat.data_ptr(), h0.data_ptr(), y.data_ptr(), final.data_ptr(),
@@ -407,7 +409,7 @@ def ssd_scan_backward(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                           dtype=torch.float32, device=dev)
     chosen = ctypes.c_int(-1)
     lib = LIB.load()
-    with torch.cuda.device(dev):
+    with region("repro.launch.ssd_bwd"), torch.cuda.device(dev):
         err = lib.ssd_scan_backward_launch(
             x.data_ptr(), dt.data_ptr(), a.data_ptr(), b_mat.data_ptr(),
             c_mat.data_ptr(), None if h0 is None else h0.data_ptr(),

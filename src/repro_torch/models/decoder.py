@@ -65,6 +65,7 @@ from torch.utils import checkpoint as ckpt
 from repro_torch import resolve_device
 from repro_torch.dist import comm
 from repro_torch.dist import sharding as shd
+from repro_torch.obs.regions import region
 
 from .attention import Index, gqa_attention, init_attn_cache, mla_attention
 from .common import (LayerKind, ModelConfig, layer_plan, mlp_apply, mlp_tp,
@@ -204,11 +205,13 @@ def block_apply(
     if kind.mixer in ("attn", "attn_local"):
         h = rms_norm(x, p["ln_attn"], eps, gemma=gm)
         fn = mla_attention if cfg.mla is not None else gqa_attention
-        a, c = fn(
-            p["attn"], h, cfg, positions, is_global=(kind.mixer == "attn"),
-            cache=None if cache is None else cache.get("attn"),
-            cache_index=cache_index, return_cache=return_cache,
-            use_kernel=ctx.use_kernel, ctx=ctx)
+        with region("repro.mixer.attn"):
+            a, c = fn(
+                p["attn"], h, cfg, positions,
+                is_global=(kind.mixer == "attn"),
+                cache=None if cache is None else cache.get("attn"),
+                cache_index=cache_index, return_cache=return_cache,
+                use_kernel=ctx.use_kernel, ctx=ctx)
         if gm and "ln_post_attn" in p:
             a = rms_norm(a, p["ln_post_attn"], eps, gemma=gm)
         x = x + a
@@ -216,21 +219,24 @@ def block_apply(
             new_cache["attn"] = c
     elif kind.mixer == "mamba":
         h = rms_norm(x, p["ln_mix"], eps, gemma=gm)
-        y, c = mamba2_block(
-            p["mamba"], h, cfg,
-            cache=None if cache is None else cache.get("mamba"),
-            return_cache=return_cache, use_kernel=ctx.use_kernel, ctx=ctx)
+        with region("repro.mixer.mamba"):
+            y, c = mamba2_block(
+                p["mamba"], h, cfg,
+                cache=None if cache is None else cache.get("mamba"),
+                return_cache=return_cache, use_kernel=ctx.use_kernel,
+                ctx=ctx)
         x = x + y
         if return_cache:
             new_cache["mamba"] = c
     elif kind.mixer == "shared_attn":
         shared_p = _cast(shared_p, cfg.compute_dtype())
         h = rms_norm(x, shared_p["ln_attn"], eps, gemma=gm)
-        a, c = gqa_attention(
-            shared_p["attn"], h, cfg, positions, is_global=True,
-            cache=None if cache is None else cache.get("attn"),
-            cache_index=cache_index, return_cache=return_cache,
-            use_kernel=ctx.use_kernel, ctx=ctx)
+        with region("repro.mixer.attn"):
+            a, c = gqa_attention(
+                shared_p["attn"], h, cfg, positions, is_global=True,
+                cache=None if cache is None else cache.get("attn"),
+                cache_index=cache_index, return_cache=return_cache,
+                use_kernel=ctx.use_kernel, ctx=ctx)
         x = x + a
         if return_cache:
             new_cache["attn"] = c
@@ -242,7 +248,9 @@ def block_apply(
         # the dense layers of an MoE stack are its prefix, of their width
         width = (cfg.moe.d_first_dense or cfg.d_ff) if cfg.moe is not None \
             else cfg.d_ff
-        f = mlp_apply(p["mlp"], h, cfg.mlp_act, mlp_tp(p["mlp"], width, ctx))
+        with region("repro.mlp"):
+            f = mlp_apply(p["mlp"], h, cfg.mlp_act,
+                          mlp_tp(p["mlp"], width, ctx))
         if gm and "ln_post_mlp" in p:
             f = rms_norm(f, p["ln_post_mlp"], eps, gemma=gm)
         x = x + f
@@ -566,13 +574,17 @@ def prefill(cfg: ModelConfig, ctx: RunCtx, params: Params,
     The returned cache holds exactly the prompt (length S; on a mesh this
     rank's block of it); the caller copies it into longer rings to decode.
     """
-    local = shard_batch(ctx, batch)
-    x = embed_in(cfg, params, local, ctx)
-    x, caches = stack_apply(cfg, ctx, params, x, _positions(local, x),
-                            return_cache=True)
-    logits = lm_logits(cfg, ctx, params, x[:, -1:, :])[:, 0, :]
-    if ctx.mesh is not None:
-        logits = gather_rows(ctx, logits, _rows(batch))
+    with region("repro.prefill", device=ctx.device):
+        with region("repro.prefill.embed"):
+            local = shard_batch(ctx, batch)
+            x = embed_in(cfg, params, local, ctx)
+        with region("repro.prefill.stack"):
+            x, caches = stack_apply(cfg, ctx, params, x,
+                                    _positions(local, x), return_cache=True)
+        with region("repro.prefill.head"):
+            logits = lm_logits(cfg, ctx, params, x[:, -1:, :])[:, 0, :]
+            if ctx.mesh is not None:
+                logits = gather_rows(ctx, logits, _rows(batch))
     return logits, caches
 
 

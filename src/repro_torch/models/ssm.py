@@ -25,6 +25,7 @@ from repro_torch.dist import comm
 from repro_torch.dist import sharding as shd
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import segsum, ssd_chunked  # noqa: F401
+from repro_torch.obs.regions import region
 
 from .common import ModelConfig, rms_norm, silu
 
@@ -171,11 +172,12 @@ def mamba2_block(
     d_skip = hd.leaf(p["D"], h0, hl).to(x.dtype).repeat_interleave(
         s.head_dim)[None, None, :]
 
-    if hd.t_in:
-        proj = comm.all_gather(comm.region_input(x, *hd.tp) @ p["w_in"],
-                               *hd.tp, -1)
-    else:
-        proj = x @ p["w_in"]
+    with region("repro.mamba.in_proj"):
+        if hd.t_in:
+            proj = comm.all_gather(comm.region_input(x, *hd.tp) @ p["w_in"],
+                                   *hd.tp, -1)
+        else:
+            proj = x @ p["w_in"]
     if hd.part:                       # whole on every rank, used per rank
         proj = comm.region_input(proj, *hd.tp)
     z, xbc, dt_raw = _split_in_proj(cfg, proj)
@@ -245,12 +247,14 @@ def mamba2_block(
     y = _gated_norm(y * silu(z.float()).to(y.dtype),
                     hd.leaf(p["gate_norm"], h0 * s.head_dim, cl),
                     cfg.norm_eps, hd)
-    if not hd.t_out:
-        return y @ p["w_out"], new_cache
-    if not hd.part:                   # whole y, this rank's rows of w_out
-        w = p["w_out"].shape[0]
-        y = comm.region_input(y, *hd.tp).narrow(-1, comm.rank(*hd.tp) * w, w)
-    return comm.all_reduce(y @ p["w_out"], *hd.tp), new_cache
+    with region("repro.mamba.out_proj"):
+        if not hd.t_out:
+            return y @ p["w_out"], new_cache
+        if not hd.part:               # whole y, this rank's rows of w_out
+            w = p["w_out"].shape[0]
+            y = comm.region_input(y, *hd.tp).narrow(
+                -1, comm.rank(*hd.tp) * w, w)
+        return comm.all_reduce(y @ p["w_out"], *hd.tp), new_cache
 
 
 def init_ssm_cache(cfg: ModelConfig, batch: int, dtype: torch.dtype,

@@ -8,6 +8,12 @@ Copies of the reference modules:
 - :mod:`repro_torch.obs.metrics`: counters / gauges / exact-quantile
   histograms behind a registry, the ``MetricSet`` attribute facade, and
   the ``MonotonicSampler`` wall-clock seam.
+
+The port's own, on the device trace's clock:
+
+- :mod:`repro_torch.obs.regions`: the model path's ``repro.*`` profiler
+  ranges, open only while a torch profiler records, and the counters kept
+  meanwhile (GC pauses, the allocator's calls over a step or a prefill).
 """
 from .trace import (  # noqa: F401
     NULL,

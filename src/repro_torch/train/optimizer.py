@@ -16,6 +16,7 @@ from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.dist import comm
+from repro_torch.obs.regions import region
 
 from .tree import leaves, leaves_with_paths, tree_map, unflatten
 
@@ -128,21 +129,24 @@ def update(cfg: OptConfig, params: Any, grads: Any, state: OptState, *,
     the same tensors, updated, and ``{"grad_norm", "lr"}``.  ``body`` as
     for :func:`decay_mask`; ``norm_kw`` (``blocks``, ``tp``) as for
     :func:`global_norm`."""
-    grads, gn = clip_by_global_norm(grads, cfg.clip_norm, **norm_kw)
-    b1, b2 = cfg.betas
-    cnt = state.count + 1
-    lr = schedule_lr(cfg, state.count)
-    c1 = 1.0 - _f32(b1, cnt.device) ** cnt.float()
-    c2 = 1.0 - _f32(b2, cnt.device) ** cnt.float()
-    with torch.no_grad():
-        for p, g, m, v, dk in zip(leaves(params), leaves(grads),
-                                  leaves(state.m), leaves(state.v),
-                                  leaves(decay_mask(params, body))):
-            g32 = g.float()
-            m.copy_(b1 * m + (1 - b1) * g32)
-            v.copy_(b2 * v + (1 - b2) * torch.square(g32))
-            step = (m / c1) / (torch.sqrt(v / c2) + cfg.eps)
-            step = step + cfg.weight_decay * dk * p.float()
-            p.copy_((p.float() - lr * step).to(p.dtype))
+    with region("repro.optimizer"):
+        with region("repro.optimizer.clip"):
+            grads, gn = clip_by_global_norm(grads, cfg.clip_norm, **norm_kw)
+        with region("repro.optimizer.adamw"):
+            b1, b2 = cfg.betas
+            cnt = state.count + 1
+            lr = schedule_lr(cfg, state.count)
+            c1 = 1.0 - _f32(b1, cnt.device) ** cnt.float()
+            c2 = 1.0 - _f32(b2, cnt.device) ** cnt.float()
+            with torch.no_grad():
+                for p, g, m, v, dk in zip(leaves(params), leaves(grads),
+                                          leaves(state.m), leaves(state.v),
+                                          leaves(decay_mask(params, body))):
+                    g32 = g.float()
+                    m.copy_(b1 * m + (1 - b1) * g32)
+                    v.copy_(b2 * v + (1 - b2) * torch.square(g32))
+                    step = (m / c1) / (torch.sqrt(v / c2) + cfg.eps)
+                    step = step + cfg.weight_decay * dk * p.float()
+                    p.copy_((p.float() - lr * step).to(p.dtype))
     return params, OptState(state.m, state.v, cnt), \
         {"grad_norm": gn, "lr": lr}

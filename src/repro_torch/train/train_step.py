@@ -28,6 +28,7 @@ from repro_torch.dist import comm
 from repro_torch.dist import sharding as shd
 from repro_torch.models import decoder
 from repro_torch.models.common import ModelConfig, layer_plan
+from repro_torch.obs.regions import region
 
 from . import optimizer as opt
 from .tree import leaves, leaves_with_paths, tree_map, unflatten
@@ -53,18 +54,21 @@ def _grad_fn(cfg: ModelConfig, ctx: decoder.RunCtx) -> Callable:
     cdt = cfg.compute_dtype()
 
     def grads_of(params, batch) -> Tuple[torch.Tensor, Dict, Any]:
-        masters = tree_map(
-            lambda a: a.detach().requires_grad_(True)
-            if a.is_floating_point() else a, params)
-        params_c = tree_map(
-            lambda a: a.to(cdt) if a.is_floating_point() else a, masters)
-        loss, aux = decoder.loss_fn(cfg, ctx, params_c, batch)
-        flat = leaves(masters)
-        grads = torch.autograd.grad(loss, flat, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(flat, grads)]
-        return loss.detach(), {k: v.detach() for k, v in aux.items()}, \
-            unflatten(params, grads)
+        with region("repro.step.cast"):
+            masters = tree_map(
+                lambda a: a.detach().requires_grad_(True)
+                if a.is_floating_point() else a, params)
+            params_c = tree_map(
+                lambda a: a.to(cdt) if a.is_floating_point() else a, masters)
+        with region("repro.step.forward"):
+            loss, aux = decoder.loss_fn(cfg, ctx, params_c, batch)
+        with region("repro.step.backward"):
+            flat = leaves(masters)
+            grads = torch.autograd.grad(loss, flat, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(flat, grads)]
+            return loss.detach(), {k: v.detach() for k, v in aux.items()}, \
+                unflatten(params, grads)
 
     return grads_of
 
@@ -96,6 +100,10 @@ def make_train_step(cfg: ModelConfig, ctx: decoder.RunCtx,
     body = body_layers(cfg)
 
     def train_step(params, opt_state, batch):
+        with region("repro.step", device=ctx.device):
+            return step(params, opt_state, batch)
+
+    def step(params, opt_state, batch):
         if tcfg.microbatches <= 1:
             loss, _, grads = grads_of(params, batch)
         else:
@@ -118,8 +126,10 @@ def make_train_step(cfg: ModelConfig, ctx: decoder.RunCtx,
                 norm_kw = {"blocks": [bool(spec(path, p)) for path, p in
                                       leaves_with_paths(params)],
                            "tp": (ctx.mesh, ctx.model_axis)}
-        params, opt_state, om = opt.update(tcfg.opt, params, grads,
-                                           opt_state, body=body, **norm_kw)
+        with region("repro.step.update"):
+            params, opt_state, om = opt.update(tcfg.opt, params, grads,
+                                               opt_state, body=body,
+                                               **norm_kw)
         return params, opt_state, {"loss": loss, **om}
 
     return train_step

@@ -30,7 +30,7 @@ from repro_torch.analysis import astutil
 from repro_torch.analysis import lint as L
 from repro_torch.analysis.rules import (ALL_RULES, ctypes_sig, host_sync,
                                         id_dtype, ops_ref, pow2_pad,
-                                        state_mut)
+                                        state_mut, trace_site)
 
 REPO = Path(__file__).resolve().parents[1]
 REF_SRC = REPO / "src/repro"
@@ -179,6 +179,32 @@ def test_carried_rule_matches_reference_on_its_fixture(name):
     want = ref.check(RL.FileCtx(Path(rel), rel, src, RL.Project()))
     assert len(got) == n
     assert _verdicts(got) == _verdicts(want)
+
+
+def test_event_trace_site_holds_region_names_to_literals():
+    """The model path's profiler ranges keep the recorder's contract:
+    ``region`` bare or on the regions module with a computed name is a
+    violation; a literal is not, nor another function or receiver."""
+    src = """
+        from repro_torch.obs import regions
+        from repro_torch.obs.regions import region
+
+        def f(x, kind):
+            with region("repro.ok"):
+                pass
+            with regions.region("repro.ok", device=x.device):
+                pass
+            with region(f"repro.{kind}"):          # flagged
+                pass
+            with regions.region(kind):             # flagged
+                pass
+            with region(name="repro." + kind):     # flagged
+                pass
+            comm.region_input(x, kind)             # another function
+            helper.region(kind)                    # not a trace receiver
+    """
+    _, vs = _rules(src, trace_site.RULE)
+    assert _verdicts(vs) == [("event-trace-site", n) for n in (10, 12, 14)]
 
 
 class _FakeProject(L.Project):

@@ -68,7 +68,8 @@ def main() -> int:
             ({"kernel": e.key.split("(")[0],
               "us": e.device_time_total / CALLS,
               "launches": e.count / CALLS}
-             for e in prof.key_averages() if e.device_time_total > 0),
+             for e in prof.key_averages()
+             if e.device_time_total > 0 and not e.is_user_annotation),
             key=lambda r: -r["us"])
         print(json.dumps({"case": name, "kernels": kernels}), flush=True)
         del x, bm, cm, dy
